@@ -1,0 +1,22 @@
+"""EKF-SLAM estimator: one joint Gaussian over pose + landmark map."""
+
+from conan_slam_tpu_torch.filters.ekf.associate import AssociationResult, associate_known
+from conan_slam_tpu_torch.filters.ekf.state import (
+    EKFState,
+    init_state,
+    init_state_with_map,
+    state_from_numpy,
+    state_to_numpy,
+)
+from conan_slam_tpu_torch.filters.ekf.update import fused_frame_step
+
+__all__ = [
+    "AssociationResult",
+    "EKFState",
+    "associate_known",
+    "fused_frame_step",
+    "init_state",
+    "init_state_with_map",
+    "state_from_numpy",
+    "state_to_numpy",
+]

@@ -1,0 +1,471 @@
+"""The known-association whole frame on the split schedule (port of
+conan_slam_tpu.ops.frame_kernel.frame_step and its references).
+
+The reference runs the frame on the TPU as one resident kernel whose
+(D, MP) strip lives in 15 MiB of VMEM.  A Hopper block has 227 KB of shared
+memory, so the port takes the reference's big-D schedule instead
+(``_frame_step_big``: a chain kernel, then one O(D^2) rank pass), proven
+equal to the resident one by the reference's own tests:
+
+  H2 ``frame_chain`` (one block): the S-step coefficient recursion, K4,
+      the range-bearing observe and compact Hc, S = Hc P'[rows] Hc^T + R.
+      It writes the small state the TPU grid carried in scratch (``rowc``,
+      ``ms``) to device memory, because Hopper blocks run in parallel and
+      in no order.
+  H1 ``sweep_si`` (one block): S^-1 by the Jacobi-scaled sweep over the
+      valid pivot blocks (ops.spd_inverse).  The reference ran it inside
+      the chain kernel; here it is its own launch.
+  H3 ``frame_panels`` (many blocks): the gains siv = v^T S^-1 and the NIS,
+      pht = Hc P'[rows] and the updated mean, one column panel of D per
+      block.
+  H4 ``rank_update_t``: P + G^T M G with G = [pht; p2; e0; e1; e2] and
+      M = blockdiag(-S^-1, K4) (``_frame_gm``).
+
+where P' = P + U K4 U^T, U = [P e2, e0, e1, e2], is the frame-start
+covariance after the S predict + heading sub-steps (the fastframe closed
+form).  Each kernel's plain PyTorch version sits beside its wrapper; the
+wrapper takes it for CPU tensors only.  ``_frame_step_reference`` is the
+independent oracle: the fastframe factors composed with the measurement
+chain, as the reference's CPU route.
+
+Layouts shared by H2, H3 and their plain versions (MP = 2 NZ rounded up to
+32, RP = 3 + 2 NZ rounded up to 8; row i of Hc belongs to measurement
+l = i // 2 and has nonzeros only in the gathered columns 0, 1, 2 (pose)
+and 3 + 2l, 4 + 2l (its slot)):
+
+  rowc (MP, 8): [hc pose x, pose y, pose phi, slot x, slot y, hp2, hg, v]
+                with hp2 = Hc p2[rows], hg = Hc[:, :3] g, v the innovation.
+  ms (32,):     [pose (3), corr0, alpha, g (3), m3 (3x3, row-major), 0...]
+                where K4 = [[alpha, g^T], [g, m3]].
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from conan_slam_tpu_torch.core.geometry import wrap_angle
+from conan_slam_tpu_torch.ops import cuda
+from conan_slam_tpu_torch.ops.rank_update import (
+    rank_update_t,
+    rank_update_t2_reference,
+    rank_update_t_reference,
+)
+from conan_slam_tpu_torch.ops.spd_inverse import (
+    spd_inverse_reference,
+    sweep_si,
+    sweep_si_reference,
+)
+
+MS_LEN = 32
+MAX_STEPS = 16     # sub-steps per frame the chain kernel holds
+
+FRAME_CHAIN = cuda.CudaKernel(
+    "frame_chain", "csl_frame_chain",
+    [cuda.P] * 11 + [cuda.I, cuda.I, cuda.I, cuda.F, cuda.F, cuda.F, cuda.I],
+    source="conan_slam_tpu_torch/csrc/frame_chain.cu",
+    replaces="conan_slam_tpu/ops/frame_kernel.py:1123 (_chain_dispatch -> pallas_call :1139, grid step 0)",
+)
+FRAME_PANELS = cuda.CudaKernel(
+    "frame_panels", "csl_frame_panels",
+    [cuda.P] * 8 + [cuda.I, cuda.I, cuda.I],
+    source="conan_slam_tpu_torch/csrc/frame_panels.cu",
+    replaces="conan_slam_tpu/ops/frame_kernel.py:1123 (_chain_dispatch -> pallas_call :1139, panel steps)",
+)
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def frame_shapes(nz: int) -> tuple[int, int]:
+    """(MP, RP): padded measurement rows and gathered rows for NZ slots."""
+    return _round_up(2 * nz, 32), _round_up(3 + 2 * nz, 8)
+
+
+class FrameStep(NamedTuple):
+    p: torch.Tensor           # (D, D)  post-frame covariance
+    x: torch.Tensor           # (D,)    post-frame state mean (heading wrapped)
+    pose_trace: torch.Tensor  # (S, 3)  exact per-sub-step pose means
+    nis: torch.Tensor         # ()      stacked NIS
+
+
+class ChainOut(NamedTuple):
+    pt: torch.Tensor     # (S, 3)   pose trace
+    k4: torch.Tensor     # (8, 8)   K4 = C B C^T in the leading 4x4
+    s: torch.Tensor      # (MP, MP) innovation covariance S
+    rowc: torch.Tensor   # (MP, 8)  per-row coefficients (module docstring)
+    ms: torch.Tensor     # (32,)    frame scalars (module docstring)
+
+
+class FrameUpdateObs(NamedTuple):
+    p: torch.Tensor      # (D, D)
+    x: torch.Tensor      # (D,)
+    nis: torch.Tensor    # ()
+
+
+class MeasurementChain(NamedTuple):
+    pht: torch.Tensor     # (MP, D)  P' H^T row strips
+    bvt: torch.Tensor     # (NB, D)  B V^T rank-update strip
+    nsipht: torch.Tensor  # (MP, D)  -S^-1 pht downdate strip
+    siv: torch.Tensor     # (MP,)
+    dx: torch.Tensor      # (D,)
+    nis: torch.Tensor     # ()
+
+
+# ---------------------------------------------------------------- packing
+
+
+def _pack_meas(zr, zb, mask, r_cov, nzl):
+    """``zin`` (3, NZL) rows [range, bearing, mask], ``rsc`` (4,) noise
+    entries and the sweep bound ``nblk`` (1,) int32 = last valid slot + 1."""
+    nz = zr.shape[0]
+    mask_f = mask.to(zr.dtype)
+    zin = torch.stack([torch.where(mask, zr, 0.0), torch.where(mask, zb, 0.0), mask_f])
+    zin = F.pad(zin, (0, nzl - nz))
+    rsc = r_cov.to(zr.dtype).reshape(4)
+    order = torch.arange(1, nz + 1, dtype=torch.int32, device=zr.device)
+    nblk = torch.where(mask, order, 0).max().reshape(1)
+    return zin.contiguous(), rsc.contiguous(), nblk
+
+
+def _pack_ctrl(vns, swans, phis, actives, q_cov):
+    """``subs`` (4, S) rows [vn, swan, phi_meas, active] and ``qc`` (3,) the
+    closed-form Cholesky entries [l00, l10, l11] of the control noise."""
+    dtype = vns.dtype
+    subs = torch.stack([vns, swans.to(dtype), phis.to(dtype), actives.to(dtype)])
+    l00 = torch.sqrt(q_cov[0, 0])
+    l10 = q_cov[1, 0] / l00
+    l11 = torch.sqrt(torch.clamp(q_cov[1, 1] - l10 * l10, min=0.0))
+    return subs.contiguous(), torch.stack([l00, l10, l11]).to(dtype)
+
+
+# ------------------------------------------------- H2: the frame chain
+
+
+def _coeff_k4(subs, qc, p2_head, p22, pose0, wheel_base, dt, sigma_heading,
+              use_heading):
+    """Coefficient recursion + K4 = C B C^T (the reference kernel's
+    ``coeff_recursion`` algebra, on the fastframe port)."""
+    # Imported here: filters.ekf imports this module.
+    from conan_slam_tpu_torch.filters.ekf.fastframe import coeff_frame_core
+
+    zero = torch.zeros_like(qc[0])
+    q_chol = torch.stack([torch.stack([qc[0], zero]), torch.stack([qc[1], qc[2]])])
+    pose, pose_trace, corr0, cmat, bmat = coeff_frame_core(
+        pose0, p2_head, p22, subs[0], subs[1], subs[2], subs[3] > 0.5,
+        q_chol, wheel_base, dt, sigma_heading, use_heading,
+    )
+    return pose, pose_trace, corr0, cmat @ bmat @ cmat.T
+
+
+def _observe_reference(xrows, zin, rsc, mp, rp):
+    """Range-bearing observe against the gathered mean ``xrows`` (RP,):
+    compact Hc (MP, 5), block-diagonal R (identity on masked rows) and the
+    stacked innovation v (MP,).  Row i of compact Hc holds the coefficients
+    of the gathered columns 0, 1, 2 (pose) and 3 + 2l, 4 + 2l (the slot of
+    measurement l = i // 2)."""
+    nzl = mp // 2
+    xw = F.pad(xrows, (0, max(0, mp + 3 - rp)))
+    idx = torch.arange(nzl, device=xrows.device)
+    fx, fy = xw[3 + 2 * idx], xw[4 + 2 * idx]
+    px, py, phi = xrows[0], xrows[1], xrows[2]
+    m = zin[2]
+    dxl, dyl = fx - px, fy - py
+    d2 = torch.clamp(dxl * dxl + dyl * dyl, min=1e-12)
+    dist = torch.sqrt(d2)
+    bpred = torch.atan2(dyl, dxl) - phi
+    vr = (zin[0] - dist) * m
+    vb = wrap_angle(zin[1] - bpred) * m
+    v2 = torch.stack([vr, vb], dim=1).reshape(mp)
+
+    xd, yd, xd2, yd2 = dxl / dist * m, dyl / dist * m, dxl / d2 * m, dyl / d2 * m
+    zero = torch.zeros_like(m)
+    hcc = torch.stack([
+        torch.stack([-xd, -yd, zero, xd, yd], -1),
+        torch.stack([yd2, -xd2, -m, -yd2, xd2], -1),
+    ], dim=1).reshape(mp, 5)
+
+    valid = m > 0
+    one = torch.ones_like(m)
+    blocks = torch.stack([
+        torch.stack([torch.where(valid, rsc[0], one), torch.where(valid, rsc[1], zero)], -1),
+        torch.stack([torch.where(valid, rsc[2], zero), torch.where(valid, rsc[3], one)], -1),
+    ], dim=-2)                                              # (NZL, 2, 2)
+    rmat = torch.block_diag(*blocks)
+    return hcc, rmat, v2
+
+
+def _dense_hc(hcc, rp):
+    """Compact Hc (MP, 5) as the dense (MP, RP) operator on the gathered
+    rows.  Slot columns past RP belong to empty buffer slots, whose rows are
+    zero."""
+    mp = hcc.shape[0]
+    hc = torch.zeros((mp, max(rp, mp + 3)), dtype=hcc.dtype, device=hcc.device)
+    row = torch.arange(mp, device=hcc.device)
+    slot = 3 + 2 * (row // 2)
+    hc[:, :3] = hcc[:, :3]
+    hc[row, slot] = hcc[:, 3]
+    hc[row, slot + 1] = hcc[:, 4]
+    return hc[:, :rp]
+
+
+def _frame_chain_reference(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base,
+                           dt, sigma_heading, use_heading) -> ChainOut:
+    """Plain version of H2: the frame up to S, from no more of P than its
+    gathered block ``prc`` = P[rows][:, rows] (RP, RP)."""
+    rp = prc.shape[0]
+    p2r = prc[2]
+    pose, pose_trace, corr0, k4 = _coeff_k4(
+        subs, qc, p2r[:3], p2r[2], x0rows[:3], wheel_base, dt, sigma_heading,
+        use_heading,
+    )
+    alpha, g, m3 = k4[0, 0], k4[1:4, 0], k4[1:4, 1:4]
+
+    # Observe against the post-frame mean at the gathered rows.
+    xrows = torch.cat([pose, (x0rows + p2r * corr0)[3:]])
+    hcc, rmat, v2 = _observe_reference(xrows, zin, rsc, mp, rp)
+    hc = _dense_hc(hcc, rp)
+
+    # psub = Hc P'[rows][:, rows] with P' = P + U K4 U^T in factored form.
+    wr_row = alpha * p2r + F.pad(g, (0, rp - 3))
+    m3r = F.pad(m3, (0, rp - 3))                            # (3, RP)
+    hp2 = hc @ p2r
+    hcs = hc[:, :3]
+    hg = hcs @ g
+    psub = hc @ prc + hp2[:, None] * wr_row + hg[:, None] * p2r + hcs @ m3r
+    s = psub @ hc.T + rmat
+
+    rowc = torch.cat([hcc, hp2[:, None], hg[:, None], v2[:, None]], 1)
+    ms = torch.cat([pose, corr0.reshape(1), alpha.reshape(1), g, m3.reshape(9)])
+    return ChainOut(
+        pt=pose_trace, k4=F.pad(k4, (0, 4, 0, 4)), s=s,
+        rowc=rowc.contiguous(), ms=F.pad(ms, (0, MS_LEN - ms.shape[0])),
+    )
+
+
+def _chain_smem_bytes(mp: int, rp: int) -> int:
+    return 4 * (mp * rp + 8 * mp + 2 * rp + 32)
+
+
+def frame_chain(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
+                sigma_heading, use_heading) -> ChainOut:
+    """The frame chain up to S: plain version for CPU tensors, kernel H2
+    (one block) for CUDA tensors."""
+    if cuda.on_cpu(subs, qc, zin, rsc, x0rows, prc):
+        return _frame_chain_reference(
+            subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
+            sigma_heading, use_heading,
+        )
+    s_steps = subs.shape[1]
+    rp = prc.shape[0]
+    if s_steps > MAX_STEPS or _chain_smem_bytes(mp, rp) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"frame_chain: S={s_steps}, MP={mp}, RP={rp} exceed one block")
+    cuda.check(subs, "subs", (4, s_steps))
+    cuda.check(qc, "qc", (3,))
+    cuda.check(zin, "zin", (3, mp // 2))
+    cuda.check(rsc, "rsc", (4,))
+    cuda.check(x0rows, "x0rows", (rp,))
+    cuda.check(prc, "prc", (rp, rp))
+    dev, f32 = prc.device, torch.float32
+    out = ChainOut(
+        pt=torch.empty((s_steps, 3), dtype=f32, device=dev),
+        k4=torch.empty((8, 8), dtype=f32, device=dev),
+        s=torch.empty((mp, mp), dtype=f32, device=dev),
+        rowc=torch.empty((mp, 8), dtype=f32, device=dev),
+        ms=torch.empty((MS_LEN,), dtype=f32, device=dev),
+    )
+    FRAME_CHAIN(
+        dev, *(cuda.ptr(t) for t in (subs, qc, zin, rsc, x0rows, prc)),
+        *(cuda.ptr(t) for t in out),
+        s_steps, mp, rp, float(wheel_base), float(dt), float(sigma_heading),
+        int(bool(use_heading)),
+    )
+    return out
+
+
+# ------------------------------------------------- H3: the column panels
+
+
+def _frame_panels_reference(rowc, ms, si, prows, x):
+    """Plain version of H3: pht = Hc P'[rows] (MP, D), the updated mean xn
+    (D,) (heading wrapped) and the NIS (1,), from the chain's ``rowc``/``ms``
+    and S^-1."""
+    rp, d = prows.shape
+    hc = _dense_hc(rowc[:, :5], rp)
+    pose, corr0, alpha, g, m3 = ms[:3], ms[3], ms[4], ms[5:8], ms[8:17].reshape(3, 3)
+    v2 = rowc[:, 7]
+    siv = v2 @ si
+    nis = (siv * v2).sum().reshape(1)
+
+    p2 = prows[2]
+    wrow = alpha * p2 + F.pad(g, (0, d - 3))
+    m3d = F.pad(m3, (0, d - 3))                             # (3, D)
+    pht = (
+        hc @ prows + rowc[:, 5:6] * wrow + rowc[:, 6:7] * p2 + rowc[:, :3] @ m3d
+    )
+    base = torch.cat([pose, (x + p2 * corr0)[3:]])
+    xn = base + siv @ pht
+    xn = torch.cat([xn[:2], wrap_angle(xn[2:3]), xn[3:]])
+    return pht, xn, nis
+
+
+def frame_panels(rowc, ms, si, prows, x):
+    """pht, the updated mean and the NIS: plain version for CPU tensors,
+    kernel H3 (one block per column panel, ragged edge masked) for CUDA
+    tensors."""
+    if cuda.on_cpu(rowc, ms, si, prows, x):
+        return _frame_panels_reference(rowc, ms, si, prows, x)
+    mp = rowc.shape[0]
+    rp, d = prows.shape
+    cuda.check(rowc, "rowc", (mp, 8))
+    cuda.check(ms, "ms", (MS_LEN,))
+    cuda.check(si, "si", (mp, mp))
+    cuda.check(prows, "prows", (rp, d))
+    cuda.check(x, "x", (d,))
+    pht = torch.empty((mp, d), dtype=torch.float32, device=x.device)
+    xn = torch.empty((d,), dtype=torch.float32, device=x.device)
+    nis = torch.empty((1,), dtype=torch.float32, device=x.device)
+    FRAME_PANELS(
+        x.device, *(cuda.ptr(t) for t in (rowc, ms, si, prows, x, pht, xn, nis)), mp, rp, d
+    )
+    return pht, xn, nis
+
+
+# ------------------------------------------------------ the whole frame
+
+
+def _frame_gm(pht, si, k4, p2row, mp):
+    """G = [pht; p2; e0; e1; e2; 0] (MP + 8, D), M = blockdiag(-S^-1, K4):
+    G^T M G = U K4 U^T - pht^T S^-1 pht, the frame's whole covariance
+    update relative to the frame-start P.  G is a new tensor, never a view
+    of P."""
+    d = pht.shape[1]
+    e3 = torch.eye(3, d, dtype=pht.dtype, device=pht.device)
+    z4 = torch.zeros((4, d), dtype=pht.dtype, device=pht.device)
+    gmat = torch.cat([pht, p2row, e3, z4], dim=0)
+    mmid = torch.zeros((mp + 8, mp + 8), dtype=pht.dtype, device=pht.device)
+    mmid[:mp, :mp] = -si
+    mmid[mp : mp + 4, mp : mp + 4] = k4
+    return gmat, mmid
+
+
+class FrameInputs(NamedTuple):
+    """One frame's packed kernel inputs (``frame_inputs``)."""
+
+    zin: torch.Tensor     # (3, NZL) [range, bearing, mask] rows
+    rsc: torch.Tensor     # (4,)     R entries
+    nblk: torch.Tensor    # (1,)     int32 sweep bound: last valid slot + 1
+    subs: torch.Tensor    # (4, S)   [vn, swan, phi_meas, active] rows
+    qc: torch.Tensor      # (3,)     chol(Q) entries [l00, l10, l11]
+    prows: torch.Tensor   # (RP, D)  P[rows]
+    prc: torch.Tensor     # (RP, RP) P[rows][:, rows]
+    x0rows: torch.Tensor  # (RP,)    x[rows]
+    mp: int
+    rp: int
+
+
+def frame_inputs(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask,
+                 r_cov) -> FrameInputs:
+    """Pack a frame for the kernels: the measurement and control buffers
+    and three gathers of the frame-start state."""
+    mp, rp = frame_shapes(zr.shape[0])
+    zin, rsc, nblk = _pack_meas(zr, zb, mask, r_cov, mp // 2)
+    subs, qc = _pack_ctrl(vns, swans, phis, actives, q_cov)
+    # Pad slots re-read row 0: Hc's columns past 3 + 2 NZ are zero, so
+    # their content never matters.
+    rows_full = F.pad(rows, (0, rp - rows.shape[0]))
+    prows = p[rows_full]
+    return FrameInputs(
+        zin=zin, rsc=rsc, nblk=nblk, subs=subs, qc=qc, prows=prows,
+        prc=prows[:, rows_full].contiguous(), x0rows=x[rows_full], mp=mp, rp=rp,
+    )
+
+
+def frame_step(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask,
+               r_cov, wheel_base, dt, sigma_heading, use_heading: bool,
+               *, plain: bool = False) -> FrameStep:
+    """The whole known-association observation frame: S predict + heading
+    sub-steps, range-bearing observe, measurement update and the P pass.
+
+    Args mirror the reference: ``rows`` (3 + 2 NZ,) gathered row indices
+    [0, 1, 2, slot rows...]; ``vns``/``swans``/``phis``/``actives`` (S,)
+    per-sub-step controls, measured heading and active flags; ``zr``/``zb``/
+    ``mask`` (NZ,) the measurement buffer.  ``plain=True`` runs each
+    kernel's plain PyTorch version instead, on any device (the baseline the
+    kernels are measured against).  Returns ``FrameStep(p, x, pose_trace,
+    nis)``; P is not modified in place.
+    """
+    fi = frame_inputs(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask, r_cov)
+    chain_args = (fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp,
+                  wheel_base, dt, sigma_heading, use_heading)
+    if plain:
+        ch = _frame_chain_reference(*chain_args)
+        si = sweep_si_reference(ch.s, fi.nblk)
+        pht, xn, nis = _frame_panels_reference(ch.rowc, ch.ms, si, fi.prows, x)
+    else:
+        ch = frame_chain(*chain_args)
+        si = sweep_si(ch.s, fi.nblk)
+        pht, xn, nis = frame_panels(ch.rowc, ch.ms, si, fi.prows, x)
+    gmat, mmid = _frame_gm(pht, si, ch.k4[:4, :4], fi.prows[2:3], fi.mp)
+    update = rank_update_t_reference if plain else rank_update_t
+    p_out = update(p, gmat, mmid)
+    return FrameStep(p=p_out, x=xn, pose_trace=ch.pt, nis=nis[0])
+
+
+# --------------------------------------------------- independent oracle
+
+
+def _masked_cols(a, rows):
+    """a[..., rows] with zero where rows < 0 (the reference's one-hot
+    selector product, as an exact gather)."""
+    return torch.where(rows >= 0, a[..., rows.clamp(min=0)], 0.0)
+
+
+def _frame_step_reference(p, x, rows, vns, swans, phis, actives, q_cov,
+                          zin, rsc, mp, rp, wheel_base, dt, sigma_heading,
+                          use_heading) -> FrameStep:
+    """The fastframe factors composed with the whole-frame measurement
+    chain: the same algebra as the split schedule, bracketed as the
+    reference's CPU route."""
+    from conan_slam_tpu_torch.filters.ekf.fastframe import _frame_core
+    from conan_slam_tpu_torch.filters.ekf.state import EKFState
+
+    shim = EKFState(x=x, p=p, n_active=torch.zeros((), dtype=torch.int64, device=p.device),
+                    table=torch.zeros((1,), dtype=torch.int64, device=p.device))
+    x1, pose_trace, vmat, bmat = _frame_core(
+        shim, vns, swans, phis, actives, q_cov, wheel_base, dt,
+        sigma_heading, use_heading,
+    )
+    nr = rows.shape[0]
+    rows_p = F.pad(rows, (0, rp - nr), value=-1)
+    prows = F.pad(p[rows], (0, 0, 0, rp - nr))
+    fu = _frame_update_obs_reference(p, x1, rows_p, prows, zin, rsc, bmat, vmat.T, mp, rp)
+    return FrameStep(p=fu.p, x=fu.x, pose_trace=pose_trace, nis=fu.nis)
+
+
+def _frame_update_obs_reference(p, x, rows, prows, zin, rsc, bmat, vtf, mp, rp):
+    """Observe + measurement chain + rank update against P' = P + V B V^T."""
+    xrows = _masked_cols(x, rows)
+    hcc, rmat, v2 = _observe_reference(xrows, zin, rsc, mp, rp)
+    hc = _dense_hc(hcc, rp)
+    chain = _measurement_chain_reference(prows, rows, hc, bmat, vtf, rmat, v2)
+    p_out = rank_update_t2_reference(p, vtf, chain.bvt, chain.pht, chain.nsipht)
+    xn = x + chain.dx
+    xn = torch.cat([xn[:2], wrap_angle(xn[2:3]), xn[3:]])
+    return FrameUpdateObs(p=p_out, x=xn, nis=chain.nis)
+
+
+def _measurement_chain_reference(prows, rows, hc, bmat, vtf, rmat, v2):
+    """pht, S, S^-1 (Cholesky route), gains and the two update strips."""
+    hvm = hc @ _masked_cols(vtf, rows).T                    # (MP, NB)
+    pht = hc @ prows + (hvm @ bmat) @ vtf
+    s = _masked_cols(pht, rows) @ hc.T + rmat
+    si = spd_inverse_reference(s)
+    siv = v2 @ si
+    return MeasurementChain(
+        pht=pht, bvt=bmat @ vtf, nsipht=-(si @ pht), siv=siv,
+        dx=siv @ pht, nis=torch.dot(siv, v2),
+    )

@@ -1,0 +1,50 @@
+"""The frame's one O(D^2) pass: P + G^T (M G) (port of
+conan_slam_tpu.ops.pallas_update.rank_update_t, fp32 only).
+
+Kernel H4 (``csrc/rank_update.cu``) tiles the output over 2-D blocks and
+streams k-chunks of the two (r, D) row strips through shared memory.  It
+writes out of place: the frame's G holds a row of P (``_frame_gm``), so an
+in-place pass would read a strip that it is overwriting.  The small
+M G = (r, r) x (r, D) product stays ``torch.matmul``, as the reference
+computed it outside its kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from conan_slam_tpu_torch.ops import cuda
+
+RANK_UPDATE = cuda.CudaKernel(
+    "rank_update", "csl_rank_update",
+    [cuda.P, cuda.P, cuda.P, cuda.P, cuda.I, cuda.I],
+    source="conan_slam_tpu_torch/csrc/rank_update.cu",
+    replaces="conan_slam_tpu/ops/pallas_update.py:50 (rank_update_t -> pallas_call :164, :191)",
+)
+
+
+def rank_update_t_reference(p: torch.Tensor, vt: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """Plain version of H4: P + Vt^T (B Vt) for row strips Vt (r, D)."""
+    return p + vt.T @ (b @ vt)
+
+
+def rank_update_t2_reference(p, vt1, vbt1, vt2, vbt2):
+    """P + vt1^T vbt1 + vt2^T vbt2 (row strips (r_i, D))."""
+    return p + vt1.T @ vbt1 + vt2.T @ vbt2
+
+
+def rank_update_t(p: torch.Tensor, vt: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P + Vt^T (B Vt): the plain version for CPU tensors, kernel H4 for
+    CUDA tensors (a new output; P is not modified)."""
+    if cuda.on_cpu(p, vt, b):
+        return rank_update_t_reference(p, vt, b)
+    d = p.shape[0]
+    r = vt.shape[0]
+    cuda.check(p, "p", (d, d))
+    cuda.check(vt, "vt", (r, d))
+    cuda.check(b, "b", (r, r))
+    vbt = torch.matmul(b, vt)
+    out = torch.empty_like(p)
+    RANK_UPDATE(p.device, cuda.ptr(p), cuda.ptr(vt), cuda.ptr(vbt), cuda.ptr(out), d, r)
+    return out

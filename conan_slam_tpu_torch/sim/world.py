@@ -1,0 +1,63 @@
+"""World container: landmark and waypoint sets (port of
+conan_slam_tpu.sim.world; reference test/main.cpp:24-86)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class World(NamedTuple):
+    landmarks: torch.Tensor  # (num_landmarks, 2) float32
+    waypoints: torch.Tensor  # (num_waypoints, 2) float32
+
+    @property
+    def num_landmarks(self) -> int:
+        return self.landmarks.shape[0]
+
+    @property
+    def num_waypoints(self) -> int:
+        return self.waypoints.shape[0]
+
+
+# The canonical valet-loop world (reference test/main.cpp:24-86), the same
+# literals as conan_slam_tpu.sim.world.
+_LM_X = [
+    1286.9623655913983, -16.801075268817204, 2879.7043010752677, 4042.3387096774186,
+    2510.0806451612898, -1871.6397849462364, -2120.2956989247314, -3618.9516129032254,
+    -4210.349462365592, -4317.876344086021, 534.2741935483871, -910.6182795698924,
+    -4290.994623655914, 177.06919945726258, 1044.0976933514303, 506.78426051560746,
+    1813.4328358208986, 2656.0379918588915, 3242.1981004070585, 3999.321573948446,
+    1532.5644504749034, 1117.367706919953, -152.6458616010823, -2008.8195386702819,
+    -3755.0881953867, -3046.8113975576653, -4902.985074626863, 1654.6811397557722,
+    4194.708276797832, 3278.83310719132,
+]
+_LM_Y = [
+    203.8216560509554, -1095.5414012738865, -2942.6751592356704, -76.43312101910828,
+    3108.28025477707, 4076.4331210191067, 191.0828025477707, -3770.7006369426763,
+    -1235.6687898089185, 4089.171974522291, 4789.808917197452, 2420.382165605094,
+    1286.624203821655, -164.38356164383562, -1698.6301369863013, -1479.4520547945206,
+    -821.9178082191781, -630.1369863013699, 1041.095890410959, 2054.7945205479455,
+    2219.178082191782, 1369.8630136986301, 1616.4383561643844, 2109.589041095891,
+    1945.2054794520554, 1342.4657534246576, 1917.808219178085, -1616.4383561643826,
+    1150.6849315068494, 2000.0,
+]
+_WP_X = [0.0, 997.9838709677419, 4028.8978494623643, -1058.4677419354839, -4976.478494623656]
+_WP_Y = [0.0, -2038.216560509556, 1707.0063694267501, 1987.261146496814, 1464.9681528662404]
+
+
+def world_from_numpy(landmarks, waypoints, device=None) -> World:
+    """A world from (N, 2) numpy arrays, as float32 tensors on ``device``."""
+    return World(
+        landmarks=torch.tensor(np.asarray(landmarks, np.float32), device=device),
+        waypoints=torch.tensor(np.asarray(waypoints, np.float32), device=device),
+    )
+
+
+def default_world(device=None) -> World:
+    """The reference's 30-landmark, 5-waypoint valet loop."""
+    return world_from_numpy(
+        np.stack([_LM_X, _LM_Y], axis=1), np.stack([_WP_X, _WP_Y], axis=1), device
+    )
