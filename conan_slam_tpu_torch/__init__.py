@@ -2,7 +2,8 @@
 
 The JAX package ``conan_slam_tpu`` is the reference; this package mirrors its
 module paths and holds the full-map, known-association EKF frame (the path
-``bench.py`` measures) on an NVIDIA Hopper GPU.  Every kernel the JAX package
+``bench.py`` measures) and the gated, mapping-from-scratch EKF (BASELINE
+config 2) on an NVIDIA Hopper GPU.  Every kernel the JAX package
 wrote in Pallas for the TPU is a hand-written CUDA kernel here
 (``csrc/``), built with ``nvcc`` at first use; beside each kernel sits its
 plain PyTorch version, which runs for tensors on the CPU.

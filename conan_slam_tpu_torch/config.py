@@ -4,9 +4,8 @@ Field for field the reference's ``conan_slam_tpu.config.SlamConfig`` (the
 port carries its own copy so that it imports nothing of the JAX package;
 tests/test_torch_core_models.py holds the two to the same fields and
 defaults).  Every default reproduces the reference C++ driver's canonical
-values (reference slam.h:63-103, test/main.cpp:93-129).  The options the
-port does not run yet (augmentation, gated association, the frame pair)
-raise in ``runner.loop``.
+values (reference slam.h:63-103, test/main.cpp:93-129).  The one option
+the port does not run yet, the frame pair, raises in ``runner.loop``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Small dense linear algebra (port of the parts of conan_slam_tpu.core.linalg
-that the known-association frame uses)."""
+that the EKF frame, gated association and augmentation use)."""
 
 from __future__ import annotations
 
@@ -35,3 +35,19 @@ def chol2(m: torch.Tensor) -> torch.Tensor:
     l11 = torch.sqrt(torch.clamp(m[1, 1] - l10 * l10, min=0.0))
     z = torch.zeros_like(l00)
     return torch.stack([torch.stack([l00, z]), torch.stack([l10, l11])])
+
+
+def inv2(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., 2, 2) matrices; zero where singular."""
+    a, b, c, d = m[..., 0, 0], m[..., 0, 1], m[..., 1, 0], m[..., 1, 1]
+    det = a * d - b * c
+    idet = torch.where(det != 0, 1.0 / torch.where(det != 0, det, 1.0), 0.0)
+    return torch.stack([
+        torch.stack([d * idet, -b * idet], dim=-1),
+        torch.stack([-c * idet, a * idet], dim=-1),
+    ], dim=-2)
+
+
+def det2(m: torch.Tensor) -> torch.Tensor:
+    """Determinant of (..., 2, 2) matrices."""
+    return m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]

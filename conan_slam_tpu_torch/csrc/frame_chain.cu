@@ -4,9 +4,10 @@
 //
 // Replaces grid step 0 of the TPU kernel conan_slam_tpu/ops/frame_kernel.py
 // :1123 _chain_dispatch (pallas_call :1139, body _bigchain_kernel :937-1040):
-// the S-step coefficient recursion (ops/factor_kernel.py:41 coeff_recursion),
-// K4 = C B C^T, the range-bearing observe (_observe_core :266, with atan2f
-// and the remainder wrap instead of the Mosaic workarounds) and
+// the S-step coefficient recursion (ops/factor_kernel.py:41 coeff_recursion,
+// the routine of coeff.cuh, which H5 runs too), K4 = C B C^T, the
+// range-bearing observe (_observe_core :266, with atan2f and the remainder
+// wrap instead of the Mosaic workarounds) and
 // S = Hc P' Hc^T + R.  The sweep inverse of S that followed in the same
 // grid step is its own launch here (H1, sweep_inverse.cu), and the gains
 // siv and the NIS move into the panel kernel (H3, frame_panels.cu).
@@ -29,127 +30,30 @@
 // prc (RP, RP).  Outputs: pt (S, 3), k4 (8, 8), s (MP, MP), rowc (MP, 8)
 // [hc pose x, pose y, pose phi, slot x, slot y, hp2, hg, v], ms (32,)
 // [pose (3), corr0, alpha, g (3), m3 (9), 0...].
-#include "common.cuh"
+#include "coeff.cuh"
 
-#define CSL_MAX_STEPS 16
-
-// The frame compounding on 4-coefficient vectors c, each representing
-// P0e2 * c[0] + e0 * c[1] + e1 * c[2] + e2 * c[3] (filters/ekf/fastframe.py
-// coeff_frame_core).  One thread.  Writes pt, returns pose, corr0 and
-// K4 = p22 m m^T + m e^T + e m^T + sum f f^T + r_head sum w w^T.
-static __device__ void coeff_recursion(const float* subs, int S, const float* qc,
-                                       const float* p2h, float* pose, float wheel_base,
-                                       float dt, float r_head, bool use_heading,
-                                       float* pt, float* corr0_out, float k4[4][4]) {
-    const float p22 = p2h[2];
-    const float l00 = qc[0], l10 = qc[1], l11 = qc[2];
-    float gamma[4] = {1.f, 0.f, 0.f, 0.f};
-    float a_l[CSL_MAX_STEPS][4], w_l[CSL_MAX_STEPS][4], f_l[CSL_MAX_STEPS][2][4];
-    float b32[CSL_MAX_STEPS][2], v_l[CSL_MAX_STEPS];
-
-    for (int k = 0; k < S; ++k) {
-        const float vn = subs[k], swan = subs[S + k], phim = subs[2 * S + k];
-        const bool act = subs[3 * S + k] > 0.5f;
-        const float phi = pose[2];
-        const float a = swan + phi;
-        const float sa = sinf(a), ca = cosf(a);
-        const float ssw = sinf(swan), csw = cosf(swan);
-        // G = I + u e2^T, u = (Gv[0,2], Gv[1,2], 0).
-        float u[4] = {0.f, -vn * dt * sa, vn * dt * ca, 0.f};
-        // b3 = Gu chol(Q) (rows = pose dims).
-        const float gu[3][2] = {{dt * ca, -vn * dt * sa},
-                                {dt * sa, vn * dt * ca},
-                                {dt * ssw / wheel_base, vn * dt * csw / wheel_base}};
-        float b3[3][2];
-        for (int r = 0; r < 3; ++r) {
-            b3[r][0] = act ? gu[r][0] * l00 + gu[r][1] * l10 : 0.f;
-            b3[r][1] = act ? gu[r][1] * l11 : 0.f;
-        }
-        if (!act) u[1] = u[2] = 0.f;
-        // col2 <- G col2 + (F F^T) e2 = col2 + u col2[2] + F F[2, :]^T.
-        const float val2g = gamma[0] * p22 + gamma[3];
-        float fc[4][2] = {{0.f, 0.f}, {b3[0][0], b3[0][1]}, {b3[1][0], b3[1][1]},
-                          {b3[2][0], b3[2][1]}};
-        for (int i = 0; i < 4; ++i)
-            gamma[i] = gamma[i] + u[i] * val2g + (fc[i][0] * b3[2][0] + fc[i][1] * b3[2][1]);
-        if (act) {
-            const float px = pose[0] + vn * dt * ca;
-            const float py = pose[1] + vn * dt * sa;
-            const float pphi = csl_wrap(phi + vn * dt * ssw / wheel_base);
-            pose[0] = px;
-            pose[1] = py;
-            pose[2] = pphi;
-        }
-        float w[4] = {0.f, 0.f, 0.f, 0.f};
-        float v = 0.f;
-        if (use_heading) {
-            const float c2 = gamma[0] * p22 + gamma[3];
-            const float s_k = c2 + r_head;
-            if (act) {
-                for (int i = 0; i < 4; ++i) w[i] = gamma[i] / s_k;
-                v = csl_wrap(phim - pose[2]);
-                const float w2 = c2 / s_k;
-                for (int i = 0; i < 4; ++i)
-                    gamma[i] = (1.f - w2) * (gamma[i] - w[i] * c2) + r_head * w2 * w[i];
-            }
-            for (int r = 0; r < 3; ++r) pose[r] = pose[r] + (p2h[r] * w[0] + w[r + 1]) * v;
-            pose[2] = csl_wrap(pose[2]);
-        }
-        for (int i = 0; i < 4; ++i) {
-            a_l[k][i] = u[i] - w[i];
-            w_l[k][i] = w[i];
-            f_l[k][0][i] = fc[i][0];
-            f_l[k][1][i] = fc[i][1];
-        }
-        b32[k][0] = b3[2][0];
-        b32[k][1] = b3[2][1];
-        v_l[k] = v;
-        pt[3 * k + 0] = pose[0];
-        pt[3 * k + 1] = pose[1];
-        pt[3 * k + 2] = pose[2];
-    }
-
-    // Suffix composition: t_k = transform after sub-step k, m = whole frame;
-    // compose(b, a) = a (1 + val2(b)) + b.
-    float t_l[CSL_MAX_STEPS][4];
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = S - 1; k >= 0; --k) {
-        const float vb = a_l[k][0] * p22 + a_l[k][3];
-        for (int i = 0; i < 4; ++i) {
-            t_l[k][i] = acc[i];
-            acc[i] = acc[i] * (1.f + vb) + a_l[k][i];
-        }
-    }
-    float kk[4][4];
+// K4 = C B C^T from the recursion's coefficient columns:
+// p22 m m^T + m e^T + e m^T + sum f f^T + r_head sum w w^T, summed sub-step
+// by sub-step.
+static __device__ void coeff_k4(const float* cols, int S, float p22, float r_head,
+                                bool use_heading, float k4[4][4]) {
+    const float* m = cols;
     const float ep2[4] = {1.f, 0.f, 0.f, 0.f};
     for (int r = 0; r < 4; ++r)
         for (int c = 0; c < 4; ++c)
-            kk[r][c] = p22 * acc[r] * acc[c] + acc[r] * ep2[c] + ep2[r] * acc[c];
-    float corr0 = 0.f;
+            k4[r][c] = p22 * m[r] * m[c] + m[r] * ep2[c] + ep2[r] * m[c];
     for (int k = 0; k < S; ++k) {
-        // c_k = compose(-w_k, t_k) with heading, t_k without.
-        float ck[4];
-        const float vw = -w_l[k][0] * p22 - w_l[k][3];
-        for (int i = 0; i < 4; ++i)
-            ck[i] = use_heading ? t_l[k][i] * (1.f + vw) - w_l[k][i] : t_l[k][i];
         for (int col = 0; col < 2; ++col) {
-            float f[4];
-            for (int i = 0; i < 4; ++i) f[i] = f_l[k][col][i] + ck[i] * b32[k][col];
+            const float* f = cols + 4 * (2 + 2 * k + col);
             for (int r = 0; r < 4; ++r)
-                for (int c = 0; c < 4; ++c) kk[r][c] += f[r] * f[c];
+                for (int c = 0; c < 4; ++c) k4[r][c] += f[r] * f[c];
         }
         if (use_heading) {
-            const float vw2 = w_l[k][0] * p22 + w_l[k][3];
-            float wp[4];
-            for (int i = 0; i < 4; ++i) wp[i] = w_l[k][i] + t_l[k][i] * vw2;
+            const float* wp = cols + 4 * (2 + 2 * S + k);
             for (int r = 0; r < 4; ++r)
-                for (int c = 0; c < 4; ++c) kk[r][c] += r_head * wp[r] * wp[c];
-            corr0 += v_l[k] * w_l[k][0];
+                for (int c = 0; c < 4; ++c) k4[r][c] += r_head * wp[r] * wp[c];
         }
     }
-    for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) k4[r][c] = kk[r][c];
-    *corr0_out = corr0;
 }
 
 
@@ -162,6 +66,7 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
                    float* __restrict__ ms_out, int S, int mp, int rp, float wheel_base,
                    float dt, float sigma_heading, int use_heading) {
     extern __shared__ float smem[];
+    __shared__ float cols[4 * CSL_MAX_COLS];
     float* psub = smem;                 // (mp, rp)
     float* rowc = psub + mp * rp;       // (mp, 8)
     float* xrows = rowc + mp * 8;       // (rp,)
@@ -178,9 +83,11 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
     // --- coefficient recursion and K4 (one thread) ---
     if (tid == 0) {
         float pose[3] = {x0rows[0], x0rows[1], x0rows[2]};
+        const float r_head = sigma_heading * sigma_heading;
         float corr0, k4[4][4];
-        coeff_recursion(subs, S, qc, p2r, pose, wheel_base, dt,
-                        sigma_heading * sigma_heading, use_heading != 0, pt_out, &corr0, k4);
+        csl_coeff_recursion(subs, S, qc, p2r, pose, wheel_base, dt, r_head, use_heading != 0,
+                            pt_out, &corr0, cols);
+        coeff_k4(cols, S, p2r[2], r_head, use_heading != 0, k4);
         for (int e = 0; e < 64; ++e) k4_out[e] = 0.f;
         for (int r = 0; r < 4; ++r)
             for (int c = 0; c < 4; ++c) k4_out[8 * r + c] = k4[r][c];

@@ -28,6 +28,17 @@ class EKFState(NamedTuple):
     def pose(self) -> torch.Tensor:
         return self.x[:3]
 
+    @property
+    def features(self) -> torch.Tensor:
+        """Map slot positions as a (K, 2) view of the mean."""
+        k = self.capacity
+        return self.x[3 : 3 + 2 * k].view(k, 2)
+
+    @property
+    def active_mask(self) -> torch.Tensor:
+        """(K,) bool mask of the active slots."""
+        return torch.arange(self.capacity, device=self.x.device) < self.n_active
+
 
 def _padded_dim(capacity: int, pad_multiple: int) -> int:
     d = 3 + 2 * capacity

@@ -1,5 +1,6 @@
-"""Known-association whole-frame update (port of
-conan_slam_tpu.filters.ekf.update.fused_frame_step)."""
+"""Whole-frame EKF updates (port of conan_slam_tpu.filters.ekf.update:
+``fused_frame_step`` for known association, ``fused_frame_update`` for the
+gated path, fp32 tier only)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,15 @@ import torch
 
 from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
-from conan_slam_tpu_torch.ops.frame_kernel import frame_step
+from conan_slam_tpu_torch.ops.frame_kernel import frame_step, frame_update_obs
+
+
+def _frame_rows(slots, capacity: int):
+    """[0, 1, 2, 3 + 2 s_0, 4 + 2 s_0, ...]: the rows a frame gathers."""
+    safe = torch.clamp(slots, 0, capacity - 1)
+    two = torch.arange(2, device=safe.device)
+    rows2 = (3 + 2 * safe[:, None] + two[None, :]).reshape(-1)
+    return torch.cat([torch.arange(3, device=safe.device), rows2])
 
 
 def fused_frame_step(state: EKFState, vns, swans, phis, actives, q_cov,
@@ -19,14 +28,38 @@ def fused_frame_step(state: EKFState, vns, swans, phis, actives, q_cov,
 
     Returns ``(new_state, pose_trace (S, 3), nis per associated measurement)``.
     """
-    safe = torch.clamp(slots, 0, state.capacity - 1)
-    two = torch.arange(2, device=safe.device)
-    rows2 = (3 + 2 * safe[:, None] + two[None, :]).reshape(-1)
-    rows = torch.cat([torch.arange(3, device=safe.device), rows2])
     fs = frame_step(
-        state.p, state.x, rows, vns, swans, phis, actives, q_cov,
+        state.p, state.x, _frame_rows(slots, state.capacity), vns, swans, phis, actives, q_cov,
         obs.z[:, 0], obs.z[:, 1], mask, r_cov, wheel_base, dt,
         sigma_heading, use_heading, plain=plain,
     )
     n_meas = torch.clamp(mask.to(fs.x.dtype).sum(), min=1.0)
     return state._replace(x=fs.x, p=fs.p), fs.pose_trace, fs.nis / n_meas
+
+
+def fused_frame_update(state: EKFState, bmat, vtf, obs: CompactObs, slots, mask,
+                       r_cov, *, return_nis: bool = False, plain: bool = False):
+    """Frame-factored batch update: ONE rewrite of P per observation frame.
+
+    ``state.p`` is the frame-START covariance and ``state.x`` the
+    post-factor mean; the frame's predict + heading effect is the factored
+    correction vtf^T B vtf, given as the row strip ``vtf`` (r, D) and
+    ``bmat`` (r, r) of ops.factor_kernel.  The update runs against the
+    virtual covariance P' = P + vtf^T B vtf without materialising it
+    (ops.frame_kernel.frame_update_obs, at every D: the split schedule has
+    no shared-memory limit to refuse a shape on).  Masked measurements
+    contribute nothing, so a frame with none applies the correction alone.
+
+    Returns the new state, and with ``return_nis`` also the stacked NIS per
+    associated measurement.  ``plain=True`` runs the kernels' plain
+    versions.
+    """
+    fu = frame_update_obs(
+        state.p, state.x, _frame_rows(slots, state.capacity), obs.z[:, 0], obs.z[:, 1],
+        mask, r_cov, bmat, vtf, plain=plain,
+    )
+    new_state = state._replace(x=fu.x, p=fu.p)
+    if return_nis:
+        n_meas = torch.clamp(mask.to(fu.x.dtype).sum(), min=1.0)
+        return new_state, fu.nis / n_meas
+    return new_state

@@ -38,3 +38,27 @@ def observe(pose, xf):
         dim=-2,
     )
     return zp, hv, hf
+
+
+def init_feature(pose, z):
+    """Inverse sensor model: new-feature position and its Jacobians from
+    measurement(s) ``z`` (..., 2) = (range, bearing).
+
+    Returns ``(xf (..., 2), gv (..., 2, 3) d(xf)/d(pose), gz (..., 2, 2)
+    d(xf)/d(z))`` (reference EKF.cpp:47-64).
+    """
+    r = z[..., 0]
+    ang = pose[2] + z[..., 1]
+    s, c = torch.sin(ang), torch.cos(ang)
+    xf = torch.stack([pose[0] + r * c, pose[1] + r * s], dim=-1)
+    one = torch.ones_like(r)
+    zero = torch.zeros_like(r)
+    gv = torch.stack([
+        torch.stack([one, zero, -r * s], dim=-1),
+        torch.stack([zero, one, r * c], dim=-1),
+    ], dim=-2)
+    gz = torch.stack([
+        torch.stack([c, -r * s], dim=-1),
+        torch.stack([s, r * c], dim=-1),
+    ], dim=-2)
+    return xf, gv, gz

@@ -2,9 +2,11 @@
 
 All ``csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``) into ONE
 shared library with a plain C interface, loaded with ``ctypes``: no PyTorch
-headers, so the build takes seconds.  The build runs at first use, from the
-package's own sources, into ``build/`` beside them (listed in .gitignore),
-and again whenever a source is newer than the library.
+headers, so the build takes seconds.  Each source compiles in its own
+``nvcc`` process, all started together, and one more links the objects.
+The build runs at first use, from the package's own sources, into
+``build/`` beside them (listed in .gitignore), and again whenever a source
+is newer than the library.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()`` after its launch; ``CudaKernel`` raises on
@@ -26,10 +28,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libconan_slam_kernels.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # Shared memory one block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232_448
 
@@ -55,26 +55,46 @@ def _stale() -> bool:
 
 
 def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, float, str]:
-    """Compile ``csrc/*.cu`` if the library is missing or stale.
+    """Compile ``csrc/*.cu`` if the library is missing or stale: one
+    ``nvcc -c`` per source, all in parallel, then one link.
 
-    Returns ``(library path, seconds spent compiling, compiler output)``;
+    Returns ``(library path, seconds spent building, compiler output)``;
     the seconds are 0.0 when the library was current.
     """
     if not _stale():
         return LIB_PATH, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(str(s) for s in CSRC.glob("*.cu"))
-    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *sources]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)     # atomic: a concurrent loader sees old or new
-    return LIB_PATH, seconds, res.stdout + res.stderr
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    outputs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        outputs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}.tmp"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+            )
+        os.replace(tmp, LIB_PATH)     # atomic: a concurrent loader sees old or new
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return LIB_PATH, time.perf_counter() - t0, "".join(outputs) + res.stdout + res.stderr
 
 
 def library() -> ctypes.CDLL:

@@ -1,5 +1,6 @@
-"""The known-association whole frame on the split schedule (port of
-conan_slam_tpu.ops.frame_kernel.frame_step and its references).
+"""The whole observation frame on the split schedule (port of
+conan_slam_tpu.ops.frame_kernel.frame_step, frame_update_obs and their
+references).
 
 The reference runs the frame on the TPU as one resident kernel whose
 (D, MP) strip lives in 15 MiB of VMEM.  A Hopper block has 227 KB of shared
@@ -23,7 +24,21 @@ equal to the resident one by the reference's own tests:
 
 where P' = P + U K4 U^T, U = [P e2, e0, e1, e2], is the frame-start
 covariance after the S predict + heading sub-steps (the fastframe closed
-form).  Each kernel's plain PyTorch version sits beside its wrapper; the
+form).
+
+The gated frame (``frame_update_obs``, the reference's ``_fullframe_kernel``)
+gets its factors P' = P + vtf^T B vtf from H5 (ops.factor_kernel) and runs
+
+  H7 ``obs_chain`` (one block): observe, compact Hc, v, R, the coupling
+      hvb = (Hc vtf[:, rows]^T) B and S = (Hc P[rows][:, rows] + hvb
+      vtf[:, rows]) Hc^T + R.
+  H1 ``sweep_si``: S^-1, as above.
+  H8 ``obs_panels`` (many blocks): pht = Hc P[rows] + hvb vtf, the gains,
+      the updated mean and the NIS.
+  H4 ``rank_update_t``: P + G^T M G with G = [vtf; pht] and
+      M = blockdiag(B, -S^-1).
+
+Each kernel's plain PyTorch version sits beside its wrapper; the
 wrapper takes it for CPU tensors only.  ``_frame_step_reference`` is the
 independent oracle: the fastframe factors composed with the measurement
 chain, as the reference's CPU route.
@@ -73,6 +88,20 @@ FRAME_PANELS = cuda.CudaKernel(
     [cuda.P] * 8 + [cuda.I, cuda.I, cuda.I],
     source="conan_slam_tpu_torch/csrc/frame_panels.cu",
     replaces="conan_slam_tpu/ops/frame_kernel.py:1123 (_chain_dispatch -> pallas_call :1139, panel steps)",
+)
+
+
+OBS_CHAIN = cuda.CudaKernel(
+    "obs_chain", "csl_obs_chain",
+    [cuda.P] * 9 + [cuda.I, cuda.I, cuda.I],
+    source="conan_slam_tpu_torch/csrc/obs_chain.cu",
+    replaces="conan_slam_tpu/ops/frame_kernel.py:535 (frame_update_obs -> pallas_call :607, grid step 0)",
+)
+OBS_PANELS = cuda.CudaKernel(
+    "obs_panels", "csl_obs_panels",
+    [cuda.P] * 9 + [cuda.I, cuda.I, cuda.I, cuda.I],
+    source="conan_slam_tpu_torch/csrc/obs_panels.cu",
+    replaces="conan_slam_tpu/ops/frame_kernel.py:535 (frame_update_obs -> pallas_call :607, panels)",
 )
 
 
@@ -413,6 +442,145 @@ def frame_step(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask,
     update = rank_update_t_reference if plain else rank_update_t
     p_out = update(p, gmat, mmid)
     return FrameStep(p=p_out, x=xn, pose_trace=ch.pt, nis=nis[0])
+
+
+# ------------------------------------------ the gated frame: H7 and H8
+
+
+def _obs_chain_reference(zin, rsc, xrows, prc, vrows, bmat, mp):
+    """Plain version of H7: ``(s (MP, MP), rowc (MP, 8), hvb (MP, NBP))``
+    from the gathered block ``prc`` = P[rows][:, rows], ``vrows`` =
+    vtf[:, rows] and the post-factor mean ``xrows`` = x[rows]."""
+    rp = prc.shape[0]
+    hcc, rmat, v2 = _observe_reference(xrows, zin, rsc, mp, rp)
+    hc = _dense_hc(hcc, rp)
+    hvb = (hc @ vrows.T) @ bmat
+    psub = hc @ prc + hvb @ vrows
+    s = psub @ hc.T + rmat
+    rowc = torch.cat([hcc, torch.zeros_like(hcc[:, :2]), v2[:, None]], 1)
+    return s, rowc, hvb
+
+
+def _obs_smem_bytes(mp: int, rp: int, nbp: int) -> int:
+    return 4 * (rp * rp + mp * rp + nbp * rp + 2 * mp * nbp + nbp * nbp + 8 * mp + rp)
+
+
+def obs_chain(zin, rsc, xrows, prc, vrows, bmat, mp):
+    """The gated frame's chain up to S: plain version for CPU tensors,
+    kernel H7 (one block) for CUDA tensors."""
+    if cuda.on_cpu(zin, rsc, xrows, prc, vrows, bmat):
+        return _obs_chain_reference(zin, rsc, xrows, prc, vrows, bmat, mp)
+    rp = prc.shape[0]
+    nbp = bmat.shape[0]
+    if _obs_smem_bytes(mp, rp, nbp) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"obs_chain: MP={mp}, RP={rp}, NBP={nbp} exceed one block")
+    cuda.check(zin, "zin", (3, mp // 2))
+    cuda.check(rsc, "rsc", (4,))
+    cuda.check(xrows, "xrows", (rp,))
+    cuda.check(prc, "prc", (rp, rp))
+    cuda.check(vrows, "vrows", (nbp, rp))
+    cuda.check(bmat, "bmat", (nbp, nbp))
+    dev, f32 = prc.device, torch.float32
+    s = torch.empty((mp, mp), dtype=f32, device=dev)
+    rowc = torch.empty((mp, 8), dtype=f32, device=dev)
+    hvb = torch.empty((mp, nbp), dtype=f32, device=dev)
+    OBS_CHAIN(dev, *(cuda.ptr(t) for t in (zin, rsc, xrows, prc, vrows, bmat, s, rowc, hvb)),
+              mp, rp, nbp)
+    return s, rowc, hvb
+
+
+def _obs_panels_reference(rowc, hvb, si, prows, vtf, x):
+    """Plain version of H8: pht = Hc P[rows] + hvb vtf (MP, D), the updated
+    mean x + siv pht (heading wrapped) and the NIS (1,)."""
+    rp = prows.shape[0]
+    hc = _dense_hc(rowc[:, :5], rp)
+    v2 = rowc[:, 7]
+    siv = v2 @ si
+    nis = (siv * v2).sum().reshape(1)
+    pht = hc @ prows + hvb @ vtf
+    xn = x + siv @ pht
+    xn = torch.cat([xn[:2], wrap_angle(xn[2:3]), xn[3:]])
+    return pht, xn, nis
+
+
+def obs_panels(rowc, hvb, si, prows, vtf, x):
+    """pht, the updated mean and the NIS of the gated frame: plain version
+    for CPU tensors, kernel H8 (one block per column panel, ragged edge
+    masked) for CUDA tensors."""
+    if cuda.on_cpu(rowc, hvb, si, prows, vtf, x):
+        return _obs_panels_reference(rowc, hvb, si, prows, vtf, x)
+    mp, nbp = hvb.shape
+    rp, d = prows.shape
+    cuda.check(rowc, "rowc", (mp, 8))
+    cuda.check(hvb, "hvb", (mp, nbp))
+    cuda.check(si, "si", (mp, mp))
+    cuda.check(prows, "prows", (rp, d))
+    cuda.check(vtf, "vtf", (nbp, d))
+    cuda.check(x, "x", (d,))
+    dev, f32 = x.device, torch.float32
+    pht = torch.empty((mp, d), dtype=f32, device=dev)
+    xn = torch.empty((d,), dtype=f32, device=dev)
+    nis = torch.empty((1,), dtype=f32, device=dev)
+    OBS_PANELS(dev, *(cuda.ptr(t) for t in (rowc, hvb, si, prows, vtf, x, pht, xn, nis)),
+               mp, rp, nbp, d)
+    return pht, xn, nis
+
+
+class ObsInputs(NamedTuple):
+    """One gated frame's packed kernel inputs (``obs_inputs``)."""
+
+    zin: torch.Tensor     # (3, NZL) [range, bearing, mask] rows
+    rsc: torch.Tensor     # (4,)     R entries
+    nblk: torch.Tensor    # (1,)     int32 sweep bound: last valid slot + 1
+    prows: torch.Tensor   # (RP, D)  P[rows]
+    prc: torch.Tensor     # (RP, RP) P[rows][:, rows]
+    xrows: torch.Tensor   # (RP,)    x[rows]
+    vrows: torch.Tensor   # (NBP, RP) vtf[:, rows]
+    mp: int
+
+
+def obs_inputs(p, x, rows, zr, zb, mask, r_cov, vtf) -> ObsInputs:
+    """Pack a gated frame for the kernels: the measurement buffer and four
+    gathers of the state and the factor strip."""
+    mp, rp = frame_shapes(zr.shape[0])
+    zin, rsc, nblk = _pack_meas(zr, zb, mask, r_cov, mp // 2)
+    # Pad slots re-read row 0: Hc's columns past 3 + 2 NZ are zero.
+    rows_full = F.pad(rows, (0, rp - rows.shape[0]))
+    prows = p[rows_full]
+    return ObsInputs(
+        zin=zin, rsc=rsc, nblk=nblk, prows=prows, prc=prows[:, rows_full].contiguous(),
+        xrows=x[rows_full], vrows=vtf[:, rows_full].contiguous(), mp=mp,
+    )
+
+
+def frame_update_obs(p, x, rows, zr, zb, mask, r_cov, bmat, vtf,
+                     *, plain: bool = False) -> FrameUpdateObs:
+    """The gated observation frame against the frame factors: observe,
+    measurement chain, mean update and the one P pass
+    P + vtf^T B vtf - pht^T S^-1 pht.
+
+    Args mirror the reference: ``p`` (D, D) frame-start covariance; ``x``
+    (D,) post-factor mean; ``rows`` (3 + 2 NZ,) gathered row indices
+    [0, 1, 2, slot rows...]; ``zr``/``zb``/``mask`` (NZ,) the measurement
+    buffer; ``bmat`` (NBP, NBP) and ``vtf`` (NBP, D) the factors
+    (ops.factor_kernel).  ``plain=True`` runs each kernel's plain PyTorch
+    version instead, on any device.  Returns ``FrameUpdateObs(p, x, nis)``
+    with the updated mean; P is not modified in place.
+    """
+    oi = obs_inputs(p, x, rows, zr, zb, mask, r_cov, vtf)
+    chain_args = (oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
+    if plain:
+        s, rowc, hvb = _obs_chain_reference(*chain_args)
+        si = sweep_si_reference(s, oi.nblk)
+        pht, xn, nis = _obs_panels_reference(rowc, hvb, si, oi.prows, vtf, x)
+    else:
+        s, rowc, hvb = obs_chain(*chain_args)
+        si = sweep_si(s, oi.nblk)
+        pht, xn, nis = obs_panels(rowc, hvb, si, oi.prows, vtf, x)
+    gmat = torch.cat([vtf, pht])
+    mmid = torch.block_diag(bmat, -si)
+    update = rank_update_t_reference if plain else rank_update_t
+    return FrameUpdateObs(p=update(p, gmat, mmid), x=xn, nis=nis[0])
 
 
 # --------------------------------------------------- independent oracle

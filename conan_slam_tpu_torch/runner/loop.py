@@ -1,5 +1,6 @@
-"""The precomputed-rollout EKF driver (port of the known-association path of
-conan_slam_tpu.runner.loop: ``run_ekf_slam_precomputed``).
+"""The precomputed-rollout EKF driver (port of
+conan_slam_tpu.runner.loop.run_ekf_slam_precomputed: known or gated
+association, with or without map augmentation).
 
 The truth trajectory and the visibility schedule are rolled out once on the
 host (sim.precompute, numpy); the device loop holds filter work only.  The reference scans the frames with ``lax.scan``; here it is a
@@ -17,9 +18,16 @@ import torch
 
 from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.filters.common import CompactObs
-from conan_slam_tpu_torch.filters.ekf import associate_known, fused_frame_step
+from conan_slam_tpu_torch.filters.ekf import (
+    associate_gated,
+    associate_known,
+    augment,
+    fused_frame_step,
+    fused_frame_update,
+)
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
 from conan_slam_tpu_torch.filters.ekf.state import init_state as empty_state
+from conan_slam_tpu_torch.ops.factor_kernel import frame_factors_fused
 from conan_slam_tpu_torch.sim.precompute import rollout_observations, rollout_truth
 from conan_slam_tpu_torch.sim.world import World
 
@@ -47,7 +55,7 @@ class SimOutputs(NamedTuple):
     x_true: torch.Tensor      # (T, 3)
     x_est: torch.Tensor       # (T, 3)
     done: torch.Tensor        # (T,) bool
-    n_active: torch.Tensor    # (T,) map size
+    n_active: torch.Tensor    # (T,) map size after each step's frame
     # The frame's NIS per associated measurement on its last step, else 0.
     consistency: torch.Tensor  # (T,) float32
 
@@ -77,13 +85,29 @@ def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
     obs = CompactObs(z=torch.where(zmask_f[:, None], z, 0.0), ids=ids_f, mask=zmask_f)
 
     live = torch.logical_not(done_f[-1])
-    assoc = associate_known(state, obs)
-    state, pose_trace, frame_nis = fused_frame_step(
-        state, vns, swans, x_true_f[:, 2], active_f, noise.qe, obs,
-        assoc.slots, assoc.known_mask & live, noise.re,
-        cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
-        cfg.switch_heading_known, plain=plain,
-    )
+    if cfg.switch_association_known:
+        assoc = associate_known(state, obs)
+        state, pose_trace, frame_nis = fused_frame_step(
+            state, vns, swans, x_true_f[:, 2], active_f, noise.qe, obs,
+            assoc.slots, assoc.known_mask & live, noise.re,
+            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
+            cfg.switch_heading_known, plain=plain,
+        )
+    else:
+        state, pose_trace, vtf, bmat = frame_factors_fused(
+            state, vns, swans, x_true_f[:, 2], active_f, noise.qe,
+            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
+            cfg.switch_heading_known, plain=plain,
+        )
+        assoc = associate_gated(state, obs, noise.re, cfg.gate_reject, cfg.gate_augment,
+                                vtf.T, bmat, plain=plain)
+        state, frame_nis = fused_frame_update(
+            state, bmat, vtf, obs, assoc.slots, assoc.known_mask & live, noise.re,
+            return_nis=True, plain=plain,
+        )
+    if cfg.enable_augment:
+        # Unconditional (no host sync): a frame with nothing new writes nothing new.
+        state = augment(state, obs, assoc.new_mask & live, noise.re)
     x_est = torch.cat([pose_trace[:-1], state.x[None, :3]])
     return state, x_est, frame_nis
 
@@ -121,7 +145,10 @@ def run_ekf_slam_precomputed(
     obs_noise: torch.Tensor | None = None,
     plain: bool = False,
 ):
-    """The EKF over the precomputed rollout: full-map known association.
+    """The EKF over the precomputed rollout: known-table
+    (``cfg.switch_association_known``) or gated nearest-neighbour
+    association, with map augmentation where ``cfg.enable_augment``.  The
+    initial state defaults to an empty map of ``cfg.max_landmarks`` slots.
 
     The noise is ``ctrl_noise`` (n_frames, S, 2) and ``obs_noise``
     (n_frames, NZ, 2) standard normal draws where given (a parity test
@@ -129,13 +156,8 @@ def run_ekf_slam_precomputed(
     world's device.  ``plain=True`` runs every kernel's plain PyTorch
     version.  Returns ``(final EKFState, SimOutputs)``.
 
-    Augmentation and gated association are not ported yet: they raise
-    ``NotImplementedError``, as does the frame-pair schedule.
+    The frame-pair schedule is not ported: it raises ``NotImplementedError``.
     """
-    if cfg.enable_augment:
-        raise NotImplementedError("map augmentation is not ported: set enable_augment=False")
-    if not cfg.switch_association_known:
-        raise NotImplementedError("gated association is not ported: set switch_association_known=True")
     if cfg.frame_pair:
         raise NotImplementedError("the frame-pair schedule is not ported: set frame_pair=False")
     device = world.landmarks.device
@@ -161,14 +183,15 @@ def run_ekf_slam_precomputed(
     )
     x_est = torch.empty((n_frames, interval, 3), dtype=torch.float32, device=device)
     consistency = torch.zeros((n_frames, interval), dtype=torch.float32, device=device)
+    n_active = torch.empty((n_frames, interval), dtype=torch.int64, device=device)
     for f in range(n_frames):
         state, x_est[f], consistency[f, -1] = ekf_precomp_frame_step(
             state, tuple(a[f] for a in frames), cfg=cfg, noise=noise, plain=plain,
         )
+        n_active[f] = state.n_active
     outs = SimOutputs(
         x_true=x_true, x_est=x_est.reshape(n_steps, 3), done=done,
-        n_active=state.n_active.expand(n_steps),
-        consistency=consistency.reshape(n_steps),
+        n_active=n_active.reshape(n_steps), consistency=consistency.reshape(n_steps),
     )
     return state, outs
 

@@ -3,6 +3,7 @@ conan_slam_tpu.sim.world; reference test/main.cpp:24-86)."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -60,4 +61,17 @@ def default_world(device=None) -> World:
     """The reference's 30-landmark, 5-waypoint valet loop."""
     return world_from_numpy(
         np.stack([_LM_X, _LM_Y], axis=1), np.stack([_WP_X, _WP_Y], axis=1), device
+    )
+
+
+# BASELINE config 2's landmarks: conan_slam_tpu.sim.world.random_world(
+# jax.random.PRNGKey(7), 500).landmarks, stored so that the port needs no JAX.
+_CONFIG2_LANDMARKS = Path(__file__).resolve().parent / "data" / "random_world_key7_500.npy"
+
+
+def config2_world(device=None) -> World:
+    """BASELINE config 2 (benchmarks/bench_gated.py): 500 random landmarks
+    over a 10 km square, driven along the default valet waypoints."""
+    return world_from_numpy(
+        np.load(_CONFIG2_LANDMARKS), np.stack([_WP_X, _WP_Y], axis=1), device
     )

@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.filters.ekf import init_state_with_map
+from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks
 from conan_slam_tpu_torch.ops import cuda, frame_kernel as fk
+from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference, frame_factors_fused
+from conan_slam_tpu_torch.ops.gating_kernel import _gating_scores_reference, gating_scores
 from conan_slam_tpu_torch.ops.rank_update import rank_update_t, rank_update_t_reference
 from conan_slam_tpu_torch.ops.spd_inverse import (
     spd_inverse,
@@ -24,6 +28,8 @@ from conan_slam_tpu_torch.ops.spd_inverse import (
     sweep_si,
     sweep_si_reference,
 )
+from conan_slam_tpu_torch.runner.loop import run_ekf_slam_precomputed
+from conan_slam_tpu_torch.sim.world import config2_world
 
 pytestmark = pytest.mark.cuda
 
@@ -69,8 +75,9 @@ def test_frame_kernels_match_plain_versions(dev, d):
     got = fk.frame_step(*args)
     ref = fk.frame_step(*args, plain=True)
     torch.cuda.synchronize()
-    assert {k.name: k.launches for k in cuda.KERNELS.values()} == {
-        "sweep_inverse": 1, "frame_chain": 1, "frame_panels": 1, "rank_update": 1}
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "sweep_inverse": 1, "frame_chain": 1,
+                      "frame_panels": 1, "rank_update": 1}
     torch.testing.assert_close(got.pose_trace, ref.pose_trace, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
@@ -120,3 +127,119 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         rank_update_t(p.T, vt, b)                       # not contiguous
     with pytest.raises(ValueError):
         sweep_si(p, torch.tensor([4], device=dev))      # nblk must be int32
+
+
+def _gated_frame(dev, d, use_heading=True):
+    """A frame-start state, its H5 factors from the plain version, and the
+    frame's measurement inputs, as frame_update_obs takes them."""
+    (p, x, rows, vns, swans, phis, actives, q, zr, zb, mask, r, wb, dt, sh,
+     _) = _frame_args(dev, d)
+    from conan_slam_tpu_torch.filters.ekf.state import EKFState
+
+    st = EKFState(x=x, p=p, n_active=torch.tensor(0, device=dev),
+                  table=torch.zeros(1, dtype=torch.int64, device=dev))
+    fargs = (vns, swans, phis, actives, q, wb, dt, sh, use_heading)
+    return st, fargs, (rows, zr, zb, mask, r)
+
+
+@pytest.mark.parametrize("d,use_heading", [(256, True), (203, True), (256, False)])
+def test_factor_strip_kernel_matches_plain(dev, d, use_heading):
+    st, fargs, _ = _gated_frame(dev, d, use_heading)
+    cuda.reset_launch_counts()
+    got = frame_factors_fused(st, *fargs)
+    ref = _frame_factors_reference(st, *fargs)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["factor_strip"].launches == 1
+    # The reference's own factor-kernel tolerances (tests/test_pallas_ops.py).
+    torch.testing.assert_close(got[0].x, ref[0].x, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-6)
+    nb = 2 + 2 * 6 + (6 if use_heading else 0)
+    assert torch.equal(got[2][nb:], torch.zeros_like(got[2][nb:]))
+
+
+@pytest.mark.parametrize("k", [87, 10_110])
+def test_gating_scores_kernel_matches_plain(dev, k):
+    rng = np.random.default_rng(k)
+    lm = rng.uniform(-60, 60, size=(k, 2)).astype(np.float32)
+    st = init_state_with_map(torch.as_tensor(lm), sigma0=0.4, pad_multiple=0, device=dev)
+    a = torch.as_tensor(rng.normal(size=(st.x.shape[0], 6)).astype(np.float32) * 0.03).to(dev)
+    st = st._replace(p=st.p + a @ a.T, n_active=torch.tensor(k - 5, device=dev))
+    ids = rng.choice(k - 5, size=64, replace=False)
+    z = np.stack([np.hypot(lm[ids, 0], lm[ids, 1]) + rng.normal(size=64) * 0.1,
+                  np.arctan2(lm[ids, 1], lm[ids, 0]) + rng.normal(size=64) * 0.01], -1)
+    z[-1] = [500.0, 1.0]
+    z = torch.as_tensor(z.astype(np.float32)).to(dev)
+    r = torch.diag(torch.tensor([0.1**2, (np.pi / 180) ** 2], device=dev))
+    pvv, pvm, pjj = _innovation_blocks(st)
+    args = (z, st.pose, st.features, st.active_mask, pvv.contiguous(), pvm.contiguous(),
+            pjj.contiguous(), r, 50.0)
+    cuda.reset_launch_counts()
+    nd, j, mn = gating_scores(*args)
+    rnd, rj, rmn = _gating_scores_reference(*args)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["gating_scores"].launches == 1
+    # Same algebra; atan2f/remainder wrap and FMA contraction differ by ulps.
+    torch.testing.assert_close(nd, rnd, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(mn, rmn, rtol=1e-4, atol=1e-3)
+    found = rnd < 1e38
+    assert torch.equal(nd < 1e38, found) and bool(found[:-1].all()) and not bool(found[-1])
+    assert torch.equal(j[found], rj[found]) and int(j[-1]) == -1
+
+
+@pytest.mark.parametrize("d", [256, 203])
+def test_gated_frame_kernels_match_plain_versions(dev, d):
+    st, fargs, (rows, zr, zb, mask, r) = _gated_frame(dev, d)
+    st1, _, vtf, bmat = _frame_factors_reference(st, *fargs)
+    args = (st1.p, st1.x, rows, zr, zb, mask, r, bmat, vtf)
+    oi = fk.obs_inputs(st1.p, st1.x, rows, zr, zb, mask, r, vtf)
+    chain = (oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
+    s_k, rowc_k, hvb_k = fk.obs_chain(*chain)
+    s_p, rowc_p, hvb_p = fk._obs_chain_reference(*chain)
+    # Compact vs dense Hc products, fp32 summation order.
+    torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=1e-6 * float(s_p.abs().max()))
+    torch.testing.assert_close(rowc_k, rowc_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(hvb_k, hvb_p, rtol=1e-4, atol=1e-6)
+    si = sweep_si_reference(s_p, oi.nblk)
+    pk = fk.obs_panels(rowc_p, hvb_p, si, oi.prows, vtf, st1.x)
+    pp = fk._obs_panels_reference(rowc_p, hvb_p, si, oi.prows, vtf, st1.x)
+    for got, ref in zip(pk, pp):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    cuda.reset_launch_counts()
+    got = fk.frame_update_obs(*args)
+    ref = fk.frame_update_obs(*args, plain=True)
+    torch.cuda.synchronize()
+    assert {n: cuda.KERNELS[n].launches for n in
+            ("obs_chain", "sweep_inverse", "obs_panels", "rank_update")} == {
+        "obs_chain": 1, "sweep_inverse": 1, "obs_panels": 1, "rank_update": 1}
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+
+
+def test_gated_run_matches_plain(dev):
+    # 600 steps of BASELINE config 2 from an empty map: every gated-path
+    # kernel launches once a frame, H2/H3 never, and the run maps
+    # landmarks as the plain versions do.
+    world = config2_world(device=dev)
+    cfg = SlamConfig(max_landmarks=500, max_obs=64, switch_association_known=False)
+    out = {}
+    for plain in (False, True):
+        cuda.reset_launch_counts()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out[plain] = run_ekf_slam_precomputed(world, cfg, gen, 600, plain=plain)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+        if plain:
+            assert not any(counts.values())
+        else:
+            want = dict.fromkeys(("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
+                                  "obs_panels", "rank_update"), 100)
+            assert counts == {**want, "frame_chain": 0, "frame_panels": 0}
+    (sk, ok), (sp, op) = out[False], out[True]
+    assert bool(torch.isfinite(sk.p).all()) and int(sk.n_active) > 0
+    assert torch.equal(ok.n_active, op.n_active)
+    # The same association over 100 frames: trajectories agree to the
+    # ulp-level drift of ~5 km positions (slice 1's bound).
+    torch.testing.assert_close(ok.x_est, op.x_est, rtol=0, atol=2e-2)

@@ -1,0 +1,380 @@
+"""Port parity for the gated, mapping-from-scratch EKF (BASELINE config 2):
+the factor, gating and whole-frame-update kernels' plain versions,
+``associate_gated``, ``fused_frame_update``, ``augment`` and the whole
+gated slice, against the JAX reference.
+
+On the CPU every port wrapper runs its kernel's plain PyTorch version; the
+reference runs its Pallas kernels in interpret mode (or its jnp route), as
+its own tests/test_pallas_ops.py does.  Tolerances, each with its reason:
+  * frame factors: the reference's own (mean and pose trace 1e-5, vtf
+    rtol 1e-4 / atol 1e-5, B atol 1e-6): the same float32 recursion.
+  * frame update: x rtol/atol 1e-4, P rtol 1e-3 / atol 1e-4, NIS rtol
+    1e-3 / atol 1e-5 (the reference's megakernel test): float32 products
+    in another order, the sweep inverse against the reference's Cholesky.
+  * gating scores: nd and min NIS rtol 1e-4 / atol 1e-3.  The reference
+    kernel's polynomial atan2 is good to ~2e-6 rad; against a bearing
+    sigma of 1 degree that moves a NIS by ~1e-4.
+  * augment: rtol 1e-6 / atol 1e-6, one float32 product of the same terms.
+  * the whole slice (1,200 steps from an empty map): identical per-step
+    map size and final id table; pose trace atol 5e-3 m (observed 1.6e-3:
+    float32 ulps of the two packages' op orders, carried over 200 frames);
+    map means atol 0.1 m (observed 0.047: a feature founded from the pose
+    carries that drift through its range lever arm); P rtol 1e-2 of each
+    entry's scale (observed 3.8e-3 on fresh ~15 m^2 feature priors).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conan_slam_tpu.config import SlamConfig as JSlamConfig
+from conan_slam_tpu.core import linalg as jlinalg
+from conan_slam_tpu.filters import ekf as jekf
+from conan_slam_tpu.filters.common import CompactObs as JCompactObs
+from conan_slam_tpu.filters.ekf import associate as jassociate
+from conan_slam_tpu.filters.ekf.update import fused_frame_update as j_fused_frame_update
+from conan_slam_tpu.models import sensor as jsensor
+from conan_slam_tpu.ops import frame_kernel as jfk
+from conan_slam_tpu.ops.factor_kernel import frame_factors_fused as j_frame_factors_fused
+from conan_slam_tpu.ops.gating_kernel import gating_scores as j_gating_scores
+from conan_slam_tpu.runner.loop import run_ekf_slam_precomputed as j_run
+from conan_slam_tpu.sim.world import default_world as j_default_world, random_world
+from conan_slam_tpu_torch.config import SlamConfig
+from conan_slam_tpu_torch.core.linalg import det2, inv2
+from conan_slam_tpu_torch.filters.common import CompactObs
+from conan_slam_tpu_torch.filters.ekf import associate_gated, augment, fused_frame_update
+from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks
+from conan_slam_tpu_torch.filters.ekf.state import state_from_numpy
+from conan_slam_tpu_torch.models.sensor import init_feature
+from conan_slam_tpu_torch.ops import frame_kernel as tfk
+from conan_slam_tpu_torch.ops.factor_kernel import frame_factors_fused
+from conan_slam_tpu_torch.ops.gating_kernel import gating_scores
+from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
+from conan_slam_tpu_torch.sim.world import _CONFIG2_LANDMARKS, config2_world, default_world
+
+torch.set_num_threads(2)
+
+R_COV = np.diag([0.1**2, (np.pi / 180) ** 2]).astype(np.float32)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _j(a):
+    return jnp.asarray(np.asarray(a))
+
+
+def _pair(x, p, n_active, table):
+    """The same state in both packages."""
+    jstate = jekf.EKFState(x=_j(x), p=_j(p), n_active=jnp.int32(n_active),
+                           table=jnp.asarray(np.asarray(table, np.int32)))
+    return jstate, state_from_numpy(x, p, n_active, table)
+
+
+def _obs_pair(z, ids, mask):
+    jobs = JCompactObs(z=_j(z), ids=_j(np.asarray(ids, np.int32)), mask=_j(mask))
+    return jobs, CompactObs(z=_t(z), ids=_t(np.asarray(ids, np.int64)), mask=_t(mask))
+
+
+def _map_problem(seed, k=100, nz=10, n_active=None, pad_multiple=128, far=False):
+    """A mapped state (correlated P), measurements of active landmarks."""
+    rng = np.random.default_rng(seed)
+    lm = rng.uniform(-60, 60, size=(k, 2)).astype(np.float32)
+    jstate = jekf.init_state_with_map(lm, sigma0=0.4, pad_multiple=pad_multiple)
+    d = jstate.x.shape[0]
+    a = rng.normal(size=(d, 6)).astype(np.float32) * 0.03
+    p = np.asarray(jstate.p) + a @ a.T
+    n_active = k if n_active is None else n_active
+    ids = rng.choice(n_active, size=nz, replace=False)
+    z = np.stack([np.hypot(lm[ids, 0], lm[ids, 1]) + rng.normal(size=nz) * 0.1,
+                  np.arctan2(lm[ids, 1], lm[ids, 0]) + rng.normal(size=nz) * 0.01],
+                 -1).astype(np.float32)
+    if far:
+        z[-1] = [500.0, 1.0]                 # far away: a new feature
+    mask = np.ones(nz, bool)
+    mask[-2] = False
+    return np.asarray(jstate.x), p, n_active, np.asarray(jstate.table), z, ids, mask
+
+
+def _factors(rng, d, nb):
+    vmat = rng.normal(size=(d, nb)).astype(np.float32) * 0.01
+    b = rng.normal(size=(nb, nb)).astype(np.float32) * 0.1
+    return vmat, (0.5 * (b + b.T)).astype(np.float32)
+
+
+# ------------------------------------------------------------ small helpers
+
+
+def test_inv2_det2_init_feature_match_reference():
+    rng = np.random.default_rng(3)
+    m = rng.normal(size=(7, 2, 2)).astype(np.float32)
+    m[0] = [[1.0, 2.0], [2.0, 4.0]]              # singular: inverse is zero
+    np.testing.assert_allclose(inv2(_t(m)).numpy(), np.asarray(jlinalg.inv2(_j(m))),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(det2(_t(m)).numpy(), np.asarray(jlinalg.det2(_j(m))),
+                               rtol=1e-6, atol=1e-6)
+    pose = np.array([3.0, -2.0, 0.7], np.float32)
+    z = np.stack([rng.uniform(5, 80, 9), rng.uniform(-1.5, 1.5, 9)], -1).astype(np.float32)
+    for got, ref in zip(init_feature(_t(pose), _t(z)), jsensor.init_feature(_j(pose), _j(z))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-5)
+
+
+# --------------------------------------------- H5: the frame factors (T5)
+
+
+@pytest.mark.parametrize("use_heading,seed", [(True, 23), (False, 29)])
+def test_frame_factors_match_reference_kernel(use_heading, seed):
+    x, p, n_act, table, *_ = _map_problem(seed)
+    jstate, tstate = _pair(x, p, n_act, table)
+    rng = np.random.default_rng(seed)
+    ctrl = [(83.33 + rng.normal(size=6) * 0.3).astype(np.float32),
+            (rng.normal(size=6) * 0.2).astype(np.float32),
+            (rng.normal(size=6) * 0.5).astype(np.float32),
+            np.array([1, 1, 1, 1, 1, 0], bool),
+            np.diag([0.3**2, (np.pi / 180) ** 2]).astype(np.float32)]
+    tail = (73.0, 0.01, 0.01 * np.pi / 180, use_heading)
+    ref = j_frame_factors_fused(jstate, *map(_j, ctrl), *tail, interpret=True)
+    got = frame_factors_fused(tstate, *map(_t, ctrl), *tail)
+    np.testing.assert_allclose(got[0].x.numpy(), np.asarray(ref[0].x), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), rtol=1e-5, atol=1e-6)
+    assert got[2].shape == ref[2].shape and got[3].shape == ref[3].shape
+    nb = 2 + 12 + (6 if use_heading else 0)
+    assert not got[2][nb:].any() and not got[3][nb:].any()
+
+
+# ----------------------------------------- H6: the gating scores (T7)
+
+
+@pytest.mark.parametrize("virtual", [False, True])
+def test_gating_scores_match_reference_kernel(virtual):
+    # Odd K (the reference's panel padding), five inactive slots and a far
+    # measurement that passes no gate.
+    k = 87
+    x, p, _, table, z, ids, mask = _map_problem(51, k=k, nz=12, n_active=k - 5, far=True)
+    jstate, tstate = _pair(x, p, k - 5, table)
+    vmat, bmat = _factors(np.random.default_rng(52), x.shape[0], 10)
+    vm = (_j(vmat), _j(bmat)) if virtual else (None, None)
+    tvm = (_t(vmat), _t(bmat)) if virtual else (None, None)
+    jb = jassociate._innovation_blocks(jstate, *vm)
+    tb = _innovation_blocks(tstate, *tvm)
+    for got, ref in zip(tb, jb):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-7)
+    # Each block keeps its orientation: exact on an asymmetric P.
+    pa = p + np.triu(np.full_like(p, 0.01), 1)
+    for got, ref in zip(_innovation_blocks(_pair(x, pa, k - 5, table)[1]),
+                        jassociate._innovation_blocks(_pair(x, pa, k - 5, table)[0])):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ref = j_gating_scores(_j(z), _j(mask), jstate.pose, jstate.features, jstate.active_mask,
+                          *jb, _j(R_COV), 50.0, interpret=True)
+    got = gating_scores(_t(z), tstate.pose, tstate.features, tstate.active_mask, *tb,
+                        _t(R_COV), 50.0)
+    found = np.asarray(ref[0]) < 1e38
+    assert found[:-1].all() and not found[-1]
+    np.testing.assert_array_equal(got[0].numpy() < 1e38, found)
+    np.testing.assert_allclose(got[0].numpy()[found], np.asarray(ref[0])[found],
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(got[1].numpy()[found], np.asarray(ref[1])[found])
+    assert int(got[1][-1]) == -1
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("virtual", [False, True])
+def test_associate_gated_matches_reference(virtual):
+    k = 87
+    x, p, _, table, z, ids, mask = _map_problem(51, k=k, nz=12, n_active=k - 5, far=True)
+    jstate, tstate = _pair(x, p, k - 5, table)
+    jobs, tobs = _obs_pair(z, ids, mask)
+    vmat, bmat = _factors(np.random.default_rng(52), x.shape[0], 10)
+    vm = (_j(vmat), _j(bmat)) if virtual else (None, None)
+    tvm = (_t(vmat), _t(bmat)) if virtual else (None, None)
+    r = jekf.associate_gated(jstate, jobs, _j(R_COV), 50.0, 1000.0, *vm, use_pallas=False)
+    g = associate_gated(tstate, tobs, _t(R_COV), 50.0, 1000.0, *tvm)
+    np.testing.assert_array_equal(g.known_mask.numpy(), np.asarray(r.known_mask))
+    np.testing.assert_array_equal(g.new_mask.numpy(), np.asarray(r.new_mask))
+    km = np.asarray(r.known_mask)
+    np.testing.assert_array_equal(g.slots.numpy()[km], np.asarray(r.slots)[km])
+    assert bool(g.new_mask[-1]) and km.sum() == 10
+
+
+def test_associate_gated_empty_map_founds_every_measurement():
+    x, p, _, table, z, ids, mask = _map_problem(8, k=20, nz=6, n_active=20)
+    jstate, tstate = _pair(x, p, 0, table)
+    jobs, tobs = _obs_pair(z, ids, mask)
+    r = jekf.associate_gated(jstate, jobs, _j(R_COV), 50.0, 1000.0, use_pallas=False)
+    g = associate_gated(tstate, tobs, _t(R_COV), 50.0, 1000.0)
+    assert not g.known_mask.any()
+    np.testing.assert_array_equal(g.new_mask.numpy(), np.asarray(r.new_mask))
+    np.testing.assert_array_equal(g.new_mask.numpy(), mask)
+
+
+# ---------------------------------- H7 + H1 + H8 + H4: the frame update (T6)
+
+
+def _update_problem(seed, all_masked=False, nb=12):
+    x, p, n_act, table, z, ids, mask = _map_problem(seed, k=100, nz=10)
+    if all_masked:
+        mask = np.zeros_like(mask)
+    vmat, bmat = _factors(np.random.default_rng(seed + 1), x.shape[0], nb)
+    rows = np.concatenate([np.arange(3), (3 + 2 * ids[:, None] + np.arange(2)).reshape(-1)])
+    return x, p, n_act, table, z, ids, mask, vmat, bmat, rows
+
+
+@pytest.mark.parametrize("all_masked", [False, True])
+def test_frame_update_obs_matches_reference_kernel(all_masked):
+    x, p, _, _, z, _, mask, vmat, bmat, rows = _update_problem(13, all_masked)
+    vtf = np.ascontiguousarray(vmat.T)
+    args = (p, x, rows.astype(np.int32), z[:, 0], z[:, 1], mask, R_COV, bmat, vtf)
+    ref = jfk.frame_update_obs(*map(_j, args), interpret=True)
+    got = tfk.frame_update_obs(*(_t(a) for a in args[:2]), _t(rows.astype(np.int64)),
+                               *map(_t, args[3:]))
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(float(got.nis), float(ref.nis), rtol=1e-3, atol=1e-5)
+    if all_masked:
+        # No measurement: the factored correction alone, mean unchanged.
+        np.testing.assert_allclose(got.x.numpy(), x, atol=1e-5)
+        np.testing.assert_allclose(got.p.numpy(), p + vmat @ bmat @ vmat.T, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["vmat", "vtf", "measurement_only"])
+def test_fused_frame_update_matches_reference(form):
+    # The port takes the factors only as the row strip vtf (r, D) and B; it
+    # is held against each of the reference's input forms: vmat (D, r), vtf,
+    # and bmat=None (a measurement-only update, zero factors in the port).
+    x, p, n_act, table, z, ids, mask, vmat, bmat, _ = _update_problem(17)
+    jstate, tstate = _pair(x, p, n_act, table)
+    jobs, tobs = _obs_pair(z, ids, mask)
+    slots = ids
+    vtf = np.ascontiguousarray(vmat.T)
+    if form == "measurement_only":
+        jf = dict(vmat=None, bmat=None)
+        bmat, vtf = np.zeros((8, 8), np.float32), np.zeros((8, x.shape[0]), np.float32)
+    elif form == "vtf":
+        jf = dict(vmat=None, bmat=_j(bmat), vtf=_j(vtf))
+    else:
+        jf = dict(vmat=_j(vmat), bmat=_j(bmat))
+    rs, rn = j_fused_frame_update(jstate, jf.pop("vmat"), jf.pop("bmat"), jobs, _j(slots),
+                                  _j(mask), _j(R_COV), use_pallas=False, return_nis=True, **jf)
+    gs, gn = fused_frame_update(tstate, _t(bmat), _t(vtf), tobs, _t(slots), _t(mask),
+                                _t(R_COV), return_nis=True)
+    np.testing.assert_allclose(gs.x.numpy(), np.asarray(rs.x), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gs.p.numpy(), np.asarray(rs.p), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(float(gn), float(rn), rtol=1e-3, atol=1e-5)
+    assert fused_frame_update(tstate, _t(bmat), _t(vtf), tobs, _t(slots), _t(mask),
+                              _t(R_COV)).p.shape == tstate.p.shape
+
+
+# ----------------------------------------------------- augmentation
+
+
+@pytest.mark.parametrize("case", ["some_new", "none_new", "empty_map", "overflow_unpadded"])
+def test_augment_matches_reference(case):
+    # overflow_unpadded: capacity 12 with D = 27 unpadded, 9 slots taken
+    # and 5 new measurements: 3 fit, and the last slot's rows are the last
+    # rows of P; the other 2 are dropped.
+    cap, pad, n_act, nz = {"some_new": (40, 128, 17, 8), "none_new": (40, 128, 17, 8),
+                           "empty_map": (40, 0, 0, 8), "overflow_unpadded": (12, 0, 9, 6)}[case]
+    rng = np.random.default_rng(len(case))
+    d = 3 + 2 * cap if not pad else ((3 + 2 * cap + pad - 1) // pad) * pad
+    na = 3 + 2 * n_act
+    a = rng.normal(size=(na, na)).astype(np.float32) * 0.1
+    p = np.zeros((d, d), np.float32)
+    p[:na, :na] = a @ a.T + np.eye(na, dtype=np.float32) * 0.3
+    x = np.zeros((d,), np.float32)
+    x[:3] = [5.0, -3.0, 0.4]
+    x[3:na] = rng.uniform(-200, 200, size=(na - 3,)).astype(np.float32)
+    n_ids = 60
+    table = np.full(n_ids, -1, np.int64)
+    table[rng.choice(n_ids, size=n_act, replace=False)] = np.arange(n_act)
+    ids = np.sort(rng.choice(np.flatnonzero(table < 0), size=nz, replace=False))
+    z = np.stack([rng.uniform(5, 80, nz), rng.uniform(-1.5, 1.5, nz)], -1).astype(np.float32)
+    mask = np.ones(nz, bool)
+    mask[1] = False
+    new = mask.copy()
+    if case == "none_new":
+        new[:] = False
+    elif case == "some_new":
+        new[[0, 5]] = False
+    jstate, tstate = _pair(x, p, n_act, table)
+    jobs, tobs = _obs_pair(z, ids, mask)
+    ref = jekf.augment(jstate, jobs, _j(new), _j(R_COV))
+    got = augment(tstate, tobs, _t(new), _t(R_COV))
+    assert got.x.shape == (d,) and got.p.shape == (d, d)
+    assert int(got.n_active) == int(ref.n_active) == min(cap, n_act + int(new.sum()))
+    np.testing.assert_array_equal(got.table.numpy(), np.asarray(ref.table))
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-6, atol=1e-6)
+    if case == "overflow_unpadded":
+        assert d == 27 and got.p[-2:, :3].abs().sum() > 0     # slot 11 is P's last rows
+    if case == "none_new":
+        np.testing.assert_array_equal(got.p.numpy(), p)
+        np.testing.assert_array_equal(got.x.numpy(), x)
+
+
+# ------------------------------------------------------- the whole slice
+
+
+def _run_both(kw, n_steps, seed):
+    cfg, jcfg = SlamConfig(**kw), JSlamConfig(**kw)
+    jworld = j_default_world()
+    world = default_world()
+    roll = precompute_rollout(world, cfg, n_steps)
+    jroll = tuple(tuple(jnp.asarray(a.numpy()) for a in part) for part in roll)
+    key = jax.random.PRNGKey(seed)
+    jstate, jouts = j_run(jworld, jcfg, key, n_steps=n_steps, precomputed=jroll)
+    # The reference draws its noise inside _run_precomp (runner/loop.py:292-294).
+    n_frames = n_steps // cfg.observe_interval
+    k_ctrl, k_obs = jax.random.split(key)
+    ctrl = np.array(jax.random.normal(k_ctrl, (n_frames, cfg.observe_interval, 2), jnp.float32))
+    obsn = np.array(jax.random.normal(k_obs, (n_frames, roll[1][0].shape[1], 2), jnp.float32))
+    state, outs = run_ekf_slam_precomputed(world, cfg, None, n_steps, None, roll,
+                                           ctrl_noise=_t(ctrl), obs_noise=_t(obsn))
+    return (jstate, jouts), (state, outs)
+
+
+def test_gated_slice_matches_reference():
+    # The 30-landmark valet world from an empty map: gated association,
+    # augmentation on, 1,200 steps = 200 frames.
+    (jstate, jouts), (state, outs) = _run_both(
+        dict(max_landmarks=30, max_obs=16, switch_association_known=False), 1200, 3)
+    na = outs.n_active.numpy()
+    np.testing.assert_array_equal(na, np.asarray(jouts.n_active))
+    assert na[0] > 0 and na[-1] > na[0]          # the map grows during the run
+    np.testing.assert_array_equal(state.table.numpy(), np.asarray(jstate.table))
+    np.testing.assert_allclose(outs.x_est.numpy(), np.asarray(jouts.x_est), rtol=0, atol=5e-3)
+    np.testing.assert_allclose(state.x.numpy()[:3], np.asarray(jstate.x)[:3], rtol=0, atol=5e-3)
+    np.testing.assert_allclose(state.x.numpy(), np.asarray(jstate.x), rtol=0, atol=0.1)
+    jp = np.asarray(jstate.p)
+    scale = np.sqrt(np.outer(np.diag(jp), np.diag(jp))) + 1e-6
+    assert (np.abs(state.p.numpy() - jp) / scale).max() < 1e-2
+
+
+def test_n_active_is_recorded_per_frame():
+    # Known association with augmentation from an empty map: the map grows
+    # frame by frame, and outs.n_active is the size after each step's frame,
+    # as the reference records it (not the final size over every step).
+    (jstate, jouts), (state, outs) = _run_both(dict(max_landmarks=30, max_obs=16), 600, 4)
+    na = outs.n_active.numpy()
+    np.testing.assert_array_equal(na, np.asarray(jouts.n_active))
+    assert len(np.unique(na)) > 2 and na[-1] == int(state.n_active)
+    np.testing.assert_array_equal(state.table.numpy(), np.asarray(jstate.table))
+
+
+def test_config2_world_matches_reference():
+    # The committed landmarks are random_world(PRNGKey(7), 500) exactly, and
+    # the tour is the default waypoints (benchmarks/bench_gated.py:46).
+    ref = random_world(jax.random.PRNGKey(7), 500)
+    lm = np.load(_CONFIG2_LANDMARKS)
+    assert lm.dtype == np.float32 and lm.shape == (500, 2)
+    assert os.path.getsize(_CONFIG2_LANDMARKS) < 8192
+    np.testing.assert_array_equal(lm, np.asarray(ref.landmarks))
+    world = config2_world()
+    np.testing.assert_array_equal(world.landmarks.numpy(), lm)
+    np.testing.assert_array_equal(world.waypoints.numpy(), np.asarray(j_default_world().waypoints))

@@ -140,17 +140,21 @@ def test_rollout_matches_reference():
 
 
 def test_slice_refuses_what_it_does_not_port():
+    # The frame-pair schedule is not ported, with or without augmentation
+    # and in either association mode.
     world = world_from_numpy(np.asarray(j_default_world().landmarks),
                              np.asarray(j_default_world().waypoints))
-    for cfg in (SlamConfig(max_obs=16), SlamConfig(max_obs=16, enable_augment=False,
-                                                   switch_association_known=False)):
+    for cfg in (SlamConfig(max_obs=16, frame_pair=True),
+                SlamConfig(max_obs=16, enable_augment=False, frame_pair=True),
+                SlamConfig(max_obs=16, switch_association_known=False, frame_pair=True)):
         with pytest.raises(NotImplementedError):
             run_ekf_slam_precomputed(world, cfg, None, 12)
 
 
 def test_port_runs_without_jax():
-    # Every module of the port imports, and one frame runs on the CPU, in a
-    # process where importing jax or the JAX package fails.
+    # Every module of the port imports, and a known-association frame and a
+    # few gated frames run on the CPU, in a process where importing jax or
+    # the JAX package fails.
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -169,6 +173,14 @@ def test_port_runs_without_jax():
         state, outs = run_ekf_slam_precomputed(
             world, cfg, gen, 6, init_state_with_map(world.landmarks))
         assert torch.isfinite(state.p).all() and outs.x_est.shape == (6, 3)
+        # A few gated frames from an empty map, with augmentation, on the
+        # 30-landmark world and on BASELINE config 2's committed world.
+        from conan_slam_tpu_torch.sim.world import config2_world
+        for w, k, nz in ((world, 30, 16), (config2_world(), 500, 64)):
+            cfg = SlamConfig(max_landmarks=k, max_obs=nz, switch_association_known=False)
+            state, outs = run_ekf_slam_precomputed(w, cfg, gen, 36)
+            assert torch.isfinite(state.p).all() and int(state.n_active) > 0
+            assert outs.n_active.shape == (36,)
         assert not any(k.split(".")[0] in ("jax", "conan_slam_tpu")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
