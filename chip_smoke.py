@@ -21,11 +21,18 @@ Phases:
           mid-run frame, at a ragged D (1003) and at the 10k-landmark shape
           (D = 20,224), with a cross-check against the known-association
           frame on the same rows and the frame's mean against a float64
-          witness.
+          witness;
+       c. the frame pair (two frames, one H4 pass at r = 2 (MP + 8)) at the
+          bench shape and at a ragged D, against its plain version and
+          against two sequential kernel frames, and H4 at r = 272.
+     Beside them, the time of one PyTorch call computing the same function
+     where there is one (torch.linalg.inv for H1, torch.addmm for H4), and
+     each kernel's bound: the larger of its bytes over 3.35 TB/s and its
+     operations over 67 TFLOP/s (fp32), from this run's shapes and data.
   4. The main paths through runner.loop.run_ekf_slam_precomputed:
        a. the bench workload (1024 landmarks from seed 42 over a 13 km
           square, all pre-registered; 64-slot measurement buffer;
-          19,200 control steps = 3,200 frames) with the kernels, and 6,000
+          19,200 control steps = 3,200 frames) with the kernels, and 3,000
           steps with the plain versions.  Asserts H1-H4 launched once per
           frame and the reference's accuracy gate: ATE < 0.05 m,
           asym(P) < 1e-4.
@@ -38,8 +45,17 @@ Phases:
           versions (the reference's gated gate: finite, mapped > 0,
           ATE < 1 m), against the kernels' first 3,000 steps.  600 steps
           of a 10,000-landmark world with the kernels.
-     Then a torch.profiler trace of 100 frames of each path gives each
-     kernel's device time per frame and the device's busy share.
+       c. the bench workload in frame pairs (cfg.frame_pair): 19,200 steps =
+          1,600 pairs with the kernels, timed in turns with the per-frame
+          path (per-frame, pair, pair, per-frame); the ate gate, H2, H1 and
+          H3 twice per pair and H4 once; 600 steps of the plain pair.
+       d. the chunked driver (run_ekf_slam_precomputed_chunked) on the pair
+          path in chunks of 4,800 steps with checkpoints: a run killed in
+          its third chunk and resumed must equal an uninterrupted run bit
+          for bit; the seconds and bytes of one checkpoint.
+     Then a torch.profiler trace of 100 frames of each path (100 pairs of
+     the pair path) gives each kernel's device time per frame and the
+     device's busy share.
   5. The kernel table and the card as JSON lines, then the last line
      {"ok": true, "device": {...}}.
 
@@ -50,8 +66,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,12 +77,13 @@ import numpy as np
 N_LANDMARKS = 1024      # all pre-registered: D = 3 + 2 * 1024 = 2051, padded 2304
 WORLD_EXTENT = 6500.0   # ~40 landmarks visible per frame at 2000 m range
 BENCH_STEPS = 19200
-PLAIN_STEPS = 6000      # the known path's plain-version run (its kernels run all 19,200)
+PLAIN_STEPS = 3000      # the known path's plain-version run (its kernels run all 19,200)
 SEED = 42
 SIGMA0 = 1.0
 PROFILE_FRAMES = 100    # frames of each main path traced with torch.profiler
 GATED_STEPS = 25_002    # BASELINE config 2: 25,000 steps rounded up to whole frames
 GATED_PLAIN_STEPS = 3000
+PAIR_PLAIN_STEPS = 600  # the pair path's plain run (its kernels run all 19,200)
 BIG_LANDMARKS = 10_000  # the 10k-landmark shape: D = 20,224, K = 10,110
 BIG_STEPS = 600
 KNOWN_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
@@ -72,6 +91,11 @@ GATED_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse", 
                  "rank_update")
 ORDER = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update", "factor_strip",
          "gating_scores", "obs_chain", "obs_panels")
+CHUNK_STEPS = 4800      # the chunked driver's chunk: 800 frames = 400 pairs
+# The card's published peaks (H100 SXM data sheet, at 700 W): fp32 outside
+# the tensor cores, and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 FAILURES: list[str] = []
 
@@ -130,6 +154,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, flops: float) -> dict:
+    """The least time the card could take for a function that moves
+    ``n_bytes`` (each input read once, each output written once) and does
+    ``flops`` fp32 operations, and which of the two limits it."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes, flops=flops)
+
+
+def rank_update_work(p, vt, b) -> dict:
+    """H4's wrapper P + Vt^T (B Vt): the (r, r) x (r, D) product, then the
+    D x D x r one and the add."""
+    d, r = p.shape[0], vt.shape[0]
+    return bound(nbytes(p, vt, b) + nbytes(p), 2.0 * r * r * d + 2.0 * d * d * r + d * d)
+
+
 def bench_world(device, pad_multiple=256):
     from conan_slam_tpu_torch.filters.ekf import init_state_with_map
     from conan_slam_tpu_torch.sim.world import _WP_X, _WP_Y, world_from_numpy
@@ -158,9 +203,11 @@ def big_world(device):
     return world_from_numpy(lm.astype(np.float32), np.stack([_WP_X, _WP_Y], axis=1), device)
 
 
-def warm_frame(device, world, cfg, state0, n_warm_frames: int):
+def warm_frame(device, world, cfg, state0, n_warm_frames: int, n_next: int = 1):
     """A realistic frame: the state after ``n_warm_frames`` plain frames of
-    the run from ``state0``, and the next frame's inputs."""
+    the run from ``state0``, and the inputs ``(ctrl_args, obs)`` of each of
+    the ``n_next`` frames after them: ``(state, [(ctrl_args, obs), ...],
+    noise)``."""
     import torch
 
     from conan_slam_tpu_torch.filters.common import CompactObs
@@ -171,21 +218,23 @@ def warm_frame(device, world, cfg, state0, n_warm_frames: int):
     )
 
     s = cfg.observe_interval
-    n_steps = (n_warm_frames + 1) * s
+    n_steps = (n_warm_frames + n_next) * s
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     (x_true, swa, active, done), (z_true, ids, zmask) = precompute_rollout(world, cfg, n_steps)
-    ctrl = torch.randn((n_warm_frames + 1, s, 2), generator=gen, device=device)
-    obsn = torch.randn((n_warm_frames + 1, z_true.shape[1], 2), generator=gen, device=device)
-    roll = ((x_true[:-s], swa[:-s], active[:-s], done[:-s]), (z_true[:-1], ids[:-1], zmask[:-1]))
-    state, _ = run_ekf_slam_precomputed(world, cfg, None, n_warm_frames * s, state0, roll,
-                                        ctrl_noise=ctrl[:-1], obs_noise=obsn[:-1], plain=True)
-    f = n_warm_frames
-    vns = cfg.velocity + ctrl[f, :, 0] * cfg.sigma_v
-    swans = swa[f * s:(f + 1) * s] + ctrl[f, :, 1] * cfg.sigma_swa
-    z = z_true[f] + obsn[f] * torch.tensor([cfg.sigma_r, cfg.sigma_b], device=device)
-    obs = CompactObs(z=torch.where(zmask[f][:, None], z, 0.0), ids=ids[f], mask=zmask[f])
-    ctrl_args = (vns, swans, x_true[f * s:(f + 1) * s, 2], active[f * s:(f + 1) * s])
-    return state, ctrl_args, obs, make_noise(cfg, "ekf", device)
+    ctrl = torch.randn((n_warm_frames + n_next, s, 2), generator=gen, device=device)
+    obsn = torch.randn((n_warm_frames + n_next, z_true.shape[1], 2), generator=gen, device=device)
+    w, ws = n_warm_frames, n_warm_frames * s
+    roll = ((x_true[:ws], swa[:ws], active[:ws], done[:ws]), (z_true[:w], ids[:w], zmask[:w]))
+    state, _ = run_ekf_slam_precomputed(world, cfg, None, ws, state0, roll,
+                                        ctrl_noise=ctrl[:w], obs_noise=obsn[:w], plain=True)
+    frames = []
+    for f in range(w, w + n_next):
+        vns = cfg.velocity + ctrl[f, :, 0] * cfg.sigma_v
+        swans = swa[f * s:(f + 1) * s] + ctrl[f, :, 1] * cfg.sigma_swa
+        z = z_true[f] + obsn[f] * torch.tensor([cfg.sigma_r, cfg.sigma_b], device=device)
+        obs = CompactObs(z=torch.where(zmask[f][:, None], z, 0.0), ids=ids[f], mask=zmask[f])
+        frames.append(((vns, swans, x_true[f * s:(f + 1) * s, 2], active[f * s:(f + 1) * s]), obs))
+    return state, frames, make_noise(cfg, "ekf", device)
 
 
 def frame_case(device, n_warm_frames: int, pad_multiple: int):
@@ -199,8 +248,8 @@ def frame_case(device, n_warm_frames: int, pad_multiple: int):
 
     cfg = SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False)
     world, state0 = bench_world(device, pad_multiple)
-    state, (vns, swans, phis, acts), obs, noise = warm_frame(device, world, cfg, state0,
-                                                             n_warm_frames)
+    state, [((vns, swans, phis, acts), obs)], noise = warm_frame(device, world, cfg, state0,
+                                                                 n_warm_frames)
     assoc = associate_known(state, obs)
     safe = assoc.slots.clamp(0, state.capacity - 1)
     rows = torch.cat([torch.arange(3, device=device),
@@ -293,29 +342,59 @@ def kernel_checks(device) -> dict:
             check(f"frame {label} vs {ref_name}: nis", full_k.nis, ref.nis, 1e-3, 1e-5,
                   "the reference test's tolerance")
         if pad == 256:
+            mp, rp, d = fi.mp, fi.rp, args[0].shape[0]
+            # H2: the recursion (a few hundred scalar operations), then
+            # Hc P'[rows] with five nonzeros a row of Hc plus P''s three
+            # factored terms, and S = psub Hc^T.
             stats["frame_chain"] = dict(
-                max_abs_err=e2,
+                max_abs_err=e2, library_ms=None,
                 ms=time_ms(lambda: fk.frame_chain(*chain_args), 50),
-                plain_ms=time_ms(lambda: fk._frame_chain_reference(*chain_args), 10))
+                plain_ms=time_ms(lambda: fk._frame_chain_reference(*chain_args), 10),
+                **bound(nbytes(*chain_args[:6], *ch_k), 20.0 * mp * rp + 10.0 * mp * mp))
+            # H1: one rank-2 update of the (MP, MP) matrix per swept pivot
+            # block, nblk of them in this frame.
             stats["sweep_inverse"] = dict(
                 max_abs_err=e1,
                 ms=time_ms(lambda: sweep_si(ch_p.s, fi.nblk), 50),
-                plain_ms=time_ms(lambda: sweep_si_reference(ch_p.s, fi.nblk), 5))
+                plain_ms=time_ms(lambda: sweep_si_reference(ch_p.s, fi.nblk), 5),
+                library_ms=time_ms(lambda: torch.linalg.inv(ch_p.s), 50),
+                **bound(nbytes(ch_p.s, fi.nblk, si_k), 4.0 * mp * mp * int(fi.nblk)))
             pargs = (ch_p.rowc, ch_p.ms, si_p, fi.prows, args[1])
+            # H3: pht from five Hc nonzeros and P''s factored terms a row,
+            # siv = v^T S^-1, the mean x + siv pht and the NIS.
             stats["frame_panels"] = dict(
-                max_abs_err=e3,
+                max_abs_err=e3, library_ms=None,
                 ms=time_ms(lambda: fk.frame_panels(*pargs), 50),
-                plain_ms=time_ms(lambda: fk._frame_panels_reference(*pargs), 50))
+                plain_ms=time_ms(lambda: fk._frame_panels_reference(*pargs), 50),
+                **bound(nbytes(*pargs, *pk), 22.0 * mp * d + 2.0 * mp * mp))
+            mg = mmid @ gmat
             stats["rank_update"] = dict(
                 max_abs_err=e4,
                 ms=time_ms(lambda: rank_update_t(args[0], gmat, mmid), 50),
-                plain_ms=time_ms(lambda: rank_update_t_reference(args[0], gmat, mmid), 50))
+                plain_ms=time_ms(lambda: rank_update_t_reference(args[0], gmat, mmid), 50),
+                library_ms=time_ms(lambda: torch.addmm(args[0], gmat.T, mg), 50),
+                **rank_update_work(args[0], gmat, mmid))
+            # The whole frame: its four kernels' operations; P in and out.
             stats["frame_step"] = dict(
                 ms=time_ms(lambda: fk.frame_step(*args, *tail), 50),
-                plain_ms=time_ms(lambda: fk.frame_step(*args, *tail, plain=True), 10))
-    for name, st in stats.items():
-        log(f"  time {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms")
+                plain_ms=time_ms(lambda: fk.frame_step(*args, *tail, plain=True), 10),
+                library_ms=None,
+                **bound(nbytes(*(a for a in args if torch.is_tensor(a)), *full_k),
+                        sum(stats[k]["flops"] for k in KNOWN_KERNELS)))
+    log_times(stats, "")
     return stats
+
+
+def log_times(stats: dict, shape: str) -> None:
+    for name, st in stats.items():
+        extra = ""
+        if "bound_ms" in st:
+            lib = st["library_ms"]
+            extra = (f", bound {st['bound_ms'] * 1e3:.3f} us ({st['bound_by']}: "
+                     f"{st['bytes']:,} B, {st['flops']:,.0f} flop), library "
+                     + ("none" if lib is None else f"{lib:.4f} ms"))
+        log(f"  time {name}{shape}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms"
+            + extra)
 
 
 def gated_cases(device):
@@ -326,16 +405,17 @@ def gated_cases(device):
     from conan_slam_tpu_torch.sim.world import config2_world
 
     world, cfg = config2_world(device), gated_cfg(500)
-    state, *rest = warm_frame(device, world, cfg, init_state(500, 500, device=device), 300)
-    yield "config 2, D=1024", state, cfg, rest
+    state, [(ctrl, obs)], noise = warm_frame(device, world, cfg,
+                                             init_state(500, 500, device=device), 300)
+    yield "config 2, D=1024", state, cfg, (ctrl, obs, noise)
     d = 3 + 2 * 500       # the padded slots are never active: crop them
     ragged = EKFState(x=state.x[:d].clone(), p=state.p[:d, :d].contiguous(),
                       n_active=state.n_active, table=state.table)
-    yield "config 2 ragged, D=1003", ragged, cfg, rest
+    yield "config 2 ragged, D=1003", ragged, cfg, (ctrl, obs, noise)
     world, cfg = big_world(device), gated_cfg(BIG_LANDMARKS)
-    state, *rest = warm_frame(device, world, cfg,
-                              init_state(BIG_LANDMARKS, BIG_LANDMARKS, device=device), 30)
-    yield "10k landmarks, D=20224", state, cfg, rest
+    state, [(ctrl, obs)], noise = warm_frame(
+        device, world, cfg, init_state(BIG_LANDMARKS, BIG_LANDMARKS, device=device), 30)
+    yield "10k landmarks, D=20224", state, cfg, (ctrl, obs, noise)
 
 
 def gated_witness(p, x, rows, zr, zb, mask, r_cov, bmat, vtf):
@@ -500,30 +580,149 @@ def gated_kernel_checks(device) -> dict:
         check(f"cross {label} frame_update_obs vs frame_step: nis", fu.nis, fs.nis, 1e-3, 1e-5,
               "the reference test's tolerance")
         if label.startswith("config 2, D=1024"):
+            mp, nbp, rp = oi.mp, bmat.shape[0], oi.prows.shape[0]
+            nz = obs.z.shape[0]
+            nb = 2 + 2 * ctrl[0].shape[0] + (ctrl[0].shape[0] if cfg.switch_heading_known else 0)
+            # H5: NB factor columns of four terms each, and the mean.
             stats["factor_strip"] = dict(
                 max_abs_err=e5, ms=time_ms(lambda: frame_factors_fused(*fargs), 50),
-                plain_ms=time_ms(lambda: _frame_factors_reference(*fargs), 10))
+                plain_ms=time_ms(lambda: _frame_factors_reference(*fargs), 10), library_ms=None,
+                **bound(nbytes(*ctrl, noise.qe, state.x, state.p[2], fk_k[0].x, *fk_k[1:]),
+                        8.0 * nb * d + 2.0 * d))
+            # H6: each slot's 2x2 innovation covariance and its geometry
+            # (~70 operations), then ~15 a measurement-slot pair.
             stats["gating_scores"] = dict(
                 max_abs_err=e6, ms=time_ms(lambda: gating_scores(*gargs), 50),
-                plain_ms=time_ms(lambda: _gating_scores_reference(*gargs), 10))
+                plain_ms=time_ms(lambda: _gating_scores_reference(*gargs), 10), library_ms=None,
+                **bound(nbytes(*(a for a in gargs if torch.is_tensor(a)), nd_k, j_k, mn_k),
+                        70.0 * k + 15.0 * nz * k))
+            # H7: hvb = (Hc vrows^T) B, psub = Hc prc + hvb vrows (five Hc
+            # nonzeros a row), S = psub Hc^T.
             stats["obs_chain"] = dict(
                 max_abs_err=e7, ms=time_ms(lambda: fk.obs_chain(*chain), 50),
-                plain_ms=time_ms(lambda: fk._obs_chain_reference(*chain), 10))
+                plain_ms=time_ms(lambda: fk._obs_chain_reference(*chain), 10), library_ms=None,
+                **bound(nbytes(*chain[:6], s_k, rowc_k, hvb_k),
+                        10.0 * mp * nbp + 2.0 * mp * nbp * nbp + 10.0 * mp * rp
+                        + 2.0 * mp * nbp * rp + 10.0 * mp * mp))
+            # H8: pht = Hc P[rows] + hvb vtf, siv, the mean and the NIS.
             stats["obs_panels"] = dict(
                 max_abs_err=e8, ms=time_ms(lambda: fk.obs_panels(*pan), 50),
-                plain_ms=time_ms(lambda: fk._obs_panels_reference(*pan), 10))
+                plain_ms=time_ms(lambda: fk._obs_panels_reference(*pan), 10), library_ms=None,
+                **bound(nbytes(*pan, *pk), 10.0 * mp * d + 2.0 * mp * nbp * d + 2.0 * mp * d
+                        + 2.0 * mp * mp))
             stats["gated sweep_inverse"] = dict(
                 max_abs_err=e1, ms=time_ms(lambda: sweep_si(s_p, oi.nblk), 50),
-                plain_ms=time_ms(lambda: sweep_si_reference(s_p, oi.nblk), 5))
+                plain_ms=time_ms(lambda: sweep_si_reference(s_p, oi.nblk), 5),
+                library_ms=time_ms(lambda: torch.linalg.inv(s_p), 50),
+                **bound(nbytes(s_p, oi.nblk, si_k), 4.0 * mp * mp * int(oi.nblk)))
+            mg = mmid @ gmat
             stats["gated rank_update"] = dict(
                 max_abs_err=e4, ms=time_ms(lambda: rank_update_t(st1.p, gmat, mmid), 50),
-                plain_ms=time_ms(lambda: rank_update_t_reference(st1.p, gmat, mmid), 50))
+                plain_ms=time_ms(lambda: rank_update_t_reference(st1.p, gmat, mmid), 50),
+                library_ms=time_ms(lambda: torch.addmm(st1.p, gmat.T, mg), 50),
+                **rank_update_work(st1.p, gmat, mmid))
             stats["frame_update_obs"] = dict(
                 ms=time_ms(lambda: fk.frame_update_obs(*uargs), 50),
                 plain_ms=time_ms(lambda: fk.frame_update_obs(*uargs, plain=True), 10))
-    for name, st in stats.items():
-        log(f"  time {name} (config 2 shape): kernel {st['ms']:.4f} ms, "
-            f"plain {st['plain_ms']:.4f} ms")
+    log_times(stats, " (config 2 shape)")
+    return stats
+
+
+def pair_case(device, n_warm_frames: int, pad_multiple: int):
+    """Two consecutive frames at the bench shape after ``n_warm_frames``
+    plain frames, as frame_step_pair takes them."""
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.filters.ekf import associate_known
+    from conan_slam_tpu_torch.filters.ekf.update import _frame_rows
+
+    cfg = SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False)
+    world, state0 = bench_world(device, pad_multiple)
+    state, frames, noise = warm_frame(device, world, cfg, state0, n_warm_frames, n_next=2)
+    per_frame = []
+    for ctrl, obs in frames:
+        assoc = associate_known(state, obs)      # one table for both frames
+        per_frame += [_frame_rows(assoc.slots, state.capacity), ctrl,
+                      (obs.z[:, 0], obs.z[:, 1], assoc.known_mask)]
+    return (state.p, state.x, *per_frame, noise.qe, noise.re, cfg.wheel_base, cfg.dt_controls,
+            cfg.sigma_heading, cfg.switch_heading_known)
+
+
+def pair_checks(device) -> dict:
+    """Phase 3c: the frame pair against its plain version and against two
+    sequential kernel frames, and H4 at the pair's rank."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.rank_update import rank_update_t, rank_update_t_reference
+
+    stats = {}
+    for pad, label in ((256, "D=2304"), (0, "D=2051 ragged")):
+        args = pair_case(device, 30, pad)
+        (p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *tail) = args
+        log(f"frame pair at {label} (D={p.shape[0]}, NZ=64):")
+        got = fk.frame_step_pair(*args)
+        plain = fk.frame_step_pair(*args, plain=True)
+        fa = fk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail)
+        fb = fk.frame_step(fa.p, fa.x, rows_b, *ctrl_b, q, *meas_b, r, *tail)
+        two = fk.FramePair(p=fb.p, x=fb.x, pose_trace=torch.stack([fa.pose_trace, fb.pose_trace]),
+                           nis=torch.stack([fa.nis, fb.nis]), pose_mid=fa.x[:3])
+        # Frame B reads strips rebuilt from frame A's (G, M): against two
+        # frames its rounding differs there too, inside the same bounds.
+        for ref_name, ref in (("plain pair", plain), ("two kernel frames", two)):
+            for k, frame in enumerate("AB"):
+                check(f"pair {label} vs {ref_name}: pose trace {frame}", got.pose_trace[k],
+                      ref.pose_trace[k], 1e-6, 1e-3, "~5 km positions, fp32 ulps")
+            check(f"pair {label} vs {ref_name}: pose_mid", got.pose_mid, ref.pose_mid, 1e-6, 2e-3,
+                  "frame A's updated pose: ~5 km means, fp32 ulps")
+            check(f"pair {label} vs {ref_name}: x", got.x, ref.x, 1e-6, 2e-3,
+                  "~5 km means, fp32 ulps")
+            check(f"pair {label} vs {ref_name}: P", got.p, ref.p, 1e-3, 1e-4,
+                  "the reference test's tolerance")
+            check(f"pair {label} vs {ref_name}: nis", got.nis, ref.nis, 1e-3, 1e-5,
+                  "the reference test's tolerance")
+        if pad != 256:
+            continue
+        # H4 at r = 2 (MP + 8) on frame A's and frame B's (G, M), each
+        # from the plain chain: B's against the materialised P_A.
+        gms, chain_flops = [], 0.0
+        for pp, xx, rows, ctrl, meas in ((p, x, rows_a, ctrl_a, meas_a),
+                                         (fa.p, fa.x, rows_b, ctrl_b, meas_b)):
+            fi = fk.frame_inputs(pp, xx, rows, *ctrl, q, *meas, r)
+            ch, si, pht, _, _ = fk._frame_measure(fi, xx, tail, True)
+            gms.append(fk._frame_gm(pht, si, ch.k4[:4, :4], fi.prows[2:3], fi.mp))
+            mp, rp, d = fi.mp, fi.rp, pp.shape[0]
+            # H2, H1 and H3 of this frame, counted as in kernel_checks.
+            chain_flops += (20.0 * mp * rp + 10.0 * mp * mp + 4.0 * mp * mp * int(fi.nblk)
+                            + 22.0 * mp * d + 2.0 * mp * mp)
+        gmat, mmid = torch.cat([gms[0][0], gms[1][0]]), torch.block_diag(gms[0][1], gms[1][1])
+        pu_k = rank_update_t(p, gmat, mmid)
+        pu_p = rank_update_t_reference(p, gmat, mmid)
+        e4 = check(f"H4 {label} P + G^T M G (r={gmat.shape[0]})", pu_k, pu_p, 1e-4, 1e-6,
+                   "fp32 FMA over r terms vs cuBLAS fp32")
+        mg = mmid @ gmat
+        stats["pair rank_update"] = dict(
+            max_abs_err=e4, ms=time_ms(lambda: rank_update_t(p, gmat, mmid), 50),
+            plain_ms=time_ms(lambda: rank_update_t_reference(p, gmat, mmid), 50),
+            library_ms=time_ms(lambda: torch.addmm(p, gmat.T, mg), 50),
+            **rank_update_work(p, gmat, mmid))
+        def two_frames():
+            a = fk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail)
+            return fk.frame_step(a.p, a.x, rows_b, *ctrl_b, q, *meas_b, r, *tail)
+
+        # The whole pair: both frames' chains and panels, M_A G_A, the
+        # strip rebuild, M_B G_B and the one pass at r = 2 (MP + 8); P in
+        # and out once.
+        r1 = gms[0][0].shape[0]
+        stats["frame_step_pair"] = dict(
+            ms=time_ms(lambda: fk.frame_step_pair(*args), 50),
+            plain_ms=time_ms(lambda: fk.frame_step_pair(*args, plain=True), 10),
+            two_frames_ms=time_ms(two_frames, 50), library_ms=None,
+            **bound(nbytes(p, x, rows_a, *ctrl_a, *meas_a, rows_b, *ctrl_b, *meas_b, q, r, *got),
+                    chain_flops + 2 * 2.0 * r1 * r1 * d + 2.0 * rp * r1 * d
+                    + 2.0 * d * d * 2 * r1 + d * d))
+    log_times(stats, " (bench shape)")
+    log(f"  time two kernel frame_step calls (bench shape): "
+        f"{stats['frame_step_pair']['two_frames_ms']:.4f} ms")
     return stats
 
 
@@ -533,56 +732,73 @@ def launches() -> dict:
     return {k.name: k.launches for k in cuda.KERNELS.values()}
 
 
-def main_path(device, n_steps: int) -> tuple[dict, dict]:
-    """Phase 4a: the bench workload through the port's driver."""
+def known_workload(device, n_steps: int):
+    """The bench workload: world, initial state, rollout and noise draws
+    (the same for every run of it in this call)."""
     import torch
 
     from conan_slam_tpu_torch.config import SlamConfig
-    from conan_slam_tpu_torch.ops import cuda
-    from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
-    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+    from conan_slam_tpu_torch.runner.loop import precompute_rollout
 
     cfg = SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False)
     world, state0 = bench_world(device)
     roll = precompute_rollout(world, cfg, n_steps)
     s = cfg.observe_interval
-    n_frames = n_steps // s
-    nz = roll[1][0].shape[1]
     gen = torch.Generator(device=device).manual_seed(SEED)
-    ctrl = torch.randn((n_frames, s, 2), generator=gen, device=device)
-    obsn = torch.randn((n_frames, nz, 2), generator=gen, device=device)
-    plain_steps = min(PLAIN_STEPS, n_steps) // s * s
-    log(f"main path (known association): D={state0.x.shape[0]}, NZ={nz}, {n_steps} steps = "
-        f"{n_frames} frames with the kernels, {plain_steps} steps with the plain versions")
+    ctrl = torch.randn((n_steps // s, s, 2), generator=gen, device=device)
+    obsn = torch.randn((n_steps // s, roll[1][0].shape[1], 2), generator=gen, device=device)
+    return cfg, world, state0, roll, ctrl, obsn
 
-    results = {}
-    for plain in (False, True):
-        label = "plain" if plain else "kernels"
-        steps = plain_steps if plain else n_steps
-        f = steps // s
-        part = (tuple(a[:steps] for a in roll[0]), tuple(a[:f] for a in roll[1]))
-        # Warm-up: allocator, ctypes bindings, first launches.
-        warm = (tuple(a[:60] for a in roll[0]), tuple(a[:10] for a in roll[1]))
-        run_ekf_slam_precomputed(world, cfg, None, 60, state0, warm,
-                                 ctrl_noise=ctrl[:10], obs_noise=obsn[:10], plain=plain)
-        torch.cuda.synchronize()
-        cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, outs = run_ekf_slam_precomputed(world, cfg, None, steps, state0, part,
-                                               ctrl_noise=ctrl[:f], obs_noise=obsn[:f],
-                                               plain=plain)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = launches()
-        ate = float(ate_rmse(outs.x_true, outs.x_est))
-        asym = float((state.p - state.p.T).abs().max())
-        finite = bool(torch.isfinite(state.p).all() and torch.isfinite(outs.x_est).all())
-        results[label] = dict(steps_per_s=steps / secs, seconds=secs, ate=ate, asym=asym,
-                              counts=counts, x_est=outs.x_est)
-        log(f"  {label}: {steps} steps in {secs:.3f} s = {steps / secs:,.1f} steps/s, "
-            f"ATE={ate:.4f} m, asym(P)={asym:.2e}, finite={finite}, launches={counts}")
-        if not finite:
-            FAILURES.append(f"main path ({label}): non-finite state")
+
+def drive_known(workload, steps: int, plain: bool = False, frame_pair: bool = False) -> dict:
+    """One timed run of the first ``steps`` steps of the bench workload,
+    after a 60-step warm-up (allocator, ctypes bindings, first launches),
+    with the launch counts of the timed run alone."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import cuda
+    from conan_slam_tpu_torch.runner.loop import run_ekf_slam_precomputed
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+
+    cfg, world, state0, roll, ctrl, obsn = workload
+    cfg = cfg.replace(frame_pair=frame_pair)
+    s = cfg.observe_interval
+    f = steps // s
+    part = (tuple(a[:steps] for a in roll[0]), tuple(a[:f] for a in roll[1]))
+    warm = (tuple(a[:60] for a in roll[0]), tuple(a[:10] for a in roll[1]))
+    run_ekf_slam_precomputed(world, cfg, None, 60, state0, warm,
+                             ctrl_noise=ctrl[:10], obs_noise=obsn[:10], plain=plain)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, outs = run_ekf_slam_precomputed(world, cfg, None, steps, state0, part,
+                                           ctrl_noise=ctrl[:f], obs_noise=obsn[:f], plain=plain)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = dict(steps_per_s=steps / secs, seconds=secs, counts=launches(), x_est=outs.x_est,
+               ate=float(ate_rmse(outs.x_true, outs.x_est)),
+               asym=float((state.p - state.p.T).abs().max()),
+               finite=bool(torch.isfinite(state.p).all() and torch.isfinite(outs.x_est).all()))
+    label = ("plain" if plain else "kernels") + (", pairs" if frame_pair else "")
+    log(f"  {label}: {steps} steps in {secs:.3f} s = {steps / secs:,.1f} steps/s, "
+        f"ATE={res['ate']:.4f} m, asym(P)={res['asym']:.2e}, finite={res['finite']}, "
+        f"launches={res['counts']}")
+    if not res["finite"]:
+        FAILURES.append(f"known path ({label}): non-finite state")
+    return res
+
+
+def main_path(device, n_steps: int) -> tuple[dict, dict]:
+    """Phase 4a: the bench workload through the port's driver."""
+    workload = known_workload(device, n_steps)
+    s = workload[0].observe_interval
+    n_frames = n_steps // s
+    plain_steps = min(PLAIN_STEPS, n_steps) // s * s
+    log(f"main path (known association): D={workload[2].x.shape[0]}, "
+        f"NZ={workload[3][1][0].shape[1]}, {n_steps} steps = {n_frames} frames with the "
+        f"kernels, {plain_steps} steps with the plain versions")
+    results = {"kernels": drive_known(workload, n_steps),
+               "plain": drive_known(workload, plain_steps, plain=True)}
     k = results["kernels"]
     want = {**dict.fromkeys(k["counts"], 0), **dict.fromkeys(KNOWN_KERNELS, n_frames)}
     require(k["counts"] == want, "known path launches",
@@ -594,6 +810,127 @@ def main_path(device, n_steps: int) -> tuple[dict, dict]:
     dev = float((k["x_est"][:plain_steps] - results["plain"]["x_est"]).abs().max())
     log(f"  kernels vs plain trajectory over {plain_steps} steps: max |dx_est| = {dev:.3e} m")
     return results, k["counts"]
+
+
+def pair_path(device) -> tuple[dict, dict]:
+    """Phase 4c: the bench workload in frame pairs, in turns with the
+    per-frame path (per-frame, pair, pair, per-frame), and 600 steps of
+    the plain pair."""
+    workload = known_workload(device, BENCH_STEPS)
+    n_frames = BENCH_STEPS // workload[0].observe_interval
+    log(f"main path (known association, frame pairs): {BENCH_STEPS} steps = {n_frames // 2} "
+        f"pairs, in turns with the per-frame path; {PAIR_PLAIN_STEPS} steps of the plain pair")
+    runs = [drive_known(workload, BENCH_STEPS, frame_pair=pair)
+            for pair in (False, True, True, False)]
+    k = runs[1]
+    for res in runs[1:3]:
+        want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(KNOWN_KERNELS, n_frames),
+                "rank_update": n_frames // 2}
+        require(res["counts"] == want, "pair path launches",
+                f"H2, H1, H3 twice per pair ({n_frames}), H4 once ({n_frames // 2}), "
+                "no other kernel")
+        require(res["ate"] < 0.05 and res["asym"] < 1e-4, "pair path accuracy gate",
+                f"ATE {res['ate']:.4f} < 0.05 m, asym(P) {res['asym']:.2e} < 1e-4")
+    p = drive_known(workload, PAIR_PLAIN_STEPS, plain=True, frame_pair=True)
+    require(not any(p["counts"].values()), "pair path plain launches",
+            "the plain run launched no kernel")
+    dx_plain = float((k["x_est"][:PAIR_PLAIN_STEPS] - p["x_est"]).abs().max())
+    dx_frames = float((k["x_est"] - runs[0]["x_est"]).abs().max())
+    log(f"  pair kernels vs plain pair over {PAIR_PLAIN_STEPS} steps: max |dx_est| = "
+        f"{dx_plain:.3e} m; pair vs per-frame (kernels, {BENCH_STEPS} steps): max |dx_est| = "
+        f"{dx_frames:.3e} m")
+    order = ("per-frame", "pair", "pair", "per-frame")
+    log("  steps/s in turns: " + ", ".join(f"{o} {r['steps_per_s']:,.1f}"
+                                          for o, r in zip(order, runs)))
+    return dict(steps_per_s=[r["steps_per_s"] for r in runs], order=order, ate=k["ate"],
+                asym=k["asym"], plain_steps_per_s=p["steps_per_s"], dx_plain=dx_plain,
+                dx_frames=dx_frames), k["counts"]
+
+
+class _Killed(Exception):
+    """The simulated kill of a chunked run (phase 4d)."""
+
+
+def chunked_path(device) -> dict:
+    """Phase 4d: the chunked driver on the pair path with checkpoints; a
+    run killed inside its third chunk and resumed equals an uninterrupted
+    run bit for bit."""
+    import torch
+
+    from conan_slam_tpu_torch.runner import loop
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+    from conan_slam_tpu_torch.utils import checkpoint
+
+    cfg, world, state0, roll, _, _ = known_workload(device, BENCH_STEPS)
+    cfg = cfg.replace(frame_pair=True)
+    n_chunks = -(-BENCH_STEPS // CHUNK_STEPS)
+    log(f"chunked driver (frame pairs): {BENCH_STEPS} steps in {n_chunks} chunks of "
+        f"{CHUNK_STEPS}, checkpointed")
+    driver = loop.run_ekf_slam_precomputed
+    with tempfile.TemporaryDirectory() as tmp:
+        def chunked(name):
+            out = loop.run_ekf_slam_precomputed_chunked(world, cfg, SEED, BENCH_STEPS, CHUNK_STEPS,
+                                                        state0, roll, os.path.join(tmp, name))
+            torch.cuda.synchronize()
+            return out
+
+        t0 = time.perf_counter()
+        ref = chunked("uninterrupted")
+        secs = time.perf_counter() - t0
+        runs = []
+
+        def killed_in_chunk_2(*args, **kwargs):
+            runs.append(args[3])
+            if len(runs) == 3:
+                raise _Killed
+            return driver(*args, **kwargs)
+
+        def counted(*args, **kwargs):
+            runs.append(args[3])
+            return driver(*args, **kwargs)
+
+        killed = False
+        try:
+            loop.run_ekf_slam_precomputed = killed_in_chunk_2
+            try:
+                chunked("killed")
+            except _Killed:
+                killed = True
+            runs.clear()
+            loop.run_ekf_slam_precomputed = counted
+            resumed = chunked("killed")
+        finally:
+            loop.run_ekf_slam_precomputed = driver
+        left = sorted(os.listdir(os.path.join(tmp, "uninterrupted")))
+        ckpt_bytes = os.path.getsize(os.path.join(tmp, "uninterrupted", "chunk_00000.pt"))
+        tree = {"state": ref[0], "outs": loop._outs_like(CHUNK_STEPS, device)}
+        path = os.path.join(tmp, "timed.pt")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            checkpoint.save(path, tree)
+        save_s = (time.perf_counter() - t0) / 3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            checkpoint.restore(path, tree)
+        torch.cuda.synchronize()
+        restore_s = (time.perf_counter() - t0) / 3
+    rest = [min(CHUNK_STEPS, BENCH_STEPS - s0) for s0 in range(2 * CHUNK_STEPS, BENCH_STEPS,
+                                                                CHUNK_STEPS)]
+    require(killed and runs == rest, "chunked resume",
+            f"the killed run stopped in chunk 2; the rerun resumed after 2 checkpoints and ran "
+            f"{len(runs)} of {n_chunks} chunks")
+    same = [bool(torch.equal(a, b)) for a, b in zip((*resumed[0], *resumed[1]), (*ref[0], *ref[1]))]
+    require(all(same), "chunked kill-and-resume bit-identical",
+            f"final state and outputs equal bit for bit ({sum(same)} of {len(same)} tensors)")
+    ate = float(ate_rmse(ref[1].x_true, ref[1].x_est))
+    asym = float((ref[0].p - ref[0].p.T).abs().max())
+    require(ate < 0.05 and asym < 1e-4, "chunked accuracy gate",
+            f"ATE {ate:.4f} < 0.05 m, asym(P) {asym:.2e} < 1e-4")
+    log(f"  uninterrupted: {BENCH_STEPS} steps in {secs:.3f} s with {n_chunks} checkpoints "
+        f"({BENCH_STEPS / secs:,.1f} steps/s); files {left}; one checkpoint {ckpt_bytes:,} bytes, "
+        f"save {save_s:.4f} s, restore {restore_s:.4f} s")
+    return dict(seconds=secs, steps_per_s=BENCH_STEPS / secs, checkpoint_bytes=ckpt_bytes,
+                save_s=save_s, restore_s=restore_s, bit_identical=all(same), ate=ate)
 
 
 def gated_path(device) -> tuple[dict, dict]:
@@ -732,6 +1069,7 @@ def main() -> int:
                         help="control steps of the known path's run with the kernels "
                              "(default: the bench's 19,200)")
     opts = parser.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -755,6 +1093,10 @@ def main() -> int:
 
     log(f"nvcc: {run([cuda._nvcc(), '--version']).splitlines()[-1]}")
     device = torch.device("cuda", 0)
+    # The precision contract: fp32 products, TF32 off (also for the
+    # library calls timed beside the kernels).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # --- phase 2: build ---
     path, secs, out = cuda.build(("-Xptxas", "-v"))
@@ -768,31 +1110,36 @@ def main() -> int:
     t0 = time.perf_counter()
     stats = kernel_checks(device)
     gstats = gated_kernel_checks(device)
+    pstats = pair_checks(device)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # --- phase 4: the main paths ---
     t0 = time.perf_counter()
     results, counts = main_path(device, opts.steps)
     gated, gcounts = gated_path(device)
+    paired, pcounts = pair_path(device)
+    chunked = chunked_path(device)
     log(f"main paths: {time.perf_counter() - t0:.1f} s")
 
     from conan_slam_tpu_torch.config import SlamConfig
 
     world, state0 = bench_world(device)
-    profile_frames(device, PROFILE_FRAMES, "known association", world,
-                   SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False),
-                   state0)
+    known_cfg = SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False)
+    profile_frames(device, PROFILE_FRAMES, "known association", world, known_cfg, state0)
     profile_frames(device, PROFILE_FRAMES, "gated, config 2", config2_world(device),
                    gated_cfg(500), init_state(500, 500, device=device))
+    profile_frames(device, 2 * PROFILE_FRAMES, "known association, frame pairs", world,
+                   known_cfg.replace(frame_pair=True), state0)
 
     # --- phase 5: report ---
     allstats = {**stats, **gstats}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": counts[k.name] + gcounts[k.name],
-         "launches_by_path": {"known": counts[k.name], "gated": gcounts[k.name]},
-         "max_abs_err": allstats[k.name]["max_abs_err"],
-         "ms": allstats[k.name]["ms"], "plain_ms": allstats[k.name]["plain_ms"]}
+         "launches": counts[k.name] + gcounts[k.name] + pcounts[k.name],
+         "launches_by_path": {"known": counts[k.name], "gated": gcounts[k.name],
+                              "pair": pcounts[k.name]},
+         **{key: allstats[k.name][key] for key in keys}}
         for k in sorted(cuda.KERNELS.values(), key=lambda k: ORDER.index(k.name))
     ]}
     summary = {
@@ -806,8 +1153,19 @@ def main() -> int:
         "gated_frame_ms": gstats["frame_update_obs"]["ms"],
         "gated_frame_plain_ms": gstats["frame_update_obs"]["plain_ms"],
         "big_steps_per_s": gated["big_steps_per_s"],
+        "pair_vs_frame_steps_per_s": dict(zip(("frame_1", "pair_1", "pair_2", "frame_2"),
+                                              paired["steps_per_s"])),
+        "pair_ate_m": paired["ate"], "pair_asym_p": paired["asym"],
+        "pair_plain_steps_per_s": paired["plain_steps_per_s"],
+        "pair_ms": pstats["frame_step_pair"]["ms"],
+        "pair_plain_ms": pstats["frame_step_pair"]["plain_ms"],
+        "two_frames_ms": pstats["frame_step_pair"]["two_frames_ms"],
+        "chunked_steps_per_s": chunked["steps_per_s"], "chunked_ate_m": chunked["ate"],
+        "checkpoint_bytes": chunked["checkpoint_bytes"], "checkpoint_save_s": chunked["save_s"],
+        "checkpoint_restore_s": chunked["restore_s"],
     }
     log(json.dumps(summary))
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s")
     if FAILURES:
         log("FAILED: " + "; ".join(FAILURES))
         return 1

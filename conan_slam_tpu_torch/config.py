@@ -4,8 +4,7 @@ Field for field the reference's ``conan_slam_tpu.config.SlamConfig`` (the
 port carries its own copy so that it imports nothing of the JAX package;
 tests/test_torch_core_models.py holds the two to the same fields and
 defaults).  Every default reproduces the reference C++ driver's canonical
-values (reference slam.h:63-103, test/main.cpp:93-129).  The one option
-the port does not run yet, the frame pair, raises in ``runner.loop``.
+values (reference slam.h:63-103, test/main.cpp:93-129).
 """
 
 from __future__ import annotations
@@ -99,10 +98,11 @@ class SlamConfig:
     scan_unroll: int = 1
     # New-feature augmentation in the frame step.  False for steady-state
     # full-map workloads (n_active == capacity), where augment is a
-    # guaranteed no-op.  The port requires False (augment is not ported).
+    # guaranteed no-op.
     enable_augment: bool = True
-    # Two consecutive frames per covariance pass (reference
-    # ops.frame_kernel.frame_step_pair).  Not ported: must stay False.
+    # Two consecutive frames per covariance pass (ops.frame_kernel.
+    # frame_step_pair), where runner.loop can pair them: known association,
+    # augment off and an even number of frames.
     frame_pair: bool = False
     # Wire format of the reference's distributed frame (not ported).
     dist_gain_wire: str = "f32"

@@ -13,7 +13,11 @@ from conan_slam_tpu_torch.filters.ekf.state import (
     state_from_numpy,
     state_to_numpy,
 )
-from conan_slam_tpu_torch.filters.ekf.update import fused_frame_step, fused_frame_update
+from conan_slam_tpu_torch.filters.ekf.update import (
+    fused_frame_pair_step,
+    fused_frame_step,
+    fused_frame_update,
+)
 
 __all__ = [
     "AssociationResult",
@@ -21,6 +25,7 @@ __all__ = [
     "associate_gated",
     "associate_known",
     "augment",
+    "fused_frame_pair_step",
     "fused_frame_step",
     "fused_frame_update",
     "init_state",

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from conan_slam_tpu_torch.device import default_device
+
 
 class EKFState(NamedTuple):
     x: torch.Tensor         # (D,) joint mean: pose (x, y, phi) then map slots
@@ -49,7 +51,9 @@ def _padded_dim(capacity: int, pad_multiple: int) -> int:
 
 def init_state(capacity: int, num_landmark_ids: int, dtype=torch.float32,
                pad_multiple: int = 256, device=None) -> EKFState:
-    """Zero pose, zero covariance, empty map (reference test/main.cpp:106-108)."""
+    """Zero pose, zero covariance, empty map (reference test/main.cpp:106-108),
+    on ``device`` (default: the card)."""
+    device = default_device() if device is None else device
     d = _padded_dim(capacity, pad_multiple)
     return EKFState(
         x=torch.zeros((d,), dtype=dtype, device=device),
@@ -63,7 +67,10 @@ def init_state_with_map(landmarks, capacity: int | None = None,
                         sigma0: float = 1.0, dtype=torch.float32,
                         pad_multiple: int = 256, device=None) -> EKFState:
     """Steady-state start: the first ``capacity`` landmarks pre-registered,
-    each with an independent ``sigma0^2 I`` block."""
+    each with an independent ``sigma0^2 I`` block.  The device defaults to
+    the landmarks' where they are a tensor, else to the card."""
+    if device is None:
+        device = landmarks.device if torch.is_tensor(landmarks) else default_device()
     landmarks = torch.as_tensor(landmarks, dtype=dtype, device=device)
     n_ids = landmarks.shape[0]
     k = capacity if capacity is not None else n_ids
@@ -84,7 +91,8 @@ def init_state_with_map(landmarks, capacity: int | None = None,
 
 def state_from_numpy(x, p, n_active, table, device=None) -> EKFState:
     """A state from numpy arrays (e.g. a JAX state's ``np.asarray`` fields),
-    on ``device``."""
+    on ``device`` (default: the card)."""
+    device = default_device() if device is None else device
     return EKFState(
         x=torch.tensor(np.asarray(x, np.float32), device=device),
         p=torch.tensor(np.asarray(p, np.float32), device=device),

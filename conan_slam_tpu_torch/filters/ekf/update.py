@@ -1,6 +1,6 @@
 """Whole-frame EKF updates (port of conan_slam_tpu.filters.ekf.update:
-``fused_frame_step`` for known association, ``fused_frame_update`` for the
-gated path, fp32 tier only)."""
+``fused_frame_step`` and ``fused_frame_pair_step`` for known association,
+``fused_frame_update`` for the gated path, fp32 tier only)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 
 from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
-from conan_slam_tpu_torch.ops.frame_kernel import frame_step, frame_update_obs
+from conan_slam_tpu_torch.ops.frame_kernel import frame_step, frame_step_pair, frame_update_obs
 
 
 def _frame_rows(slots, capacity: int):
@@ -35,6 +35,33 @@ def fused_frame_step(state: EKFState, vns, swans, phis, actives, q_cov,
     )
     n_meas = torch.clamp(mask.to(fs.x.dtype).sum(), min=1.0)
     return state._replace(x=fs.x, p=fs.p), fs.pose_trace, fs.nis / n_meas
+
+
+def fused_frame_pair_step(state: EKFState, vns2, swans2, phis2, actives2, q_cov,
+                          obs_a: CompactObs, slots_a, mask_a, obs_b: CompactObs, slots_b,
+                          mask_b, r_cov, wheel_base, dt, sigma_heading, use_heading: bool,
+                          *, plain: bool = False):
+    """Two known-association frames with one P pass
+    (ops.frame_kernel.frame_step_pair).  ``vns2``/``swans2``/``phis2``/
+    ``actives2`` (2, S) stack both frames' controls; both frames' slots
+    index the same table (the caller runs no augmentation between them).
+
+    The reference falls back to two sequential frames where its TPU
+    schedule has no tile for a shape; the split schedule has no such
+    limit, so the pair always runs.  Returns ``(new_state, pose_trace
+    (2, S, 3), nis per associated measurement (2,), pose_mid (3,))``,
+    ``pose_mid`` being frame A's post-update pose.
+    """
+    cap = state.capacity
+    fp = frame_step_pair(
+        state.p, state.x, _frame_rows(slots_a, cap),
+        (vns2[0], swans2[0], phis2[0], actives2[0]), (obs_a.z[:, 0], obs_a.z[:, 1], mask_a),
+        _frame_rows(slots_b, cap),
+        (vns2[1], swans2[1], phis2[1], actives2[1]), (obs_b.z[:, 0], obs_b.z[:, 1], mask_b),
+        q_cov, r_cov, wheel_base, dt, sigma_heading, use_heading, plain=plain,
+    )
+    n_meas = torch.clamp(torch.stack([mask_a.sum(), mask_b.sum()]).to(fp.x.dtype), min=1.0)
+    return state._replace(x=fp.x, p=fp.p), fp.pose_trace, fp.nis / n_meas, fp.pose_mid
 
 
 def fused_frame_update(state: EKFState, bmat, vtf, obs: CompactObs, slots, mask,

@@ -26,6 +26,10 @@ where P' = P + U K4 U^T, U = [P e2, e0, e1, e2], is the frame-start
 covariance after the S predict + heading sub-steps (the fastframe closed
 form).
 
+The frame pair (``frame_step_pair``, the reference's T8) runs H2 -> H1 ->
+H3 twice, frame B against strips rebuilt from frame A's (G, M), and one H4
+pass at r = 2 (MP + 8) for both frames.
+
 The gated frame (``frame_update_obs``, the reference's ``_fullframe_kernel``)
 gets its factors P' = P + vtf^T B vtf from H5 (ops.factor_kernel) and runs
 
@@ -67,6 +71,8 @@ from conan_slam_tpu_torch.ops.rank_update import (
     rank_update_t,
     rank_update_t2_reference,
     rank_update_t_reference,
+    rank_update_vbt,
+    rank_update_vbt_reference,
 )
 from conan_slam_tpu_torch.ops.spd_inverse import (
     spd_inverse_reference,
@@ -160,15 +166,19 @@ def _pack_meas(zr, zb, mask, r_cov, nzl):
     return zin.contiguous(), rsc.contiguous(), nblk
 
 
-def _pack_ctrl(vns, swans, phis, actives, q_cov):
-    """``subs`` (4, S) rows [vn, swan, phi_meas, active] and ``qc`` (3,) the
-    closed-form Cholesky entries [l00, l10, l11] of the control noise."""
+def _pack_subs(vns, swans, phis, actives):
+    """``subs`` (4, S) rows [vn, swan, phi_meas, active]."""
     dtype = vns.dtype
-    subs = torch.stack([vns, swans.to(dtype), phis.to(dtype), actives.to(dtype)])
+    return torch.stack([vns, swans.to(dtype), phis.to(dtype), actives.to(dtype)]).contiguous()
+
+
+def _pack_ctrl(vns, swans, phis, actives, q_cov):
+    """``subs`` (4, S) (``_pack_subs``) and ``qc`` (3,) the closed-form
+    Cholesky entries [l00, l10, l11] of the control noise."""
     l00 = torch.sqrt(q_cov[0, 0])
     l10 = q_cov[1, 0] / l00
     l11 = torch.sqrt(torch.clamp(q_cov[1, 1] - l10 * l10, min=0.0))
-    return subs.contiguous(), torch.stack([l00, l10, l11]).to(dtype)
+    return _pack_subs(vns, swans, phis, actives), torch.stack([l00, l10, l11]).to(vns.dtype)
 
 
 # ------------------------------------------------- H2: the frame chain
@@ -428,20 +438,81 @@ def frame_step(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask,
     nis)``; P is not modified in place.
     """
     fi = frame_inputs(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask, r_cov)
-    chain_args = (fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp,
-                  wheel_base, dt, sigma_heading, use_heading)
-    if plain:
-        ch = _frame_chain_reference(*chain_args)
-        si = sweep_si_reference(ch.s, fi.nblk)
-        pht, xn, nis = _frame_panels_reference(ch.rowc, ch.ms, si, fi.prows, x)
-    else:
-        ch = frame_chain(*chain_args)
-        si = sweep_si(ch.s, fi.nblk)
-        pht, xn, nis = frame_panels(ch.rowc, ch.ms, si, fi.prows, x)
+    ch, si, pht, xn, nis = _frame_measure(fi, x, (wheel_base, dt, sigma_heading, use_heading),
+                                          plain)
     gmat, mmid = _frame_gm(pht, si, ch.k4[:4, :4], fi.prows[2:3], fi.mp)
     update = rank_update_t_reference if plain else rank_update_t
     p_out = update(p, gmat, mmid)
     return FrameStep(p=p_out, x=xn, pose_trace=ch.pt, nis=nis[0])
+
+
+def _frame_measure(fi: FrameInputs, x, tail, plain: bool):
+    """H2 -> H1 -> H3 of one frame against its gathered strips
+    ``fi.prows``/``fi.prc`` and the frame-start mean ``x``: ``(ChainOut,
+    S^-1, pht, xn, nis)``.  ``tail`` is (wheel_base, dt, sigma_heading,
+    use_heading)."""
+    chain_args = (fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp, *tail)
+    if plain:
+        ch = _frame_chain_reference(*chain_args)
+        si = sweep_si_reference(ch.s, fi.nblk)
+        return ch, si, *_frame_panels_reference(ch.rowc, ch.ms, si, fi.prows, x)
+    ch = frame_chain(*chain_args)
+    si = sweep_si(ch.s, fi.nblk)
+    return ch, si, *frame_panels(ch.rowc, ch.ms, si, fi.prows, x)
+
+
+# ------------------------------------------------------- the frame pair
+
+
+class FramePair(NamedTuple):
+    p: torch.Tensor           # (D, D)    covariance after both frames
+    x: torch.Tensor           # (D,)      mean after both frames
+    pose_trace: torch.Tensor  # (2, S, 3) each frame's exact pose trace
+    nis: torch.Tensor         # (2,)      each frame's stacked NIS
+    pose_mid: torch.Tensor    # (3,)      frame A's post-update pose
+
+
+def frame_step_pair(p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b,
+                    q_cov, r_cov, wheel_base, dt, sigma_heading, use_heading: bool,
+                    *, plain: bool = False) -> FramePair:
+    """Two consecutive known-association frames with one P pass (port of
+    the reference's ``frame_step_pair``).
+
+    Each frame's chain needs only its gathered rows of P, and frame A's
+    whole covariance update is G_A^T M_A G_A (``_frame_gm``), so frame B's
+    strips relative to P_A = P + G_A^T M_A G_A come from small data:
+
+        P_A[rows_B] = P[rows_B] + G_A[:, rows_B]^T (M_A G_A)
+
+    Frame A runs H2 -> H1 -> H3 against P, frame B against those strips
+    from frame A's updated mean, and one H4 pass applies both updates:
+    P + [G_A; G_B]^T [M_A G_A; M_B G_B] at r = 2 (MP + 8).  The algebra is
+    that of two ``frame_step`` calls; fp32 rounding differs through the
+    rebuilt strips' products.  ``rows_b`` must index the same association
+    table as ``rows_a`` (no augmentation between the frames).
+
+    ``ctrl_*`` = (vns, swans, phis, actives), ``meas_*`` = (zr, zb, mask),
+    the other arguments as ``frame_step``'s; ``plain=True`` runs the same
+    pair algebra through the plain versions.  P is not modified in place.
+    """
+    tail = (wheel_base, dt, sigma_heading, use_heading)
+    fa = frame_inputs(p, x, rows_a, *ctrl_a, q_cov, *meas_a, r_cov)
+    ch_a, si_a, pht_a, xn_a, nis_a = _frame_measure(fa, x, tail, plain)
+    g_a, m_a = _frame_gm(pht_a, si_a, ch_a.k4[:4, :4], fa.prows[2:3], fa.mp)
+    y_a = m_a @ g_a                                          # (MP + 8, D)
+
+    rows_bf = F.pad(rows_b, (0, fa.rp - rows_b.shape[0]))
+    prows_b = p[rows_bf] + g_a[:, rows_bf].T @ y_a
+    zin_b, _, nblk_b = _pack_meas(*meas_b, r_cov, fa.mp // 2)
+    fb = fa._replace(zin=zin_b, nblk=nblk_b, subs=_pack_subs(*ctrl_b), prows=prows_b,
+                     prc=prows_b[:, rows_bf].contiguous(), x0rows=xn_a[rows_bf])
+    ch_b, si_b, pht_b, xn_b, nis_b = _frame_measure(fb, xn_a, tail, plain)
+    g_b, m_b = _frame_gm(pht_b, si_b, ch_b.k4[:4, :4], prows_b[2:3], fa.mp)
+
+    update = rank_update_vbt_reference if plain else rank_update_vbt
+    p_out = update(p, torch.cat([g_a, g_b]), torch.cat([y_a, m_b @ g_b]))
+    return FramePair(p=p_out, x=xn_b, pose_trace=torch.stack([ch_a.pt, ch_b.pt]),
+                     nis=torch.cat([nis_a, nis_b]), pose_mid=xn_a[:3])
 
 
 # ------------------------------------------ the gated frame: H7 and H8

@@ -6,7 +6,8 @@ streams k-chunks of the two (r, D) row strips through shared memory.  It
 writes out of place: the frame's G holds a row of P (``_frame_gm``), so an
 in-place pass would read a strip that it is overwriting.  The small
 M G = (r, r) x (r, D) product stays ``torch.matmul``, as the reference
-computed it outside its kernel.
+computed it outside its kernel; ``rank_update_vbt`` takes it from a caller
+that has it already (the frame pair).
 """
 
 from __future__ import annotations
@@ -29,6 +30,12 @@ def rank_update_t_reference(p: torch.Tensor, vt: torch.Tensor,
     return p + vt.T @ (b @ vt)
 
 
+def rank_update_vbt_reference(p: torch.Tensor, vt: torch.Tensor,
+                              vbt: torch.Tensor) -> torch.Tensor:
+    """Plain version of H4 with VBt = B Vt given: P + Vt^T VBt."""
+    return p + vt.T @ vbt
+
+
 def rank_update_t2_reference(p, vt1, vbt1, vt2, vbt2):
     """P + vt1^T vbt1 + vt2^T vbt2 (row strips (r_i, D))."""
     return p + vt1.T @ vbt1 + vt2.T @ vbt2
@@ -39,12 +46,21 @@ def rank_update_t(p: torch.Tensor, vt: torch.Tensor, b: torch.Tensor) -> torch.T
     CUDA tensors (a new output; P is not modified)."""
     if cuda.on_cpu(p, vt, b):
         return rank_update_t_reference(p, vt, b)
+    r = vt.shape[0]
+    cuda.check(b, "b", (r, r))
+    return rank_update_vbt(p, vt, torch.matmul(b, vt))
+
+
+def rank_update_vbt(p: torch.Tensor, vt: torch.Tensor, vbt: torch.Tensor) -> torch.Tensor:
+    """P + Vt^T VBt for a caller that already holds VBt = B Vt (r, D): the
+    plain version for CPU tensors, kernel H4 for CUDA tensors."""
+    if cuda.on_cpu(p, vt, vbt):
+        return rank_update_vbt_reference(p, vt, vbt)
     d = p.shape[0]
     r = vt.shape[0]
     cuda.check(p, "p", (d, d))
     cuda.check(vt, "vt", (r, d))
-    cuda.check(b, "b", (r, r))
-    vbt = torch.matmul(b, vt)
+    cuda.check(vbt, "vbt", (r, d))
     out = torch.empty_like(p)
     RANK_UPDATE(p.device, cuda.ptr(p), cuda.ptr(vt), cuda.ptr(vbt), cuda.ptr(out), d, r)
     return out

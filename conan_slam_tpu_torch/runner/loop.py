@@ -1,6 +1,8 @@
 """The precomputed-rollout EKF driver (port of
 conan_slam_tpu.runner.loop.run_ekf_slam_precomputed: known or gated
-association, with or without map augmentation).
+association, with or without map augmentation, one frame or a frame pair
+per P pass; and of run_ekf_slam_precomputed_chunked, the same run in
+chunks with checkpoints to resume from).
 
 The truth trajectory and the visibility schedule are rolled out once on the
 host (sim.precompute, numpy); the device loop holds filter work only.  The reference scans the frames with ``lax.scan``; here it is a
@@ -11,17 +13,22 @@ while the card works.
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from conan_slam_tpu_torch.config import SlamConfig
+from conan_slam_tpu_torch.device import default_device
 from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.ekf import (
     associate_gated,
     associate_known,
     augment,
+    fused_frame_pair_step,
     fused_frame_step,
     fused_frame_update,
 )
@@ -30,6 +37,7 @@ from conan_slam_tpu_torch.filters.ekf.state import init_state as empty_state
 from conan_slam_tpu_torch.ops.factor_kernel import frame_factors_fused
 from conan_slam_tpu_torch.sim.precompute import rollout_observations, rollout_truth
 from conan_slam_tpu_torch.sim.world import World
+from conan_slam_tpu_torch.utils import checkpoint
 
 
 class NoiseCovs(NamedTuple):
@@ -43,6 +51,8 @@ class NoiseCovs(NamedTuple):
 
 
 def make_noise(cfg: SlamConfig, estimator: str = "ekf", device=None) -> NoiseCovs:
+    """The covariances on ``device`` (default: the card)."""
+    device = default_device() if device is None else device
     q = torch.diag(torch.tensor([cfg.sigma_v**2, cfg.sigma_swa**2], dtype=torch.float32, device=device))
     r = torch.diag(torch.tensor([cfg.sigma_r**2, cfg.sigma_b**2], dtype=torch.float32, device=device))
     if cfg.switch_inflate_noise:
@@ -60,6 +70,25 @@ class SimOutputs(NamedTuple):
     consistency: torch.Tensor  # (T,) float32
 
 
+def _noisy_controls(cfg: SlamConfig, swa, ctrl_noise):
+    """The measured speed and steering angle of each sub-step (any leading
+    shape): truth plus the scaled draws where ``cfg.switch_control_noise``."""
+    if not cfg.switch_control_noise:
+        return torch.full_like(swa, cfg.velocity), swa
+    return (cfg.velocity + ctrl_noise[..., 0] * cfg.sigma_v,
+            swa + ctrl_noise[..., 1] * cfg.sigma_swa)
+
+
+def _noisy_obs(cfg: SlamConfig, z_true, ids, zmask, obs_noise) -> CompactObs:
+    """The measurement buffer (any leading shape): truth plus the scaled
+    draws where ``cfg.switch_sensor_noise``, zero in empty slots."""
+    z = z_true
+    if cfg.switch_sensor_noise:
+        scale = torch.tensor([cfg.sigma_r, cfg.sigma_b], dtype=z.dtype, device=z.device)
+        z = z + obs_noise * scale
+    return CompactObs(z=torch.where(zmask[..., None], z, 0.0), ids=ids, mask=zmask)
+
+
 def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
                            noise: NoiseCovs, plain: bool = False):
     """One observation frame against the host-precomputed rollout.
@@ -71,18 +100,8 @@ def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
     """
     (x_true_f, swa_f, active_f, done_f, ctrl_noise_f,
      z_true_f, ids_f, zmask_f, obs_noise_f) = frame
-
-    if cfg.switch_control_noise:
-        vns = cfg.velocity + ctrl_noise_f[:, 0] * cfg.sigma_v
-        swans = swa_f + ctrl_noise_f[:, 1] * cfg.sigma_swa
-    else:
-        vns = torch.full_like(swa_f, cfg.velocity)
-        swans = swa_f
-    z = z_true_f
-    if cfg.switch_sensor_noise:
-        scale = torch.tensor([cfg.sigma_r, cfg.sigma_b], dtype=z.dtype, device=z.device)
-        z = z + obs_noise_f * scale
-    obs = CompactObs(z=torch.where(zmask_f[:, None], z, 0.0), ids=ids_f, mask=zmask_f)
+    vns, swans = _noisy_controls(cfg, swa_f, ctrl_noise_f)
+    obs = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
 
     live = torch.logical_not(done_f[-1])
     if cfg.switch_association_known:
@@ -110,6 +129,36 @@ def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
         state = augment(state, obs, assoc.new_mask & live, noise.re)
     x_est = torch.cat([pose_trace[:-1], state.x[None, :3]])
     return state, x_est, frame_nis
+
+
+def ekf_precomp_pair_step(state: EKFState, pair, *, cfg: SlamConfig,
+                          noise: NoiseCovs, plain: bool = False):
+    """Two consecutive frames with one P pass (filters.ekf.
+    fused_frame_pair_step): the math of two ``ekf_precomp_frame_step``
+    calls, for known association without augmentation, so both frames
+    associate against the same table.
+
+    ``pair`` holds the fields of ``ekf_precomp_frame_step``'s ``frame``
+    with a leading 2.  Returns ``(state, x_est (2, S, 3), frame_nis (2,))``:
+    frame A's pose trace ends in its post-update pose, frame B's in the
+    final one.
+    """
+    (x_true_f, swa_f, active_f, done_f, ctrl_noise_f,
+     z_true_f, ids_f, zmask_f, obs_noise_f) = pair
+    vns2, swans2 = _noisy_controls(cfg, swa_f, ctrl_noise_f)
+    obs2 = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
+    obs_a, obs_b = (CompactObs(*(t[k] for t in obs2)) for k in (0, 1))
+    assoc_a, assoc_b = associate_known(state, obs_a), associate_known(state, obs_b)
+    live = torch.logical_not(done_f[:, -1])
+    state, pose_trace, frame_nis, pose_mid = fused_frame_pair_step(
+        state, vns2, swans2, x_true_f[:, :, 2], active_f, noise.qe,
+        obs_a, assoc_a.slots, assoc_a.known_mask & live[0],
+        obs_b, assoc_b.slots, assoc_b.known_mask & live[1], noise.re,
+        cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, cfg.switch_heading_known,
+        plain=plain,
+    )
+    ends = torch.stack([pose_mid, state.x[:3]])[:, None]
+    return state, torch.cat([pose_trace[:, :-1], ends], dim=1), frame_nis
 
 
 def precompute_rollout(world: World, cfg: SlamConfig, n_steps: int, device=None):
@@ -156,10 +205,11 @@ def run_ekf_slam_precomputed(
     world's device.  ``plain=True`` runs every kernel's plain PyTorch
     version.  Returns ``(final EKFState, SimOutputs)``.
 
-    The frame-pair schedule is not ported: it raises ``NotImplementedError``.
+    With ``cfg.frame_pair`` the frames run in pairs, one P pass each
+    (``ekf_precomp_pair_step``), where the reference pairs them: known
+    association, no augmentation, the fast fused batch frame and an even
+    number of frames; elsewhere one frame at a time, as the reference does.
     """
-    if cfg.frame_pair:
-        raise NotImplementedError("the frame-pair schedule is not ported: set frame_pair=False")
     device = world.landmarks.device
     interval = cfg.observe_interval
     n_steps = ((n_steps + interval - 1) // interval) * interval
@@ -184,14 +234,152 @@ def run_ekf_slam_precomputed(
     x_est = torch.empty((n_frames, interval, 3), dtype=torch.float32, device=device)
     consistency = torch.zeros((n_frames, interval), dtype=torch.float32, device=device)
     n_active = torch.empty((n_frames, interval), dtype=torch.int64, device=device)
-    for f in range(n_frames):
-        state, x_est[f], consistency[f, -1] = ekf_precomp_frame_step(
-            state, tuple(a[f] for a in frames), cfg=cfg, noise=noise, plain=plain,
-        )
-        n_active[f] = state.n_active
+    use_pair = (cfg.frame_pair and cfg.switch_association_known and not cfg.enable_augment
+                and cfg.fast_frame and cfg.fused_obs and cfg.switch_batch_update
+                and n_frames % 2 == 0)
+    if use_pair:
+        for f in range(0, n_frames, 2):
+            state, x_est[f:f + 2], consistency[f:f + 2, -1] = ekf_precomp_pair_step(
+                state, tuple(a[f:f + 2] for a in frames), cfg=cfg, noise=noise, plain=plain,
+            )
+            n_active[f:f + 2] = state.n_active
+    else:
+        for f in range(n_frames):
+            state, x_est[f], consistency[f, -1] = ekf_precomp_frame_step(
+                state, tuple(a[f] for a in frames), cfg=cfg, noise=noise, plain=plain,
+            )
+            n_active[f] = state.n_active
     outs = SimOutputs(
         x_true=x_true, x_est=x_est.reshape(n_steps, 3), done=done,
         n_active=n_active.reshape(n_steps), consistency=consistency.reshape(n_steps),
     )
     return state, outs
 
+
+
+def _chunk_seed(seed: int, chunk: int) -> int:
+    """The generator seed of chunk ``chunk`` of a chunked run from ``seed``:
+    fixed by the two numbers alone (numpy's SeedSequence), as the
+    reference's ``fold_in(key, c)``."""
+    return int(np.random.SeedSequence([seed, chunk]).generate_state(1, np.uint64)[0])
+
+
+def _run_id(seed: int, cfg: SlamConfig, n_steps: int, world: World, tensors) -> str:
+    """What a checkpointed chunk must match to be resumed from: the seed, the
+    config, the horizon, the world, and the initial state and noise tensors
+    where the caller gives them."""
+    ident = hashlib.sha256()
+    ident.update(str(seed).encode())
+    ident.update(repr(cfg).encode())
+    ident.update(str(n_steps).encode())
+    for t in (world.landmarks, world.waypoints, *tensors):
+        ident.update(t.detach().cpu().numpy().tobytes())
+    return ident.hexdigest()[:16]
+
+
+def _outs_like(n_steps: int, device) -> SimOutputs:
+    """A ``SimOutputs`` of ``n_steps`` steps, as a checkpoint template."""
+    f32 = torch.float32
+    return SimOutputs(
+        x_true=torch.zeros((n_steps, 3), dtype=f32, device=device),
+        x_est=torch.zeros((n_steps, 3), dtype=f32, device=device),
+        done=torch.zeros((n_steps,), dtype=torch.bool, device=device),
+        n_active=torch.zeros((n_steps,), dtype=torch.int64, device=device),
+        consistency=torch.zeros((n_steps,), dtype=f32, device=device),
+    )
+
+
+def run_ekf_slam_precomputed_chunked(
+    world: World,
+    cfg: SlamConfig,
+    seed: int,
+    n_steps: int,
+    chunk_steps: int,
+    init_state: EKFState | None = None,
+    precomputed=None,
+    checkpoint_dir: str | None = None,
+    *,
+    ctrl_noise: torch.Tensor | None = None,
+    obs_noise: torch.Tensor | None = None,
+    plain: bool = False,
+):
+    """``run_ekf_slam_precomputed`` over the horizon in chunks of
+    ``chunk_steps`` (rounded up to whole frames, a ragged tail allowed),
+    the state carried from one chunk to the next; each chunk pairs its
+    frames under ``cfg.frame_pair`` where its frame count is even.
+
+    Chunk c draws its noise from a generator on the world's device seeded
+    with ``_chunk_seed(seed, c)``, so the realisation differs from the
+    one-shot run's as another seed's does.  Whole-horizon ``ctrl_noise``
+    (n_frames, S, 2) and ``obs_noise`` (n_frames, NZ, 2), where given, are
+    sliced per chunk instead (a parity test feeds the reference's draws).
+
+    With ``checkpoint_dir``, each finished chunk saves its outputs and the
+    carried state (utils.checkpoint) as ``chunk_{c:05d}.pt``, then a
+    ``chunk_{c:05d}.meta.json`` with its bounds and the run id; a rerun
+    resumes after the longest prefix of chunks whose metas match its own
+    bounds and run id (``_run_id``), so a killed and resumed run is
+    bit-identical to an uninterrupted one.  A meta without a run id is a
+    mismatch.  Returns ``(final EKFState, SimOutputs)`` over the horizon.
+    """
+    device = world.landmarks.device
+    interval = cfg.observe_interval
+    chunk_steps = ((chunk_steps + interval - 1) // interval) * interval
+    n_steps = ((n_steps + interval - 1) // interval) * interval
+    if precomputed is None:
+        precomputed = precompute_rollout(world, cfg, n_steps, device)
+    truth, obs = precomputed
+    if truth[0].shape[0] < n_steps:
+        raise ValueError(
+            f"precomputed truth rollout covers {truth[0].shape[0]} steps but "
+            f"n_steps={n_steps} (rounded to whole frames) was requested")
+    if obs[0].shape[0] < n_steps // interval:
+        raise ValueError(
+            f"precomputed observation rollout covers {obs[0].shape[0]} frames but "
+            f"{n_steps // interval} are needed for n_steps={n_steps}")
+    state = (init_state if init_state is not None
+             else empty_state(cfg.max_landmarks, world.num_landmarks, device=device))
+    bounds = [(s0, min(s0 + chunk_steps, n_steps)) for s0 in range(0, n_steps, chunk_steps)]
+
+    outs_list: list[SimOutputs] = []
+    start = 0
+    if checkpoint_dir is not None:
+        given = [t for t in (*(init_state or ()), ctrl_noise, obs_noise) if t is not None]
+        run_id = _run_id(seed, cfg, n_steps, world, given)
+
+        def path(c: int, ext: str) -> str:
+            return os.path.join(checkpoint_dir, f"chunk_{c:05d}.{ext}")
+
+        while start < len(bounds) and os.path.exists(path(start, "meta.json")):
+            with open(path(start, "meta.json")) as f:
+                meta = json.load(f)
+            s0, s1 = bounds[start]
+            if meta.get("s0") != s0 or meta.get("s1") != s1 or meta.get("run_id") != run_id:
+                break
+            start += 1
+        for c in range(start):
+            s0, s1 = bounds[c]
+            restored = checkpoint.restore(path(c, "pt"),
+                                          {"state": state, "outs": _outs_like(s1 - s0, device)})
+            outs_list.append(restored["outs"])
+        if start:
+            state = restored["state"]
+    for c in range(start, len(bounds)):
+        s0, s1 = bounds[c]
+        f0, f1 = s0 // interval, s1 // interval
+        part = (tuple(a[s0:s1] for a in truth), tuple(a[f0:f1] for a in obs))
+        gen = torch.Generator(device=device).manual_seed(_chunk_seed(seed, c))
+        state, outs = run_ekf_slam_precomputed(
+            world, cfg, gen, s1 - s0, state, part,
+            ctrl_noise=None if ctrl_noise is None else ctrl_noise[f0:f1],
+            obs_noise=None if obs_noise is None else obs_noise[f0:f1], plain=plain,
+        )
+        outs_list.append(outs)
+        if checkpoint_dir is not None:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            checkpoint.save(path(c, "pt"), {"state": state, "outs": outs})
+            meta = {"s0": s0, "s1": s1, "chunk_steps": chunk_steps, "run_id": run_id}
+            with open(path(c, "meta.json.tmp"), "w") as f:
+                json.dump(meta, f)
+            os.replace(path(c, "meta.json.tmp"), path(c, "meta.json"))
+    return state, SimOutputs(*(torch.cat(fields) for fields in zip(*outs_list)))

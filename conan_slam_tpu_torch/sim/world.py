@@ -9,6 +9,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from conan_slam_tpu_torch.device import default_device
+
 
 class World(NamedTuple):
     landmarks: torch.Tensor  # (num_landmarks, 2) float32
@@ -50,7 +52,9 @@ _WP_Y = [0.0, -2038.216560509556, 1707.0063694267501, 1987.261146496814, 1464.96
 
 
 def world_from_numpy(landmarks, waypoints, device=None) -> World:
-    """A world from (N, 2) numpy arrays, as float32 tensors on ``device``."""
+    """A world from (N, 2) numpy arrays, as float32 tensors on ``device``
+    (default: the card)."""
+    device = default_device() if device is None else device
     return World(
         landmarks=torch.tensor(np.asarray(landmarks, np.float32), device=device),
         waypoints=torch.tensor(np.asarray(waypoints, np.float32), device=device),
@@ -58,7 +62,8 @@ def world_from_numpy(landmarks, waypoints, device=None) -> World:
 
 
 def default_world(device=None) -> World:
-    """The reference's 30-landmark, 5-waypoint valet loop."""
+    """The reference's 30-landmark, 5-waypoint valet loop, on ``device``
+    (default: the card)."""
     return world_from_numpy(
         np.stack([_LM_X, _LM_Y], axis=1), np.stack([_WP_X, _WP_Y], axis=1), device
     )
@@ -71,7 +76,8 @@ _CONFIG2_LANDMARKS = Path(__file__).resolve().parent / "data" / "random_world_ke
 
 def config2_world(device=None) -> World:
     """BASELINE config 2 (benchmarks/bench_gated.py): 500 random landmarks
-    over a 10 km square, driven along the default valet waypoints."""
+    over a 10 km square, driven along the default valet waypoints, on
+    ``device`` (default: the card)."""
     return world_from_numpy(
         np.load(_CONFIG2_LANDMARKS), np.stack([_WP_X, _WP_Y], axis=1), device
     )

@@ -243,3 +243,98 @@ def test_gated_run_matches_plain(dev):
     # The same association over 100 frames: trajectories agree to the
     # ulp-level drift of ~5 km positions (slice 1's bound).
     torch.testing.assert_close(ok.x_est, op.x_est, rtol=0, atol=2e-2)
+
+
+def _pair_args(dev, d, seed=83, nz=10):
+    """A frame-start state at D = d and two frames at the sensors' noise
+    scale (speed about a standstill, heading at sigma_heading), frame B
+    measured from frame A's updated mean, as frame_step_pair takes them."""
+    rng = np.random.default_rng(seed)
+    cap = (d - 3) // 2
+    lm = rng.uniform(-50, 50, size=(cap, 2)).astype(np.float32)
+    st = init_state_with_map(torch.as_tensor(lm), sigma0=0.5,
+                             pad_multiple=128 if d % 128 == 0 else 0)
+    a = torch.as_tensor(rng.normal(size=(d, 8)).astype(np.float32) * 0.05)
+    p, x = (st.p + a @ a.T).to(dev), st.x.to(dev)
+    tail = (73.0, 0.01, 0.01 * np.pi / 180, True)
+    q = torch.diag(torch.tensor([0.3**2, (np.pi / 180) ** 2], device=dev))
+    r = torch.diag(torch.tensor([0.1**2, 0.5 * np.pi / 180], device=dev))
+
+    def frame(xs):
+        ids = rng.choice(cap, size=nz, replace=False)
+        fx, fy = xs[3 + 2 * ids] - xs[0], xs[4 + 2 * ids] - xs[1]
+        mask = np.ones(nz, bool)
+        mask[rng.integers(nz)] = False
+        t = lambda v: torch.as_tensor(np.asarray(v)).to(dev)  # noqa: E731
+        f32 = np.float32
+        rows = np.concatenate([np.arange(3), (3 + 2 * ids[:, None] + np.arange(2)).reshape(-1)])
+        ctrl = (t((rng.normal(size=6) * 0.3).astype(f32)),
+                t((rng.normal(size=6) * 0.02).astype(f32)),
+                t((xs[2] + rng.normal(size=6) * tail[2]).astype(f32)),
+                t(np.array([1, 1, 1, 1, 1, 0], bool)))
+        meas = (t((np.hypot(fx, fy) + rng.normal(size=nz) * 0.1).astype(f32)),
+                t((np.arctan2(fy, fx) - xs[2] + rng.normal(size=nz) * 0.01).astype(f32)), t(mask))
+        return t(rows), ctrl, meas
+
+    rows_a, ctrl_a, meas_a = frame(x.cpu().numpy())
+    fa = fk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail, plain=True)
+    rows_b, ctrl_b, meas_b = frame(fa.x.cpu().numpy())
+    return (p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *tail)
+
+
+@pytest.mark.parametrize("d", [256, 203])
+def test_frame_pair_kernels_match_plain_versions(dev, d):
+    args = _pair_args(dev, d)
+    cuda.reset_launch_counts()
+    got = fk.frame_step_pair(*args)
+    ref = fk.frame_step_pair(*args, plain=True)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "sweep_inverse": 2, "frame_chain": 2,
+                      "frame_panels": 2, "rank_update": 1}
+    # Frame A as the frame test; frame B reads strips rebuilt from frame
+    # A's results, so it carries A's fp32 differences (the reference's
+    # pair-test tolerances, tests/test_pallas_ops.py:552-569).
+    torch.testing.assert_close(got.pose_trace[0], ref.pose_trace[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.pose_trace[1], ref.pose_trace[1], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.pose_mid, ref.pose_mid, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=2e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+
+
+def test_chunked_resume_is_bit_identical_on_the_card(dev, tmp_path, monkeypatch):
+    # The 30-landmark world in frame pairs, chunks of 420 steps: a run
+    # killed inside its third chunk and resumed from its checkpoints equals
+    # an uninterrupted run bit for bit.
+    from conan_slam_tpu_torch.runner import loop
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    world = default_world(device=dev)
+    cfg = SlamConfig(max_landmarks=30, max_obs=16, enable_augment=False, frame_pair=True)
+    state0 = init_state_with_map(world.landmarks)
+    roll = loop.precompute_rollout(world, cfg, 1200)
+    ref = loop.run_ekf_slam_precomputed_chunked(world, cfg, 3, 1200, 420, state0, roll)
+    driver, runs = loop.run_ekf_slam_precomputed, []
+
+    def killed_in_chunk_2(*args, **kwargs):
+        runs.append(args[3])
+        if len(runs) == 3:
+            raise KeyboardInterrupt
+        return driver(*args, **kwargs)
+
+    ckpt = str(tmp_path / "run")
+    monkeypatch.setattr(loop, "run_ekf_slam_precomputed", killed_in_chunk_2)
+    with pytest.raises(KeyboardInterrupt):
+        loop.run_ekf_slam_precomputed_chunked(world, cfg, 3, 1200, 420, state0, roll, ckpt)
+    monkeypatch.setattr(loop, "run_ekf_slam_precomputed", driver)
+    got = loop.run_ekf_slam_precomputed_chunked(world, cfg, 3, 1200, 420, state0, roll, ckpt)
+    for a, b in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+def test_constructors_default_to_the_card(dev):
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    world = default_world()
+    assert world.landmarks.is_cuda and init_state_with_map(world.landmarks).p.is_cuda

@@ -42,7 +42,7 @@ def _problem(seed, cap=12, n_act=9, s_steps=6):
 
 def _both(x, p, ctrl, q, active, sigma_h, use_heading, fn):
     jstate = jekf.init_state(12, 40)._replace(x=jnp.asarray(x), p=jnp.asarray(p))
-    tstate = state_from_numpy(x, p, 9, np.full(40, -1))
+    tstate = state_from_numpy(x, p, 9, np.full(40, -1), device="cpu")
     jargs = [jnp.asarray(ctrl[k]) for k in ("vns", "swans", "phis")]
     targs = [torch.as_tensor(ctrl[k]) for k in ("vns", "swans", "phis")]
     ref = getattr(jff, fn)(jstate, *jargs, jnp.asarray(active), jnp.asarray(q),

@@ -73,7 +73,7 @@ def _pair(x, p, n_active, table):
     """The same state in both packages."""
     jstate = jekf.EKFState(x=_j(x), p=_j(p), n_active=jnp.int32(n_active),
                            table=jnp.asarray(np.asarray(table, np.int32)))
-    return jstate, state_from_numpy(x, p, n_active, table)
+    return jstate, state_from_numpy(x, p, n_active, table, device="cpu")
 
 
 def _obs_pair(z, ids, mask):
@@ -324,7 +324,7 @@ def test_augment_matches_reference(case):
 def _run_both(kw, n_steps, seed):
     cfg, jcfg = SlamConfig(**kw), JSlamConfig(**kw)
     jworld = j_default_world()
-    world = default_world()
+    world = default_world(device="cpu")
     roll = precompute_rollout(world, cfg, n_steps)
     jroll = tuple(tuple(jnp.asarray(a.numpy()) for a in part) for part in roll)
     key = jax.random.PRNGKey(seed)
@@ -375,6 +375,6 @@ def test_config2_world_matches_reference():
     assert lm.dtype == np.float32 and lm.shape == (500, 2)
     assert os.path.getsize(_CONFIG2_LANDMARKS) < 8192
     np.testing.assert_array_equal(lm, np.asarray(ref.landmarks))
-    world = config2_world()
+    world = config2_world(device="cpu")
     np.testing.assert_array_equal(world.landmarks.numpy(), lm)
     np.testing.assert_array_equal(world.waypoints.numpy(), np.asarray(j_default_world().waypoints))

@@ -1,5 +1,6 @@
 """Port parity for the whole slice: the precomputed-rollout EKF driver
-(full map, known association, augment off) against the JAX reference, on
+(full map, known association, augment off; one frame or a frame pair per P
+pass) against the JAX reference, on
 one shared truth rollout and fed the reference's own noise draws; and the
 port's independence from JAX and the JAX package.
 
@@ -54,16 +55,21 @@ def _jax_world(n_landmarks, seed):
     return JWorld(landmarks=jnp.asarray(lm), waypoints=jnp.asarray(wp))
 
 
-@pytest.mark.parametrize("n_landmarks,n_steps,seed,dim", [
-    (None, 600, 3, 63),     # the reference's 30-landmark valet world, D unpadded
-    (200, 300, 5, 512),     # 200 landmarks: D = 403 padded to 512 (pad_multiple=256)
+@pytest.mark.parametrize("n_landmarks,n_steps,seed,dim,frame_pair", [
+    (None, 600, 3, 63, False),    # the reference's 30-landmark valet world, D unpadded
+    (200, 300, 5, 512, False),    # 200 landmarks: D = 403 padded to 512 (pad_multiple=256)
+    # The frame pair (one P pass per two frames) against the reference's
+    # driver with frame_pair=True, which pairs nothing on the CPU: the
+    # pair's algebra is that of two frames.
+    (None, 1200, 3, 63, True),
+    (200, 300, 5, 512, True),
 ])
-def test_slice_matches_reference(n_landmarks, n_steps, seed, dim):
+def test_slice_matches_reference(n_landmarks, n_steps, seed, dim, frame_pair):
     jworld = _jax_world(n_landmarks, seed)
     n_lm = jworld.num_landmarks
-    kw = dict(max_landmarks=n_lm, max_obs=16, enable_augment=False)
+    kw = dict(max_landmarks=n_lm, max_obs=16, enable_augment=False, frame_pair=frame_pair)
     cfg, jcfg = SlamConfig(**kw), JSlamConfig(**kw)
-    world = world_from_numpy(np.asarray(jworld.landmarks), np.asarray(jworld.waypoints))
+    world = world_from_numpy(np.asarray(jworld.landmarks), np.asarray(jworld.waypoints), "cpu")
     # Both packages run the port's numpy rollout (the reference would take
     # its native C++ one, equal to a few ulps; see the rollout test below).
     roll = precompute_rollout(world, cfg, n_steps)
@@ -106,11 +112,11 @@ def test_state_carries_across_from_the_reference():
 
     lm = np.random.default_rng(9).uniform(-500, 500, size=(200, 2)).astype(np.float32)
     jstate = j_init_state_with_map(jnp.asarray(lm), sigma0=0.7)
-    state = init_state_with_map(torch.as_tensor(lm), sigma0=0.7)
+    state = init_state_with_map(torch.as_tensor(lm), sigma0=0.7, device="cpu")
     jarrays = [np.asarray(a) for a in jstate]
     for got, ref in zip(state_to_numpy(state), jarrays):
         np.testing.assert_array_equal(got, ref)
-    for got, ref in zip(state_to_numpy(state_from_numpy(*jarrays)), jarrays):
+    for got, ref in zip(state_to_numpy(state_from_numpy(*jarrays, device="cpu")), jarrays):
         assert got.dtype == ref.dtype
         np.testing.assert_array_equal(got, ref)
 
@@ -122,7 +128,7 @@ def test_rollout_matches_reference():
     jworld = _jax_world(200, 5)
     cfg = SlamConfig(max_landmarks=200, max_obs=16)
     jcfg = JSlamConfig(max_landmarks=200, max_obs=16)
-    world = world_from_numpy(np.asarray(jworld.landmarks), np.asarray(jworld.waypoints))
+    world = world_from_numpy(np.asarray(jworld.landmarks), np.asarray(jworld.waypoints), "cpu")
     (x_true, swa, active, done), (z, ids, mask) = precompute_rollout(world, cfg, 1200)
     wp, lm = np.asarray(jworld.waypoints), np.asarray(jworld.landmarks)
     for native in (False, True):
@@ -139,24 +145,12 @@ def test_rollout_matches_reference():
         np.testing.assert_allclose(z.numpy(), jo.z_true, rtol=0, atol=atol)
 
 
-def test_slice_refuses_what_it_does_not_port():
-    # The frame-pair schedule is not ported, with or without augmentation
-    # and in either association mode.
-    world = world_from_numpy(np.asarray(j_default_world().landmarks),
-                             np.asarray(j_default_world().waypoints))
-    for cfg in (SlamConfig(max_obs=16, frame_pair=True),
-                SlamConfig(max_obs=16, enable_augment=False, frame_pair=True),
-                SlamConfig(max_obs=16, switch_association_known=False, frame_pair=True)):
-        with pytest.raises(NotImplementedError):
-            run_ekf_slam_precomputed(world, cfg, None, 12)
-
-
 def test_port_runs_without_jax():
-    # Every module of the port imports, and a known-association frame and a
-    # few gated frames run on the CPU, in a process where importing jax or
-    # the JAX package fails.
+    # Every module of the port imports, and a known-association frame, a
+    # frame pair, a chunked run that checkpoints and a few gated frames run
+    # on the CPU, in a process where importing jax or the JAX package fails.
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, os, pkgutil, sys, tempfile
         sys.modules["jax"] = None
         sys.modules["conan_slam_tpu"] = None
         import torch
@@ -165,18 +159,24 @@ def test_port_runs_without_jax():
             importlib.import_module(m.name)
         from conan_slam_tpu_torch.config import SlamConfig
         from conan_slam_tpu_torch.filters.ekf import init_state_with_map
-        from conan_slam_tpu_torch.runner.loop import run_ekf_slam_precomputed
+        from conan_slam_tpu_torch.runner.loop import (
+            run_ekf_slam_precomputed, run_ekf_slam_precomputed_chunked)
         from conan_slam_tpu_torch.sim.world import default_world
-        world = default_world()
-        cfg = SlamConfig(max_landmarks=30, max_obs=16, enable_augment=False)
+        world = default_world(device="cpu")
+        state0 = init_state_with_map(world.landmarks)
         gen = torch.Generator().manual_seed(0)
-        state, outs = run_ekf_slam_precomputed(
-            world, cfg, gen, 6, init_state_with_map(world.landmarks))
-        assert torch.isfinite(state.p).all() and outs.x_est.shape == (6, 3)
+        for pair, n in ((False, 6), (True, 12)):
+            cfg = SlamConfig(max_landmarks=30, max_obs=16, enable_augment=False, frame_pair=pair)
+            state, outs = run_ekf_slam_precomputed(world, cfg, gen, n, state0)
+            assert torch.isfinite(state.p).all() and outs.x_est.shape == (n, 3)
+        with tempfile.TemporaryDirectory() as d:
+            state, outs = run_ekf_slam_precomputed_chunked(world, cfg, 0, 36, 24, state0,
+                                                           checkpoint_dir=d)
+            assert outs.x_est.shape == (36, 3) and len(os.listdir(d)) == 4
         # A few gated frames from an empty map, with augmentation, on the
         # 30-landmark world and on BASELINE config 2's committed world.
         from conan_slam_tpu_torch.sim.world import config2_world
-        for w, k, nz in ((world, 30, 16), (config2_world(), 500, 64)):
+        for w, k, nz in ((world, 30, 16), (config2_world(device="cpu"), 500, 64)):
             cfg = SlamConfig(max_landmarks=k, max_obs=nz, switch_association_known=False)
             state, outs = run_ekf_slam_precomputed(w, cfg, gen, 36)
             assert torch.isfinite(state.p).all() and int(state.n_active) > 0
