@@ -29,6 +29,13 @@ Phases:
      where there is one (torch.linalg.inv for H1, torch.addmm for H4), and
      each kernel's bound: the larger of its bytes over 3.35 TB/s and its
      operations over 67 TFLOP/s (fp32), from this run's shapes and data.
+     H4 is measured as its kernel entry rank_update_vbt(P, G, MG) against
+     torch.addmm(P, G^T, MG) on the same tensors (device time from the
+     profiler, and CUDA events), at the known, config 2 and pair shapes,
+     with the tile edge and grid it chose, its square (2 D^2 r) and
+     symmetric (D (D + 1) r) bounds, and three checks: two calls bit for
+     bit equal, an exactly symmetric output for symmetric P and M, and the
+     entry no slower than addmm.
   4. The main paths through runner.loop.run_ekf_slam_precomputed:
        a. the bench workload (1024 landmarks from seed 42 over a 13 km
           square, all pre-registered; 64-slot measurement buffer;
@@ -44,7 +51,8 @@ Phases:
           once per frame and H2, H3 never.  3,000 steps with the plain
           versions (the reference's gated gate: finite, mapped > 0,
           ATE < 1 m), against the kernels' first 3,000 steps.  600 steps
-          of a 10,000-landmark world with the kernels.
+          of a 10,000-landmark world with the kernels, after 60 untimed
+          steps.
        c. the bench workload in frame pairs (cfg.frame_pair): 19,200 steps =
           1,600 pairs with the kernels, timed in turns with the per-frame
           path (per-frame, pair, pair, per-frame); the ate gate, H2, H1 and
@@ -54,8 +62,8 @@ Phases:
           its third chunk and resumed must equal an uninterrupted run bit
           for bit; the seconds and bytes of one checkpoint.
      Then a torch.profiler trace of 100 frames of each path (100 pairs of
-     the pair path) gives each kernel's device time per frame and the
-     device's busy share.
+     the pair path, 20 frames of the 10k-landmark shape) gives each
+     kernel's device time per frame and the device's busy share.
   5. The kernel table and the card as JSON lines, then the last line
      {"ok": true, "device": {...}}.
 
@@ -86,6 +94,8 @@ GATED_PLAIN_STEPS = 3000
 PAIR_PLAIN_STEPS = 600  # the pair path's plain run (its kernels run all 19,200)
 BIG_LANDMARKS = 10_000  # the 10k-landmark shape: D = 20,224, K = 10,110
 BIG_STEPS = 600
+BIG_WARM_STEPS = 60     # untimed steps before the timed 10k run
+BIG_PROFILE_FRAMES = 20 # frames of the 10k shape traced with torch.profiler
 KNOWN_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
 GATED_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse", "obs_panels",
                  "rank_update")
@@ -154,6 +164,40 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int = 20, traces: int = 3) -> float:
+    """Mean device milliseconds per call, without the host's work, from
+    torch.profiler traces of ``iters`` calls (after two untraced ones):
+    the sum, over the kernels and copies a call launches (each once), of
+    their median durations.  A name seen fewer than iters / 2 times in a
+    trace is a stray of another trace.  The profiler can drop a trace's
+    device events, which only lowers its reading, so the largest of
+    ``traces`` traces is kept."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    best = 0.0
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        durations: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        best = max(best, sum(statistics.median(d) for d in durations.values()
+                             if len(d) >= iters / 2))
+    if best <= 0.0:
+        require(False, "device time", f"no profiler trace of {iters} calls held device events")
+    return best / 1e3
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -168,11 +212,66 @@ def bound(n_bytes: int, flops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes, flops=flops)
 
 
-def rank_update_work(p, vt, b) -> dict:
-    """H4's wrapper P + Vt^T (B Vt): the (r, r) x (r, D) product, then the
-    D x D x r one and the add."""
+def rank_update_entry_work(p, vt, vbt, symmetric: bool = True) -> dict:
+    """H4's kernel entry P + Vt^T VBt: P read once and written once, both
+    strips read once; D (D + 1) r operations when only the upper triangle
+    of the symmetric product is formed (2 D^2 r for the whole square), and
+    the add."""
     d, r = p.shape[0], vt.shape[0]
-    return bound(nbytes(p, vt, b) + nbytes(p), 2.0 * r * r * d + 2.0 * d * d * r + d * d)
+    flops = (d * (d + 1) * r if symmetric else 2.0 * d * d * r) + d * d
+    return bound(nbytes(p, vt, vbt) + nbytes(p), flops)
+
+
+def h4_measure(label: str, p, gmat, mmid, max_abs_err: float) -> dict:
+    """H4 at one of the main path's shapes: the kernel entry
+    rank_update_vbt(P, G, MG) against torch.addmm(P, G^T, MG) on the same
+    tensors, the wrapper rank_update_t (which also forms MG), the square and
+    symmetric bounds, the plan H4 chose, and three checks: two calls are bit
+    for bit equal, the output is exactly symmetric when P and M are, and
+    the entry takes no more device time than addmm."""
+    import torch
+
+    from conan_slam_tpu_torch.ops.rank_update import (
+        rank_update_plan,
+        rank_update_t,
+        rank_update_vbt,
+        rank_update_vbt_reference,
+    )
+
+    d, r = p.shape[0], gmat.shape[0]
+    mg = mmid @ gmat
+    tile, grid = rank_update_plan(d, p.device)
+    first, second = rank_update_vbt(p, gmat, mg), rank_update_vbt(p, gmat, mg)
+    require(bool(torch.equal(first, second)), f"H4 {label} deterministic",
+            "two calls on the same inputs are bit for bit equal")
+    ps = 0.5 * (p + p.T)                      # exactly symmetric P and M
+    ms = 0.5 * (mmid + mmid.T)
+    out = rank_update_vbt(ps, gmat, ms @ gmat)
+    asym = float((out - out.T).abs().max())
+    require(asym == 0.0, f"H4 {label} symmetry",
+            f"symmetric P and M -> asym(out) = {asym:.1e} (must be exactly 0: the upper "
+            "triangle is mirrored)")
+    entry = lambda: rank_update_vbt(p, gmat, mg)          # noqa: E731
+    library = lambda: torch.addmm(p, gmat.T, mg)          # noqa: E731
+    st = dict(max_abs_err=max_abs_err, ms=time_ms(entry, 50),
+              wrapper_ms=time_ms(lambda: rank_update_t(p, gmat, mmid), 50),
+              plain_ms=time_ms(lambda: rank_update_vbt_reference(p, gmat, mg), 50),
+              library_ms=time_ms(library, 50),
+              device_ms=device_ms(entry), library_device_ms=device_ms(library),
+              tile=tile, grid=grid, d=d, r=r, **rank_update_entry_work(p, gmat, mg))
+    st["bound_square_ms"] = rank_update_entry_work(p, gmat, mg, symmetric=False)["bound_ms"]
+    log(f"  H4 {label} (D={d}, r={r}): tile {tile}, grid {grid} blocks; kernel entry "
+        f"{st['device_ms'] * 1e3:.2f} us of device time vs torch.addmm "
+        f"{st['library_device_ms'] * 1e3:.2f} us on the same (P, G, MG) "
+        f"({st['library_device_ms'] / st['device_ms']:.2f}x); events with host work: entry "
+        f"{st['ms'] * 1e3:.2f} us, addmm {st['library_ms'] * 1e3:.2f} us, wrapper with MG "
+        f"{st['wrapper_ms'] * 1e3:.2f} us; bound square {st['bound_square_ms'] * 1e3:.2f} us, "
+        f"symmetric {st['bound_ms'] * 1e3:.2f} us ({st['bound_by']}): "
+        f"{100.0 * st['bound_ms'] / st['device_ms']:.1f}% of the symmetric bound")
+    require(st["device_ms"] <= st["library_device_ms"], f"H4 {label} vs torch.addmm",
+            f"kernel entry {st['device_ms'] * 1e3:.2f} us <= addmm "
+            f"{st['library_device_ms'] * 1e3:.2f} us of device time")
+    return st
 
 
 def bench_world(device, pad_multiple=256):
@@ -356,6 +455,10 @@ def kernel_checks(device) -> dict:
             stats["sweep_inverse"] = dict(
                 max_abs_err=e1,
                 ms=time_ms(lambda: sweep_si(ch_p.s, fi.nblk), 50),
+                device_ms=device_ms(lambda: sweep_si(ch_p.s, fi.nblk)),
+                # The same launch sweeping no pivot: its load, symmetrize
+                # and store, the part of the time no pivot adds to.
+                fixed_ms=device_ms(lambda: sweep_si(ch_p.s, torch.zeros_like(fi.nblk))),
                 plain_ms=time_ms(lambda: sweep_si_reference(ch_p.s, fi.nblk), 5),
                 library_ms=time_ms(lambda: torch.linalg.inv(ch_p.s), 50),
                 **bound(nbytes(ch_p.s, fi.nblk, si_k), 4.0 * mp * mp * int(fi.nblk)))
@@ -367,13 +470,7 @@ def kernel_checks(device) -> dict:
                 ms=time_ms(lambda: fk.frame_panels(*pargs), 50),
                 plain_ms=time_ms(lambda: fk._frame_panels_reference(*pargs), 50),
                 **bound(nbytes(*pargs, *pk), 22.0 * mp * d + 2.0 * mp * mp))
-            mg = mmid @ gmat
-            stats["rank_update"] = dict(
-                max_abs_err=e4,
-                ms=time_ms(lambda: rank_update_t(args[0], gmat, mmid), 50),
-                plain_ms=time_ms(lambda: rank_update_t_reference(args[0], gmat, mmid), 50),
-                library_ms=time_ms(lambda: torch.addmm(args[0], gmat.T, mg), 50),
-                **rank_update_work(args[0], gmat, mmid))
+            stats["rank_update"] = h4_measure("known", args[0], gmat, mmid, e4)
             # The whole frame: its four kernels' operations; P in and out.
             stats["frame_step"] = dict(
                 ms=time_ms(lambda: fk.frame_step(*args, *tail), 50),
@@ -393,6 +490,10 @@ def log_times(stats: dict, shape: str) -> None:
             extra = (f", bound {st['bound_ms'] * 1e3:.3f} us ({st['bound_by']}: "
                      f"{st['bytes']:,} B, {st['flops']:,.0f} flop), library "
                      + ("none" if lib is None else f"{lib:.4f} ms"))
+        if "device_ms" in st:
+            extra += f", device {st['device_ms'] * 1e3:.2f} us"
+        if "fixed_ms" in st:
+            extra += f" ({st['fixed_ms'] * 1e3:.2f} us with nblk = 0)"
         log(f"  time {name}{shape}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms"
             + extra)
 
@@ -612,15 +713,11 @@ def gated_kernel_checks(device) -> dict:
                         + 2.0 * mp * mp))
             stats["gated sweep_inverse"] = dict(
                 max_abs_err=e1, ms=time_ms(lambda: sweep_si(s_p, oi.nblk), 50),
+                device_ms=device_ms(lambda: sweep_si(s_p, oi.nblk)),
                 plain_ms=time_ms(lambda: sweep_si_reference(s_p, oi.nblk), 5),
                 library_ms=time_ms(lambda: torch.linalg.inv(s_p), 50),
                 **bound(nbytes(s_p, oi.nblk, si_k), 4.0 * mp * mp * int(oi.nblk)))
-            mg = mmid @ gmat
-            stats["gated rank_update"] = dict(
-                max_abs_err=e4, ms=time_ms(lambda: rank_update_t(st1.p, gmat, mmid), 50),
-                plain_ms=time_ms(lambda: rank_update_t_reference(st1.p, gmat, mmid), 50),
-                library_ms=time_ms(lambda: torch.addmm(st1.p, gmat.T, mg), 50),
-                **rank_update_work(st1.p, gmat, mmid))
+            stats["gated rank_update"] = h4_measure("config 2", st1.p, gmat, mmid, e4)
             stats["frame_update_obs"] = dict(
                 ms=time_ms(lambda: fk.frame_update_obs(*uargs), 50),
                 plain_ms=time_ms(lambda: fk.frame_update_obs(*uargs, plain=True), 10))
@@ -699,12 +796,7 @@ def pair_checks(device) -> dict:
         pu_p = rank_update_t_reference(p, gmat, mmid)
         e4 = check(f"H4 {label} P + G^T M G (r={gmat.shape[0]})", pu_k, pu_p, 1e-4, 1e-6,
                    "fp32 FMA over r terms vs cuBLAS fp32")
-        mg = mmid @ gmat
-        stats["pair rank_update"] = dict(
-            max_abs_err=e4, ms=time_ms(lambda: rank_update_t(p, gmat, mmid), 50),
-            plain_ms=time_ms(lambda: rank_update_t_reference(p, gmat, mmid), 50),
-            library_ms=time_ms(lambda: torch.addmm(p, gmat.T, mg), 50),
-            **rank_update_work(p, gmat, mmid))
+        stats["pair rank_update"] = h4_measure("pair", p, gmat, mmid, e4)
         def two_frames():
             a = fk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail)
             return fk.frame_step(a.p, a.x, rows_b, *ctrl_b, q, *meas_b, r, *tail)
@@ -1000,8 +1092,12 @@ def gated_path(device) -> tuple[dict, dict]:
         f"max |d mapped| over the steps = {int(dmap.max())}, "
         f"steps with a different map size: {int((dmap > 0).sum())}")
 
-    # The 10k-landmark shape, kernels only: no gate is stored for it.
+    # The 10k-landmark shape, kernels only: no gate is stored for it.  A few
+    # untimed frames first, so the timed run starts warm.
     big, bcfg = big_world(device), gated_cfg(BIG_LANDMARKS)
+    run_ekf_slam_precomputed(big, bcfg, torch.Generator(device=device).manual_seed(1),
+                             BIG_WARM_STEPS)
+    torch.cuda.synchronize()
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     state, outs = run_ekf_slam_precomputed(big, bcfg, torch.Generator(device=device)
@@ -1012,7 +1108,7 @@ def gated_path(device) -> tuple[dict, dict]:
     counts = launches()
     finite = bool(torch.isfinite(state.p).all() and torch.isfinite(outs.x_est).all())
     log(f"  10k landmarks: D={state.x.shape[0]}, K={state.capacity}, {bf * s} steps in "
-        f"{secs:.3f} s = {bf * s / secs:,.1f} steps/s (first frames included), mapped="
+        f"{secs:.3f} s = {bf * s / secs:,.1f} steps/s (after {BIG_WARM_STEPS} untimed steps), mapped="
         f"{int(state.n_active)}, finite={finite}, launches={counts}")
     want = {**dict.fromkeys(counts, 0), **dict.fromkeys(GATED_KERNELS, bf)}
     require(finite and int(state.n_active) > 0 and counts == want, "10k-landmark run",
@@ -1130,16 +1226,21 @@ def main() -> int:
                    gated_cfg(500), init_state(500, 500, device=device))
     profile_frames(device, 2 * PROFILE_FRAMES, "known association, frame pairs", world,
                    known_cfg.replace(frame_pair=True), state0)
+    profile_frames(device, BIG_PROFILE_FRAMES, "gated, 10k landmarks", big_world(device),
+                   gated_cfg(BIG_LANDMARKS), None)
 
     # --- phase 5: report ---
     allstats = {**stats, **gstats}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extras = ("device_ms", "fixed_ms", "library_device_ms", "wrapper_ms", "bound_square_ms", "tile",
+              "grid")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": counts[k.name] + gcounts[k.name] + pcounts[k.name],
          "launches_by_path": {"known": counts[k.name], "gated": gcounts[k.name],
                               "pair": pcounts[k.name]},
-         **{key: allstats[k.name][key] for key in keys}}
+         **{key: allstats[k.name][key] for key in keys},
+         **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]}}
         for k in sorted(cuda.KERNELS.values(), key=lambda k: ORDER.index(k.name))
     ]}
     summary = {

@@ -1,4 +1,5 @@
-// H1 sweep_inverse: S^-1 of an SPD matrix of size mp <= ~230 in ONE block.
+// H1 sweep_inverse: S^-1 of an SPD matrix of even size mp <= 224 in ONE
+// block, the matrix held in registers.
 //
 // Replaces the TPU kernel conan_slam_tpu/ops/spd_inverse.py:135 spd_inverse
 // (_sweep_pallas :114, kernel body _sweep_kernel :109 / sweep_ref_inverse
@@ -8,121 +9,321 @@
 //
 // What bounds it on the card: latency, not bytes or FLOPs.  At the frame's
 // shape (mp = 128, ~40 valid pivot blocks) the sweep is ~40 dependent
-// rank-2 updates of a 64 KB matrix, each 2 x 16k FMAs; the whole input is
-// 64 KB.  The design keeps S resident in shared memory (dynamic, above the
-// 48 KB default) for the whole sweep so each pivot costs two block
-// barriers and 32 shared-memory entries per thread, never a trip to device
-// memory, and reads the bound nblk from device memory so the host never
-// waits for it.
+// rank-2 updates of a 64 KB matrix.  Spreading the chain over blocks would
+// cost a grid barrier a pivot, more than the work it spreads, so it stays
+// in one block of 16 warps, which keep the swept block of A in registers
+// for the whole sweep (sweep_block), and a pivot costs one block barrier
+// and the latency of one warp forming the next pivot.  The phases around
+// the sweep (load, symmetrize and scale, unscale and symmetrize again,
+// store) read the transpose through a padded (mp + 1) shared tile, free of
+// bank conflicts.  nblk is read on the device, so the host never waits for
+// it.
 #include "common.cuh"
 
-// The device routine: conan_slam_tpu/ops/spd_inverse.py:33 sweep_ref_inverse
-// as wrapped by conan_slam_tpu/ops/frame_kernel.py:192 _sweep_si.
-// Symmetrize, scale to a unit diagonal, sweep the first nblk 2x2 pivot
-// blocks, unscale, symmetrize again, zero everything if anything is
-// non-finite.  Both symmetrizations are load-bearing: the sweep reads pivot
-// columns as rows, so an asymmetric S (from the row strips of an asymmetric
-// P) would give an S^-1 whose asymmetry feeds back into P with gain every
-// frame.
-//
-// A: (mp, mp) row-major in shared memory, holding S on entry and S^-1 on
-// exit.  dsc, g0, g1, h0, h1: mp floats each of shared scratch.  All
-// threads of the block must call it; blockDim.x is a multiple of 32.
-static __device__ void csl_sweep_si(float* A, float* dsc, float* g0, float* g1, float* h0,
-                                     float* h1, int mp, int nblk) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nwarp = blockDim.x >> 5;
+namespace {
 
-    // sym(S): each unordered pair once.
-    for (int i = warp; i < mp; i += nwarp)
-        for (int j = i + 1 + lane; j < mp; j += 32) {
-            const float v = 0.5f * (A[i * mp + j] + A[j * mp + i]);
-            A[i * mp + j] = v;
-            A[j * mp + i] = v;
-        }
-    __syncthreads();
-    for (int i = threadIdx.x; i < mp; i += blockDim.x)
-        dsc[i] = rsqrtf(fmaxf(A[i * mp + i], 1e-30f));
-    __syncthreads();
-    for (int i = warp; i < mp; i += nwarp)
-        for (int j = lane; j < mp; j += 32) A[i * mp + j] = A[i * mp + j] * dsc[i] * dsc[j];
-    __syncthreads();
+constexpr int MAX_DEVICES = 64;
+constexpr int TY = 16;        // warps a block
+constexpr int NT = 32 * TY;   // threads a block
 
-    // One pivot block per step, folded into one rank-2 update with shifted
-    // factors (see sweep_ref_inverse):
-    //   A <- A - (h0 g0 + h1 g1 + 2 [pivot diagonal])
-    for (int k = 0; k < nblk; ++k) {
-        const int k0 = 2 * k, k1 = k0 + 1;
-        const float e00 = A[k0 * mp + k0], e01 = A[k0 * mp + k1], e11 = A[k1 * mp + k1];
-        const float det = e00 * e11 - e01 * e01;
-        const bool ok = det > 1e-30f && e00 > 1e-20f;
-        const float idet = ok ? 1.0f / det : 0.0f;
-        const float i00 = e11 * idet, i01 = -e01 * idet, i11 = e00 * idet;
-        for (int j = threadIdx.x; j < mp; j += blockDim.x) {
-            const float r0 = A[k0 * mp + j], r1 = A[k1 * mp + j];
-            g0[j] = i00 * r0 + i01 * r1 - (j == k0 ? i00 : 0.f) - (j == k1 ? i01 : 0.f);
-            g1[j] = i01 * r0 + i11 * r1 - (j == k0 ? i01 : 0.f) - (j == k1 ? i11 : 0.f);
-            h0[j] = r0 - (j == k0 ? 1.f : 0.f);
-            h1[j] = r1 - (j == k1 ? 1.f : 0.f);
+// One row of A takes one pivot: a -= h0 g0 + h1 g1, as sweep_ref_inverse,
+// in two fused multiply-adds.
+template <int Q>
+__device__ __forceinline__ void apply_pivot(float (&a)[Q], float2 h, const float2 (&g)[Q]) {
+#pragma unroll
+    for (int b = 0; b < Q; ++b) a[b] = fmaf(-h.y, g[b].y, fmaf(-h.x, g[b].x, a[b]));
+}
+
+// The same for pivot row i (k0 or k1), whose diagonal also takes piv.
+template <int Q>
+__device__ __forceinline__ void apply_pivot_diag(float (&a)[Q], float2 h, const float2 (&g)[Q],
+                                                 int i, float piv) {
+    const int tx = threadIdx.x & 31;
+#pragma unroll
+    for (int b = 0; b < Q; ++b) {
+        float t = h.x * g[b].x + h.y * g[b].y;
+        if (tx + 32 * b == i) t += piv;
+        a[b] -= t;
+    }
+}
+
+// Pivot k0 / 2, formed by the warp that holds its rows r0 = A[k0] and r1 =
+// A[k0 + 1] (lane tx: columns tx + 32 b), once they have taken every
+// earlier pivot.  As sweep_ref_inverse: the 2x2 block and its inverse, then
+// for every column j (A is symmetric, so a row stands for a column) the
+// factor g = (g0, g1), with the unit shift at columns k0 and k1, and the
+// row factor h = (h0, h1), the pivot rows with the unit shift at k0 and
+// k1; both published to shared memory.  Returns whether the pivot is
+// usable.
+template <int Q>
+__device__ __forceinline__ bool sweep_pivot(const float (&r0)[Q], const float (&r1)[Q], int k0,
+                                            float2* G, float2* H) {
+    const int tx = threadIdx.x & 31;
+    const int cb = k0 >> 5, cl = k0 & 31;
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int b = 0; b < Q; ++b)
+        if (b == cb) {
+            x = r0[b];
+            y = r1[b];
         }
-        __syncthreads();
-        const float piv = ok ? 2.f : 0.f;
-        for (int i = warp; i < mp; i += nwarp) {
-            const float a0 = h0[i], a1 = h1[i];
-            for (int j = lane; j < mp; j += 32) {
-                float t = a0 * g0[j] + a1 * g1[j];
-                if (i == j && (i == k0 || i == k1)) t += piv;
-                A[i * mp + j] -= t;
+    const float e00 = __shfl_sync(0xffffffffu, x, cl);
+    const float e01 = __shfl_sync(0xffffffffu, x, cl + 1);
+    const float e11 = __shfl_sync(0xffffffffu, y, cl + 1);
+    const float det = e00 * e11 - e01 * e01;
+    const bool ok = det > 1e-30f && e00 > 1e-20f;
+    const float idet = ok ? __frcp_rn(det) : 0.0f;   // = 1 / det, correctly rounded
+    const float i00 = e11 * idet, i01 = -e01 * idet, i11 = e00 * idet;
+#pragma unroll
+    for (int b = 0; b < Q; ++b) {
+        const int j = tx + 32 * b;
+        const float x0 = r0[b], x1 = r1[b];
+        float g0 = i00 * x0 + i01 * x1, g1 = i01 * x0 + i11 * x1;
+        if (j == k0) {                 // column k0's shifts are (i00, i01)
+            g0 -= i00;
+            g1 -= i01;
+        } else if (j == k0 + 1) {      // column k1's (i01, i11)
+            g0 -= i01;
+            g1 -= i11;
+        }
+        G[j] = make_float2(g0, g1);
+        H[j] = make_float2(j == k0 ? x0 - 1.f : x0, j == k0 + 1 ? x1 - 1.f : x1);
+    }
+    return ok;
+}
+
+// The pivot sweep over the leading W x W block (W = 32 Q) of the scaled
+// matrix in ts (row stride tp; entries past mp read as 0).  Warp ty holds
+// the RY = 2 Q consecutive rows ty RY + a, lane tx their columns tx + 32 b,
+// in registers for the whole sweep, so warp w holds the U = Q pivots
+// w U .. w U + U - 1 whole.  The loop over pivots is unrolled by U, so
+// that every row a warp touches is known at compile time.  A pivot is one
+// block barrier: after it every thread reads its columns' g and its rows'
+// h (one of two buffers) and updates its registers as sweep_ref_inverse
+// does,
+//   A <- A - (h0 g0 + h1 g1 + 2 [pivot diagonal]),
+// except the warp holding the next pivot, which first updates that
+// pivot's two rows, forms it (sweep_pivot, into the other buffer; two
+// shuffles, no barrier) and only then its other rows.
+template <int Q>
+__device__ __forceinline__ void sweep_block(float* ts, int tp, int mp, float* rows, int nb, int na) {
+    constexpr int W = 32 * Q, RY = W / TY, U = RY / 2;
+    static_assert(RY * TY == W && RY % 2 == 0, "layout");
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    float A[RY][Q];
+#pragma unroll
+    for (int a = 0; a < RY; ++a) {
+        const int i = ty * RY + a;
+#pragma unroll
+        for (int b = 0; b < Q; ++b) {
+            const int j = tx + 32 * b;
+            A[a][b] = (i < mp && j < mp) ? ts[i * tp + j] : 0.f;
+        }
+    }
+    float2* GB = reinterpret_cast<float2*>(rows);   // 2 buffers x W: g
+    float2* HB = GB + 2 * W;                         // 2 buffers x W: h
+    // Whether the last pivot this warp formed is usable: its rows take the
+    // pivot diagonal when it is applied.
+    bool ok = false;
+    if (ty == 0) ok = sweep_pivot<Q>(A[0], A[1], 0, GB, HB);
+    for (int w = 0; w * U < nb; ++w) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int k = w * U + u;
+            if (k >= nb) continue;   // and so every later u
+            __syncthreads();   // pivot k is published; the other buffer is read
+            const int par = k & 1;
+            float2 gr[Q], hr[RY];
+#pragma unroll
+            for (int b = 0; b < Q; ++b) gr[b] = GB[par * W + tx + 32 * b];
+#pragma unroll
+            for (int a = 0; a < RY; a += 2) {   // two rows' h in one 16-byte read
+                const float4 h2 = *reinterpret_cast<const float4*>(HB + par * W + ty * RY + a);
+                hr[a] = make_float2(h2.x, h2.y);
+                hr[a + 1] = make_float2(h2.z, h2.w);
+            }
+            const float piv = ok ? 2.f : 0.f;
+            float2* Gn = GB + (par ^ 1) * W;
+            float2* Hn = HB + (par ^ 1) * W;
+            const bool next = k + 1 < nb;
+            // Pivot k's rows are warp w's rows 2u, 2u + 1; pivot k + 1's are
+            // its rows 2u + 2, 2u + 3, or warp w + 1's rows 0, 1.
+            const int n0 = u + 1 < U ? 2 * u + 2 : 0;   // a constant once unrolled
+            const int nw = u + 1 < U ? w : w + 1;
+            if (ty == nw) {
+                apply_pivot<Q>(A[n0], hr[n0], gr);
+                apply_pivot<Q>(A[n0 + 1], hr[n0 + 1], gr);
+                if (next) ok = sweep_pivot<Q>(A[n0], A[n0 + 1], 2 * k + 2, Gn, Hn);
+#pragma unroll
+                for (int a = 0; a < RY; ++a) {
+                    if (a == n0 || a == n0 + 1) continue;
+                    if (ty == w && (a == 2 * u || a == 2 * u + 1))
+                        apply_pivot_diag<Q>(A[a], hr[a], gr, ty * RY + a, piv);
+                    else
+                        apply_pivot<Q>(A[a], hr[a], gr);
+                }
+            } else if (ty == w) {
+#pragma unroll
+                for (int a = 0; a < RY; ++a) {
+                    if (a == 2 * u || a == 2 * u + 1)
+                        apply_pivot_diag<Q>(A[a], hr[a], gr, ty * RY + a, piv);
+                    else
+                        apply_pivot<Q>(A[a], hr[a], gr);
+                }
+            } else if (ty * RY < na) {   // rows from na on have h = 0: left as they are
+#pragma unroll
+                for (int a = 0; a < RY; ++a) apply_pivot<Q>(A[a], hr[a], gr);
             }
         }
-        __syncthreads();
     }
-
-    // S^-1 = -A, unscaled, then symmetrized; zero on any non-finite value.
-    for (int i = warp; i < mp; i += nwarp)
-        for (int j = lane; j < mp; j += 32) A[i * mp + j] = -A[i * mp + j] * dsc[i] * dsc[j];
-    __syncthreads();
-    int bad = 0;
-    for (int i = warp; i < mp; i += nwarp)
-        for (int j = i + lane; j < mp; j += 32) {
-            const float v = 0.5f * (A[i * mp + j] + A[j * mp + i]);
-            A[i * mp + j] = v;
-            A[j * mp + i] = v;
-            bad |= !isfinite(v);
+    __syncthreads();       // every thread is done reading the published pivots
+#pragma unroll
+    for (int a = 0; a < RY; ++a) {
+        const int i = ty * RY + a;
+#pragma unroll
+        for (int b = 0; b < Q; ++b) {
+            const int j = tx + 32 * b;
+            if (i < mp && j < mp) ts[i * tp + j] = A[a][b];
         }
-    if (__syncthreads_or(bad)) {
-        for (int e = threadIdx.x; e < mp * mp; e += blockDim.x) A[e] = 0.f;
-        __syncthreads();
     }
 }
 
+// sweep_block<q> for the run-time q in [Q, QMAX].
+template <int Q, int QMAX>
+__device__ void sweep_blocks(int q, float* ts, int tp, int mp, float* rows, int nb, int na) {
+    if constexpr (Q <= QMAX) {
+        if (q == Q) sweep_block<Q>(ts, tp, mp, rows, nb, na);
+        else sweep_blocks<Q + 1, QMAX>(q, ts, tp, mp, rows, nb, na);
+    }
+}
 
-__global__ void __launch_bounds__(512)
+// The sweep: conan_slam_tpu/ops/spd_inverse.py:33 sweep_ref_inverse as
+// wrapped by conan_slam_tpu/ops/frame_kernel.py:192 _sweep_si: symmetrize,
+// scale to a unit diagonal, sweep the first nblk 2x2 pivot blocks, unscale,
+// symmetrize again, zero everything if anything is non-finite.  Both
+// symmetrizations are load-bearing: the sweep reads pivot columns as rows,
+// so an asymmetric S (from the row strips of an asymmetric P) would give an
+// S^-1 whose asymmetry feeds back into P with gain every frame.  mp <= 32 RX.
+template <int RX>
+__global__ void __launch_bounds__(NT, 1)
 sweep_inverse_kernel(const float* __restrict__ s, const int* __restrict__ nblk,
                      float* __restrict__ out, int mp) {
-    extern __shared__ float smem[];
-    float* A = smem;
-    float* dsc = A + mp * mp;
-    float* g0 = dsc + mp;
-    float* g1 = g0 + mp;
-    float* h0 = g1 + mp;
-    float* h1 = h0 + mp;
-    for (int e = threadIdx.x; e < mp * mp; e += blockDim.x) A[e] = s[e];
+    extern __shared__ __align__(16) float smem[];
+    const int tp = mp + 1;
+    float* ts = smem;                  // (mp, mp + 1) padded tile
+    float* dsc = ts + mp * tp;         // (mp,) the Jacobi scale
+    float* rows = dsc + mp;            // the pivots' g and h, two buffers each
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    const int nb = min(max(__ldg(nblk), 0), mp / 2);
+
+    // The phases around the sweep touch each element once, so they are
+    // short loops (unrolled by 4 only, for loads in flight): a launch runs
+    // straight-line code once, and fetching fully unrolled code costs more
+    // than its work.  S into the padded tile, warp ty copying rows ty,
+    // ty + TY, ...
+#pragma unroll 4
+    for (int i = ty; i < mp; i += TY)
+#pragma unroll
+        for (int b = 0; b < RX; ++b) {
+            const int j = tx + 32 * b;
+            if (j < mp) ts[i * tp + j] = __ldg(s + i * mp + j);
+        }
     __syncthreads();
-    const int nb = min(max(nblk[0], 0), mp / 2);
-    csl_sweep_si(A, dsc, g0, g1, h0, h1, mp, nb);
-    for (int e = threadIdx.x; e < mp * mp; e += blockDim.x) out[e] = A[e];
+    for (int i = threadIdx.x; i < mp; i += NT) dsc[i] = rsqrtf(fmaxf(ts[i * tp + i], 1e-30f));
+    __syncthreads();
+
+    // sym(S), scaled, in place: ((0.5 (S_ij + S_ji)) dsc_i) dsc_j, formed
+    // once for i <= j by the one thread that reads and writes (i, j) and
+    // (j, i).  Rows and columns from 2 nb on take part in no pivot; where
+    // they are decoupled from the leading 2 nb (every scaled A[i][j] with
+    // i < 2 nb <= j is exactly 0, as for the frame's unused measurement
+    // slots), every pivot's h and g vanish there and the update leaves them
+    // as they are, so the sweep runs on the leading block alone: the same
+    // values, less work.
+    int coupled = 0;
+#pragma unroll 4
+    for (int i = ty; i < mp; i += TY)
+#pragma unroll
+        for (int b = 0; b < RX; ++b) {
+            const int j = tx + 32 * b;
+            if (j >= i && j < mp) {
+                const float v = 0.5f * (ts[i * tp + j] + ts[j * tp + i]) * dsc[i] * dsc[j];
+                ts[i * tp + j] = v;
+                ts[j * tp + i] = v;
+                coupled |= i < 2 * nb && j >= 2 * nb && v != 0.f;
+            }
+        }
+    const int na = __syncthreads_or(coupled) ? mp : 2 * nb;
+    if (nb > 0) sweep_blocks<1, RX>((na + 31) / 32, ts, tp, mp, rows, nb, na);
+    __syncthreads();
+
+    // S^-1 = -A, unscaled, then symmetrized; zero on any non-finite value.
+    // A thread forms both x_ij and x_ji as their owners would, so
+    // 0.5 (x_ij + x_ji) is the same number at (i, j) and (j, i).
+    int bad = 0;
+#pragma unroll 4
+    for (int i = ty; i < mp; i += TY)
+#pragma unroll
+        for (int b = 0; b < RX; ++b) {
+            const int j = tx + 32 * b;
+            if (j < mp) {
+                // The intrinsics keep the compiler from fusing a product
+                // into the sum, which would round (i, j) and (j, i) apart.
+                const float xij = __fmul_rn(__fmul_rn(-ts[i * tp + j], dsc[i]), dsc[j]);
+                const float xji = __fmul_rn(__fmul_rn(-ts[j * tp + i], dsc[j]), dsc[i]);
+                const float v = 0.5f * __fadd_rn(xij, xji);
+                bad |= !isfinite(v);
+                out[i * mp + j] = v;
+            }
+        }
+    if (__syncthreads_or(bad)) {
+        for (int i = ty; i < mp; i += TY)
+#pragma unroll
+            for (int b = 0; b < RX; ++b)
+                if (tx + 32 * b < mp) out[i * mp + tx + 32 * b] = 0.f;
+    }
 }
 
+size_t sweep_smem_bytes(int mp, int w) {
+    return (size_t)(mp * (mp + 1) + mp + 8 * w) * sizeof(float);
+}
+
+template <int RX>
+cudaError_t launch(const float* s, const int* nblk, float* out, int mp, cudaStream_t stream) {
+    constexpr int W = 32 * RX;
+    // The shared-memory cap, raised once a device for the largest mp of
+    // this variant.
+    static bool raised[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+        err = csl_allow_smem(sweep_inverse_kernel<RX>, sweep_smem_bytes(W, W));
+        if (err != cudaSuccess) return err;
+        raised[dev] = true;
+    }
+    sweep_inverse_kernel<RX><<<1, NT, sweep_smem_bytes(mp, W), stream>>>(s, nblk, out, mp);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// One variant for each 32 columns of mp: the frame's mp = 128 sweeps 2 Q x
+// Q elements a thread (Q = 4, or fewer when the unused slots decouple).
 extern "C" int csl_sweep_inverse(const float* s, const int* nblk, float* out, int mp,
                                  void* stream) {
-    const size_t smem = (size_t)(mp * mp + 5 * mp) * sizeof(float);
-    if (mp <= 0 || mp % 2 || smem > CSL_MAX_SMEM) return (int)cudaErrorInvalidValue;
-    cudaError_t err = csl_allow_smem(sweep_inverse_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    sweep_inverse_kernel<<<1, 512, smem, (cudaStream_t)stream>>>(s, nblk, out, mp);
-    return (int)cudaGetLastError();
+    if (mp <= 0 || mp % 2 || mp > 224) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch ((mp + 31) / 32) {
+        case 1: return (int)launch<1>(s, nblk, out, mp, st);
+        case 2: return (int)launch<2>(s, nblk, out, mp, st);
+        case 3: return (int)launch<3>(s, nblk, out, mp, st);
+        case 4: return (int)launch<4>(s, nblk, out, mp, st);
+        case 5: return (int)launch<5>(s, nblk, out, mp, st);
+        case 6: return (int)launch<6>(s, nblk, out, mp, st);
+        default: return (int)launch<7>(s, nblk, out, mp, st);
+    }
 }
 
 extern "C" const char* csl_error_string(int err) {

@@ -1,11 +1,17 @@
 """SPD inverse by the Jacobi-scaled symmetric sweep (port of
 conan_slam_tpu.ops.spd_inverse and frame_kernel._sweep_si).
 
-Kernel H1 (``csrc/sweep_inverse.cu``) holds S in one block's shared memory
-and runs the 2x2-pivot Gauss-Jordan sweep there; on the frame's path it
-runs once per frame, between the chain kernel H2 and the panel kernel H3
-(ops.frame_kernel), where the reference ran the sweep inside its chain
-kernel.  Its plain versions live here:
+Kernel H1 (``csrc/sweep_inverse.cu``) runs the 2x2-pivot Gauss-Jordan sweep
+in one block of 16 warps with the swept block in registers (warp w holds 2Q
+consecutive rows, lane l their columns l + 32 b, Q = ceil(MP / 32), or
+fewer columns when the unused slots decouple).  A pivot is one block
+barrier: the warp holding the next pivot's rows updates them first, forms
+that pivot's factors g and h (two shuffles, no barrier) and publishes
+them, while the other warps apply the current one; both symmetrizations
+read the transpose through a padded shared tile.  On
+the frame's path it runs once per frame, between the chain kernel H2 and
+the panel kernel H3 (ops.frame_kernel), where the reference ran the sweep
+inside its chain kernel.  Its plain versions live here:
 ``sweep_si_reference`` (the sweep itself, with the ``nblk`` bound) and
 ``spd_inverse_reference`` (the Cholesky route the reference takes off-TPU).
 """
@@ -25,8 +31,13 @@ SWEEP_INVERSE = cuda.CudaKernel(
 )
 
 
+# The largest S one block holds in registers: 7 x 7 elements a thread.
+MAX_MP = 224
+
+
 def _sweep_smem_bytes(mp: int) -> int:
-    return 4 * (mp * mp + 5 * mp)
+    """The padded tile, the scale and two buffers of the pivots' g and h."""
+    return 4 * (mp * (mp + 1) + mp + 8 * 32 * -(-mp // 32))
 
 
 def _sweep(a: torch.Tensor, nblk) -> torch.Tensor:
@@ -79,8 +90,8 @@ def sweep_si(s: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
     if cuda.on_cpu(s, nblk):
         return sweep_si_reference(s, nblk)
     mp = s.shape[0]
-    if mp % 2 or _sweep_smem_bytes(mp) > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"sweep_inverse: S must be even-sized and fit shared memory, got {mp}")
+    if mp % 2 or mp > MAX_MP or _sweep_smem_bytes(mp) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"sweep_inverse: S must be even-sized and at most {MAX_MP}, got {mp}")
     cuda.check(s, "s", (mp, mp))
     cuda.check(nblk, "nblk", (1,), torch.int32)
     out = torch.empty_like(s)

@@ -21,7 +21,12 @@ from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks
 from conan_slam_tpu_torch.ops import cuda, frame_kernel as fk
 from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference, frame_factors_fused
 from conan_slam_tpu_torch.ops.gating_kernel import _gating_scores_reference, gating_scores
-from conan_slam_tpu_torch.ops.rank_update import rank_update_t, rank_update_t_reference
+from conan_slam_tpu_torch.ops.rank_update import (
+    rank_update_t,
+    rank_update_t_reference,
+    rank_update_vbt,
+    rank_update_vbt_reference,
+)
 from conan_slam_tpu_torch.ops.spd_inverse import (
     spd_inverse,
     spd_inverse_reference,
@@ -84,17 +89,29 @@ def test_frame_kernels_match_plain_versions(dev, d):
     torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("nblk", [7, 40, 64])
-def test_sweep_inverse_kernel_matches_plain(dev, nblk):
-    g = torch.Generator(device=dev).manual_seed(nblk)
-    a = torch.randn((128, 128), generator=g, device=dev)
-    s = a @ a.T / 128 + torch.eye(128, device=dev)
+# Every even size up to MAX_MP, and the sweep bound from none to all.
+_SWEEP_CASES = [(mp, nblk) for mp in (2, 60, 128, 224) for nblk in (0, 1, 7, mp // 2)] + [(128, 40)]
+
+
+@pytest.mark.parametrize("mp,nblk", _SWEEP_CASES)
+def test_sweep_inverse_kernel_matches_plain(dev, mp, nblk):
+    g = torch.Generator(device=dev).manual_seed(mp * 100 + nblk)
+    a = torch.randn((mp, mp), generator=g, device=dev)
+    s = a @ a.T / mp + torch.eye(mp, device=dev)
     nb = torch.tensor([nblk], dtype=torch.int32, device=dev)
     got = sweep_si(s, nb)
     torch.cuda.synchronize()
     # Same sweep; fp32 contraction differs: a few ulps of |S^-1| ~ 1.
     torch.testing.assert_close(got, sweep_si_reference(s, nb), rtol=1e-4, atol=1e-5)
     assert torch.equal(got, got.T)
+    # An asymmetric S gives an exactly symmetric S^-1 of sym(S); a
+    # non-finite entry zeroes the whole output.
+    e = torch.randn((mp, mp), generator=g, device=dev) * 1e-3
+    asym = sweep_si(s + (e - e.T), nb)
+    assert torch.equal(asym, asym.T)
+    bad = s.clone()
+    bad[mp - 1, 0] = float("nan")
+    assert torch.equal(sweep_si(bad, nb), torch.zeros_like(s))
 
 
 def test_spd_inverse_kernel_odd_size_and_guard(dev):
@@ -106,15 +123,27 @@ def test_spd_inverse_kernel_odd_size_and_guard(dev):
     assert torch.equal(spd_inverse(bad), torch.zeros_like(bad))
 
 
-@pytest.mark.parametrize("d", [256, 203])
-def test_rank_update_kernel_matches_plain(dev, d):
-    g = torch.Generator(device=dev).manual_seed(d)
-    p = torch.randn((d, d), generator=g, device=dev)
-    vt = torch.randn((40, d), generator=g, device=dev)
-    b = torch.randn((40, 40), generator=g, device=dev)
-    # fp32 sums of 40 O(1) products, in another order than cuBLAS.
-    torch.testing.assert_close(rank_update_t(p, vt, b), rank_update_t_reference(p, vt, b),
-                               rtol=1e-4, atol=1e-4)
+@pytest.mark.parametrize("r", [1, 8, 136, 152, 272])
+@pytest.mark.parametrize("d", [64, 203, 256, 1003, 1024, 2051, 2304])
+def test_rank_update_kernel_matches_plain(dev, d, r):
+    # A symmetric P and B, as every caller's: the kernel computes the upper
+    # triangle of Vt^T B Vt and mirrors it.  B / r keeps the update O(1).
+    g = torch.Generator(device=dev).manual_seed(d * 1000 + r)
+    a = torch.randn((d, d), generator=g, device=dev)
+    p = 0.5 * (a + a.T)
+    vt = torch.randn((r, d), generator=g, device=dev)
+    c = torch.randn((r, r), generator=g, device=dev)
+    b = 0.5 * (c + c.T) / r
+    vbt = b @ vt
+    got = rank_update_vbt(p, vt, vbt)
+    again = rank_update_vbt(p, vt, vbt)
+    via_b = rank_update_t(p, vt, b)
+    torch.cuda.synchronize()
+    # fp32 sums of r O(1/sqrt(r)) products, in another order than cuBLAS.
+    torch.testing.assert_close(got, rank_update_vbt_reference(p, vt, vbt), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(via_b, rank_update_t_reference(p, vt, b), rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, got.T)          # exactly symmetric in, exactly symmetric out
+    assert torch.equal(got, again)          # one fixed summation order: bit-identical
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
