@@ -10,7 +10,8 @@ Phases:
   1. Environment: the card's name and power limit, CUDA, nvcc, triton.
      Exits non-zero at once when PyTorch sees no CUDA device.
   2. Build: compiles the CUDA kernels (conan_slam_tpu_torch/csrc) with nvcc,
-     one process per source, all in parallel.
+     one process per source, all in parallel, and prints each kernel's
+     -Xptxas -v record (registers, shared memory, stack frame, spills).
   3. Each kernel against its plain PyTorch version on the card, with each
      tolerance stated, and each kernel's time beside its plain version's
      (CUDA events):
@@ -29,6 +30,10 @@ Phases:
      where there is one (torch.linalg.inv for H1, torch.addmm for H4), and
      each kernel's bound: the larger of its bytes over 3.35 TB/s and its
      operations over 67 TFLOP/s (fp32), from this run's shapes and data.
+     H1, H2 and H3 also report their device time (profiler), H2 and H3
+     the plan their wrappers chose and two calls bit for bit equal, and H2
+     its device time at S = 1, 6, 16 sub-steps and MP = 32, 64, 128 (which
+     phase sets its time).
      H4 is measured as its kernel entry rank_update_vbt(P, G, MG) against
      torch.addmm(P, G^T, MG) on the same tensors (device time from the
      profiler, and CUDA events), at the known, config 2 and pair shapes,
@@ -75,6 +80,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,6 +128,27 @@ def run(cmd: list[str]) -> str:
     return (res.stdout + res.stderr).strip()
 
 
+def ptxas_record(out: str) -> dict[str, str]:
+    """Each kernel's ``nvcc -Xptxas -v`` record from the build's output
+    (registers, barriers, static shared memory, stack frame and spills),
+    keyed by kernel name with its template arguments."""
+    rec: dict[str, str] = {}
+    name = None
+    for line in out.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            sym = entry.group(1)
+            found = re.findall(r"([a-z]+(?:_[a-z]+)*_kernel)(I\w*?EE)?", sym)
+            base, targs = found[-1] if found else (sym, "")
+            args = re.findall(r"L[a-z](\d+)E", targs)
+            name = base + (f"<{','.join(args)}>" if args else "")
+            rec[name] = ""
+        elif name and ("stack frame" in line or "Used" in line):
+            part = line.split("Used", 1)[1].strip() if "Used" in line else line.strip()
+            rec[name] = f"{rec[name]}; {part}" if rec[name] else part
+    return rec
+
+
 def check(name: str, got, ref, rtol: float, atol: float, why: str) -> float:
     """allclose-style check |got - ref| <= atol + rtol |ref|; returns the
     max abs error and records a failure."""
@@ -164,14 +191,14 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int = 20, traces: int = 3) -> float:
+def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None) -> float:
     """Mean device milliseconds per call, without the host's work, from
     torch.profiler traces of ``iters`` calls (after two untraced ones):
     the sum, over the kernels and copies a call launches (each once), of
-    their median durations.  A name seen fewer than iters / 2 times in a
-    trace is a stray of another trace.  The profiler can drop a trace's
-    device events, which only lowers its reading, so the largest of
-    ``traces`` traces is kept."""
+    their median durations, or only the kernel named ``kernel``.  A name
+    seen fewer than iters / 2 times in a trace is a stray of another trace.
+    The profiler can drop a trace's device events, which only lowers its
+    reading, so the largest of ``traces`` traces is kept."""
     import statistics
 
     import torch
@@ -191,8 +218,9 @@ def device_ms(fn, iters: int = 20, traces: int = 3) -> float:
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        best = max(best, sum(statistics.median(d) for d in durations.values()
-                             if len(d) >= iters / 2))
+        best = max(best, sum(statistics.median(d) for name, d in durations.items()
+                             if len(d) >= iters / 2
+                             and (kernel is None or name.split("(")[0] == kernel)))
     if best <= 0.0:
         require(False, "device time", f"no profiler trace of {iters} calls held device events")
     return best / 1e3
@@ -359,6 +387,29 @@ def frame_case(device, n_warm_frames: int, pad_multiple: int):
     return args, tail
 
 
+def chain_sweep(fi, tail) -> dict:
+    """H2's device time against the length of its recursion (S = 1, 6 and
+    16 sub-steps: the frame's controls repeated) and against its dense work
+    (MP = 32, 64, 128: the frame's first 16, 32, 64 measurements), to show
+    which phase sets its time."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    by_s, by_mp = {}, {}
+    for s in (1, 6, 16):
+        a = (fi.subs.repeat(1, 3)[:, :s].contiguous(), fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc,
+             fi.mp, *tail)
+        by_s[s] = device_ms(lambda: fk.frame_chain(*a))
+    for nz in (16, 32, 64):
+        mp, rp = fk.frame_shapes(nz)
+        a = (fi.subs, fi.qc, fi.zin[:, :nz].contiguous(), fi.rsc, fi.x0rows[:rp].contiguous(),
+             fi.prc[:rp, :rp].contiguous(), mp, *tail)
+        by_mp[mp] = device_ms(lambda: fk.frame_chain(*a))
+    log("  H2 device time against S (MP = 128): " + ", ".join(
+        f"S={s} {t * 1e3:.2f} us" for s, t in by_s.items()) + "; against MP (S = 6): " + ", ".join(
+        f"MP={m} {t * 1e3:.2f} us" for m, t in by_mp.items()))
+    return dict(device_ms_by_s=by_s, device_ms_by_mp=by_mp)
+
+
 def kernel_checks(device) -> dict:
     """Phase 3a: the known-association frame's kernels against their plain
     versions."""
@@ -440,16 +491,24 @@ def kernel_checks(device) -> dict:
                   "the reference test's tolerance")
             check(f"frame {label} vs {ref_name}: nis", full_k.nis, ref.nis, 1e-3, 1e-5,
                   "the reference test's tolerance")
+        pargs = (ch_p.rowc, ch_p.ms, si_p, fi.prows, args[1])
+        require(all(torch.equal(a, b) for a, b in
+                    zip((*ch_k, *pk), (*fk.frame_chain(*chain_args), *fk.frame_panels(*pargs)))),
+                f"H2, H3 {label} deterministic", "two calls on the same inputs are bit for bit equal")
         if pad == 256:
             mp, rp, d = fi.mp, fi.rp, args[0].shape[0]
             # H2: the recursion (a few hundred scalar operations), then
             # Hc P'[rows] with five nonzeros a row of Hc plus P''s three
             # factored terms, and S = psub Hc^T.
+            cplan = fk.frame_chain_plan(mp)
             stats["frame_chain"] = dict(
                 max_abs_err=e2, library_ms=None,
                 ms=time_ms(lambda: fk.frame_chain(*chain_args), 50),
+                device_ms=device_ms(lambda: fk.frame_chain(*chain_args)),
                 plain_ms=time_ms(lambda: fk._frame_chain_reference(*chain_args), 10),
+                plan=f"band {cplan.band} rows, grid {cplan.grid} blocks",
                 **bound(nbytes(*chain_args[:6], *ch_k), 20.0 * mp * rp + 10.0 * mp * mp))
+            stats["frame_chain"].update(chain_sweep(fi, tail))
             # H1: one rank-2 update of the (MP, MP) matrix per swept pivot
             # block, nblk of them in this frame.
             stats["sweep_inverse"] = dict(
@@ -462,13 +521,16 @@ def kernel_checks(device) -> dict:
                 plain_ms=time_ms(lambda: sweep_si_reference(ch_p.s, fi.nblk), 5),
                 library_ms=time_ms(lambda: torch.linalg.inv(ch_p.s), 50),
                 **bound(nbytes(ch_p.s, fi.nblk, si_k), 4.0 * mp * mp * int(fi.nblk)))
-            pargs = (ch_p.rowc, ch_p.ms, si_p, fi.prows, args[1])
             # H3: pht from five Hc nonzeros and P''s factored terms a row,
             # siv = v^T S^-1, the mean x + siv pht and the NIS.
+            pplan = fk.frame_panels_plan(mp, d)
             stats["frame_panels"] = dict(
                 max_abs_err=e3, library_ms=None,
                 ms=time_ms(lambda: fk.frame_panels(*pargs), 50),
+                device_ms=device_ms(lambda: fk.frame_panels(*pargs)),
                 plain_ms=time_ms(lambda: fk._frame_panels_reference(*pargs), 50),
+                plan=f"{pplan.width}-column panels, {pplan.panels} of {pplan.grid} blocks, "
+                     f"clusters of {pplan.cluster} ({pplan.siv_block} siv entries a block)",
                 **bound(nbytes(*pargs, *pk), 22.0 * mp * d + 2.0 * mp * mp))
             stats["rank_update"] = h4_measure("known", args[0], gmat, mmid, e4)
             # The whole frame: its four kernels' operations; P in and out.
@@ -492,8 +554,12 @@ def log_times(stats: dict, shape: str) -> None:
                      + ("none" if lib is None else f"{lib:.4f} ms"))
         if "device_ms" in st:
             extra += f", device {st['device_ms'] * 1e3:.2f} us"
+            if "bound_ms" in st:
+                extra += f" ({100.0 * st['bound_ms'] / st['device_ms']:.2f}% of the bound)"
         if "fixed_ms" in st:
             extra += f" ({st['fixed_ms'] * 1e3:.2f} us with nblk = 0)"
+        if "plan" in st:
+            extra += f"; plan: {st['plan']}"
         log(f"  time {name}{shape}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms"
             + extra)
 
@@ -687,6 +753,9 @@ def gated_kernel_checks(device) -> dict:
             # H5: NB factor columns of four terms each, and the mean.
             stats["factor_strip"] = dict(
                 max_abs_err=e5, ms=time_ms(lambda: frame_factors_fused(*fargs), 50),
+                # The kernel alone: the wrapper also packs the controls.
+                device_ms=device_ms(lambda: frame_factors_fused(*fargs),
+                                    kernel="factor_strip_kernel"),
                 plain_ms=time_ms(lambda: _frame_factors_reference(*fargs), 10), library_ms=None,
                 **bound(nbytes(*ctrl, noise.qe, state.x, state.p[2], fk_k[0].x, *fk_k[1:]),
                         8.0 * nb * d + 2.0 * d))
@@ -1197,9 +1266,9 @@ def main() -> int:
     # --- phase 2: build ---
     path, secs, out = cuda.build(("-Xptxas", "-v"))
     log(f"build: {path.name} in {secs:.1f} s")
-    for line in out.splitlines():
-        if "Compiling entry" in line or "registers" in line:
-            log("  " + line.strip())
+    ptxas = ptxas_record(out)
+    for name, rec in ptxas.items():
+        log(f"  ptxas {name}: {rec}")
     cuda.library()
 
     # --- phase 3: every kernel against its plain version ---
@@ -1233,14 +1302,15 @@ def main() -> int:
     allstats = {**stats, **gstats}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extras = ("device_ms", "fixed_ms", "library_device_ms", "wrapper_ms", "bound_square_ms", "tile",
-              "grid")
+              "grid", "plan", "device_ms_by_s", "device_ms_by_mp")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": counts[k.name] + gcounts[k.name] + pcounts[k.name],
          "launches_by_path": {"known": counts[k.name], "gated": gcounts[k.name],
                               "pair": pcounts[k.name]},
          **{key: allstats[k.name][key] for key in keys},
-         **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]}}
+         **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
+         "ptxas": {n: r for n, r in ptxas.items() if n.startswith(f"{k.name}_kernel")}}
         for k in sorted(cuda.KERNELS.values(), key=lambda k: ORDER.index(k.name))
     ]}
     summary = {

@@ -8,8 +8,8 @@
 // VMEM.  Hopper blocks run in parallel and in no order, so there is no
 // "once" to share: the grid runs over column panels of D and EVERY block
 // reruns the recursion (csl_coeff_recursion, coeff.cuh, the routine H2
-// runs too) on one thread, a few hundred scalar operations, then writes
-// its columns:
+// runs too) on its first warp, a few hundred scalar operations, then
+// writes its columns:
 //
 //   vtf[j, n] = p2[n] c_j[0] + e0[n] c_j[1] + e1[n] c_j[2] + e2[n] c_j[3]
 //               for the NB coefficient columns c_j, zero for NB <= j < NBP
@@ -21,9 +21,9 @@
 //
 // What bounds it on the card: latency.  It moves ~(NBP + 3) D floats
 // (~110 KB at D = 1024) and does no arithmetic to speak of; its time is
-// the recursion on one thread (sinf/cosf and divisions in a dependent
-// chain) plus one launch.  The design keeps that chain in registers and
-// local memory of one thread per block, never waits on another block, and
+// the recursion (sinf/cosf and divisions in a dependent chain) plus one
+// launch.  The design keeps that chain in the registers of one warp per
+// block (a lane per sub-step holds its terms), never waits on another block, and
 // writes the strip with one thread per column so that every row store is
 // a coalesced line per warp.  Columns past D are masked: any D works.
 #include "coeff.cuh"
@@ -41,16 +41,18 @@ factor_strip_kernel(const float* __restrict__ subs, const float* __restrict__ qc
     const bool heading = use_heading != 0;
     const float r_head = sigma_heading * sigma_heading;
     const int nb = csl_coeff_cols(S, heading);
-    if (threadIdx.x == 0) {
+    if (threadIdx.x < 32) {
         const float p2h[3] = {p2[0], p2[1], p2[2]};
         float pose[3] = {x0[0], x0[1], x0[2]};
         float corr0;
         csl_coeff_recursion(subs, S, qc, p2h, pose, wheel_base, dt, r_head, heading,
                             blockIdx.x == 0 ? pt : nullptr, &corr0, cols);
-        scal[0] = pose[0];
-        scal[1] = pose[1];
-        scal[2] = pose[2];
-        scal[3] = corr0;
+        if (threadIdx.x == 0) {
+            scal[0] = pose[0];
+            scal[1] = pose[1];
+            scal[2] = pose[2];
+            scal[3] = corr0;
+        }
     }
     __syncthreads();
 

@@ -45,31 +45,6 @@ namespace {
 
 constexpr int BK = 16;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(in ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(in ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <int T>
 struct Cfg {
     static_assert(T == 32 || T == 128, "tile edge");
@@ -171,8 +146,8 @@ rank_update_kernel(const float* __restrict__ p, const float* __restrict__ g,
                         const int kk = e / (T / 4), c4 = (e % (T / 4)) * 4;
                         const int k = k0 + kk;
                         const bool ain = k < r && i0 + c4 < d, bin = k < r && j0 + c4 < d;
-                        cp_async16(as + kk * T + c4, ain ? g + (size_t)k * d + i0 + c4 : g, ain);
-                        cp_async16(bs + kk * T + c4, bin ? mg + (size_t)k * d + j0 + c4 : mg, bin);
+                        csl_cp_async16(as + kk * T + c4, ain ? g + (size_t)k * d + i0 + c4 : g, ain);
+                        csl_cp_async16(bs + kk * T + c4, bin ? mg + (size_t)k * d + j0 + c4 : mg, bin);
                     }
                 } else {
 #pragma unroll
@@ -181,12 +156,12 @@ rank_update_kernel(const float* __restrict__ p, const float* __restrict__ g,
                         const int kk = e / T, c1 = e % T;
                         const int k = k0 + kk;
                         const bool ain = k < r && i0 + c1 < d, bin = k < r && j0 + c1 < d;
-                        cp_async4(as + kk * T + c1, ain ? g + (size_t)k * d + i0 + c1 : g, ain);
-                        cp_async4(bs + kk * T + c1, bin ? mg + (size_t)k * d + j0 + c1 : mg, bin);
+                        csl_cp_async4(as + kk * T + c1, ain ? g + (size_t)k * d + i0 + c1 : g, ain);
+                        csl_cp_async4(bs + kk * T + c1, bin ? mg + (size_t)k * d + j0 + c1 : mg, bin);
                     }
                 }
             }
-            cp_async_commit();    // an empty group past the end keeps the count
+            csl_cp_async_commit();    // an empty group past the end keeps the count
         };
 
         float acc[M][M];
@@ -198,7 +173,7 @@ rank_update_kernel(const float* __restrict__ p, const float* __restrict__ g,
 #pragma unroll
         for (int c = 0; c < C::STAGES - 1; ++c) load(c);
         for (int c = 0; c < nk; ++c) {
-            cp_async_wait<C::STAGES - 2>();
+            csl_cp_async_wait<C::STAGES - 2>();
             __syncthreads();     // chunk c landed; every thread is done with chunk c - 1
             load(c + C::STAGES - 1);
             const float* as = smem + (c % C::STAGES) * 2 * BK * T;
@@ -221,7 +196,7 @@ rank_update_kernel(const float* __restrict__ p, const float* __restrict__ g,
                     for (int b = 0; b < M; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
             }
         }
-        cp_async_wait<0>();
+        csl_cp_async_wait<0>();
         __syncthreads();         // the ring becomes the epilogue's tile
 
 #pragma unroll

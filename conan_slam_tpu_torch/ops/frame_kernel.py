@@ -8,17 +8,20 @@ memory, so the port takes the reference's big-D schedule instead
 (``_frame_step_big``: a chain kernel, then one O(D^2) rank pass), proven
 equal to the resident one by the reference's own tests:
 
-  H2 ``frame_chain`` (one block): the S-step coefficient recursion, K4,
-      the range-bearing observe and compact Hc, S = Hc P'[rows] Hc^T + R.
-      It writes the small state the TPU grid carried in scratch (``rowc``,
-      ``ms``) to device memory, because Hopper blocks run in parallel and
-      in no order.
+  H2 ``frame_chain`` (one block a band of measurement rows,
+      ``frame_chain_plan``): the S-step coefficient recursion, K4, the
+      range-bearing observe and compact Hc, S = Hc P'[rows] Hc^T + R.
+      Every block reruns the recursion and the observe and forms its
+      band's rows of psub and S.  It writes the small state the TPU grid
+      carried in scratch (``rowc``, ``ms``) to device memory, because
+      Hopper blocks run in parallel and in no order.
   H1 ``sweep_si`` (one block): S^-1 by the Jacobi-scaled sweep over the
       valid pivot blocks (ops.spd_inverse).  The reference ran it inside
       the chain kernel; here it is its own launch.
-  H3 ``frame_panels`` (many blocks): the gains siv = v^T S^-1 and the NIS,
-      pht = Hc P'[rows] and the updated mean, one column panel of D per
-      block.
+  H3 ``frame_panels`` (one block a 16-column panel of D,
+      ``frame_panels_plan``): the gains siv = v^T S^-1 and the NIS,
+      pht = Hc P'[rows] and the updated mean.  Clusters of 8 blocks split
+      siv and share it through distributed shared memory.
   H4 ``rank_update_t``: P + G^T M G with G = [pht; p2; e0; e1; e2] and
       M = blockdiag(-S^-1, K4) (``_frame_gm``).
 
@@ -83,15 +86,21 @@ from conan_slam_tpu_torch.ops.spd_inverse import (
 MS_LEN = 32
 MAX_STEPS = 16     # sub-steps per frame the chain kernel holds
 
+N_SM = 132          # SMs of an H100 SXM, the most blocks H2's bands spread over
+PANEL_W = 16        # H3's columns of D a block (csrc/frame_panels.cu)
+PANEL_CLUSTER = 8   # H3's blocks that share one siv
+PANEL_THREADS = 256
+PANEL_LD = 24       # H3's panel row stride in shared memory
+
 FRAME_CHAIN = cuda.CudaKernel(
     "frame_chain", "csl_frame_chain",
-    [cuda.P] * 11 + [cuda.I, cuda.I, cuda.I, cuda.F, cuda.F, cuda.F, cuda.I],
+    [cuda.P] * 11 + [cuda.I, cuda.I, cuda.I, cuda.I, cuda.F, cuda.F, cuda.F, cuda.I],
     source="conan_slam_tpu_torch/csrc/frame_chain.cu",
     replaces="conan_slam_tpu/ops/frame_kernel.py:1123 (_chain_dispatch -> pallas_call :1139, grid step 0)",
 )
 FRAME_PANELS = cuda.CudaKernel(
     "frame_panels", "csl_frame_panels",
-    [cuda.P] * 8 + [cuda.I, cuda.I, cuda.I],
+    [cuda.P] * 8 + [cuda.I] * 5,
     source="conan_slam_tpu_torch/csrc/frame_panels.cu",
     replaces="conan_slam_tpu/ops/frame_kernel.py:1123 (_chain_dispatch -> pallas_call :1139, panel steps)",
 )
@@ -118,6 +127,53 @@ def _round_up(n: int, m: int) -> int:
 def frame_shapes(nz: int) -> tuple[int, int]:
     """(MP, RP): padded measurement rows and gathered rows for NZ slots."""
     return _round_up(2 * nz, 32), _round_up(3 + 2 * nz, 8)
+
+
+class ChainPlan(NamedTuple):
+    """H2's row bands: block b forms rows ``rows(b)`` of psub and S."""
+
+    band: int    # measurement rows a block: whole measurements (even)
+    grid: int    # blocks
+    mp: int
+
+    def rows(self, block: int) -> range:
+        return range(min(self.mp, block * self.band), min(self.mp, (block + 1) * self.band))
+
+
+def frame_chain_plan(mp: int) -> ChainPlan:
+    """H2's bands at MP = ``mp``: one measurement (two rows) a block while
+    that takes no more blocks than the card has SMs, else the fewest whole
+    measurements a band that does."""
+    band = 2 * -(-(mp // 2) // N_SM)
+    return ChainPlan(band=band, grid=-(-mp // band), mp=mp)
+
+
+class PanelPlan(NamedTuple):
+    """H3's column panels: block b writes columns ``columns(b)`` of pht and
+    xn, and forms siv entries ``siv_entries(b % cluster)`` for its cluster."""
+
+    width: int       # columns of D a block
+    panels: int      # blocks that hold columns
+    grid: int        # blocks launched: whole clusters
+    cluster: int     # blocks that share one siv
+    siv_block: int   # siv entries each block of a cluster forms
+    mp: int
+    d: int
+
+    def columns(self, block: int) -> range:
+        return range(min(self.d, block * self.width), min(self.d, (block + 1) * self.width))
+
+    def siv_entries(self, rank: int) -> range:
+        return range(min(self.mp, rank * self.siv_block),
+                     min(self.mp, (rank + 1) * self.siv_block))
+
+
+def frame_panels_plan(mp: int, d: int) -> PanelPlan:
+    """H3's panels at MP = ``mp``, D = ``d``: 16-column panels, the grid
+    rounded up to whole clusters of 8."""
+    panels = -(-d // PANEL_W)
+    return PanelPlan(width=PANEL_W, panels=panels, grid=_round_up(panels, PANEL_CLUSTER),
+                     cluster=PANEL_CLUSTER, siv_block=-(-mp // PANEL_CLUSTER), mp=mp, d=d)
 
 
 class FrameStep(NamedTuple):
@@ -285,14 +341,17 @@ def _frame_chain_reference(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base,
     )
 
 
-def _chain_smem_bytes(mp: int, rp: int) -> int:
-    return 4 * (mp * rp + 8 * mp + 2 * rp + 32)
+def _chain_smem_bytes(mp: int, rp: int, band: int) -> int:
+    """Shared memory of one H2 block (csrc/frame_chain.cu frame_chain_smem)."""
+    rpa = _round_up(rp, 4)
+    return 4 * ((4 + band) * rpa + _round_up(3 * (mp // 2), 4) + 4 + 8 * mp + band * rp)
 
 
 def frame_chain(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
                 sigma_heading, use_heading) -> ChainOut:
     """The frame chain up to S: plain version for CPU tensors, kernel H2
-    (one block) for CUDA tensors."""
+    (one block a band of measurement rows, ``frame_chain_plan``) for CUDA
+    tensors."""
     if cuda.on_cpu(subs, qc, zin, rsc, x0rows, prc):
         return _frame_chain_reference(
             subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
@@ -300,7 +359,8 @@ def frame_chain(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
         )
     s_steps = subs.shape[1]
     rp = prc.shape[0]
-    if s_steps > MAX_STEPS or _chain_smem_bytes(mp, rp) > cuda.MAX_SMEM_BYTES:
+    plan = frame_chain_plan(mp)
+    if s_steps > MAX_STEPS or _chain_smem_bytes(mp, rp, plan.band) > cuda.MAX_SMEM_BYTES:
         raise ValueError(f"frame_chain: S={s_steps}, MP={mp}, RP={rp} exceed one block")
     cuda.check(subs, "subs", (4, s_steps))
     cuda.check(qc, "qc", (3,))
@@ -319,7 +379,7 @@ def frame_chain(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
     FRAME_CHAIN(
         dev, *(cuda.ptr(t) for t in (subs, qc, zin, rsc, x0rows, prc)),
         *(cuda.ptr(t) for t in out),
-        s_steps, mp, rp, float(wheel_base), float(dt), float(sigma_heading),
+        s_steps, mp, rp, plan.band, float(wheel_base), float(dt), float(sigma_heading),
         int(bool(use_heading)),
     )
     return out
@@ -351,14 +411,23 @@ def _frame_panels_reference(rowc, ms, si, prows, x):
     return pht, xn, nis
 
 
+def _panels_smem_bytes(mp: int, rp: int) -> int:
+    """Shared memory of one H3 block (csrc/frame_panels.cu frame_panels_smem)."""
+    return 4 * (8 * mp + 32 + PANEL_LD * rp + PANEL_THREADS + _round_up(mp, 4)
+                + -(-mp // PANEL_CLUSTER))
+
+
 def frame_panels(rowc, ms, si, prows, x):
     """pht, the updated mean and the NIS: plain version for CPU tensors,
-    kernel H3 (one block per column panel, ragged edge masked) for CUDA
-    tensors."""
+    kernel H3 (one block a 16-column panel, ragged edge masked,
+    ``frame_panels_plan``) for CUDA tensors."""
     if cuda.on_cpu(rowc, ms, si, prows, x):
         return _frame_panels_reference(rowc, ms, si, prows, x)
     mp = rowc.shape[0]
     rp, d = prows.shape
+    plan = frame_panels_plan(mp, d)
+    if mp > PANEL_CLUSTER * PANEL_THREADS or _panels_smem_bytes(mp, rp) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"frame_panels: MP={mp}, RP={rp} exceed one block")
     cuda.check(rowc, "rowc", (mp, 8))
     cuda.check(ms, "ms", (MS_LEN,))
     cuda.check(si, "si", (mp, mp))
@@ -368,7 +437,8 @@ def frame_panels(rowc, ms, si, prows, x):
     xn = torch.empty((d,), dtype=torch.float32, device=x.device)
     nis = torch.empty((1,), dtype=torch.float32, device=x.device)
     FRAME_PANELS(
-        x.device, *(cuda.ptr(t) for t in (rowc, ms, si, prows, x, pht, xn, nis)), mp, rp, d
+        x.device, *(cuda.ptr(t) for t in (rowc, ms, si, prows, x, pht, xn, nis)), mp, rp, d,
+        plan.width, plan.grid,
     )
     return pht, xn, nis
 

@@ -46,7 +46,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _frame_args(dev, d, seed=79, nz=10):
+def _frame_args(dev, d, seed=79, nz=10, s_steps=6, use_heading=True):
+    """A frame at D = d: NZ = nz measurements of distinct landmarks (one
+    masked) and S = s_steps sub-steps (the last inactive when S > 1)."""
     rng = np.random.default_rng(seed)
     cap = (d - 3) // 2
     lm = rng.uniform(-50, 50, size=(cap, 2)).astype(np.float32)
@@ -62,14 +64,14 @@ def _frame_args(dev, d, seed=79, nz=10):
     return (
         (st.p + torch.as_tensor(a @ a.T)).to(dev), st.x.to(dev),
         t(np.concatenate([np.arange(3), (3 + 2 * ids[:, None] + np.arange(2)).reshape(-1)])),
-        t((83.33 + rng.normal(size=6) * 0.3).astype(np.float32)),
-        t((rng.normal(size=6) * 0.2).astype(np.float32)),
-        t((rng.normal(size=6) * 0.5).astype(np.float32)),
-        t(np.array([1, 1, 1, 1, 1, 0], bool)),
+        t((83.33 + rng.normal(size=s_steps) * 0.3).astype(np.float32)),
+        t((rng.normal(size=s_steps) * 0.2).astype(np.float32)),
+        t((rng.normal(size=s_steps) * 0.5).astype(np.float32)),
+        t(np.arange(s_steps) < max(1, s_steps - 1)),
         t(np.diag([0.3**2, (np.pi / 180) ** 2]).astype(np.float32)),
         t(z[:, 0].astype(np.float32)), t(z[:, 1].astype(np.float32)), t(mask),
         t(np.diag([0.1**2, 0.5 * np.pi / 180]).astype(np.float32)),
-        73.0, 0.01, 0.01 * np.pi / 180, True,
+        73.0, 0.01, 0.01 * np.pi / 180, use_heading,
     )
 
 
@@ -87,6 +89,59 @@ def test_frame_kernels_match_plain_versions(dev, d):
     torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+
+
+# H2's bands and H3's panels: MP 32, 128 and 224, S = 1, 6 and 16, the
+# heading update on and off, at the bench D, a ragged D and a D smaller
+# than one 16-column panel (5 landmarks, MP 32).
+_CHAIN_CASES = [(d, nz, s, h) for d in (2304, 2051) for nz in (10, 64, 112)
+                for s in (1, 6, 16) for h in (True, False)]
+_CHAIN_CASES += [(13, 5, s, h) for s in (1, 6, 16) for h in (True, False)]
+
+
+@pytest.mark.parametrize("d,nz,s_steps,use_heading", _CHAIN_CASES)
+def test_chain_and_panels_kernels_match_plain(dev, d, nz, s_steps, use_heading):
+    args = _frame_args(dev, d, nz=nz, s_steps=s_steps, use_heading=use_heading)
+    fi = fk.frame_inputs(*args[:12])
+    chain = (fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp, *args[12:])
+    cuda.reset_launch_counts()
+    ch_k, ch_again = fk.frame_chain(*chain), fk.frame_chain(*chain)
+    ch_p = fk._frame_chain_reference(*chain)
+    si = sweep_si_reference(ch_p.s, fi.nblk)
+    pargs = (ch_p.rowc, ch_p.ms, si, fi.prows, args[1])
+    pk, pk_again = fk.frame_panels(*pargs), fk.frame_panels(*pargs)
+    pp = fk._frame_panels_reference(*pargs)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "frame_chain": 2, "frame_panels": 2}
+    # chip_smoke.py phase 3a's tolerances: same algebra, fp32 order and
+    # FMA contraction; K4 carries the heading gain's amplified cancellation.
+    torch.testing.assert_close(ch_k.pt, ch_p.pt, rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(ch_k.rowc[:, :7], ch_p.rowc[:, :7], rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(ch_k.rowc[:, 7], ch_p.rowc[:, 7], rtol=0, atol=5e-4)
+    torch.testing.assert_close(ch_k.ms, ch_p.ms, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(ch_k.k4, ch_p.k4, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(ch_k.s, ch_p.s, rtol=1e-3, atol=1e-6 * float(ch_p.s.abs().max()))
+    torch.testing.assert_close(pk[0], pp[0], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(pk[1], pp[1], rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(pk[2], pp[2], rtol=1e-4, atol=1e-5)
+    # One fixed order of every sum, no atomics: two calls are bit-identical.
+    for a, b in zip((*ch_k, *pk), (*ch_again, *pk_again)):
+        assert torch.equal(a, b)
+
+
+def test_recursion_sincos_is_cudas_sincosf(dev, tmp_path):
+    # The recursion's csl_sincosf (no local memory) gives CUDA's sincosf
+    # bits for every float with |x| < 105,615, NaN and inf: 2^32 inputs.
+    import subprocess
+    from pathlib import Path
+
+    exe = tmp_path / "sincos_check"
+    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-o", str(exe),
+                    str(Path(__file__).with_name("cuda_sincos_check.cu"))],
+                   check=True, capture_output=True)
+    res = subprocess.run([str(exe)], capture_output=True, text=True)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 # Every even size up to MAX_MP, and the sweep bound from none to all.

@@ -127,9 +127,10 @@ def test_rank_update_t_matches_reference_kernel(d):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-2)
 
 
-def _frame_problem(seed, capacity=100, nz=10):
+def _frame_problem(seed, capacity=100, nz=10, s=6):
     """A whole-frame problem like the reference's _frame_step_problem
-    (D = 256 after the pad to a multiple of 128)."""
+    (D = 256 after the pad to a multiple of 128), with S = ``s`` sub-steps,
+    the last inactive when S > 1."""
     rng = np.random.default_rng(seed)
     lm = rng.uniform(-50, 50, size=(capacity, 2)).astype(np.float32)
     state = jekf.init_state_with_map(lm, sigma0=0.5, pad_multiple=128)
@@ -143,14 +144,13 @@ def _frame_problem(seed, capacity=100, nz=10):
     ], axis=-1).astype(np.float32)
     mask = np.ones(nz, bool)
     mask[-2] = False
-    s = 6
     return dict(
         p=p, x=np.array(state.x),
         rows=np.concatenate([np.arange(3), (3 + 2 * ids[:, None] + np.arange(2)).reshape(-1)]),
         vns=(83.33 + rng.normal(size=s) * 0.3).astype(np.float32),
         swans=(rng.normal(size=s) * 0.2).astype(np.float32),
         phis=(rng.normal(size=s) * 0.5).astype(np.float32),
-        act=np.array([1, 1, 1, 1, 1, 0], bool),
+        act=np.arange(s) < max(1, s - 1),
         q=np.diag([0.3**2, (np.pi / 180) ** 2]).astype(np.float32),
         zr=z[:, 0], zb=z[:, 1], mask=mask,
         r=np.diag([0.1**2, 0.5 * np.pi / 180]).astype(np.float32),
@@ -207,16 +207,19 @@ def test_frame_step_matches_port_oracle():
     _assert_frame_close(got, ref)
 
 
-def test_chain_and_panels_match_reference_chain_dispatch():
+@pytest.mark.parametrize("nz,use_heading,s", [
+    (10, True, 6), (64, True, 6), (10, False, 6), (64, False, 1), (10, True, 16),
+])
+def test_chain_and_panels_match_reference_chain_dispatch(nz, use_heading, s):
     # H2 + H1 + H3's plain versions against the reference's T2 outputs
     # (its interpret-mode _chain_dispatch): pose trace, K4, S^-1, pht, xn,
-    # NIS.  The reference pads MP to 128 and the port to 32: compare the
-    # live rows.
-    prob = _frame_problem(73)
-    tail = (73.0, 0.01, 0.01 * np.pi / 180, True)
-    nz = prob["zr"].shape[0]
+    # NIS, over NZ (MP 32 and 128 in the port), the heading update and the
+    # sub-step count.  The reference pads MP to 128 and the port to 32:
+    # compare the live rows.
+    prob = _frame_problem(73, nz=nz, s=s)
+    tail = (73.0, 0.01, 0.01 * np.pi / 180, use_heading)
     j = {k: jnp.asarray(prob[k].astype(np.int32) if k == "rows" else prob[k]) for k in _KEYS}
-    jmp, jrp = 128, 24
+    jmp, jrp = -(-2 * nz // 128) * 128, -(-(3 + 2 * nz) // 8) * 8
     zin, rsc, nblk = jfk._pack_meas(j["zr"], j["zb"], j["mask"], j["r"], jmp // 2, jnp.float32)
     subs, qc = jfk._pack_ctrl(j["vns"], j["swans"], j["phis"], j["act"], j["q"], jnp.float32)
     rows_full = jnp.concatenate([j["rows"], jnp.zeros((jrp - 2 * nz - 3,), jnp.int32)])
@@ -224,7 +227,7 @@ def test_chain_and_panels_match_reference_chain_dispatch():
     d = prows.shape[1]
     pht, xn, pt, nis, si, k4 = jfk._chain_dispatch(
         j["x"].reshape(1, d), subs, qc, zin, rsc, nblk, j["x"][rows_full].reshape(1, jrp),
-        prows, prows[:, rows_full], 256, jmp, jrp, 6, *tail, True)
+        prows, prows[:, rows_full], 256, jmp, jrp, s, *tail, True)
 
     t = {k: torch.as_tensor(prob[k]) for k in _KEYS}
     mp, rp = tfk.frame_shapes(nz)
