@@ -15,8 +15,19 @@ Phases:
   3. Each kernel against its plain PyTorch version on the card, with each
      tolerance stated, and each kernel's time beside its plain version's
      (CUDA events):
-       a. the known-association frame (H1-H4) at the bench shape
-          (D = 2304, NZ = 64) and at a ragged D;
+       a. the known-association frame at the bench shape (D = 2304,
+          NZ = 64) and at a ragged D: H9 (the default route, one
+          cooperative launch) and the split schedule's H1-H4, each against
+          its plain version; H9 over MP 32/128/224, S 1/6/16, heading on
+          and off and D 2304/2051/13 against the split kernels (within the
+          fp32 rounding of the sums they order differently) and its plain
+          version (two calls bit-equal, asym(P) exactly 0), its device time
+          against MP and S, its phases (%globaltimer), its plan and bound;
+          and the routes past H1's registers: the frame and the pair at
+          MP 240 on the split schedule with H1's cooperative sweep (H1 also
+          at MP 480), the plain route with no launch where neither package
+          has a kernel, and a raise with no launch where only the
+          reference has one;
        b. the gated frame (H5-H8, H1, H4 and the whole frame_update_obs) at
           BASELINE config 2's shape (D = 1024, NZ = 64, K = 510) on a
           mid-run frame, at a ragged D (1003) and at the 10k-landmark shape
@@ -44,9 +55,11 @@ Phases:
   4. The main paths through runner.loop.run_ekf_slam_precomputed:
        a. the bench workload (1024 landmarks from seed 42 over a 13 km
           square, all pre-registered; 64-slot measurement buffer;
-          19,200 control steps = 3,200 frames) with the kernels, and 3,000
-          steps with the plain versions.  Asserts H1-H4 launched once per
-          frame and the reference's accuracy gate: ATE < 0.05 m,
+          19,200 control steps = 3,200 frames) through H9, in turns with
+          the split schedule (H9, split, split, H9), and 3,000 steps with
+          the plain versions.  Asserts H9 launched once per frame and H1-H4
+          never on the H9 runs (H1-H4 once per frame on the split runs),
+          and the reference's accuracy gate on each: ATE < 0.05 m,
           asym(P) < 1e-4.
        b. BASELINE config 2 (500 landmarks of random_world(PRNGKey(7), 500)
           on the default tour, empty map, gated association and
@@ -60,15 +73,17 @@ Phases:
           steps.
        c. the bench workload in frame pairs (cfg.frame_pair): 19,200 steps =
           1,600 pairs with the kernels, timed in turns with the per-frame
-          path (per-frame, pair, pair, per-frame); the ate gate, H2, H1 and
-          H3 twice per pair and H4 once; 600 steps of the plain pair.
+          path (H9; per-frame, pair, pair, per-frame); the ate gate, H2, H1
+          and H3 twice per pair and H4 once; 600 steps of the plain pair.
        d. the chunked driver (run_ekf_slam_precomputed_chunked) on the pair
           path in chunks of 4,800 steps with checkpoints: a run killed in
           its third chunk and resumed must equal an uninterrupted run bit
           for bit; the seconds and bytes of one checkpoint.
-     Then a torch.profiler trace of 100 frames of each path (100 pairs of
-     the pair path, 20 frames of the 10k-landmark shape) gives each
-     kernel's device time per frame and the device's busy share.
+     Then a torch.profiler trace of 100 frames of each path (the known
+     path through H9 and through the split schedule, 100 pairs of the pair
+     path, 20 frames of the 10k-landmark shape) gives each kernel's device
+     time per frame, the PyTorch ops dispatched per frame and the device's
+     busy share.
   5. The kernel table and the card as JSON lines, then the last line
      {"ok": true, "device": {...}}.
 
@@ -78,6 +93,8 @@ Any failed check exits non-zero before the last line is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import re
@@ -102,11 +119,12 @@ BIG_LANDMARKS = 10_000  # the 10k-landmark shape: D = 20,224, K = 10,110
 BIG_STEPS = 600
 BIG_WARM_STEPS = 60     # untimed steps before the timed 10k run
 BIG_PROFILE_FRAMES = 20 # frames of the 10k shape traced with torch.profiler
-KNOWN_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
+KNOWN_KERNELS = ("frame_step",)   # H9: the known frame's default route
+SPLIT_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
 GATED_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse", "obs_panels",
                  "rank_update")
 ORDER = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update", "factor_strip",
-         "gating_scores", "obs_chain", "obs_panels")
+         "gating_scores", "obs_chain", "obs_panels", "frame_step")
 CHUNK_STEPS = 4800      # the chunked driver's chunk: 800 frames = 400 pairs
 # The card's published peaks (H100 SXM data sheet, at 700 W): fp32 outside
 # the tensor cores, and HBM3.
@@ -196,9 +214,13 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None) -
     torch.profiler traces of ``iters`` calls (after two untraced ones):
     the sum, over the kernels and copies a call launches (each once), of
     their median durations, or only the kernel named ``kernel``.  A name
-    seen fewer than iters / 2 times in a trace is a stray of another trace.
-    The profiler can drop a trace's device events, which only lowers its
-    reading, so the largest of ``traces`` traces is kept."""
+    seen fewer than iters / 2 times in a trace is a stray of another trace;
+    ``kernel`` matches a whole word of the demangled name (which may carry
+    ``void``, a namespace and template arguments).
+    The profiler can drop a trace's device events, which lowers its
+    reading or leaves it empty, and one trace can read high (a clock dip),
+    so up to 3 ``traces`` traces are taken until ``traces`` of them hold
+    events, and the median of those is kept."""
     import statistics
 
     import torch
@@ -208,8 +230,10 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None) -
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    best = 0.0
-    for _ in range(traces):
+    readings = []
+    for _ in range(3 * traces):
+        if len(readings) == traces:
+            break
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -218,12 +242,15 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None) -
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        best = max(best, sum(statistics.median(d) for name, d in durations.items()
-                             if len(d) >= iters / 2
-                             and (kernel is None or name.split("(")[0] == kernel)))
-    if best <= 0.0:
+        reading = sum(statistics.median(d) for name, d in durations.items()
+                      if len(d) >= iters / 2
+                      and (kernel is None or re.search(rf"\b{kernel}\b", name)))
+        if reading > 0.0:
+            readings.append(reading)
+    if not readings:
         require(False, "device time", f"no profiler trace of {iters} calls held device events")
-    return best / 1e3
+        return 0.0
+    return statistics.median(readings) / 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -367,7 +394,7 @@ def warm_frame(device, world, cfg, state0, n_warm_frames: int, n_next: int = 1):
 def frame_case(device, n_warm_frames: int, pad_multiple: int):
     """A realistic frame at the bench shape: the state after
     ``n_warm_frames`` plain frames of the bench run, and the next frame's
-    inputs, as frame_step takes them."""
+    inputs, as frame_step takes them (the slots and the capacity)."""
     import torch
 
     from conan_slam_tpu_torch.config import SlamConfig
@@ -378,11 +405,8 @@ def frame_case(device, n_warm_frames: int, pad_multiple: int):
     state, [((vns, swans, phis, acts), obs)], noise = warm_frame(device, world, cfg, state0,
                                                                  n_warm_frames)
     assoc = associate_known(state, obs)
-    safe = assoc.slots.clamp(0, state.capacity - 1)
-    rows = torch.cat([torch.arange(3, device=device),
-                      (3 + 2 * safe[:, None] + torch.arange(2, device=device)).reshape(-1)])
-    args = (state.p, state.x, rows, vns, swans, phis, acts, noise.qe, obs.z[:, 0], obs.z[:, 1],
-            assoc.known_mask, noise.re)
+    args = (state.p, state.x, assoc.slots, state.capacity, vns, swans, phis, acts, noise.qe,
+            obs.z[:, 0], obs.z[:, 1], assoc.known_mask, noise.re)
     tail = (cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, cfg.switch_heading_known)
     return args, tail
 
@@ -408,6 +432,456 @@ def chain_sweep(fi, tail) -> dict:
         f"S={s} {t * 1e3:.2f} us" for s, t in by_s.items()) + "; against MP (S = 6): " + ", ".join(
         f"MP={m} {t * 1e3:.2f} us" for m, t in by_mp.items()))
     return dict(device_ms_by_s=by_s, device_ms_by_mp=by_mp)
+
+
+def frame_inputs(args):
+    """The packed kernel inputs (ops.frame_kernel.frame_inputs) of
+    frame_step's ``args``."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    p, x, slots, cap, *rest = args
+    return fk.frame_inputs(p, x, fk.frame_rows(slots, cap), *rest[:9])
+
+
+def ulp_bounds(fargs, got) -> dict:
+    """Elementwise bounds on two fp32 routes of one frame (frame_step's
+    ``fargs``, tail included) that differ only in the order of their sums:
+    H9 and the split schedule run the same chain, sweep and pht code and
+    sum M G and the mean in other orders.  Each route rounds two nested
+    sums of at most r = MP + 8 terms (M G, then G^T M G; siv, then the
+    mean), each within r eps of its terms' magnitudes to first order, so
+    the two differ by at most 4 r eps times the magnitudes, from the plain
+    versions: |P| + |G|^T |M| |G| for P, |x| + |xn| + |v|^T |S^-1| |pht|
+    for the mean, |v|^T |S^-1| |v| for the NIS."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_si_reference
+
+    fi = frame_inputs(fargs[:13])
+    ch = fk._frame_chain_reference(fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp,
+                                   *fargs[13:])
+    si = sweep_si_reference(ch.s, fi.nblk)
+    p, x = fargs[0], fargs[1]
+    pht = fk._frame_panels_reference(ch.rowc, ch.ms, si, fi.prows, x)[0]
+    gmat, mmid = fk._frame_gm(pht, si, ch.k4[:4, :4], fi.prows[2:3], fi.mp)
+    vsi = ch.rowc[:, 7].abs() @ si.abs()
+    u = 4.0 * (fi.mp + 8) * 2.0**-23
+    return dict(pose_trace=u * got.pose_trace.abs(),
+                x=u * (x.abs() + got.x.abs() + vsi @ pht.abs()),
+                p=u * (p.abs() + gmat.abs().T @ (mmid.abs() @ gmat.abs())),
+                nis=u * (vsi @ ch.rowc[:, 7].abs()))
+
+
+def split_excess(fargs, got, split) -> dict:
+    """Each of H9's outputs against the split schedule's: the largest
+    |H9 - split| over its ulp_bounds tolerance (at most 1 passes; an entry
+    whose tolerance is 0, a zero row of P past D, passes only if equal)."""
+    import torch
+
+    out = {}
+    for key, tol in ulp_bounds(fargs, got).items():
+        err = (getattr(got, key) - getattr(split, key)).abs()
+        ratio = torch.where(err == 0, 0.0, err / tol)
+        out[key] = float(torch.nan_to_num(ratio, nan=float("inf")).max())
+    return out
+
+
+def h9_checks(label: str, args, tail, split_frame, oracle) -> float:
+    """H9 against its plain version and the fastframe oracle at the
+    reference's frame tolerances, and against the split schedule's kernels
+    within the fp32 rounding of the sums the two order differently
+    (ulp_bounds); two calls bit-equal; an exactly symmetric P stays exactly
+    symmetric.  Returns P's max abs error against the plain version."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    got, again = fk.frame_step(*args, *tail), fk.frame_step(*args, *tail)
+    plain = fk.frame_step(*args, *tail, plain=True)
+    excess = split_excess((*args, *tail), got, split_frame)
+    require(max(excess.values()) <= 1.0, f"H9 {label} vs split kernels",
+            "|H9 - split| over its fp32 bound (4 (MP + 8) eps x the terms' magnitudes) at most "
+            "1: " + ", ".join(f"{k} {v:.3f}" for k, v in excess.items()))
+    err = 0.0
+    for ref_name, ref in (("plain version", plain), ("fastframe oracle", oracle)):
+        check(f"H9 {label} vs {ref_name}: pose trace", got.pose_trace, ref.pose_trace, 1e-6, 1e-3,
+              "~5 km positions, fp32 ulps")
+        check(f"H9 {label} vs {ref_name}: x", got.x, ref.x, 1e-6, 2e-3, "~5 km means, fp32 ulps")
+        e = check(f"H9 {label} vs {ref_name}: P", got.p, ref.p, 1e-3, 1e-4,
+                  "the reference test's tolerance")
+        check(f"H9 {label} vs {ref_name}: nis", got.nis, ref.nis, 1e-3, 1e-5,
+              "the reference test's tolerance")
+        err = e if ref_name == "plain version" else err
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"H9 {label} deterministic",
+            "two calls on the same inputs are bit for bit equal")
+    p = args[0]
+    sym = fk.frame_step(0.5 * (p + p.T), *args[1:], *tail)
+    asym = float((sym.p - sym.p.T).abs().max())
+    require(asym == 0.0, f"H9 {label} symmetry",
+            f"symmetric P -> asym(P out) = {asym:.1e} (must be exactly 0: the upper triangle is "
+            "mirrored)")
+    return err
+
+
+def h9_work(d: int, mp: int, rp: int, nblk: int) -> float:
+    """H9's operations: the chain (as H2), the sweep over nblk pivots (as
+    H1), pht and the mean (as H3), -S^-1 pht (2 MP^2 D), the P pass's upper
+    triangle at r = MP + 8 (D (D + 1) r) and its add."""
+    return (20.0 * mp * rp + 10.0 * mp * mp + 4.0 * mp * mp * nblk + 22.0 * mp * d
+            + 2.0 * mp * mp + 2.0 * mp * mp * d + d * (d + 1.0) * (mp + 8) + d * d)
+
+
+def synthetic_frame(device, d: int, nz: int, s_steps: int, use_heading: bool, seed: int = 79):
+    """A frame at D = ``d``: NZ = ``nz`` distinct landmarks of a 100 m
+    square measured (one masked), S = ``s_steps`` sub-steps (the last
+    inactive when S > 1), an exactly symmetric P; frame_step's arguments."""
+    import torch
+
+    from conan_slam_tpu_torch.filters.ekf import init_state_with_map
+
+    rng = np.random.default_rng(seed)
+    cap = (d - 3) // 2
+    lm = rng.uniform(-50, 50, size=(cap, 2)).astype(np.float32)
+    st = init_state_with_map(torch.as_tensor(lm), sigma0=0.5,
+                             pad_multiple=128 if d % 128 == 0 else 0, device=device)
+    a = torch.as_tensor(rng.normal(size=(d, 8)).astype(np.float32) * 0.05, device=device)
+    p = st.p + a @ a.T
+    ids = rng.choice(cap, size=nz, replace=False)
+    z = np.stack([np.hypot(lm[ids, 0], lm[ids, 1]) + rng.normal(size=nz) * 0.1,
+                  np.arctan2(lm[ids, 1], lm[ids, 0]) + rng.normal(size=nz) * 0.01], -1)
+    mask = np.ones(nz, bool)
+    mask[-2] = False
+    t = lambda v: torch.as_tensor(np.asarray(v), device=device)  # noqa: E731
+    return (0.5 * (p + p.T), st.x, t(ids.astype(np.int64)), cap,
+            t((83.33 + rng.normal(size=s_steps) * 0.3).astype(np.float32)),
+            t((rng.normal(size=s_steps) * 0.2).astype(np.float32)),
+            t((rng.normal(size=s_steps) * 0.5).astype(np.float32)),
+            t(np.arange(s_steps) < max(1, s_steps - 1)),
+            t(np.diag([0.3**2, (np.pi / 180) ** 2]).astype(np.float32)),
+            t(z[:, 0].astype(np.float32)), t(z[:, 1].astype(np.float32)), t(mask),
+            t(np.diag([0.1**2, 0.5 * np.pi / 180]).astype(np.float32)),
+            73.0, 0.01, 0.01 * np.pi / 180, use_heading)
+
+
+def known_witness(args):
+    """The frame of frame_step's ``args`` (tail included) in float64
+    through the port's independent oracle (fastframe factors, dense
+    products, a Cholesky inverse): ``FrameStep``."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    p, x, slots, cap, *rest = (
+        a.double() if torch.is_tensor(a) and a.dtype == torch.float32 else a for a in args)
+    return fk._plain_frame(p, x, fk.frame_rows(slots, cap), *rest[:9], tuple(rest[9:]))
+
+
+def h9_sweep(device) -> None:
+    """H9 over MP 32, 128 and 224 (NZ 10, 64, 112), S = 1, 6 and 16, the
+    heading update on and off, at D = 2304, a ragged D = 2051 and D = 13
+    (smaller than one tile).  In every case: two calls bit-equal, asym(P)
+    exactly 0, and H9 against the split schedule's kernels within the fp32
+    rounding of the sums the two order differently (ulp_bounds), which
+    tells a fault of H9 from the conditioning of S.  Against its plain
+    version: the reference's frame tolerances (pose 1e-5, x 1e-4, P rtol
+    1e-3 / atol 1e-4, NIS rtol 1e-3), except on the F1 frames (heading
+    update off over 16 sub-steps), where S is conditioned so that fp32
+    rounding anywhere before the sweep moves x and P by ~1e-4 to 1e-3 in
+    any route (tests/test_torch_ops.py): there x and P are held to a
+    float64 witness, no further from it than twice the plain version, plus
+    the reference's 1e-4."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    cases = [(d, nz, s, h) for d in (2304, 2051) for nz in (10, 64, 112) for s in (1, 6, 16)
+             for h in (True, False)] + [(13, 5, s, h) for s in (1, 6, 16) for h in (True, False)]
+    worst = dict.fromkeys(("pose trace", "nis", "x", "P"), 0.0)
+    excess_max: dict[str, float] = {}
+    bad = []
+    for d, nz, s, h in cases:
+        args = synthetic_frame(device, d, nz, s, h)
+        got, again = fk.frame_step(*args), fk.frame_step(*args)
+        split = fk.frame_step(*args, schedule="split")
+        ref = fk.frame_step(*args, plain=True)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        asym = float((got.p - got.p.T).abs().max())
+        excess = split_excess(args, got, split)
+        for key, v in excess.items():
+            excess_max[key] = max(excess_max.get(key, 0.0), v)
+        ok = same and asym == 0.0 and max(excess.values()) <= 1.0
+        for key, a, b, rtol, atol in (("pose trace", got.pose_trace, ref.pose_trace, 1e-5, 1e-5),
+                                      ("nis", got.nis, ref.nis, 1e-3, 1e-5),
+                                      ("x", got.x, ref.x, 1e-4, 1e-4),
+                                      ("P", got.p, ref.p, 1e-3, 1e-4)):
+            err = (a.double() - b.double()).abs()
+            worst[key] = max(worst[key], float(err.max()))
+            if key in ("x", "P") and not h and s == 16:
+                continue
+            ok = ok and bool((err <= atol + rtol * b.double().abs()).all())
+        if not h and s == 16:
+            wit = known_witness(args)
+            for key, a, b, w in (("x", got.x, ref.x, wit.x), ("P", got.p, ref.p, wit.p)):
+                e_h9, e_plain = (float((t.double() - w).abs().max()) for t in (a, b))
+                worst[f"{key} - {key}64 (F1)"] = max(worst.get(f"{key} - {key}64 (F1)", 0.0), e_h9)
+                ok = ok and e_h9 <= 2.0 * e_plain + 1e-4
+        if not ok:
+            bad.append(f"D={d} NZ={nz} S={s} heading={h} (equal={same}, asym={asym:.1e}, "
+                       f"vs split {max(excess.values()):.3f} of its bound)")
+    require(not bad, f"H9 over {len(cases)} shapes",
+            "vs the split kernels within 4 (MP + 8) eps of the terms' magnitudes (worst "
+            + ", ".join(f"{k} {v:.3f}" for k, v in excess_max.items())
+            + " of the bound); vs its plain version within the reference's frame tolerances "
+            "(pose 1e-5, x 1e-4, P rtol 1e-3 / atol 1e-4, NIS rtol 1e-3), x and P of the F1 "
+            "frames within twice the plain version's distance + 1e-4 of a float64 witness; "
+            "two calls bit-equal, asym(P) = 0; worst "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + ("; failed: " + "; ".join(bad) if bad else ""))
+
+
+def launched_now() -> dict:
+    """The kernels launched since the counts were last set to 0."""
+    from conan_slam_tpu_torch.ops import cuda
+
+    return {k.name: k.launches for k in cuda.KERNELS.values() if k.launches}
+
+
+def raises_unported(fn) -> str:
+    """What ``fn()`` raised, or "nothing"."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return "nothing"
+
+
+def synthetic_pair(device, d: int, nz: int, seed: int = 83):
+    """A frame-start state at D = ``d`` (an exactly symmetric P) and two
+    frames of ``nz`` measurements at the sensors' noise scale (speed about
+    a standstill, heading at sigma_heading), frame B measured from frame
+    A's updated mean, as frame_step_pair takes them."""
+    import torch
+
+    from conan_slam_tpu_torch.filters.ekf import init_state_with_map
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    rng = np.random.default_rng(seed)
+    cap = (d - 3) // 2
+    lm = rng.uniform(-50, 50, size=(cap, 2)).astype(np.float32)
+    st = init_state_with_map(torch.as_tensor(lm), sigma0=0.5,
+                             pad_multiple=128 if d % 128 == 0 else 0, device=device)
+    a = torch.as_tensor(rng.normal(size=(d, 8)).astype(np.float32) * 0.05, device=device)
+    p, x = st.p + a @ a.T, st.x
+    p = 0.5 * (p + p.T)
+    tail = (73.0, 0.01, 0.01 * np.pi / 180, True)
+    q = torch.diag(torch.tensor([0.3**2, (np.pi / 180) ** 2], device=device))
+    r = torch.diag(torch.tensor([0.1**2, 0.5 * np.pi / 180], device=device))
+    t = lambda v: torch.as_tensor(np.asarray(v), device=device)  # noqa: E731
+    f32 = np.float32
+
+    def frame(xs):
+        ids = rng.choice(cap, size=nz, replace=False)
+        fx, fy = xs[3 + 2 * ids] - xs[0], xs[4 + 2 * ids] - xs[1]
+        mask = np.ones(nz, bool)
+        mask[rng.integers(nz)] = False
+        ctrl = (t((rng.normal(size=6) * 0.3).astype(f32)), t((rng.normal(size=6) * 0.02).astype(f32)),
+                t((xs[2] + rng.normal(size=6) * tail[2]).astype(f32)),
+                t(np.array([1, 1, 1, 1, 1, 0], bool)))
+        meas = (t((np.hypot(fx, fy) + rng.normal(size=nz) * 0.1).astype(f32)),
+                t((np.arctan2(fy, fx) - xs[2] + rng.normal(size=nz) * 0.01).astype(f32)), t(mask))
+        return fk.frame_rows(t(ids.astype(np.int64)), cap), ctrl, meas
+
+    rows_a, ctrl_a, meas_a = frame(x.cpu().numpy())
+    fa = fk._plain_frame(p, x, rows_a, *ctrl_a, q, *meas_a, r, tail)
+    rows_b, ctrl_b, meas_b = frame(fa.x.cpu().numpy())
+    return (p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *tail)
+
+
+def route_checks(device) -> dict:
+    """F2: the frames past H1's registers and past the port's kernels.
+    MP 240 (NZ 120) at D = 2304 and 403: frame_step and frame_step_pair take
+    the split schedule, with H1's cooperative sweep, held to their plain
+    versions; H1 alone at MP 240 and 480 against its plain version, with
+    its device time.  frame_update_obs at MP 240, D = 403, and frame_step
+    over 17 sub-steps at D = 2051: the plain route on the card (neither the
+    port's kernels nor the reference's TPU schedules hold them), the same
+    numbers as on the CPU, no launch.  17 sub-steps at D = 2304 and
+    frame_update_obs at MP 240, D = 1024 ("unported": only the reference's
+    TPU schedule holds them): a raise before any launch.  Returns H1's
+    device ms by MP past 224."""
+    import torch
+
+    from conan_slam_tpu_torch.filters.ekf.state import EKFState
+    from conan_slam_tpu_torch.ops import cuda
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_si, sweep_si_reference
+
+    def gated(d, nz):
+        """frame_update_obs's arguments for a synthetic frame at D = d."""
+        p, x, slots, cap, vns, swans, phis, acts, q, zr, zb, mask, r, *tail = synthetic_frame(
+            device, d, nz, 6, True)
+        st = EKFState(x=x, p=p, n_active=torch.tensor(cap, device=device),
+                      table=torch.zeros(1, dtype=torch.int64, device=device))
+        st1, _, vtf, bmat = _frame_factors_reference(st, vns, swans, phis, acts, q, *tail)
+        return (st1.p, st1.x, fk.frame_rows(slots, cap), zr, zb, mask, r, bmat, vtf)
+
+    split = dict.fromkeys(("sweep_inverse", "frame_chain", "frame_panels"), 1)
+    for d in (2304, 403):
+        fargs = synthetic_frame(device, d, 120, 6, True)
+        p, x, slots, cap, vns, swans, phis, acts, q, zr, zb, mask, r, *tail = fargs
+        route = fk.frame_route(d, 120, device, 6)
+        cuda.reset_launch_counts()
+        got = fk.frame_step(*fargs)
+        torch.cuda.synchronize()
+        launched = launched_now()
+        log(f"MP 240 (NZ 120, D {d}): frame_route {route!r}, launches {launched}")
+        require(route == "split" and launched == {**split, "rank_update": 1},
+                f"MP 240 at D {d} split schedule", "H2, H1 (cooperative), H3, H4 once each")
+        ref = fk.frame_step(*fargs, plain=True)
+        check(f"MP 240 D {d} frame vs plain: pose trace", got.pose_trace, ref.pose_trace, 1e-5,
+              1e-5, "the reference test's tolerance")
+        check(f"MP 240 D {d} frame vs plain: x", got.x, ref.x, 1e-4, 1e-4,
+              "the reference test's tolerance")
+        check(f"MP 240 D {d} frame vs plain: P", got.p, ref.p, 1e-3, 1e-4,
+              "the reference test's tolerance")
+        check(f"MP 240 D {d} frame vs plain: nis", got.nis, ref.nis, 1e-3, 1e-5,
+              "the reference test's tolerance")
+        pargs = synthetic_pair(device, d, 120)
+        cuda.reset_launch_counts()
+        got = fk.frame_step_pair(*pargs)
+        torch.cuda.synchronize()
+        launched = launched_now()
+        require(launched == {**dict.fromkeys(split, 2), "rank_update": 1},
+                f"MP 240 at D {d} pair launches", f"H2, H1, H3 twice and H4 once: {launched}")
+        ref = fk.frame_step_pair(*pargs, plain=True)
+        check(f"MP 240 D {d} pair vs plain: x", got.x, ref.x, 1e-4, 2e-4,
+              "the reference's pair-test tolerance")
+        check(f"MP 240 D {d} pair vs plain: P", got.p, ref.p, 1e-3, 2e-4,
+              "the reference's pair-test tolerance")
+        check(f"MP 240 D {d} pair vs plain: nis", got.nis, ref.nis, 1e-3, 1e-5,
+              "the reference's pair-test tolerance")
+
+    coop = {}
+    g = torch.Generator(device=device).manual_seed(11)
+    for m in (240, 480):
+        a = torch.randn((m, m), generator=g, device=device)
+        s_syn = a @ a.T / m + torch.eye(m, device=device)
+        nb = torch.tensor([m // 2], dtype=torch.int32, device=device)
+        out = sweep_si(s_syn, nb)
+        check(f"H1 cooperative, MP {m}", out, sweep_si_reference(s_syn, nb), 1e-4, 1e-5,
+              "same sweep, fp32 contraction differs: ulps of |S^-1| ~ 1")
+        require(torch.equal(out, out.T), f"H1 cooperative, MP {m} symmetry", "S^-1 exactly symmetric")
+        coop[m] = device_ms(lambda: sweep_si(s_syn, nb))
+    log("  H1 cooperative sweep device time (all pivots): " + ", ".join(
+        f"MP={m} {t * 1e3:.2f} us ({t * 1e3 / (m // 2):.2f} us a pivot)" for m, t in coop.items()))
+
+    cpu = lambda a: a.cpu() if torch.is_tensor(a) else a  # noqa: E731
+    fargs = synthetic_frame(device, 2051, 64, 17, True)
+    uargs = gated(403, 120)
+    route = fk.frame_route(2051, 64, device, 17)
+    oroute = fk.obs_route(403, 120, uargs[7].shape[0], device)
+    cuda.reset_launch_counts()
+    fs, fu = fk.frame_step(*fargs), fk.frame_update_obs(*uargs)
+    torch.cuda.synchronize()
+    launched = launched_now()
+    fs_c, fu_c = fk.frame_step(*map(cpu, fargs)), fk.frame_update_obs(*map(cpu, uargs))
+    log(f"S 17 (D 2051): frame_route {route!r}; MP 240 (D 403): obs_route {oroute!r}")
+    require(route == "plain" and oroute == "plain" and not launched, "plain route",
+            f"no kernel of the port or the reference holds these frames; launches "
+            f"{launched or 'none'}")
+    for name, a, b in (("frame_step x", fs.x, fs_c.x), ("frame_step P", fs.p, fs_c.p),
+                       ("frame_update_obs x", fu.x, fu_c.x), ("frame_update_obs P", fu.p, fu_c.p)):
+        check(f"plain route {name} card vs CPU", a.cpu(), b, 1e-3, 1e-4,
+              "the same plain route, cuBLAS/cuSOLVER vs CPU order")
+
+    fargs = synthetic_frame(device, 2304, 64, 17, True)
+    uargs = gated(1024, 120)
+    routes = (fk.frame_route(2304, 64, device, 17),
+              fk.obs_route(1024, 120, uargs[7].shape[0], device))
+    cuda.reset_launch_counts()
+    raised = (raises_unported(lambda: fk.frame_step(*fargs)),
+              raises_unported(lambda: fk.frame_update_obs(*uargs)))
+    torch.cuda.synchronize()
+    launched = launched_now()
+    log(f"S 17 (D 2304) and gated MP 240 (D 1024): routes {routes}, raised: {raised}")
+    require(routes == ("unported", "unported") and launched == {}
+            and all("reference runs a TPU kernel" in e for e in raised), "unported frames raise",
+            f"before any launch ({launched or 'none'}): the reference runs a TPU kernel there "
+            "and no kernel of the port holds the frame")
+    return coop
+
+
+def h9_measure(device, args, tail, err: float, nblk: int) -> dict:
+    """H9 at the known check frame: CUDA-event time of the wrapper, device
+    time (profiler), the plain version's time, its plan and bound; and its
+    device time against MP (32, 128, 224 at S = 6) and S (1, 6, 16 at MP
+    128) on synthetic frames at D = 2304."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    fargs = (*args, *tail)
+    d, nz = args[0].shape[0], args[9].shape[0]
+    mp, rp = fk.frame_shapes(nz)
+    plan = fk.frame_step_plan(d, mp, device)
+    out = fk.frame_step(*fargs)
+    ins = [a for a in fargs if torch.is_tensor(a)]
+    st = dict(max_abs_err=err, library_ms=None,
+              ms=time_ms(lambda: fk.frame_step(*fargs), 50),
+              device_ms=device_ms(lambda: fk.frame_step(*fargs), kernel="frame_step_kernel"),
+              plain_ms=time_ms(lambda: fk.frame_step(*fargs, plain=True), 10),
+              plan=f"grid {plan.grid} x {plan.block} threads, {plan.smem:,} B shared; "
+                   f"{plan.bands} chain bands, {plan.panels} panels, {plan.tiles} tiles of "
+                   f"{fk.FS_TILE}",
+              **bound(nbytes(*ins, *out), h9_work(d, mp, rp, nblk)))
+    by_mp, by_s = {}, {}
+    for nz_, s in ((16, 6), (64, 6), (112, 6), (64, 1), (64, 16)):
+        a = synthetic_frame(device, 2304, nz_, s, True)
+        t = device_ms(lambda: fk.frame_step(*a), kernel="frame_step_kernel")
+        if s == 6:
+            by_mp[fk.frame_shapes(nz_)[0]] = t
+        if nz_ == 64:
+            by_s[s] = t
+    st.update(device_ms_by_mp=by_mp, device_ms_by_s=by_s, phases_us=h9_phases(fargs, plan.grid))
+    log("  H9 device time against MP (S = 6): " + ", ".join(
+        f"MP={m} {t * 1e3:.2f} us" for m, t in by_mp.items()) + "; against S (MP = 128): "
+        + ", ".join(f"S={k} {t * 1e3:.2f} us" for k, t in sorted(by_s.items())))
+    return st
+
+
+def h9_phases(fargs, grid: int, launches: int = 20) -> dict:
+    """H9's phases at frame_step's ``fargs``, from each block's %globaltimer
+    at its phase boundaries (ops.frame_kernel._frame_step_h9's ``stamps``),
+    the median over ``launches`` launches, in us: the chain (first start to
+    the last block done), each barrier (last block in to last block out),
+    block 0's sweep and the other blocks' pht panels (side by side), the
+    gains and the mean, the P pass, and the whole launch.  The stamps add a
+    block barrier at each phase's end."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    runs = []
+    for _ in range(launches + 2):
+        stamps = torch.zeros((grid, 8), dtype=torch.int64, device=fargs[0].device)
+        fk._frame_step_h9(*fargs, stamps=stamps)
+        runs.append(stamps)
+    torch.cuda.synchronize()
+    rows = []
+    for stamps in runs[2:]:
+        t = stamps.cpu().double() / 1e3
+        last = t.max(dim=0).values
+        rows.append({
+            "chain": last[1] - t[:, 0].min(), "barrier 1": last[2] - last[1],
+            "sweep (block 0)": t[0, 3] - t[0, 2],
+            "pht panels (other blocks)": t[1:, 3].max() - t[1:, 2].min(),
+            "barrier 2": last[4] - last[3], "gains and mean": last[5] - last[4],
+            "barrier 3": last[6] - last[5], "P pass": last[7] - last[6],
+            "launch": last[7] - t[:, 0].min()})
+    phases = {k: float(torch.tensor([r[k] for r in rows]).median()) for k in rows[0]}
+    log("  H9 phases (median of %d launches, %%globaltimer): " % launches + ", ".join(
+        f"{k} {v:.2f} us" for k, v in phases.items()))
+    return phases
 
 
 def kernel_checks(device) -> dict:
@@ -446,7 +920,7 @@ def kernel_checks(device) -> dict:
         args, tail = frame_case(device, 30, pad)
         d = args[0].shape[0]
         log(f"frame kernels at {label} (D={d}, NZ=64):")
-        fi = fk.frame_inputs(*args)
+        fi = frame_inputs(args)
         chain_args = (fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp, *tail)
         ch_k = fk.frame_chain(*chain_args)
         ch_p = fk._frame_chain_reference(*chain_args)
@@ -478,10 +952,11 @@ def kernel_checks(device) -> dict:
         pu_p = rank_update_t_reference(args[0], gmat, mmid)
         e4 = check(f"H4 {label} P + G^T M G (r={gmat.shape[0]})", pu_k, pu_p, 1e-4, 1e-6,
                    "fp32 FMA over r terms vs cuBLAS fp32")
-        full_k = fk.frame_step(*args, *tail)
-        full_p = fk.frame_step(*args, *tail, plain=True)
-        mp, rp = fi.mp, fi.rp
-        oracle = fk._frame_step_reference(*args[:8], fi.zin, fi.rsc, mp, rp, *tail)
+        full_k = fk.frame_step(*args, *tail, schedule="split")
+        full_p = fk.frame_step(*args, *tail, plain=True, schedule="split")
+        oracle = fk._plain_frame(args[0], args[1], fk.frame_rows(args[2], args[3]), *args[4:],
+                                 tail)
+        e9 = h9_checks(label, args, tail, full_k, oracle)
         for ref_name, ref in (("plain split schedule", full_p), ("fastframe oracle", oracle)):
             check(f"frame {label} vs {ref_name}: pose trace", full_k.pose_trace, ref.pose_trace,
                   1e-6, 1e-3, "~5 km positions, fp32 ulps")
@@ -533,13 +1008,18 @@ def kernel_checks(device) -> dict:
                      f"clusters of {pplan.cluster} ({pplan.siv_block} siv entries a block)",
                 **bound(nbytes(*pargs, *pk), 22.0 * mp * d + 2.0 * mp * mp))
             stats["rank_update"] = h4_measure("known", args[0], gmat, mmid, e4)
-            # The whole frame: its four kernels' operations; P in and out.
-            stats["frame_step"] = dict(
-                ms=time_ms(lambda: fk.frame_step(*args, *tail), 50),
-                plain_ms=time_ms(lambda: fk.frame_step(*args, *tail, plain=True), 10),
+            # The whole frame on the split schedule: its four kernels'
+            # operations; P in and out.
+            stats["split frame"] = dict(
+                ms=time_ms(lambda: fk.frame_step(*args, *tail, schedule="split"), 50),
+                plain_ms=time_ms(lambda: fk.frame_step(*args, *tail, plain=True,
+                                                       schedule="split"), 10),
                 library_ms=None,
                 **bound(nbytes(*(a for a in args if torch.is_tensor(a)), *full_k),
-                        sum(stats[k]["flops"] for k in KNOWN_KERNELS)))
+                        sum(stats[k]["flops"] for k in SPLIT_KERNELS)))
+            stats["frame_step"] = h9_measure(device, args, tail, e9, int(fi.nblk))
+    h9_sweep(device)
+    stats["sweep_inverse"]["device_ms_coop"] = route_checks(device)
     log_times(stats, "")
     return stats
 
@@ -554,7 +1034,7 @@ def log_times(stats: dict, shape: str) -> None:
                      + ("none" if lib is None else f"{lib:.4f} ms"))
         if "device_ms" in st:
             extra += f", device {st['device_ms'] * 1e3:.2f} us"
-            if "bound_ms" in st:
+            if "bound_ms" in st and st["device_ms"] > 0:
                 extra += f" ({100.0 * st['bound_ms'] / st['device_ms']:.2f}% of the bound)"
         if "fixed_ms" in st:
             extra += f" ({st['fixed_ms'] * 1e3:.2f} us with nblk = 0)"
@@ -609,7 +1089,6 @@ def gated_kernel_checks(device) -> dict:
     import torch
 
     from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks, gated_scores_dense
-    from conan_slam_tpu_torch.filters.ekf.update import _frame_rows
     from conan_slam_tpu_torch.ops import frame_kernel as fk
     from conan_slam_tpu_torch.ops.factor_kernel import (
         _frame_factors_reference,
@@ -674,7 +1153,7 @@ def gated_kernel_checks(device) -> dict:
 
         slots = torch.where(found_p, j_p.to(torch.int64), 0)
         mask = obs.mask & found_p
-        rows = _frame_rows(slots, k)
+        rows = fk.frame_rows(slots, k)
         oi = fk.obs_inputs(st1.p, st1.x, rows, obs.z[:, 0], obs.z[:, 1], mask, noise.re, vtf)
         chain = (oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
         s_k, rowc_k, hvb_k = fk.obs_chain(*chain)
@@ -732,7 +1211,7 @@ def gated_kernel_checks(device) -> dict:
               "the reference test's tolerance")
         # The factored frame equals slice 1's frame on the same rows:
         # P + vtf^T B vtf = P + U K4 U^T.
-        fs = fk.frame_step(state.p, state.x, rows, *ctrl, noise.qe, obs.z[:, 0], obs.z[:, 1],
+        fs = fk.frame_step(state.p, state.x, slots, k, *ctrl, noise.qe, obs.z[:, 0], obs.z[:, 1],
                            mask, noise.re, cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
                            cfg.switch_heading_known)
         fu = fk.frame_update_obs(st1.p, fk_k[0].x, rows, obs.z[:, 0], obs.z[:, 1], mask,
@@ -796,21 +1275,23 @@ def gated_kernel_checks(device) -> dict:
 
 def pair_case(device, n_warm_frames: int, pad_multiple: int):
     """Two consecutive frames at the bench shape after ``n_warm_frames``
-    plain frames, as frame_step_pair takes them."""
+    plain frames, as frame_step_pair takes them, and each frame's slots and
+    the capacity (frame_step's)."""
     from conan_slam_tpu_torch.config import SlamConfig
     from conan_slam_tpu_torch.filters.ekf import associate_known
-    from conan_slam_tpu_torch.filters.ekf.update import _frame_rows
+    from conan_slam_tpu_torch.ops.frame_kernel import frame_rows
 
     cfg = SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False)
     world, state0 = bench_world(device, pad_multiple)
     state, frames, noise = warm_frame(device, world, cfg, state0, n_warm_frames, n_next=2)
-    per_frame = []
+    per_frame, slots = [], []
     for ctrl, obs in frames:
         assoc = associate_known(state, obs)      # one table for both frames
-        per_frame += [_frame_rows(assoc.slots, state.capacity), ctrl,
+        per_frame += [frame_rows(assoc.slots, state.capacity), ctrl,
                       (obs.z[:, 0], obs.z[:, 1], assoc.known_mask)]
-    return (state.p, state.x, *per_frame, noise.qe, noise.re, cfg.wheel_base, cfg.dt_controls,
-            cfg.sigma_heading, cfg.switch_heading_known)
+        slots.append(assoc.slots)
+    return ((state.p, state.x, *per_frame, noise.qe, noise.re, cfg.wheel_base, cfg.dt_controls,
+             cfg.sigma_heading, cfg.switch_heading_known), *slots, state.capacity)
 
 
 def pair_checks(device) -> dict:
@@ -823,13 +1304,13 @@ def pair_checks(device) -> dict:
 
     stats = {}
     for pad, label in ((256, "D=2304"), (0, "D=2051 ragged")):
-        args = pair_case(device, 30, pad)
+        args, slots_a, slots_b, cap = pair_case(device, 30, pad)
         (p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *tail) = args
         log(f"frame pair at {label} (D={p.shape[0]}, NZ=64):")
         got = fk.frame_step_pair(*args)
         plain = fk.frame_step_pair(*args, plain=True)
-        fa = fk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail)
-        fb = fk.frame_step(fa.p, fa.x, rows_b, *ctrl_b, q, *meas_b, r, *tail)
+        fa = fk.frame_step(p, x, slots_a, cap, *ctrl_a, q, *meas_a, r, *tail)
+        fb = fk.frame_step(fa.p, fa.x, slots_b, cap, *ctrl_b, q, *meas_b, r, *tail)
         two = fk.FramePair(p=fb.p, x=fb.x, pose_trace=torch.stack([fa.pose_trace, fb.pose_trace]),
                            nis=torch.stack([fa.nis, fb.nis]), pose_mid=fa.x[:3])
         # Frame B reads strips rebuilt from frame A's (G, M): against two
@@ -867,8 +1348,8 @@ def pair_checks(device) -> dict:
                    "fp32 FMA over r terms vs cuBLAS fp32")
         stats["pair rank_update"] = h4_measure("pair", p, gmat, mmid, e4)
         def two_frames():
-            a = fk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail)
-            return fk.frame_step(a.p, a.x, rows_b, *ctrl_b, q, *meas_b, r, *tail)
+            a = fk.frame_step(p, x, slots_a, cap, *ctrl_a, q, *meas_a, r, *tail)
+            return fk.frame_step(a.p, a.x, slots_b, cap, *ctrl_b, q, *meas_b, r, *tail)
 
         # The whole pair: both frames' chains and panels, M_A G_A, the
         # strip rebuild, M_B G_B and the one pass at r = 2 (MP + 8); P in
@@ -911,10 +1392,27 @@ def known_workload(device, n_steps: int):
     return cfg, world, state0, roll, ctrl, obsn
 
 
-def drive_known(workload, steps: int, plain: bool = False, frame_pair: bool = False) -> dict:
+@contextlib.contextmanager
+def known_schedule(schedule: str):
+    """The driver's known frames on ``schedule`` ("auto": H9, "split"):
+    frame_step's own test hook, bound where fused_frame_step looks
+    frame_step up."""
+    from conan_slam_tpu_torch.filters.ekf import update
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    update.frame_step = functools.partial(fk.frame_step, schedule=schedule)
+    try:
+        yield
+    finally:
+        update.frame_step = fk.frame_step
+
+
+def drive_known(workload, steps: int, plain: bool = False, frame_pair: bool = False,
+                schedule: str = "auto") -> dict:
     """One timed run of the first ``steps`` steps of the bench workload,
     after a 60-step warm-up (allocator, ctypes bindings, first launches),
-    with the launch counts of the timed run alone."""
+    with the launch counts of the timed run alone; ``schedule="split"``
+    runs the known frame on the split schedule instead of H9."""
     import torch
 
     from conan_slam_tpu_torch.ops import cuda
@@ -927,20 +1425,23 @@ def drive_known(workload, steps: int, plain: bool = False, frame_pair: bool = Fa
     f = steps // s
     part = (tuple(a[:steps] for a in roll[0]), tuple(a[:f] for a in roll[1]))
     warm = (tuple(a[:60] for a in roll[0]), tuple(a[:10] for a in roll[1]))
-    run_ekf_slam_precomputed(world, cfg, None, 60, state0, warm,
-                             ctrl_noise=ctrl[:10], obs_noise=obsn[:10], plain=plain)
-    torch.cuda.synchronize()
-    cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    state, outs = run_ekf_slam_precomputed(world, cfg, None, steps, state0, part,
-                                           ctrl_noise=ctrl[:f], obs_noise=obsn[:f], plain=plain)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with known_schedule(schedule):
+        run_ekf_slam_precomputed(world, cfg, None, 60, state0, warm, ctrl_noise=ctrl[:10],
+                                 obs_noise=obsn[:10], plain=plain)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, outs = run_ekf_slam_precomputed(world, cfg, None, steps, state0, part,
+                                               ctrl_noise=ctrl[:f], obs_noise=obsn[:f],
+                                               plain=plain)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     res = dict(steps_per_s=steps / secs, seconds=secs, counts=launches(), x_est=outs.x_est,
                ate=float(ate_rmse(outs.x_true, outs.x_est)),
                asym=float((state.p - state.p.T).abs().max()),
                finite=bool(torch.isfinite(state.p).all() and torch.isfinite(outs.x_est).all()))
-    label = ("plain" if plain else "kernels") + (", pairs" if frame_pair else "")
+    label = (("plain" if plain else "kernels") + (", pairs" if frame_pair else "")
+             + (", split schedule" if schedule == "split" else ""))
     log(f"  {label}: {steps} steps in {secs:.3f} s = {steps / secs:,.1f} steps/s, "
         f"ATE={res['ate']:.4f} m, asym(P)={res['asym']:.2e}, finite={res['finite']}, "
         f"launches={res['counts']}")
@@ -949,28 +1450,41 @@ def drive_known(workload, steps: int, plain: bool = False, frame_pair: bool = Fa
     return res
 
 
-def main_path(device, n_steps: int) -> tuple[dict, dict]:
-    """Phase 4a: the bench workload through the port's driver."""
+def main_path(device, n_steps: int) -> tuple[dict, dict, dict]:
+    """Phase 4a: the bench workload through the port's driver: H9 in turns
+    with the split schedule (H9, split, split, H9), then the plain
+    versions.  Returns the results, and the launch counts of an H9 run and
+    of a split run."""
     workload = known_workload(device, n_steps)
     s = workload[0].observe_interval
     n_frames = n_steps // s
     plain_steps = min(PLAIN_STEPS, n_steps) // s * s
     log(f"main path (known association): D={workload[2].x.shape[0]}, "
-        f"NZ={workload[3][1][0].shape[1]}, {n_steps} steps = {n_frames} frames with the "
-        f"kernels, {plain_steps} steps with the plain versions")
-    results = {"kernels": drive_known(workload, n_steps),
+        f"NZ={workload[3][1][0].shape[1]}, {n_steps} steps = {n_frames} frames through H9 in "
+        f"turns with the split schedule, {plain_steps} steps with the plain versions")
+    order = ("auto", "split", "split", "auto")
+    runs = [drive_known(workload, n_steps, schedule=schedule) for schedule in order]
+    for schedule, res in zip(order, runs):
+        kernels = KNOWN_KERNELS if schedule == "auto" else SPLIT_KERNELS
+        want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(kernels, n_frames)}
+        route = "H9" if schedule == "auto" else "H1-H4"
+        require(res["counts"] == want, f"known path launches ({schedule})",
+                f"{route} once per frame ({n_frames}), no other kernel")
+        require(res["ate"] < 0.05 and res["asym"] < 1e-4, f"accuracy gate ({schedule})",
+                f"ATE {res['ate']:.4f} < 0.05 m, asym(P) {res['asym']:.2e} < 1e-4")
+    results = {"kernels": runs[0], "split": runs[1],
                "plain": drive_known(workload, plain_steps, plain=True)}
-    k = results["kernels"]
-    want = {**dict.fromkeys(k["counts"], 0), **dict.fromkeys(KNOWN_KERNELS, n_frames)}
-    require(k["counts"] == want, "known path launches",
-            f"H1-H4 once per frame ({n_frames}), no other kernel")
     require(not any(results["plain"]["counts"].values()), "known path plain launches",
             "the plain run launched no kernel")
-    require(k["ate"] < 0.05 and k["asym"] < 1e-4, "accuracy gate",
-            f"ATE {k['ate']:.4f} < 0.05 m, asym(P) {k['asym']:.2e} < 1e-4")
+    k = results["kernels"]
     dev = float((k["x_est"][:plain_steps] - results["plain"]["x_est"]).abs().max())
-    log(f"  kernels vs plain trajectory over {plain_steps} steps: max |dx_est| = {dev:.3e} m")
-    return results, k["counts"]
+    dsplit = float((k["x_est"] - runs[1]["x_est"]).abs().max())
+    log(f"  kernels vs plain trajectory over {plain_steps} steps: max |dx_est| = {dev:.3e} m; "
+        f"H9 vs split over {n_steps} steps: max |dx_est| = {dsplit:.3e} m")
+    log("  steps/s in turns: " + ", ".join(
+        f"{'H9' if o == 'auto' else 'split'} {r['steps_per_s']:,.1f}" for o, r in zip(order, runs)))
+    results.update(turns=[r["steps_per_s"] for r in runs], dx_split=dsplit)
+    return results, runs[0]["counts"], runs[1]["counts"]
 
 
 def pair_path(device) -> tuple[dict, dict]:
@@ -985,7 +1499,7 @@ def pair_path(device) -> tuple[dict, dict]:
             for pair in (False, True, True, False)]
     k = runs[1]
     for res in runs[1:3]:
-        want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(KNOWN_KERNELS, n_frames),
+        want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(SPLIT_KERNELS, n_frames),
                 "rank_update": n_frames // 2}
         require(res["counts"] == want, "pair path launches",
                 f"H2, H1, H3 twice per pair ({n_frames}), H4 once ({n_frames // 2}), "
@@ -1186,9 +1700,11 @@ def gated_path(device) -> tuple[dict, dict]:
                 plain_steps_per_s=p["steps_per_s"], big_steps_per_s=bf * s / secs), k["counts"]
 
 
-def profile_frames(device, n_frames: int, label: str, world, cfg, state0) -> None:
+def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
+                   schedule: str = "auto") -> None:
     """A torch.profiler trace of ``n_frames`` frames of a main path: device
-    time per kernel per frame and the device's busy share."""
+    time per kernel per frame, the PyTorch ops dispatched per frame and the
+    device's busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1198,13 +1714,14 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0) -> Non
     n_steps = n_frames * cfg.observe_interval
     roll = precompute_rollout(world, cfg, n_steps)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with known_schedule(schedule):
         run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -1280,7 +1797,7 @@ def main() -> int:
 
     # --- phase 4: the main paths ---
     t0 = time.perf_counter()
-    results, counts = main_path(device, opts.steps)
+    results, counts, scounts = main_path(device, opts.steps)
     gated, gcounts = gated_path(device)
     paired, pcounts = pair_path(device)
     chunked = chunked_path(device)
@@ -1290,7 +1807,9 @@ def main() -> int:
 
     world, state0 = bench_world(device)
     known_cfg = SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False)
-    profile_frames(device, PROFILE_FRAMES, "known association", world, known_cfg, state0)
+    profile_frames(device, PROFILE_FRAMES, "known association (H9)", world, known_cfg, state0)
+    profile_frames(device, PROFILE_FRAMES, "known association, split schedule", world, known_cfg,
+                   state0, schedule="split")
     profile_frames(device, PROFILE_FRAMES, "gated, config 2", config2_world(device),
                    gated_cfg(500), init_state(500, 500, device=device))
     profile_frames(device, 2 * PROFILE_FRAMES, "known association, frame pairs", world,
@@ -1302,12 +1821,12 @@ def main() -> int:
     allstats = {**stats, **gstats}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extras = ("device_ms", "fixed_ms", "library_device_ms", "wrapper_ms", "bound_square_ms", "tile",
-              "grid", "plan", "device_ms_by_s", "device_ms_by_mp")
+              "grid", "plan", "device_ms_by_s", "device_ms_by_mp", "phases_us", "device_ms_coop")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": counts[k.name] + gcounts[k.name] + pcounts[k.name],
-         "launches_by_path": {"known": counts[k.name], "gated": gcounts[k.name],
-                              "pair": pcounts[k.name]},
+         "launches": counts[k.name] + scounts[k.name] + gcounts[k.name] + pcounts[k.name],
+         "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
+                              "gated": gcounts[k.name], "pair": pcounts[k.name]},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items() if n.startswith(f"{k.name}_kernel")}}
@@ -1318,6 +1837,11 @@ def main() -> int:
         "plain_steps_per_s": results["plain"]["steps_per_s"],
         "ate_m": results["kernels"]["ate"], "asym_p": results["kernels"]["asym"],
         "frame_ms": stats["frame_step"]["ms"], "frame_plain_ms": stats["frame_step"]["plain_ms"],
+        "split_frame_ms": stats["split frame"]["ms"],
+        "split_frame_plain_ms": stats["split frame"]["plain_ms"],
+        "known_turns_steps_per_s": dict(zip(("h9_1", "split_1", "split_2", "h9_2"),
+                                            results["turns"])),
+        "h9_vs_split_dx_est_m": results["dx_split"],
         "gated_steps_per_s": gated["steps_per_s"],
         "gated_plain_steps_per_s": gated["plain_steps_per_s"],
         "gated_ate_m": gated["ate"], "gated_mapped": gated["mapped"],

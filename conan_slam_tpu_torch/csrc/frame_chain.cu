@@ -39,6 +39,8 @@
 //     memory, so the S phase reads consecutive words (no bank conflicts).
 //   - Exactly one block (0) writes pt, k4 and ms; each band writes its rows
 //     of S and rowc.  No atomics: every output is one thread's fixed chain.
+//   - The phases after the staging are chain_band.cuh, which H9
+//     (frame_step.cu) runs too.
 //
 // Layouts (see conan_slam_tpu_torch/ops/frame_kernel.py): subs (4, S) rows
 // [vn, swan, phi_meas, active]; qc (3,) chol(Q) [l00, l10, l11]; zin
@@ -46,29 +48,9 @@
 // prc (RP, RP).  Outputs: pt (S, 3), k4 (8, 8), s (MP, MP), rowc (MP, 8)
 // [hc pose x, pose y, pose phi, slot x, slot y, hp2, hg, v], ms (32,)
 // [pose (3), corr0, alpha, g (3), m3 (9), 0...].
-#include "coeff.cuh"
+#include "chain_band.cuh"
 
 #define FC_THREADS 256
-
-// K4 = C B C^T entry (r, c) from the recursion's coefficient columns:
-// p22 m m^T + m e^T + e m^T + sum f f^T + r_head sum w w^T, summed sub-step
-// by sub-step.
-static __device__ __forceinline__ float coeff_k4_entry(const float* cols, int S, float p22,
-                                                       float r_head, bool use_heading, int r,
-                                                       int c) {
-    const float er = r == 0 ? 1.f : 0.f, ec = c == 0 ? 1.f : 0.f;
-    float k = p22 * cols[r] * cols[c] + cols[r] * ec + er * cols[c];
-    for (int s = 0; s < S; ++s) {
-        const float* f = cols + 4 * (2 + 2 * s);
-        k += f[r] * f[c];
-        k += f[4 + r] * f[4 + c];
-        if (use_heading) {
-            const float* wp = cols + 4 * (2 + 2 * S + s);
-            k += r_head * wp[r] * wp[c];
-        }
-    }
-    return k;
-}
 
 __global__ void __launch_bounds__(FC_THREADS)
 frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
@@ -81,7 +63,7 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
     extern __shared__ __align__(16) float smem[];
     __shared__ float cols[4 * CSL_MAX_COLS];
     __shared__ float ms[32];                      // frame scalars, as ms_out
-    const int tid = threadIdx.x, nth = blockDim.x;
+    const int tid = threadIdx.x;
     const int nzl = mp / 2;
     const int rpa = (rp + 3) & ~3;                // 16-byte rows in shared memory
     const int i0 = blockIdx.x * band;             // the band's first row (even)
@@ -102,114 +84,28 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
     csl_stage(rs, rsc, 4);
 
     // --- coefficient recursion (warp 0) and K4 (16 lanes) ---
-    const bool heading = use_heading != 0;
-    const float r_head = sigma_heading * sigma_heading;
-    if (tid < 32) {
-        const float p2h[3] = {prc[2 * rp], prc[2 * rp + 1], prc[2 * rp + 2]};
-        float pose[3] = {x0rows[0], x0rows[1], x0rows[2]};
-        float corr0;
-        csl_coeff_recursion(subs, S, qc, p2h, pose, wheel_base, dt, r_head, heading,
-                            blockIdx.x == 0 ? pt_out : nullptr, &corr0, cols);
-        const int r = (tid >> 2) & 3, c = tid & 3;
-        const float k4 = coeff_k4_entry(cols, S, p2h[2], r_head, heading, r, c);
-        if (tid < 16) {
-            if (c == 0) ms[4 + r] = k4;                   // alpha, g
-            if (r > 0 && c > 0) ms[4 + 3 * r + c] = k4;   // m3
-        } else if (tid > 16) {
-            ms[tid] = 0.f;
-        }
-        if (tid == 0) {
-            ms[0] = pose[0];
-            ms[1] = pose[1];
-            ms[2] = pose[2];
-            ms[3] = corr0;
-        }
-        if (blockIdx.x == 0) {
-            if (tid < 16) k4_out[8 * r + c] = k4;
-            for (int e = tid; e < 64; e += 32)
-                if ((e >> 3) >= 4 || (e & 7) >= 4) k4_out[e] = 0.f;
-        }
-    }
+    if (tid < 32)
+        csl_chain_scalars(subs, S, qc, prc + 2 * rp, x0rows, wheel_base, dt,
+                          sigma_heading * sigma_heading, use_heading != 0,
+                          blockIdx.x == 0 ? pt_out : nullptr, blockIdx.x == 0 ? k4_out : nullptr,
+                          ms, cols);
     csl_cp_async_commit();
     csl_cp_async_wait<0>();
     __syncthreads();
     if (blockIdx.x == 0 && tid < 32) ms_out[tid] = ms[tid];
-    const float px = ms[0], py = ms[1], phi = ms[2], corr0 = ms[3], alpha = ms[4];
-    const float g0 = ms[5], g1 = ms[6], g2 = ms[7];
-    const float* p2r = prb + 2 * rpa;
 
     // --- observe against the post-frame mean at the gathered rows: compact
     //     Hc, hp2 = Hc p2[rows], hg = Hc[:, :3] g and v, one thread a slot ---
-    for (int l = tid; l < nzl; l += nth) {
-        const float m = zs[2 * nzl + l];
-        const int cx = 3 + 2 * l, cy = cx + 1;
-        const float fx = cx < rp ? xr[cx] + p2r[cx] * corr0 : 0.f;
-        const float fy = cy < rp ? xr[cy] + p2r[cy] * corr0 : 0.f;
-        const float dxl = fx - px, dyl = fy - py;
-        const float d2 = fmaxf(dxl * dxl + dyl * dyl, 1e-12f);
-        const float dist = sqrtf(d2);
-        const float bpred = atan2f(dyl, dxl) - phi;
-        const float xd = dxl / dist * m, yd = dyl / dist * m;
-        const float xd2 = dxl / d2 * m, yd2 = dyl / d2 * m;
-        const float h[2][5] = {{-xd, -yd, 0.f, cx < rp ? xd : 0.f, cy < rp ? yd : 0.f},
-                               {yd2, -xd2, -m, cx < rp ? -yd2 : 0.f, cy < rp ? xd2 : 0.f}};
-        float hp2[2], hg[2];
-        for (int q = 0; q < 2; ++q) {
-            hp2[q] = h[q][0] * p2r[0] + h[q][1] * p2r[1] + h[q][2] * p2r[2];
-            if (cx < rp) hp2[q] += h[q][3] * p2r[cx];
-            if (cy < rp) hp2[q] += h[q][4] * p2r[cy];
-            hg[q] = h[q][0] * g0 + h[q][1] * g1 + h[q][2] * g2;
-        }
-        float2* hc2 = reinterpret_cast<float2*>(hc) + l;
-        const int step = mp / 2;                  // one SoA row, in float2
-        for (int k = 0; k < 5; ++k) hc2[k * step] = make_float2(h[0][k], h[1][k]);
-        hc2[5 * step] = make_float2(hp2[0], hp2[1]);
-        hc2[6 * step] = make_float2(hg[0], hg[1]);
-        hc2[7 * step] = make_float2((zs[l] - dist) * m, csl_wrap(zs[nzl + l] - bpred) * m);
-    }
-    __syncthreads();
-    for (int e = tid; e < nb * 8; e += nth)
-        rowc_out[(size_t)(i0 + (e >> 3)) * 8 + (e & 7)] = hc[(e & 7) * mp + i0 + (e >> 3)];
-
-    // --- the band's psub = Hc P'[rows][:, rows], P' = P + U K4 U^T factored ---
-    for (int e = tid; e < nb * rp; e += nth) {
-        const int il = e / rp, c = e - il * rp, i = i0 + il;
-        const int cx = 3 + 2 * (i / 2), cy = cx + 1;
-        const float* sx = prb + (3 + (il & ~1)) * rpa;   // prc rows cx, cy
-        const float h0 = hc[i], h1 = hc[mp + i], h2 = hc[2 * mp + i];
-        float acc = h0 * prb[c] + h1 * prb[rpa + c] + h2 * p2r[c];
-        if (cx < rp) acc += hc[3 * mp + i] * sx[c];
-        if (cy < rp) acc += hc[4 * mp + i] * sx[rpa + c];
-        const float wr = alpha * p2r[c] + (c == 0 ? g0 : c == 1 ? g1 : c == 2 ? g2 : 0.f);
-        acc += hc[5 * mp + i] * wr + hc[6 * mp + i] * p2r[c];
-        if (c < 3) acc += h0 * ms[8 + c] + h1 * ms[11 + c] + h2 * ms[14 + c];
-        ps[il * rp + c] = acc;
-    }
+    csl_chain_observe(ms, xr, prb + 2 * rpa, zs, hc, mp, rp);
     __syncthreads();
 
-    // --- the band's rows of S = psub Hc^T + R (R block-diagonal, identity on
-    //     masked slots) ---
-    for (int e = tid; e < nb * mp; e += nth) {
-        const int il = e / mp, j = e - il * mp, i = i0 + il;
-        const float* p = ps + il * rp;
-        const int cx = 3 + 2 * (j / 2), cy = cx + 1;
-        float acc = p[0] * hc[j] + p[1] * hc[mp + j] + p[2] * hc[2 * mp + j];
-        if (cx < rp) acc += p[cx] * hc[3 * mp + j];
-        if (cy < rp) acc += p[cy] * hc[4 * mp + j];
-        if (i / 2 == j / 2) {
-            const bool valid = zs[2 * nzl + i / 2] > 0.f;
-            const int ri = i & 1, rj = j & 1;
-            acc += valid ? rs[2 * ri + rj] : (ri == rj ? 1.f : 0.f);
-        }
-        s_out[(size_t)i * mp + j] = acc;
-    }
+    // --- the band's rows of rowc, psub and S ---
+    csl_chain_band(prb, rpa, hc, ms, zs, rs, ps, i0, nb, mp, rp, s_out, rowc_out);
 }
 
 // Shared memory of one block: prc rows, x0rows, zin, R, rowc, psub.
 static size_t frame_chain_smem(int mp, int rp, int band) {
-    const int rpa = (rp + 3) & ~3;
-    return (size_t)((4 + band) * rpa + ((3 * (mp / 2) + 3) & ~3) + 4 + 8 * mp + band * rp) *
-           sizeof(float);
+    return (size_t)csl_chain_smem_floats(mp, rp, band) * sizeof(float);
 }
 
 extern "C" int csl_frame_chain(const float* subs, const float* qc, const float* zin,

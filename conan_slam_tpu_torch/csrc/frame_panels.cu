@@ -39,9 +39,11 @@
 //   - The xn reduction over rows runs in shared memory in a fixed order,
 //     so pht is never read back; no atomics, and two calls are bit for bit
 //     equal.  Columns past D are masked: any D works.
+//   - The column's pht and the panel staging are panel.cuh, which H9
+//     (frame_step.cu) runs too.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "panel.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -86,19 +88,8 @@ frame_panels_kernel(const float* __restrict__ rowc_g, const float* __restrict__ 
     const float xv = ty == 0 && n < d ? x[n] : 0.f;
     csl_stage(rc, rowc_g, 8 * mp);
     csl_stage(msh, ms_g, 32);
-    if ((d & 3) == 0 && (reinterpret_cast<unsigned long long>(prows) & 15u) == 0) {
-        for (int e = tid; e < rp * (PANEL_W / 4); e += PANEL_THREADS) {
-            const int r = e / (PANEL_W / 4), c = 4 * (e % (PANEL_W / 4));
-            const bool in = c0 + c < d;    // D % 4 == 0: four columns are all in or all out
-            csl_cp_async16(pan + r * PANEL_LD + c, in ? prows + (size_t)r * d + c0 + c : prows, in);
-        }
-    } else {
-        for (int e = tid; e < rp * PANEL_W; e += PANEL_THREADS) {
-            const int r = e / PANEL_W, c = e % PANEL_W;
-            const bool in = c0 + c < d;
-            csl_cp_async4(pan + r * PANEL_LD + c, in ? prows + (size_t)r * d + c0 + c : prows, in);
-        }
-    }
+    csl_stage_panel(pan, [&](int r) { return prows + (size_t)r * d; }, rp, PANEL_W, PANEL_LD, c0,
+                    d, (d & 3) == 0 && (reinterpret_cast<unsigned long long>(prows) & 15u) == 0);
 
     // --- this block's siv entries: rows split over `groups`, then summed
     //     in a fixed order ---
@@ -134,10 +125,7 @@ frame_panels_kernel(const float* __restrict__ rowc_g, const float* __restrict__ 
     const bool panel = blockIdx.x < npanel, live = n < d;
     const float p0 = pan[tx], p1 = pan[PANEL_LD + tx], p2 = pan[2 * PANEL_LD + tx];
     if (panel) {
-        const float wrow = msh[4] * p2 + (n < 3 ? msh[5 + n] : 0.f);
-        float m3n[3] = {0.f, 0.f, 0.f};
-        if (n < 3)
-            for (int r = 0; r < 3; ++r) m3n[r] = msh[8 + 3 * r + n];
+        const CslPanelColumn col = csl_panel_column(msh, p0, p1, p2, n);
         float xsum = 0.f;
         for (int l = ty; l < nzl; l += PANEL_H) {
             const int cx = 3 + 2 * l, cy = cx + 1;
@@ -145,13 +133,7 @@ frame_panels_kernel(const float* __restrict__ rowc_g, const float* __restrict__ 
             const float sy = cy < rp ? pan[cy * PANEL_LD + tx] : 0.f;
             for (int k = 0; k < 2; ++k) {
                 const int i = 2 * l + k;
-                const float4 ha = *reinterpret_cast<const float4*>(rc + 8 * i);
-                const float4 hb = *reinterpret_cast<const float4*>(rc + 8 * i + 4);
-                float acc = ha.x * p0 + ha.y * p1 + ha.z * p2;
-                if (cx < rp) acc += ha.w * sx;
-                if (cy < rp) acc += hb.x * sy;
-                acc += hb.y * wrow + hb.z * p2;
-                acc += ha.x * m3n[0] + ha.y * m3n[1] + ha.z * m3n[2];
+                const float acc = csl_pht_entry(rc + 8 * i, col, sx, sy, cx < rp, cy < rp);
                 if (live) pht[(size_t)i * d + n] = acc;
                 xsum += siv[i] * acc;
             }

@@ -1,5 +1,6 @@
-// H1 sweep_inverse: S^-1 of an SPD matrix of even size mp <= 224 in ONE
-// block, the matrix held in registers.
+// H1 sweep_inverse: S^-1 of an SPD matrix of even size mp: in ONE block with
+// the matrix held in registers up to mp = 224, past it in one cooperative
+// launch with the matrix's rows spread over the blocks' shared memory.
 //
 // Replaces the TPU kernel conan_slam_tpu/ops/spd_inverse.py:135 spd_inverse
 // (_sweep_pallas :114, kernel body _sweep_kernel :109 / sweep_ref_inverse
@@ -18,274 +19,37 @@
 // store) read the transpose through a padded (mp + 1) shared tile, free of
 // bank conflicts.  nblk is read on the device, so the host never waits for
 // it.
-#include "common.cuh"
+//
+// Past mp = 224 the registers of one block no longer hold the matrix (nor
+// does its shared memory, from mp = 238), while the reference still runs its
+// sweep kernel wherever its VMEM holds S (to mp ~ 700).  There H1 is one
+// cooperative launch (sweep_inverse_kernel_coop): block b holds `band`
+// consecutive rows of the scaled matrix in shared memory for the whole
+// sweep.  A pivot is the block that holds its two rows publishing them to a
+// double buffer in the caller's scratch, one grid barrier, and every block
+// forming the pivot's factors from them and updating its rows, as the
+// register sweep does.  Its time is a grid barrier a pivot, not the work.
+#include <cooperative_groups.h>
+
+#include "sweep.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+using csl_sweep::NT;
+
 constexpr int MAX_DEVICES = 64;
-constexpr int TY = 16;        // warps a block
-constexpr int NT = 32 * TY;   // threads a block
+constexpr int REG_MAX_MP = 224;      // the register sweep's largest mp: 7 x 7 elements a thread
+constexpr int COOP_MAX_MP = 2048;    // the cooperative sweep's largest
+constexpr int COOP_BLOCKS = 32;      // the cooperative sweep's blocks, where shared memory allows
 
-// One row of A takes one pivot: a -= h0 g0 + h1 g1, as sweep_ref_inverse,
-// in two fused multiply-adds.
-template <int Q>
-__device__ __forceinline__ void apply_pivot(float (&a)[Q], float2 h, const float2 (&g)[Q]) {
-#pragma unroll
-    for (int b = 0; b < Q; ++b) a[b] = fmaf(-h.y, g[b].y, fmaf(-h.x, g[b].x, a[b]));
-}
-
-// The same for pivot row i (k0 or k1), whose diagonal also takes piv.
-template <int Q>
-__device__ __forceinline__ void apply_pivot_diag(float (&a)[Q], float2 h, const float2 (&g)[Q],
-                                                 int i, float piv) {
-    const int tx = threadIdx.x & 31;
-#pragma unroll
-    for (int b = 0; b < Q; ++b) {
-        float t = h.x * g[b].x + h.y * g[b].y;
-        if (tx + 32 * b == i) t += piv;
-        a[b] -= t;
-    }
-}
-
-// Pivot k0 / 2, formed by the warp that holds its rows r0 = A[k0] and r1 =
-// A[k0 + 1] (lane tx: columns tx + 32 b), once they have taken every
-// earlier pivot.  As sweep_ref_inverse: the 2x2 block and its inverse, then
-// for every column j (A is symmetric, so a row stands for a column) the
-// factor g = (g0, g1), with the unit shift at columns k0 and k1, and the
-// row factor h = (h0, h1), the pivot rows with the unit shift at k0 and
-// k1; both published to shared memory.  Returns whether the pivot is
-// usable.
-template <int Q>
-__device__ __forceinline__ bool sweep_pivot(const float (&r0)[Q], const float (&r1)[Q], int k0,
-                                            float2* G, float2* H) {
-    const int tx = threadIdx.x & 31;
-    const int cb = k0 >> 5, cl = k0 & 31;
-    float x = 0.f, y = 0.f;
-#pragma unroll
-    for (int b = 0; b < Q; ++b)
-        if (b == cb) {
-            x = r0[b];
-            y = r1[b];
-        }
-    const float e00 = __shfl_sync(0xffffffffu, x, cl);
-    const float e01 = __shfl_sync(0xffffffffu, x, cl + 1);
-    const float e11 = __shfl_sync(0xffffffffu, y, cl + 1);
-    const float det = e00 * e11 - e01 * e01;
-    const bool ok = det > 1e-30f && e00 > 1e-20f;
-    const float idet = ok ? __frcp_rn(det) : 0.0f;   // = 1 / det, correctly rounded
-    const float i00 = e11 * idet, i01 = -e01 * idet, i11 = e00 * idet;
-#pragma unroll
-    for (int b = 0; b < Q; ++b) {
-        const int j = tx + 32 * b;
-        const float x0 = r0[b], x1 = r1[b];
-        float g0 = i00 * x0 + i01 * x1, g1 = i01 * x0 + i11 * x1;
-        if (j == k0) {                 // column k0's shifts are (i00, i01)
-            g0 -= i00;
-            g1 -= i01;
-        } else if (j == k0 + 1) {      // column k1's (i01, i11)
-            g0 -= i01;
-            g1 -= i11;
-        }
-        G[j] = make_float2(g0, g1);
-        H[j] = make_float2(j == k0 ? x0 - 1.f : x0, j == k0 + 1 ? x1 - 1.f : x1);
-    }
-    return ok;
-}
-
-// The pivot sweep over the leading W x W block (W = 32 Q) of the scaled
-// matrix in ts (row stride tp; entries past mp read as 0).  Warp ty holds
-// the RY = 2 Q consecutive rows ty RY + a, lane tx their columns tx + 32 b,
-// in registers for the whole sweep, so warp w holds the U = Q pivots
-// w U .. w U + U - 1 whole.  The loop over pivots is unrolled by U, so
-// that every row a warp touches is known at compile time.  A pivot is one
-// block barrier: after it every thread reads its columns' g and its rows'
-// h (one of two buffers) and updates its registers as sweep_ref_inverse
-// does,
-//   A <- A - (h0 g0 + h1 g1 + 2 [pivot diagonal]),
-// except the warp holding the next pivot, which first updates that
-// pivot's two rows, forms it (sweep_pivot, into the other buffer; two
-// shuffles, no barrier) and only then its other rows.
-template <int Q>
-__device__ __forceinline__ void sweep_block(float* ts, int tp, int mp, float* rows, int nb, int na) {
-    constexpr int W = 32 * Q, RY = W / TY, U = RY / 2;
-    static_assert(RY * TY == W && RY % 2 == 0, "layout");
-    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    float A[RY][Q];
-#pragma unroll
-    for (int a = 0; a < RY; ++a) {
-        const int i = ty * RY + a;
-#pragma unroll
-        for (int b = 0; b < Q; ++b) {
-            const int j = tx + 32 * b;
-            A[a][b] = (i < mp && j < mp) ? ts[i * tp + j] : 0.f;
-        }
-    }
-    float2* GB = reinterpret_cast<float2*>(rows);   // 2 buffers x W: g
-    float2* HB = GB + 2 * W;                         // 2 buffers x W: h
-    // Whether the last pivot this warp formed is usable: its rows take the
-    // pivot diagonal when it is applied.
-    bool ok = false;
-    if (ty == 0) ok = sweep_pivot<Q>(A[0], A[1], 0, GB, HB);
-    for (int w = 0; w * U < nb; ++w) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int k = w * U + u;
-            if (k >= nb) continue;   // and so every later u
-            __syncthreads();   // pivot k is published; the other buffer is read
-            const int par = k & 1;
-            float2 gr[Q], hr[RY];
-#pragma unroll
-            for (int b = 0; b < Q; ++b) gr[b] = GB[par * W + tx + 32 * b];
-#pragma unroll
-            for (int a = 0; a < RY; a += 2) {   // two rows' h in one 16-byte read
-                const float4 h2 = *reinterpret_cast<const float4*>(HB + par * W + ty * RY + a);
-                hr[a] = make_float2(h2.x, h2.y);
-                hr[a + 1] = make_float2(h2.z, h2.w);
-            }
-            const float piv = ok ? 2.f : 0.f;
-            float2* Gn = GB + (par ^ 1) * W;
-            float2* Hn = HB + (par ^ 1) * W;
-            const bool next = k + 1 < nb;
-            // Pivot k's rows are warp w's rows 2u, 2u + 1; pivot k + 1's are
-            // its rows 2u + 2, 2u + 3, or warp w + 1's rows 0, 1.
-            const int n0 = u + 1 < U ? 2 * u + 2 : 0;   // a constant once unrolled
-            const int nw = u + 1 < U ? w : w + 1;
-            if (ty == nw) {
-                apply_pivot<Q>(A[n0], hr[n0], gr);
-                apply_pivot<Q>(A[n0 + 1], hr[n0 + 1], gr);
-                if (next) ok = sweep_pivot<Q>(A[n0], A[n0 + 1], 2 * k + 2, Gn, Hn);
-#pragma unroll
-                for (int a = 0; a < RY; ++a) {
-                    if (a == n0 || a == n0 + 1) continue;
-                    if (ty == w && (a == 2 * u || a == 2 * u + 1))
-                        apply_pivot_diag<Q>(A[a], hr[a], gr, ty * RY + a, piv);
-                    else
-                        apply_pivot<Q>(A[a], hr[a], gr);
-                }
-            } else if (ty == w) {
-#pragma unroll
-                for (int a = 0; a < RY; ++a) {
-                    if (a == 2 * u || a == 2 * u + 1)
-                        apply_pivot_diag<Q>(A[a], hr[a], gr, ty * RY + a, piv);
-                    else
-                        apply_pivot<Q>(A[a], hr[a], gr);
-                }
-            } else if (ty * RY < na) {   // rows from na on have h = 0: left as they are
-#pragma unroll
-                for (int a = 0; a < RY; ++a) apply_pivot<Q>(A[a], hr[a], gr);
-            }
-        }
-    }
-    __syncthreads();       // every thread is done reading the published pivots
-#pragma unroll
-    for (int a = 0; a < RY; ++a) {
-        const int i = ty * RY + a;
-#pragma unroll
-        for (int b = 0; b < Q; ++b) {
-            const int j = tx + 32 * b;
-            if (i < mp && j < mp) ts[i * tp + j] = A[a][b];
-        }
-    }
-}
-
-// sweep_block<q> for the run-time q in [Q, QMAX].
-template <int Q, int QMAX>
-__device__ void sweep_blocks(int q, float* ts, int tp, int mp, float* rows, int nb, int na) {
-    if constexpr (Q <= QMAX) {
-        if (q == Q) sweep_block<Q>(ts, tp, mp, rows, nb, na);
-        else sweep_blocks<Q + 1, QMAX>(q, ts, tp, mp, rows, nb, na);
-    }
-}
-
-// The sweep: conan_slam_tpu/ops/spd_inverse.py:33 sweep_ref_inverse as
-// wrapped by conan_slam_tpu/ops/frame_kernel.py:192 _sweep_si: symmetrize,
-// scale to a unit diagonal, sweep the first nblk 2x2 pivot blocks, unscale,
-// symmetrize again, zero everything if anything is non-finite.  Both
-// symmetrizations are load-bearing: the sweep reads pivot columns as rows,
-// so an asymmetric S (from the row strips of an asymmetric P) would give an
-// S^-1 whose asymmetry feeds back into P with gain every frame.  mp <= 32 RX.
 template <int RX>
 __global__ void __launch_bounds__(NT, 1)
 sweep_inverse_kernel(const float* __restrict__ s, const int* __restrict__ nblk,
                      float* __restrict__ out, int mp) {
     extern __shared__ __align__(16) float smem[];
-    const int tp = mp + 1;
-    float* ts = smem;                  // (mp, mp + 1) padded tile
-    float* dsc = ts + mp * tp;         // (mp,) the Jacobi scale
-    float* rows = dsc + mp;            // the pivots' g and h, two buffers each
-    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    const int nb = min(max(__ldg(nblk), 0), mp / 2);
-
-    // The phases around the sweep touch each element once, so they are
-    // short loops (unrolled by 4 only, for loads in flight): a launch runs
-    // straight-line code once, and fetching fully unrolled code costs more
-    // than its work.  S into the padded tile, warp ty copying rows ty,
-    // ty + TY, ...
-#pragma unroll 4
-    for (int i = ty; i < mp; i += TY)
-#pragma unroll
-        for (int b = 0; b < RX; ++b) {
-            const int j = tx + 32 * b;
-            if (j < mp) ts[i * tp + j] = __ldg(s + i * mp + j);
-        }
-    __syncthreads();
-    for (int i = threadIdx.x; i < mp; i += NT) dsc[i] = rsqrtf(fmaxf(ts[i * tp + i], 1e-30f));
-    __syncthreads();
-
-    // sym(S), scaled, in place: ((0.5 (S_ij + S_ji)) dsc_i) dsc_j, formed
-    // once for i <= j by the one thread that reads and writes (i, j) and
-    // (j, i).  Rows and columns from 2 nb on take part in no pivot; where
-    // they are decoupled from the leading 2 nb (every scaled A[i][j] with
-    // i < 2 nb <= j is exactly 0, as for the frame's unused measurement
-    // slots), every pivot's h and g vanish there and the update leaves them
-    // as they are, so the sweep runs on the leading block alone: the same
-    // values, less work.
-    int coupled = 0;
-#pragma unroll 4
-    for (int i = ty; i < mp; i += TY)
-#pragma unroll
-        for (int b = 0; b < RX; ++b) {
-            const int j = tx + 32 * b;
-            if (j >= i && j < mp) {
-                const float v = 0.5f * (ts[i * tp + j] + ts[j * tp + i]) * dsc[i] * dsc[j];
-                ts[i * tp + j] = v;
-                ts[j * tp + i] = v;
-                coupled |= i < 2 * nb && j >= 2 * nb && v != 0.f;
-            }
-        }
-    const int na = __syncthreads_or(coupled) ? mp : 2 * nb;
-    if (nb > 0) sweep_blocks<1, RX>((na + 31) / 32, ts, tp, mp, rows, nb, na);
-    __syncthreads();
-
-    // S^-1 = -A, unscaled, then symmetrized; zero on any non-finite value.
-    // A thread forms both x_ij and x_ji as their owners would, so
-    // 0.5 (x_ij + x_ji) is the same number at (i, j) and (j, i).
-    int bad = 0;
-#pragma unroll 4
-    for (int i = ty; i < mp; i += TY)
-#pragma unroll
-        for (int b = 0; b < RX; ++b) {
-            const int j = tx + 32 * b;
-            if (j < mp) {
-                // The intrinsics keep the compiler from fusing a product
-                // into the sum, which would round (i, j) and (j, i) apart.
-                const float xij = __fmul_rn(__fmul_rn(-ts[i * tp + j], dsc[i]), dsc[j]);
-                const float xji = __fmul_rn(__fmul_rn(-ts[j * tp + i], dsc[j]), dsc[i]);
-                const float v = 0.5f * __fadd_rn(xij, xji);
-                bad |= !isfinite(v);
-                out[i * mp + j] = v;
-            }
-        }
-    if (__syncthreads_or(bad)) {
-        for (int i = ty; i < mp; i += TY)
-#pragma unroll
-            for (int b = 0; b < RX; ++b)
-                if (tx + 32 * b < mp) out[i * mp + tx + 32 * b] = 0.f;
-    }
-}
-
-size_t sweep_smem_bytes(int mp, int w) {
-    return (size_t)(mp * (mp + 1) + mp + 8 * w) * sizeof(float);
+    csl_sweep::inverse<RX, false>(s, __ldg(nblk), out, mp, smem);
 }
 
 template <int RX>
@@ -299,11 +63,153 @@ cudaError_t launch(const float* s, const int* nblk, float* out, int mp, cudaStre
     if (err != cudaSuccess) return err;
     if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
     if (!raised[dev]) {
-        err = csl_allow_smem(sweep_inverse_kernel<RX>, sweep_smem_bytes(W, W));
+        err = csl_allow_smem(sweep_inverse_kernel<RX>, csl_sweep::smem_bytes(W, W));
         if (err != cudaSuccess) return err;
         raised[dev] = true;
     }
-    sweep_inverse_kernel<RX><<<1, NT, sweep_smem_bytes(mp, W), stream>>>(s, nblk, out, mp);
+    sweep_inverse_kernel<RX><<<1, NT, csl_sweep::smem_bytes(mp, W), stream>>>(s, nblk, out, mp);
+    return cudaGetLastError();
+}
+
+// The cooperative sweep's rows a block (even: a pivot's two rows in one
+// block), COOP_BLOCKS blocks where its shared memory holds their rows, and
+// its shared memory: the rows, the scale, the pivot's two rows and factors.
+int coop_band(int mp) {
+    const int want = 2 * ((mp + 2 * COOP_BLOCKS - 1) / (2 * COOP_BLOCKS));
+    const int fit = ((CSL_MAX_SMEM / 4 - 5 * mp) / mp) & ~1;
+    return want < fit ? want : fit;
+}
+size_t coop_smem_bytes(int mp) { return (size_t)(coop_band(mp) + 5) * mp * sizeof(float); }
+
+// csl_sweep::inverse on `band` rows a block, A in shared memory.  scratch:
+// two buffers of a pivot's two rows (4 mp floats), then one flag a block.
+__global__ void __launch_bounds__(NT, 1)
+sweep_inverse_kernel_coop(const float* __restrict__ s, const int* __restrict__ nblk,
+                          float* out, float* scratch, int mp, int band) {
+    extern __shared__ __align__(16) float smem[];
+    cg::grid_group grid = cg::this_grid();
+    float* rows = smem;                // (band, mp) this block's rows of A
+    float* dsc = rows + band * mp;     // (mp,) the Jacobi scale
+    float* r0 = dsc + mp;              // (mp,) the pivot's rows k0 and k1
+    float* r1 = r0 + mp;
+    float* g0 = r1 + mp;               // (mp,) the pivot's column factors
+    float* g1 = g0 + mp;
+    int* flags = reinterpret_cast<int*>(scratch + 4 * mp);
+    const int tid = threadIdx.x, i0 = blockIdx.x * band;
+    const int n = max(0, min(band, mp - i0)) * mp;   // this block's elements
+    const int nb = min(max(__ldg(nblk), 0), mp / 2);
+
+    for (int j = tid; j < mp; j += NT) dsc[j] = rsqrtf(fmaxf(__ldg(s + j * mp + j), 1e-30f));
+    __syncthreads();
+    // sym(S), scaled: ((0.5 (S_lo,hi + S_hi,lo)) dsc_lo) dsc_hi, the same
+    // number at (i, j) and (j, i), whichever block forms it.
+    for (int e = tid; e < n; e += NT) {
+        const int i = i0 + e / mp, j = e % mp;
+        const int lo = min(i, j), hi = max(i, j);
+        rows[e] = 0.5f * (__ldg(s + lo * mp + hi) + __ldg(s + hi * mp + lo)) * dsc[lo] * dsc[hi];
+    }
+    for (int k = 0; k < nb; ++k) {
+        const int k0 = 2 * k;
+        float* buf = scratch + (k & 1) * 2 * mp;
+        __syncthreads();   // this block's last update is done
+        if (k0 / band == (int)blockIdx.x)
+            for (int e = tid; e < 2 * mp; e += NT) buf[e] = rows[(k0 - i0) * mp + e];
+        grid.sync();       // the pivot's rows are published; the other buffer is free
+        for (int e = tid; e < 2 * mp; e += NT) r0[e] = __ldcg(buf + e);
+        __syncthreads();
+        const float e00 = r0[k0], e01 = r0[k0 + 1], e11 = r1[k0 + 1];
+        const float det = e00 * e11 - e01 * e01;
+        const bool ok = det > 1e-30f && e00 > 1e-20f;
+        const float idet = ok ? __frcp_rn(det) : 0.0f;
+        const float i00 = e11 * idet, i01 = -e01 * idet, i11 = e00 * idet;
+        for (int j = tid; j < mp; j += NT) {   // as csl_sweep::sweep_pivot
+            const float x0 = r0[j], x1 = r1[j];
+            float f0 = i00 * x0 + i01 * x1, f1 = i01 * x0 + i11 * x1;
+            if (j == k0) {
+                f0 -= i00;
+                f1 -= i01;
+            } else if (j == k0 + 1) {
+                f0 -= i01;
+                f1 -= i11;
+            }
+            g0[j] = f0;
+            g1[j] = f1;
+        }
+        __syncthreads();
+        const float piv = ok ? 2.f : 0.f;
+        for (int e = tid; e < n; e += NT) {   // as apply_pivot, apply_pivot_diag
+            const int i = i0 + e / mp, j = e % mp;
+            const float hx = i == k0 ? r0[i] - 1.f : r0[i];
+            const float hy = i == k0 + 1 ? r1[i] - 1.f : r1[i];
+            if (i == j && (i == k0 || i == k0 + 1)) {
+                float t = hx * g0[j] + hy * g1[j];
+                t += piv;
+                rows[e] -= t;
+            } else {
+                rows[e] = fmaf(-hy, g1[j], fmaf(-hx, g0[j], rows[e]));
+            }
+        }
+    }
+    __syncthreads();
+    for (int e = tid; e < n; e += NT) out[i0 * mp + e] = rows[e];
+    grid.sync();           // every row of A is in out
+    // S^-1 = -A, unscaled, then symmetrized, as csl_sweep::inverse: x_ij
+    // from this block's row, x_ji from its row in out, so (i, j) and (j, i)
+    // come out the same number; zero everywhere on any non-finite value.
+    int bad = 0;
+    for (int e = tid; e < n; e += NT) {
+        const int i = i0 + e / mp, j = e % mp;
+        const float xij = __fmul_rn(__fmul_rn(-rows[e], dsc[i]), dsc[j]);
+        const float xji = __fmul_rn(__fmul_rn(-__ldcg(out + j * mp + i), dsc[j]), dsc[i]);
+        const float v = 0.5f * __fadd_rn(xij, xji);
+        bad |= !isfinite(v);
+        rows[e] = v;
+    }
+    bad = __syncthreads_or(bad);
+    if (tid == 0) flags[blockIdx.x] = bad;
+    grid.sync();           // every x_ji is read; every block's flag is set
+    int any = 0;
+    for (int b = tid; b < (int)gridDim.x; b += NT) any |= __ldcg(flags + b);
+    any = __syncthreads_or(any);
+    for (int e = tid; e < n; e += NT) out[i0 * mp + e] = any ? 0.f : rows[e];
+}
+
+// One cooperative launch of sweep_inverse_kernel_coop: ceil(mp / band) blocks, one
+// an SM, every one resident (checked by the occupancy query).
+cudaError_t launch_coop(const float* s, const int* nblk, float* out, float* scratch, int mp,
+                        cudaStream_t stream) {
+    static bool raised[MAX_DEVICES] = {};
+    int dev = 0, sms = 0, occ = 0, coop = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    const int band = coop_band(mp), blocks = (mp + band - 1) / band;
+    const size_t smem = coop_smem_bytes(mp);
+    if (!raised[dev]) {
+        err = cudaFuncSetAttribute(sweep_inverse_kernel_coop,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, CSL_MAX_SMEM);
+        if (err != cudaSuccess) return err;
+        raised[dev] = true;
+    }
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, sweep_inverse_kernel_coop, NT,
+                                                            smem);
+    if (err != cudaSuccess) return err;
+    if (!coop || occ < 1 || blocks > sms * occ) return cudaErrorCooperativeLaunchTooLarge;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, sweep_inverse_kernel_coop, s, nblk, out, scratch, mp, band);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
@@ -311,10 +217,14 @@ cudaError_t launch(const float* s, const int* nblk, float* out, int mp, cudaStre
 
 // One variant for each 32 columns of mp: the frame's mp = 128 sweeps 2 Q x
 // Q elements a thread (Q = 4, or fewer when the unused slots decouple).
-extern "C" int csl_sweep_inverse(const float* s, const int* nblk, float* out, int mp,
-                                 void* stream) {
-    if (mp <= 0 || mp % 2 || mp > 224) return (int)cudaErrorInvalidValue;
+// Past 224, the cooperative variant, which alone uses scratch (4 mp + 256
+// floats; null is fine below).
+extern "C" int csl_sweep_inverse(const float* s, const int* nblk, float* out, float* scratch,
+                                 int mp, void* stream) {
+    if (mp <= 0 || mp % 2 || mp > COOP_MAX_MP || (mp > REG_MAX_MP && !scratch))
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
+    if (mp > REG_MAX_MP) return (int)launch_coop(s, nblk, out, scratch, mp, st);
     switch ((mp + 31) / 32) {
         case 1: return (int)launch<1>(s, nblk, out, mp, st);
         case 2: return (int)launch<2>(s, nblk, out, mp, st);

@@ -8,15 +8,12 @@ import torch
 
 from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
-from conan_slam_tpu_torch.ops.frame_kernel import frame_step, frame_step_pair, frame_update_obs
-
-
-def _frame_rows(slots, capacity: int):
-    """[0, 1, 2, 3 + 2 s_0, 4 + 2 s_0, ...]: the rows a frame gathers."""
-    safe = torch.clamp(slots, 0, capacity - 1)
-    two = torch.arange(2, device=safe.device)
-    rows2 = (3 + 2 * safe[:, None] + two[None, :]).reshape(-1)
-    return torch.cat([torch.arange(3, device=safe.device), rows2])
+from conan_slam_tpu_torch.ops.frame_kernel import (
+    frame_rows,
+    frame_step,
+    frame_step_pair,
+    frame_update_obs,
+)
 
 
 def fused_frame_step(state: EKFState, vns, swans, phis, actives, q_cov,
@@ -24,15 +21,15 @@ def fused_frame_step(state: EKFState, vns, swans, phis, actives, q_cov,
                      sigma_heading, use_heading: bool, *, plain: bool = False):
     """S predict + heading sub-steps, observe and measurement update of one
     frame (ops.frame_kernel.frame_step); the association table lookup is
-    the only work left between frames.
+    the only work left between frames.  The frame's raw slots and buffers
+    go to ``frame_step``, whose default route (H9) forms the gathered rows
+    and the packing in its launch.
 
     Returns ``(new_state, pose_trace (S, 3), nis per associated measurement)``.
     """
-    fs = frame_step(
-        state.p, state.x, _frame_rows(slots, state.capacity), vns, swans, phis, actives, q_cov,
-        obs.z[:, 0], obs.z[:, 1], mask, r_cov, wheel_base, dt,
-        sigma_heading, use_heading, plain=plain,
-    )
+    fs = frame_step(state.p, state.x, slots, state.capacity, vns, swans, phis, actives, q_cov,
+                    obs.z[:, 0], obs.z[:, 1], mask, r_cov, wheel_base, dt, sigma_heading,
+                    use_heading, plain=plain)
     n_meas = torch.clamp(mask.to(fs.x.dtype).sum(), min=1.0)
     return state._replace(x=fs.x, p=fs.p), fs.pose_trace, fs.nis / n_meas
 
@@ -46,17 +43,19 @@ def fused_frame_pair_step(state: EKFState, vns2, swans2, phis2, actives2, q_cov,
     ``actives2`` (2, S) stack both frames' controls; both frames' slots
     index the same table (the caller runs no augmentation between them).
 
-    The reference falls back to two sequential frames where its TPU
-    schedule has no tile for a shape; the split schedule has no such
-    limit, so the pair always runs.  Returns ``(new_state, pose_trace
-    (2, S, 3), nis per associated measurement (2,), pose_mid (3,))``,
-    ``pose_mid`` being frame A's post-update pose.
+    The pair runs the split schedule wherever it fits.  Past its limits
+    (16 sub-steps, MP 2048) it is two sequential frames of the plain route
+    where the reference, too, falls back to two frames (its TPU schedule
+    has no tile), and raises on the card where the reference has one.
+    Returns
+    ``(new_state, pose_trace (2, S, 3), nis per associated measurement
+    (2,), pose_mid (3,))``, ``pose_mid`` being frame A's post-update pose.
     """
     cap = state.capacity
     fp = frame_step_pair(
-        state.p, state.x, _frame_rows(slots_a, cap),
+        state.p, state.x, frame_rows(slots_a, cap),
         (vns2[0], swans2[0], phis2[0], actives2[0]), (obs_a.z[:, 0], obs_a.z[:, 1], mask_a),
-        _frame_rows(slots_b, cap),
+        frame_rows(slots_b, cap),
         (vns2[1], swans2[1], phis2[1], actives2[1]), (obs_b.z[:, 0], obs_b.z[:, 1], mask_b),
         q_cov, r_cov, wheel_base, dt, sigma_heading, use_heading, plain=plain,
     )
@@ -73,8 +72,9 @@ def fused_frame_update(state: EKFState, bmat, vtf, obs: CompactObs, slots, mask,
     correction vtf^T B vtf, given as the row strip ``vtf`` (r, D) and
     ``bmat`` (r, r) of ops.factor_kernel.  The update runs against the
     virtual covariance P' = P + vtf^T B vtf without materialising it
-    (ops.frame_kernel.frame_update_obs, at every D: the split schedule has
-    no shared-memory limit to refuse a shape on).  Masked measurements
+    (ops.frame_kernel.frame_update_obs: the split schedule where its kernels
+    fit, the reference's jnp route past them where the reference has no TPU
+    schedule either).  Masked measurements
     contribute nothing, so a frame with none applies the correction alone.
 
     Returns the new state, and with ``return_nis`` also the stacked NIS per
@@ -82,7 +82,7 @@ def fused_frame_update(state: EKFState, bmat, vtf, obs: CompactObs, slots, mask,
     versions.
     """
     fu = frame_update_obs(
-        state.p, state.x, _frame_rows(slots, state.capacity), obs.z[:, 0], obs.z[:, 1],
+        state.p, state.x, frame_rows(slots, state.capacity), obs.z[:, 0], obs.z[:, 1],
         mask, r_cov, bmat, vtf, plain=plain,
     )
     new_state = state._replace(x=fu.x, p=fu.p)

@@ -178,5 +178,17 @@ def check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32) -> None
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def vector_stride(t: torch.Tensor, name: str, n: int, dtype=torch.float32) -> int:
+    """Raise unless ``t`` is a CUDA vector of ``n`` elements of ``dtype``
+    (any stride); return its stride in elements."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != (n,):
+        raise ValueError(f"{name}: expected shape ({n},), got {tuple(t.shape)}")
+    return t.stride(0)
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return P(t.data_ptr())

@@ -1,12 +1,28 @@
-"""The whole observation frame on the split schedule (port of
-conan_slam_tpu.ops.frame_kernel.frame_step, frame_update_obs and their
-references).
+"""The whole observation frame (port of
+conan_slam_tpu.ops.frame_kernel.frame_step, frame_step_pair,
+frame_update_obs and their references).
 
-The reference runs the frame on the TPU as one resident kernel whose
-(D, MP) strip lives in 15 MiB of VMEM.  A Hopper block has 227 KB of shared
-memory, so the port takes the reference's big-D schedule instead
-(``_frame_step_big``: a chain kernel, then one O(D^2) rank pass), proven
-equal to the resident one by the reference's own tests:
+The reference runs the known frame on the TPU as one resident kernel
+(``_framestep_kernel``) whose grid steps run in order.  The port's default
+is its Hopper counterpart, H9 ``frame_step`` (csrc/frame_step.cu): ONE
+cooperative launch, one block an SM, whose phases (the chain, the sweep
+with the pht panels beside it, the gains and the mean, the P pass) are
+separated by grid barriers.  ``frame_step`` takes the frame's raw slots and
+buffers, and H9 does the packing and the gathers itself (its plain version
+``_frame_step_resident_reference``).
+
+``frame_route`` names the route a frame takes, from its shapes alone:
+"resident" (H9) where H9's phases fit a block (MP <= 224, H1's register
+limit), "split" (below) under ``schedule="split"`` or past MP 224 (H1's
+cooperative sweep), "plain" (the reference's jnp route,
+``_frame_step_reference``) where neither the port's kernels nor the
+reference's TPU schedules hold the frame, and "unported" where only the
+reference's do: such a frame raises on the card.  The frame pair and the
+gated frame choose between their kernels and the plain route the same way.
+
+The split schedule is the reference's big-D one (``_frame_step_big``: a
+chain kernel, then one O(D^2) rank pass), proven equal to the resident one
+by the reference's own tests; the frame pair keeps it:
 
   H2 ``frame_chain`` (one block a band of measurement rows,
       ``frame_chain_plan``): the S-step coefficient recursion, K4, the
@@ -47,8 +63,8 @@ gets its factors P' = P + vtf^T B vtf from H5 (ops.factor_kernel) and runs
 
 Each kernel's plain PyTorch version sits beside its wrapper; the
 wrapper takes it for CPU tensors only.  ``_frame_step_reference`` is the
-independent oracle: the fastframe factors composed with the measurement
-chain, as the reference's CPU route.
+independent oracle and the plain route: the fastframe factors composed
+with the measurement chain, as the reference's CPU route.
 
 Layouts shared by H2, H3 and their plain versions (MP = 2 NZ rounded up to
 32, RP = 3 + 2 NZ rounded up to 8; row i of Hc belongs to measurement
@@ -63,6 +79,8 @@ and 3 + 2l, 4 + 2l (its slot)):
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -78,7 +96,10 @@ from conan_slam_tpu_torch.ops.rank_update import (
     rank_update_vbt_reference,
 )
 from conan_slam_tpu_torch.ops.spd_inverse import (
+    MAX_MP,
+    _sweep_smem_bytes,
     spd_inverse_reference,
+    sweep_fits,
     sweep_si,
     sweep_si_reference,
 )
@@ -91,6 +112,21 @@ PANEL_W = 16        # H3's columns of D a block (csrc/frame_panels.cu)
 PANEL_CLUSTER = 8   # H3's blocks that share one siv
 PANEL_THREADS = 256
 PANEL_LD = 24       # H3's panel row stride in shared memory
+OBS_PANEL_W = 32    # H8's columns and row groups a block (csrc/obs_panels.cu)
+OBS_PANEL_H = 8
+
+# H9 (csrc/frame_step.cu): one block size for every phase, the sweep's 16
+# warps; 16-column panels (32 row groups); the P pass as 8 groups of H4's
+# 64-thread 32-tile; the most gathered rows (MP = 224).
+FS_THREADS = 512
+FS_W = 16
+FS_LD = 24
+FS_TILE = 32
+FS_GROUPS = 8
+FS_MAX_RP = 232
+_MAX_COLS = 2 + 3 * MAX_STEPS   # the recursion's coefficient columns (csrc/coeff.cuh)
+# H9's static shared memory: rows, subs, qc, ms, the columns, a max per warp.
+FS_STATIC_BYTES = 4 * (FS_MAX_RP + 4 * MAX_STEPS + 4 + MS_LEN + 4 * _MAX_COLS + FS_THREADS // 32)
 
 FRAME_CHAIN = cuda.CudaKernel(
     "frame_chain", "csl_frame_chain",
@@ -103,6 +139,15 @@ FRAME_PANELS = cuda.CudaKernel(
     [cuda.P] * 8 + [cuda.I] * 5,
     source="conan_slam_tpu_torch/csrc/frame_panels.cu",
     replaces="conan_slam_tpu/ops/frame_kernel.py:1123 (_chain_dispatch -> pallas_call :1139, panel steps)",
+)
+
+
+FRAME_STEP = cuda.CudaKernel(
+    "frame_step", "csl_frame_step",
+    [cuda.P] * 18 + [cuda.I] * 16 + [cuda.F] * 3 + [cuda.I],
+    source="conan_slam_tpu_torch/csrc/frame_step.cu",
+    replaces="conan_slam_tpu/ops/frame_kernel.py:1312 (frame_step -> pallas_call :1399, "
+             "_framestep_kernel :655)",
 )
 
 
@@ -476,6 +521,15 @@ class FrameInputs(NamedTuple):
     rp: int
 
 
+def frame_rows(slots, capacity: int):
+    """[0, 1, 2, 3 + 2 s_0, 4 + 2 s_0, ...]: the rows a frame gathers, the
+    slots clamped to [0, capacity - 1]."""
+    safe = torch.clamp(slots, 0, capacity - 1)
+    two = torch.arange(2, device=safe.device)
+    rows2 = (3 + 2 * safe[:, None] + two[None, :]).reshape(-1)
+    return torch.cat([torch.arange(3, device=safe.device), rows2])
+
+
 def frame_inputs(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask,
                  r_cov) -> FrameInputs:
     """Pack a frame for the kernels: the measurement and control buffers
@@ -493,27 +547,281 @@ def frame_inputs(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask,
     )
 
 
-def frame_step(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask,
+# ------------------------------------------- the route a frame takes
+
+
+def _smem_limit(device) -> int:
+    """The shared memory one block may use on ``device`` (the H100's, whose
+    routes the CPU's plain versions follow, for the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return cuda.MAX_SMEM_BYTES
+    props = torch.cuda.get_device_properties(device)
+    return getattr(props, "shared_memory_per_block_optin", cuda.MAX_SMEM_BYTES)
+
+
+def _frame_step_smem_bytes(mp: int, rp: int, band: int) -> int:
+    """H9's dynamic shared memory: the largest of its phases' needs
+    (csrc/frame_step.cu smem_bytes)."""
+    return max(
+        _chain_smem_bytes(mp, rp, band),
+        _sweep_smem_bytes(mp),
+        4 * (8 * mp + MS_LEN + FS_LD * rp),                         # pht panels
+        4 * (mp * (mp + 4) + FS_W * mp + FS_THREADS + mp + MS_LEN),  # gains
+        4 * FS_GROUPS * 2 * 4 * 16 * FS_TILE,                       # P pass rings
+    )
+
+
+def _split_fits(mp: int, rp: int, s_steps: int, limit: int) -> bool:
+    """H2, H1 and H3 hold a frame of these shapes (H4 holds any)."""
+    return (s_steps <= MAX_STEPS and sweep_fits(mp, limit) and mp <= PANEL_CLUSTER * PANEL_THREADS
+            and _chain_smem_bytes(mp, rp, frame_chain_plan(mp).band) <= limit
+            and _panels_smem_bytes(mp, rp) <= limit)
+
+
+# The reference's TPU schedules: its VMEM budget (FK_VMEM_BUDGET_MB's
+# default) and its padding, MP = 2 NZ rounded up to 128.
+_REF_VMEM_BUDGET = 15 * 2**20
+
+
+def _ref_shapes(nz: int) -> tuple[int, int]:
+    return _round_up(2 * nz, 128), _round_up(3 + 2 * nz, 8)
+
+
+def _ref_frame_step_has_kernel(d: int, nz: int) -> bool:
+    """The reference's ``can_fuse_frame_step`` (and ``can_fuse_frame_pair``):
+    its streaming chain kernel has a column tile (``_pick_bigchain_tile``).
+    Its resident schedule needs strictly more VMEM at every shape, so it
+    adds no shape to these."""
+    if d % 128:
+        return False
+    mp, rp = _ref_shapes(nz)
+    fixed = (3 * mp * mp + 2 * mp * rp + rp * rp + mp * 16 + 200) * 4
+    return any(d % tc == 0 and fixed + tc * (2 * rp + 2 * mp + 8) * 4 <= _REF_VMEM_BUDGET
+               for tc in (1024, 512, 256, 128))
+
+
+def _ref_frame_update_has_kernel(d: int, nz: int, nb: int) -> bool:
+    """The reference's ``can_fuse_frame`` (``_pick_frame_tile``): its gated
+    one-dispatch frame has a row panel."""
+    if d % 128:
+        return False
+    mp, rp = _ref_shapes(nz)
+    nbp = _round_up(nb, 8)
+    fixed = (rp + 2 * nbp + 2 * mp + 2) * d * 4 + (4 * mp * mp + rp * rp) * 4
+    fixed += (nbp * nbp + nbp * rp + 2 * rp + mp // 2 * 8) * 4
+    fixed += (2 * mp * rp + mp * mp) * 4
+    return any(d % tr == 0 and fixed + tr * (6 * d + mp) * 4 <= _REF_VMEM_BUDGET
+               for tr in (512, 256, 128))
+
+
+def _past_the_kernels(route: str, name: str, plain: bool, *tensors) -> bool:
+    """Whether a frame past the port's kernels takes the plain route:
+    ``route`` "plain" (the reference itself runs its jnp route there), or
+    "unported" on CPU tensors or under ``plain=True``.  Otherwise an
+    "unported" frame raises: the reference runs a TPU kernel at that shape
+    that no kernel of the port holds."""
+    if route == "unported" and not (plain or cuda.on_cpu(*tensors)):
+        raise ValueError(
+            f"{name}: the reference runs a TPU kernel at this shape and no kernel of the port "
+            "holds it; see ROADMAP.md")
+    return route in ("plain", "unported")
+
+
+@functools.lru_cache(maxsize=None)
+def frame_route(d: int, nz: int, device, s_steps: int = 1, schedule: str = "auto") -> str:
+    """The route ``frame_step`` takes for a frame at D = ``d`` with ``nz``
+    measurement slots and ``s_steps`` sub-steps on ``device``: a function
+    of the shapes alone, chosen before any launch:
+
+      "resident"  H9, one cooperative launch, where its phases fit a block
+                  (MP <= 224, H1's register limit);
+      "split"     H2 -> H1 -> H3 -> H4, under ``schedule="split"``, or where
+                  only the split fits (MP 226 to 2048: H1's cooperative
+                  sweep);
+      "plain"     the reference's jnp route (``_frame_step_reference``),
+                  where no kernel of the port fits (past 16 sub-steps, or
+                  MP 2048) and the reference has no TPU schedule either
+                  (``can_fuse_frame_step``: D not a multiple of 128, or no
+                  VMEM tile);
+      "unported"  no kernel of the port fits, but the reference has a TPU
+                  schedule: the frame raises on the card (the plain route
+                  on the CPU).
+
+    D limits none of the port's kernels (every phase walks it in panels and
+    tiles).  On the CPU a route's plain versions run; the shapes decide the
+    route the same way, against the card's shared memory."""
+    if schedule not in ("auto", "split"):
+        raise ValueError(f"frame_route: schedule must be 'auto' or 'split', got {schedule!r}")
+    mp, rp = frame_shapes(nz)
+    limit = _smem_limit(device)
+    if not _split_fits(mp, rp, s_steps, limit):
+        return "unported" if _ref_frame_step_has_kernel(d, nz) else "plain"
+    band = frame_chain_plan(mp).band
+    if (schedule == "auto" and rp <= FS_MAX_RP
+            and _frame_step_smem_bytes(mp, rp, band) + FS_STATIC_BYTES <= limit):
+        return "resident"
+    return "split"
+
+
+# ------------------------------------------------- H9: the resident frame
+
+
+class FrameStepPlan(NamedTuple):
+    """H9's launch and the work of each of its phases."""
+
+    grid: int      # blocks: one an SM (a cooperative launch)
+    block: int     # threads a block, in every phase
+    smem: int      # dynamic shared memory a block, the largest phase's
+    bands: int     # phase 1: blocks that form rows of S (frame_chain_plan)
+    panels: int    # phases 2 and 3: 16-column panels of D
+    tiles: int     # phase 4: upper-triangle tiles of 32 over P
+
+
+def frame_step_plan(d: int, mp: int, device) -> FrameStepPlan:
+    """The grid, block and shared memory H9 takes at D = ``d``, MP = ``mp``
+    (RP the largest for that MP) on the CUDA ``device``, and each phase's
+    work; launches nothing."""
+    rp = _round_up(3 + mp, 8)
+    band = frame_chain_plan(mp).band
+    lib = cuda.library()
+    fn = lib.csl_frame_step_plan
+    out = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [cuda.I, cuda.I, cuda.I, out, out, out]
+    fn.restype = ctypes.c_int
+    grid, block, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = fn(mp, rp, band, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"frame_step plan failed: {lib.csl_error_string(err).decode()} ({err})")
+    nt = -(-d // FS_TILE)
+    return FrameStepPlan(grid=grid.value, block=block.value, smem=smem.value,
+                         bands=frame_chain_plan(mp).grid, panels=-(-d // FS_W),
+                         tiles=nt * (nt + 1) // 2)
+
+
+def _frame_step_scratch_floats(mp: int, ldg: int) -> int:
+    """H9's scratch: S, S^-1, rowc, ms, siv and the strips G, MG (MP + 8, ldg)."""
+    return 2 * mp * mp + 9 * mp + MS_LEN + 2 * (mp + 8) * ldg
+
+
+def _frame_step_resident_reference(p, x, fi: FrameInputs, wheel_base, dt, sigma_heading,
+                                   use_heading) -> FrameStep:
+    """Plain version of H9: the resident body's algebra on the packed
+    inputs: the chain, the sweep, siv, xn and the NIS, then
+    P + p2^T wrow + border - (pht^T S^-1) pht."""
+    ch = _frame_chain_reference(fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp,
+                                wheel_base, dt, sigma_heading, use_heading)
+    si = sweep_si_reference(ch.s, fi.nblk)
+    pht, xn, nis = _frame_panels_reference(ch.rowc, ch.ms, si, fi.prows, x)
+    alpha, g, m3 = ch.ms[4], ch.ms[5:8], ch.ms[8:17].reshape(3, 3)
+    d = p.shape[0]
+    p2 = fi.prows[2]
+    wrow = alpha * p2 + F.pad(g, (0, d - 3))
+    border = g[:, None] * p2 + F.pad(m3, (0, d - 3))           # (3, D)
+    p_out = p + p2[:, None] * wrow - (pht.T @ si) @ pht
+    p_out = torch.cat([p_out[:3] + border, p_out[3:]])
+    return FrameStep(p=p_out, x=xn, pose_trace=ch.pt, nis=nis[0])
+
+
+def _frame_step_h9(p, x, slots, capacity: int, vns, swans, phis, actives, q_cov, zr, zb, mask,
+                   r_cov, wheel_base, dt, sigma_heading, use_heading: bool,
+                   stamps=None) -> FrameStep:
+    """Launch H9 on CUDA tensors (``frame_step``'s resident route).
+    ``stamps``, a (grid, 8) int64 CUDA tensor, takes each block's
+    %globaltimer (ns) at its phase boundaries: the start, the chain done,
+    past barrier 1, the sweep or the pht panels done, past barrier 2, the
+    gains done, past barrier 3, the P pass done; None records nothing."""
+    d, nz, s_steps = p.shape[0], slots.shape[0], vns.shape[0]
+    mp, rp = frame_shapes(nz)
+    cuda.check(p, "p", (d, d))
+    cuda.check(x, "x", (d,))
+    cuda.check(q_cov, "q_cov", (2, 2))
+    cuda.check(r_cov, "r_cov", (2, 2))
+    strides = (
+        cuda.vector_stride(slots, "slots", nz, torch.int64),
+        cuda.vector_stride(vns, "vns", s_steps),
+        cuda.vector_stride(swans, "swans", s_steps),
+        cuda.vector_stride(phis, "phis", s_steps),
+        cuda.vector_stride(actives, "actives", s_steps, torch.bool),
+        cuda.vector_stride(zr, "zr", nz),
+        cuda.vector_stride(zb, "zb", nz),
+        cuda.vector_stride(mask, "mask", nz, torch.bool),
+    )
+    dev, f32 = p.device, torch.float32
+    ldg = _round_up(d, 4)
+    p_out = torch.empty_like(p)
+    xn = torch.empty((d,), dtype=f32, device=dev)
+    pt = torch.empty((s_steps, 3), dtype=f32, device=dev)
+    nis = torch.empty((1,), dtype=f32, device=dev)
+    scratch = torch.empty((_frame_step_scratch_floats(mp, ldg),), dtype=f32, device=dev)
+    if stamps is not None:
+        cuda.check(stamps, "stamps", (frame_step_plan(d, mp, dev).grid, 8), torch.int64)
+    FRAME_STEP(
+        dev, *(cuda.ptr(t) for t in (p, x, slots, vns, swans, phis, actives, q_cov, zr, zb, mask,
+                                     r_cov, p_out, xn, pt, nis, scratch)),
+        None if stamps is None else cuda.ptr(stamps),
+        *strides, d, nz, s_steps, int(capacity), mp, rp, ldg, frame_chain_plan(mp).band,
+        float(wheel_base), float(dt), float(sigma_heading), int(bool(use_heading)),
+    )
+    return FrameStep(p=p_out, x=xn, pose_trace=pt, nis=nis[0])
+
+
+# ------------------------------------------------------ the whole frame
+
+
+def frame_step(p, x, slots, capacity: int, vns, swans, phis, actives, q_cov, zr, zb, mask,
                r_cov, wheel_base, dt, sigma_heading, use_heading: bool,
-               *, plain: bool = False) -> FrameStep:
+               *, plain: bool = False, schedule: str = "auto") -> FrameStep:
     """The whole known-association observation frame: S predict + heading
     sub-steps, range-bearing observe, measurement update and the P pass.
 
-    Args mirror the reference: ``rows`` (3 + 2 NZ,) gathered row indices
-    [0, 1, 2, slot rows...]; ``vns``/``swans``/``phis``/``actives`` (S,)
-    per-sub-step controls, measured heading and active flags; ``zr``/``zb``/
-    ``mask`` (NZ,) the measurement buffer.  ``plain=True`` runs each
-    kernel's plain PyTorch version instead, on any device (the baseline the
-    kernels are measured against).  Returns ``FrameStep(p, x, pose_trace,
-    nis)``; P is not modified in place.
+    Args as the reference's, except that the frame takes its raw map slots
+    ``slots`` (NZ,) int64 and the table's ``capacity`` in place of the
+    gathered rows [0, 1, 2, 3 + 2 s, 4 + 2 s, ...] (``frame_rows``, the
+    slots clamped to [0, capacity - 1]): H9 forms the rows in its launch.
+    ``vns``/``swans``/``phis``/``actives`` (S,) are the per-sub-step
+    controls, measured heading and active flags; ``zr``/``zb``/``mask``
+    (NZ,) the measurement buffer.  The 1-D inputs may be strided views (a
+    column of the measurement buffer).
+
+    The route is ``frame_route``'s, decided once: H9 by default, the split
+    schedule under ``schedule="split"`` (a test hook, as the reference's
+    ``_force_schedule``), the plain route where neither the port nor the
+    reference has a kernel; a frame the reference runs on a TPU kernel and
+    no kernel of the port holds raises on the card.  CPU tensors, or
+    ``plain=True`` on any device, run the route's plain PyTorch versions
+    (the baseline the kernels are measured against).  Returns
+    ``FrameStep(p, x, pose_trace, nis)``; P is not modified in place.
     """
+    d, nz = p.shape[0], zr.shape[0]
+    tensors = (p, x, slots, vns, swans, phis, actives, q_cov, zr, zb, mask, r_cov)
+    tail = (wheel_base, dt, sigma_heading, use_heading)
+    route = frame_route(d, nz, p.device, vns.shape[0], schedule)
+    if route == "resident" and not (plain or cuda.on_cpu(*tensors)):
+        return _frame_step_h9(p, x, slots, capacity, *tensors[3:], *tail)
+    rows = frame_rows(slots, capacity)
+    if _past_the_kernels(route, "frame_step", plain, *tensors):
+        return _plain_frame(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask, r_cov,
+                            tail)
     fi = frame_inputs(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask, r_cov)
-    ch, si, pht, xn, nis = _frame_measure(fi, x, (wheel_base, dt, sigma_heading, use_heading),
-                                          plain)
+    if route == "resident":
+        return _frame_step_resident_reference(p, x, fi, *tail)
+    ch, si, pht, xn, nis = _frame_measure(fi, x, tail, plain)
     gmat, mmid = _frame_gm(pht, si, ch.k4[:4, :4], fi.prows[2:3], fi.mp)
     update = rank_update_t_reference if plain else rank_update_t
     p_out = update(p, gmat, mmid)
     return FrameStep(p=p_out, x=xn, pose_trace=ch.pt, nis=nis[0])
+
+
+def _plain_frame(p, x, rows, vns, swans, phis, actives, q_cov, zr, zb, mask, r_cov,
+                 tail) -> FrameStep:
+    """The plain route of one frame at its gathered ``rows``: the
+    reference's jnp route (``_frame_step_reference``)."""
+    mp, rp = frame_shapes(zr.shape[0])
+    zin, rsc, _ = _pack_meas(zr, zb, mask, r_cov, mp // 2)
+    return _frame_step_reference(p, x, rows, vns, swans, phis, actives, q_cov, zin, rsc, mp, rp,
+                                 *tail)
 
 
 def _frame_measure(fi: FrameInputs, x, tail, plain: bool):
@@ -563,9 +871,20 @@ def frame_step_pair(p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b,
 
     ``ctrl_*`` = (vns, swans, phis, actives), ``meas_*`` = (zr, zb, mask),
     the other arguments as ``frame_step``'s; ``plain=True`` runs the same
-    pair algebra through the plain versions.  P is not modified in place.
+    pair algebra through the plain versions.  Where the split schedule does
+    not fit (``frame_route``: past 16 sub-steps or MP 2048), the pair is two
+    frames of ``frame_step``'s plain route, as the reference's jnp route,
+    and raises on the card where the reference has a TPU schedule
+    ("unported").  P is not modified in place.
     """
     tail = (wheel_base, dt, sigma_heading, use_heading)
+    route = frame_route(p.shape[0], meas_a[0].shape[0], p.device, ctrl_a[0].shape[0], "split")
+    if _past_the_kernels(route, "frame_step_pair", plain, p, x, rows_a, rows_b, q_cov, r_cov,
+                         *ctrl_a, *meas_a, *ctrl_b, *meas_b):
+        fa = _plain_frame(p, x, rows_a, *ctrl_a, q_cov, *meas_a, r_cov, tail)
+        fb = _plain_frame(fa.p, fa.x, rows_b, *ctrl_b, q_cov, *meas_b, r_cov, tail)
+        return FramePair(p=fb.p, x=fb.x, pose_trace=torch.stack([fa.pose_trace, fb.pose_trace]),
+                         nis=torch.stack([fa.nis, fb.nis]), pose_mid=fa.x[:3])
     fa = frame_inputs(p, x, rows_a, *ctrl_a, q_cov, *meas_a, r_cov)
     ch_a, si_a, pht_a, xn_a, nis_a = _frame_measure(fa, x, tail, plain)
     g_a, m_a = _frame_gm(pht_a, si_a, ch_a.k4[:4, :4], fa.prows[2:3], fa.mp)
@@ -694,6 +1013,25 @@ def obs_inputs(p, x, rows, zr, zb, mask, r_cov, vtf) -> ObsInputs:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def obs_route(d: int, nz: int, nbp: int, device) -> str:
+    """The route ``frame_update_obs`` takes at D = ``d`` for ``nz``
+    measurement slots and ``nbp`` factor rows on ``device``, from the
+    shapes alone: "split" (H7 -> H1 -> H8 -> H4) where H7's one block and H1
+    hold the frame; past them (H7's block outgrowing shared memory, from
+    MP 160 at NBP 24) "plain" (the reference's jnp route) where
+    the reference has no TPU schedule either (``can_fuse_frame``: D not a
+    multiple of 128, or no VMEM tile), else "unported": such a frame raises
+    on the card (the plain route on the CPU)."""
+    mp, rp = frame_shapes(nz)
+    limit = _smem_limit(device)
+    fits = (sweep_fits(mp, limit) and _obs_smem_bytes(mp, rp, nbp) <= limit
+            and 4 * (9 * mp + mp * nbp + nbp * OBS_PANEL_W + OBS_PANEL_H * OBS_PANEL_W) <= limit)
+    if fits:
+        return "split"
+    return "unported" if _ref_frame_update_has_kernel(d, nz, nbp) else "plain"
+
+
 def frame_update_obs(p, x, rows, zr, zb, mask, r_cov, bmat, vtf,
                      *, plain: bool = False) -> FrameUpdateObs:
     """The gated observation frame against the frame factors: observe,
@@ -704,10 +1042,24 @@ def frame_update_obs(p, x, rows, zr, zb, mask, r_cov, bmat, vtf,
     (D,) post-factor mean; ``rows`` (3 + 2 NZ,) gathered row indices
     [0, 1, 2, slot rows...]; ``zr``/``zb``/``mask`` (NZ,) the measurement
     buffer; ``bmat`` (NBP, NBP) and ``vtf`` (NBP, D) the factors
-    (ops.factor_kernel).  ``plain=True`` runs each kernel's plain PyTorch
-    version instead, on any device.  Returns ``FrameUpdateObs(p, x, nis)``
-    with the updated mean; P is not modified in place.
+    (ops.factor_kernel).  The route is ``obs_route``'s: H7 -> H1 -> H8 ->
+    H4 where they fit, else the reference's jnp route
+    (``_frame_update_obs_reference``) where the reference has no TPU
+    schedule either; a frame only the reference's TPU schedule holds raises
+    on the card.  ``plain=True`` runs the kernels' plain PyTorch versions
+    instead, on any device.  Returns ``FrameUpdateObs(p, x, nis)`` with the
+    updated mean; P is not modified in place.
     """
+    nz, nbp = zr.shape[0], bmat.shape[0]
+    route = obs_route(p.shape[0], nz, nbp, p.device)
+    if _past_the_kernels(route, "frame_update_obs", plain, p, x, rows, zr, zb, mask, r_cov, bmat,
+                         vtf):
+        mp, rp = frame_shapes(nz)
+        nr = rows.shape[0]
+        zin, rsc, _ = _pack_meas(zr, zb, mask, r_cov, mp // 2)
+        return _frame_update_obs_reference(p, x, F.pad(rows, (0, rp - nr), value=-1),
+                                           F.pad(p[rows], (0, 0, 0, rp - nr)), zin, rsc, bmat,
+                                           vtf, mp, rp)
     oi = obs_inputs(p, x, rows, zr, zb, mask, r_cov, vtf)
     chain_args = (oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
     if plain:

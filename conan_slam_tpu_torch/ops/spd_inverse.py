@@ -1,15 +1,18 @@
 """SPD inverse by the Jacobi-scaled symmetric sweep (port of
 conan_slam_tpu.ops.spd_inverse and frame_kernel._sweep_si).
 
-Kernel H1 (``csrc/sweep_inverse.cu``) runs the 2x2-pivot Gauss-Jordan sweep
-in one block of 16 warps with the swept block in registers (warp w holds 2Q
-consecutive rows, lane l their columns l + 32 b, Q = ceil(MP / 32), or
-fewer columns when the unused slots decouple).  A pivot is one block
-barrier: the warp holding the next pivot's rows updates them first, forms
-that pivot's factors g and h (two shuffles, no barrier) and publishes
-them, while the other warps apply the current one; both symmetrizations
-read the transpose through a padded shared tile.  On
-the frame's path it runs once per frame, between the chain kernel H2 and
+Kernel H1 (``csrc/sweep_inverse.cu``) runs the 2x2-pivot Gauss-Jordan
+sweep.  Up to MP 224 one block of 16 warps holds the swept block in
+registers (warp w holds 2Q consecutive rows, lane l their columns l + 32 b,
+Q = ceil(MP / 32), or fewer columns when the unused slots decouple).  A
+pivot is one block barrier: the warp holding the next pivot's rows updates
+them first, forms that pivot's factors g and h (two shuffles, no barrier)
+and publishes them, while the other warps apply the current one; both
+symmetrizations read the transpose through a padded shared tile.  Past
+MP 224 (to 2048) it is one cooperative launch: each block holds a band of
+A's rows in shared memory (``coop_band``), and a pivot is its two rows
+published through device memory and one grid barrier.  On the frame's
+path it runs once per frame, between the chain kernel H2 and
 the panel kernel H3 (ops.frame_kernel), where the reference ran the sweep
 inside its chain kernel.  Its plain versions live here:
 ``sweep_si_reference`` (the sweep itself, with the ``nblk`` bound) and
@@ -25,7 +28,7 @@ from conan_slam_tpu_torch.ops import cuda
 
 SWEEP_INVERSE = cuda.CudaKernel(
     "sweep_inverse", "csl_sweep_inverse",
-    [cuda.P, cuda.P, cuda.P, cuda.I],
+    [cuda.P, cuda.P, cuda.P, cuda.P, cuda.I],
     source="conan_slam_tpu_torch/csrc/sweep_inverse.cu",
     replaces="conan_slam_tpu/ops/spd_inverse.py:135 (spd_inverse -> _sweep_pallas :114)",
 )
@@ -33,11 +36,35 @@ SWEEP_INVERSE = cuda.CudaKernel(
 
 # The largest S one block holds in registers: 7 x 7 elements a thread.
 MAX_MP = 224
+# The largest S the cooperative sweep takes past MAX_MP, and the blocks it
+# spreads A's rows over where their shared memory allows
+# (csrc/sweep_inverse.cu COOP_MAX_MP, COOP_BLOCKS).
+MAX_MP_COOP = 2048
+COOP_BLOCKS = 32
+
+
+def coop_band(mp: int) -> int:
+    """The cooperative sweep's rows a block (csrc/sweep_inverse.cu
+    coop_band): an even share over COOP_BLOCKS blocks, or fewer where a
+    block's shared memory holds fewer."""
+    want = 2 * -(-mp // (2 * COOP_BLOCKS))
+    fit = ((cuda.MAX_SMEM_BYTES // 4 - 5 * mp) // mp) & ~1
+    return min(want, fit)
 
 
 def _sweep_smem_bytes(mp: int) -> int:
-    """The padded tile, the scale and two buffers of the pivots' g and h."""
+    """A block's shared memory: up to MAX_MP the padded tile, the scale and
+    two buffers of the pivots' g and h; past it the cooperative sweep's
+    rows, scale, pivot rows and factors."""
+    if mp > MAX_MP:
+        return 4 * (coop_band(mp) + 5) * mp
     return 4 * (mp * (mp + 1) + mp + 8 * 32 * -(-mp // 32))
+
+
+def sweep_fits(mp: int, limit: int = cuda.MAX_SMEM_BYTES) -> bool:
+    """Whether H1 takes an S of size ``mp`` (even, at most MAX_MP_COOP)
+    with ``limit`` bytes of shared memory a block."""
+    return mp % 2 == 0 and 0 < mp <= MAX_MP_COOP and _sweep_smem_bytes(mp) <= limit
 
 
 def _sweep(a: torch.Tensor, nblk) -> torch.Tensor:
@@ -90,12 +117,16 @@ def sweep_si(s: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
     if cuda.on_cpu(s, nblk):
         return sweep_si_reference(s, nblk)
     mp = s.shape[0]
-    if mp % 2 or mp > MAX_MP or _sweep_smem_bytes(mp) > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"sweep_inverse: S must be even-sized and at most {MAX_MP}, got {mp}")
+    if not sweep_fits(mp):
+        raise ValueError(f"sweep_inverse: S must be even-sized and at most {MAX_MP_COOP}, "
+                         f"got {mp}")
     cuda.check(s, "s", (mp, mp))
     cuda.check(nblk, "nblk", (1,), torch.int32)
     out = torch.empty_like(s)
-    SWEEP_INVERSE(s.device, cuda.ptr(s), cuda.ptr(nblk), cuda.ptr(out), mp)
+    # Past MAX_MP: the published pivot rows (two buffers) and a flag a block.
+    scratch = torch.empty((4 * mp + 256,), dtype=s.dtype, device=s.device) if mp > MAX_MP else None
+    SWEEP_INVERSE(s.device, cuda.ptr(s), cuda.ptr(nblk), cuda.ptr(out),
+                  None if scratch is None else cuda.ptr(scratch), mp)
     return out
 
 

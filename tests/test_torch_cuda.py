@@ -48,7 +48,8 @@ def dev():
 
 def _frame_args(dev, d, seed=79, nz=10, s_steps=6, use_heading=True):
     """A frame at D = d: NZ = nz measurements of distinct landmarks (one
-    masked) and S = s_steps sub-steps (the last inactive when S > 1)."""
+    masked) and S = s_steps sub-steps (the last inactive when S > 1), as
+    frame_step takes it (the slots and the capacity)."""
     rng = np.random.default_rng(seed)
     cap = (d - 3) // 2
     lm = rng.uniform(-50, 50, size=(cap, 2)).astype(np.float32)
@@ -62,8 +63,7 @@ def _frame_args(dev, d, seed=79, nz=10, s_steps=6, use_heading=True):
     mask[-2] = False
     t = lambda v: torch.as_tensor(np.asarray(v)).to(dev)  # noqa: E731
     return (
-        (st.p + torch.as_tensor(a @ a.T)).to(dev), st.x.to(dev),
-        t(np.concatenate([np.arange(3), (3 + 2 * ids[:, None] + np.arange(2)).reshape(-1)])),
+        (st.p + torch.as_tensor(a @ a.T)).to(dev), st.x.to(dev), t(ids.astype(np.int64)), cap,
         t((83.33 + rng.normal(size=s_steps) * 0.3).astype(np.float32)),
         t((rng.normal(size=s_steps) * 0.2).astype(np.float32)),
         t((rng.normal(size=s_steps) * 0.5).astype(np.float32)),
@@ -75,20 +75,237 @@ def _frame_args(dev, d, seed=79, nz=10, s_steps=6, use_heading=True):
     )
 
 
-@pytest.mark.parametrize("d", [256, 203])
-def test_frame_kernels_match_plain_versions(dev, d):
-    args = _frame_args(dev, d)
-    cuda.reset_launch_counts()
-    got = fk.frame_step(*args)
-    ref = fk.frame_step(*args, plain=True)
-    torch.cuda.synchronize()
-    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
-    assert counts == {**dict.fromkeys(counts, 0), "sweep_inverse": 1, "frame_chain": 1,
-                      "frame_panels": 1, "rank_update": 1}
+def _assert_frame_close(got, ref):
     torch.testing.assert_close(got.pose_trace, ref.pose_trace, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [256, 203])
+def test_frame_kernels_match_plain_versions(dev, d):
+    # The default route (H9, one launch) and the split schedule (H2, H1, H3,
+    # H4 once each), each against its plain version.
+    args = _frame_args(dev, d)
+    for schedule, want in (("auto", {"frame_step": 1}),
+                           ("split", {"sweep_inverse": 1, "frame_chain": 1, "frame_panels": 1,
+                                      "rank_update": 1})):
+        cuda.reset_launch_counts()
+        got = fk.frame_step(*args, schedule=schedule)
+        ref = fk.frame_step(*args, plain=True, schedule=schedule)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+        assert counts == {**dict.fromkeys(counts, 0), **want}
+        _assert_frame_close(got, ref)
+
+
+def _witness(args):
+    """The frame of frame_step's ``args`` in float64 through the port's
+    independent oracle (fastframe factors, dense products, a Cholesky
+    inverse)."""
+    p, x, slots, cap, *rest = (a.double() if torch.is_tensor(a) and a.dtype == torch.float32
+                               else a for a in args)
+    return fk._plain_frame(p, x, fk.frame_rows(slots, cap), *rest[:9], tuple(rest[9:]))
+
+
+def _ulp_bounds(args, got):
+    """Elementwise bounds on two fp32 routes of one frame that differ only
+    in the order of their sums (H9 and the split schedule: the same chain,
+    sweep and pht code, M G and the mean summed in other orders).  Each
+    route rounds two nested sums of at most r = MP + 8 terms (M G, then
+    G^T M G; siv, then the mean), each within r eps of its terms'
+    magnitudes to first order, so the two differ by at most 4 r eps times
+    the magnitudes, from the plain versions: |P| + |G|^T |M| |G| for P,
+    |x| + |xn| + |v|^T |S^-1| |pht| for the mean, |v|^T |S^-1| |v| for the
+    NIS."""
+    p, x, slots, cap, *rest = args
+    fi = fk.frame_inputs(p, x, fk.frame_rows(slots, cap), *rest[:9])
+    ch = fk._frame_chain_reference(fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp,
+                                   *rest[9:])
+    si = sweep_si_reference(ch.s, fi.nblk)
+    pht = fk._frame_panels_reference(ch.rowc, ch.ms, si, fi.prows, x)[0]
+    gmat, mmid = fk._frame_gm(pht, si, ch.k4[:4, :4], fi.prows[2:3], fi.mp)
+    vsi = ch.rowc[:, 7].abs() @ si.abs()
+    u = 4.0 * (fi.mp + 8) * 2.0**-23
+    return dict(pose_trace=u * got.pose_trace.abs(),
+                x=u * (x.abs() + got.x.abs() + vsi @ pht.abs()),
+                p=u * (p.abs() + gmat.abs().T @ (mmid.abs() @ gmat.abs())),
+                nis=u * (vsi @ ch.rowc[:, 7].abs()))
+
+
+# H9 over MP 32, 128 and 224, S = 1, 6 and 16, the heading update on and
+# off, at the bench D, a ragged D and a D smaller than one tile.
+_RESIDENT_CASES = [(d, nz, s, h) for d in (2304, 2051) for nz in (10, 64, 112)
+                   for s in (1, 6, 16) for h in (True, False)]
+_RESIDENT_CASES += [(13, 5, s, h) for s in (1, 6, 16) for h in (True, False)]
+
+
+@pytest.mark.parametrize("d,nz,s_steps,use_heading", _RESIDENT_CASES)
+def test_frame_step_kernel_matches_plain(dev, d, nz, s_steps, use_heading):
+    args = list(_frame_args(dev, d, nz=nz, s_steps=s_steps, use_heading=use_heading))
+    args[0] = 0.5 * (args[0] + args[0].T)          # exactly symmetric P
+    cuda.reset_launch_counts()
+    got, again = fk.frame_step(*args), fk.frame_step(*args)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "frame_step": 2}
+    # Against the split schedule's kernels (H2, H1, H3, H4): the same device
+    # code up to the order of M G's and the mean's sums, so within fp32
+    # rounding of those sums (_ulp_bounds), at every shape: a fault of H9
+    # shows here whatever the conditioning of S.
+    split = fk.frame_step(*args, schedule="split")
+    for key, tol in _ulp_bounds(args, got).items():
+        err = (getattr(got, key) - getattr(split, key)).abs()
+        assert bool((err <= tol).all()), (key, float(err.max()), float((err - tol).max()))
+    # Against its plain version at the reference's frame-test tolerances;
+    # the F1 frames (heading update off over 16 sub-steps) condition S so
+    # that fp32 rounding before the sweep moves x and P by ~1e-4 to 1e-3 in
+    # any route, so there x and P are held to a float64 witness (the port's
+    # oracle) instead: H9 no further from it than twice its plain version,
+    # plus the reference's 1e-4.
+    ref = fk.frame_step(*args, plain=True)
+    torch.testing.assert_close(got.pose_trace, ref.pose_trace, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+    if not use_heading and s_steps == 16:
+        wit = _witness(args)
+        for a, b, w in ((got.x, ref.x, wit.x), (got.p, ref.p, wit.p)):
+            e_h9, e_plain = ((t.double() - w).abs().max() for t in (a, b))
+            assert e_h9 <= 2.0 * e_plain + 1e-4, (float(e_h9), float(e_plain))
+    else:
+        torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    # One fixed order of every sum, no atomics: two calls are bit-identical;
+    # the P pass mirrors the upper triangle: P stays exactly symmetric.
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(got.p, got.p.T)
+
+
+def test_frame_step_kernel_all_masked_is_factor_only(dev):
+    args = list(_frame_args(dev, 2304, nz=64))
+    args[11] = torch.zeros_like(args[11])
+    got = fk.frame_step(*args)
+    ref = fk.frame_step(*args, plain=True)
+    torch.cuda.synchronize()
+    _assert_frame_close(got, ref)
+    assert float(got.nis) == 0.0
+
+
+def test_frame_step_kernel_takes_strided_inputs(dev):
+    # The driver hands H9 columns of the measurement buffer and of the truth
+    # rollout: strided views, read in place.
+    args = list(_frame_args(dev, 2304, nz=64))
+    z = torch.stack([args[9], args[10]], dim=1)
+    trace = torch.stack([args[6], args[6], args[6]], dim=1)
+    args[9], args[10], args[6] = z[:, 0], z[:, 1], trace[:, 2]
+    got = fk.frame_step(*args)
+    ref = fk.frame_step(*(a.contiguous() if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_frame_step_kernel_replays_in_a_cuda_graph(dev):
+    # One H9 launch captured in a CUDA graph and replayed gives the eager
+    # launch's bits: the C entry allocates nothing and launches on the
+    # capturing stream.
+    args = _frame_args(dev, 2304, nz=64)
+    eager = fk.frame_step(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fk.frame_step(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+def test_frame_step_plan(dev):
+    plan = fk.frame_step_plan(2304, 128, dev)
+    mp, rp = fk.frame_shapes(64)
+    assert plan.grid == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan.block == fk.FS_THREADS
+    assert plan.smem == fk._frame_step_smem_bytes(mp, rp, fk.frame_chain_plan(mp).band)
+    assert (plan.bands, plan.panels, plan.tiles) == (64, 144, 72 * 73 // 2)
+
+
+@pytest.mark.parametrize("d", [2304, 403])
+def test_split_schedule_past_mp_224_matches_plain(dev, d):
+    # MP 240 (NZ 120): past H1's registers the frame and the pair take the
+    # split schedule, whose H1 is one cooperative launch; each against its
+    # plain version.
+    args = _frame_args(dev, d, nz=120)
+    assert fk.frame_route(d, 120, dev, 6) == "split"
+    cuda.reset_launch_counts()
+    got = fk.frame_step(*args)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "sweep_inverse": 1, "frame_chain": 1,
+                      "frame_panels": 1, "rank_update": 1}
+    _assert_frame_close(got, fk.frame_step(*args, plain=True))
+    pargs = _pair_args(dev, d, nz=120)
+    got = fk.frame_step_pair(*pargs)
+    ref = fk.frame_step_pair(*pargs, plain=True)
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=2e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+
+
+def test_frames_past_the_kernels_take_the_plain_route(dev):
+    # Neither the port's kernels nor the reference's TPU schedules (D not a
+    # multiple of 128) hold these frames: frame_step over 17 sub-steps, and
+    # frame_update_obs at MP 240 (NZ 120), where H7's one block outgrows
+    # shared memory.  Both run the plain route on the card, as on the CPU.
+    args = _frame_args(dev, 403, nz=10, s_steps=17)
+    assert fk.frame_route(403, 10, dev, 17) == "plain"
+    cpu = lambda a: a.cpu() if torch.is_tensor(a) else a   # noqa: E731
+    cuda.reset_launch_counts()
+    got = fk.frame_step(*args)
+    st, fargs, (rows, zr, zb, mask, r) = _gated_frame(dev, 403, nz=120)
+    st1, _, vtf, bmat = _frame_factors_reference(st, *fargs)
+    uargs = (st1.p, st1.x, rows, zr, zb, mask, r, bmat, vtf)
+    assert fk.obs_route(403, 120, bmat.shape[0], dev) == "plain"
+    got_obs = fk.frame_update_obs(*uargs)
+    torch.cuda.synchronize()
+    assert not any(k.launches for k in cuda.KERNELS.values())
+    ref = fk.frame_step(*map(cpu, args))
+    # Over 17 sub-steps the pose reaches ~100 m: a few ulps (7.6e-6 m) there.
+    torch.testing.assert_close(got.pose_trace.cpu(), ref.pose_trace, rtol=1e-5, atol=1e-4)
+    _assert_frame_close(fk.FrameStep(*map(cpu, got))._replace(pose_trace=ref.pose_trace), ref)
+    ref_obs = fk.frame_update_obs(*map(cpu, uargs))
+    torch.testing.assert_close(got_obs.x.cpu(), ref_obs.x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_obs.p.cpu(), ref_obs.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got_obs.nis.cpu(), ref_obs.nis, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["frame_step", "frame_step_pair", "frame_update_obs"])
+def test_frames_only_the_reference_holds_raise(dev, entry):
+    # 17 sub-steps at D = 2304 (the known frame, the pair) and MP 240 at
+    # D = 1024 (the gated frame): the reference runs a TPU kernel there and
+    # no kernel of the port holds the frame, so the card raises before any
+    # launch.
+    cuda.reset_launch_counts()
+    if entry == "frame_update_obs":
+        st, fargs, (rows, zr, zb, mask, r) = _gated_frame(dev, 1024, nz=120)
+        st1, _, vtf, bmat = _frame_factors_reference(st, *fargs)
+        assert fk.obs_route(1024, 120, bmat.shape[0], dev) == "unported"
+        with pytest.raises(ValueError, match="reference runs a TPU kernel"):
+            fk.frame_update_obs(st1.p, st1.x, rows, zr, zb, mask, r, bmat, vtf)
+    else:
+        args = _frame_args(dev, 2304, nz=10, s_steps=17)
+        assert fk.frame_route(2304, 10, dev, 17) == "unported"
+        p, x, slots, cap, *rest = args
+        rows = fk.frame_rows(slots, cap)
+        ctrl, meas = tuple(rest[:4]), tuple(rest[5:8])
+        with pytest.raises(ValueError, match="reference runs a TPU kernel"):
+            if entry == "frame_step":
+                fk.frame_step(*args)
+            else:
+                fk.frame_step_pair(p, x, rows, ctrl, meas, rows, ctrl, meas, rest[4], rest[8],
+                                   *rest[9:])
+    torch.cuda.synchronize()
+    assert not any(k.launches for k in cuda.KERNELS.values())
 
 
 # H2's bands and H3's panels: MP 32, 128 and 224, S = 1, 6 and 16, the
@@ -101,14 +318,14 @@ _CHAIN_CASES += [(13, 5, s, h) for s in (1, 6, 16) for h in (True, False)]
 
 @pytest.mark.parametrize("d,nz,s_steps,use_heading", _CHAIN_CASES)
 def test_chain_and_panels_kernels_match_plain(dev, d, nz, s_steps, use_heading):
-    args = _frame_args(dev, d, nz=nz, s_steps=s_steps, use_heading=use_heading)
-    fi = fk.frame_inputs(*args[:12])
-    chain = (fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp, *args[12:])
+    p, x, slots, cap, *rest = _frame_args(dev, d, nz=nz, s_steps=s_steps, use_heading=use_heading)
+    fi = fk.frame_inputs(p, x, fk.frame_rows(slots, cap), *rest[:9])
+    chain = (fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp, *rest[9:])
     cuda.reset_launch_counts()
     ch_k, ch_again = fk.frame_chain(*chain), fk.frame_chain(*chain)
     ch_p = fk._frame_chain_reference(*chain)
     si = sweep_si_reference(ch_p.s, fi.nblk)
-    pargs = (ch_p.rowc, ch_p.ms, si, fi.prows, args[1])
+    pargs = (ch_p.rowc, ch_p.ms, si, fi.prows, x)
     pk, pk_again = fk.frame_panels(*pargs), fk.frame_panels(*pargs)
     pp = fk._frame_panels_reference(*pargs)
     torch.cuda.synchronize()
@@ -144,8 +361,10 @@ def test_recursion_sincos_is_cudas_sincosf(dev, tmp_path):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# Every even size up to MAX_MP, and the sweep bound from none to all.
+# Every even size up to MAX_MP, and the sweep bound from none to all; past
+# it, the cooperative sweep.
 _SWEEP_CASES = [(mp, nblk) for mp in (2, 60, 128, 224) for nblk in (0, 1, 7, mp // 2)] + [(128, 40)]
+_SWEEP_CASES += [(mp, nblk) for mp in (226, 480) for nblk in (0, 1, 7, mp // 2)] + [(2048, 1024)]
 
 
 @pytest.mark.parametrize("mp,nblk", _SWEEP_CASES)
@@ -213,11 +432,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         sweep_si(p, torch.tensor([4], device=dev))      # nblk must be int32
 
 
-def _gated_frame(dev, d, use_heading=True):
+def _gated_frame(dev, d, use_heading=True, nz=10):
     """A frame-start state, its H5 factors from the plain version, and the
     frame's measurement inputs, as frame_update_obs takes them."""
-    (p, x, rows, vns, swans, phis, actives, q, zr, zb, mask, r, wb, dt, sh,
-     _) = _frame_args(dev, d)
+    (p, x, slots, cap, vns, swans, phis, actives, q, zr, zb, mask, r, wb, dt, sh,
+     _) = _frame_args(dev, d, nz=nz)
+    rows = fk.frame_rows(slots, cap)
     from conan_slam_tpu_torch.filters.ekf.state import EKFState
 
     st = EKFState(x=x, p=p, n_active=torch.tensor(0, device=dev),
@@ -320,7 +540,7 @@ def test_gated_run_matches_plain(dev):
         else:
             want = dict.fromkeys(("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
                                   "obs_panels", "rank_update"), 100)
-            assert counts == {**want, "frame_chain": 0, "frame_panels": 0}
+            assert counts == {**want, "frame_chain": 0, "frame_panels": 0, "frame_step": 0}
     (sk, ok), (sp, op) = out[False], out[True]
     assert bool(torch.isfinite(sk.p).all()) and int(sk.n_active) > 0
     assert torch.equal(ok.n_active, op.n_active)
@@ -361,7 +581,7 @@ def _pair_args(dev, d, seed=83, nz=10):
         return t(rows), ctrl, meas
 
     rows_a, ctrl_a, meas_a = frame(x.cpu().numpy())
-    fa = fk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail, plain=True)
+    fa = fk._plain_frame(p, x, rows_a, *ctrl_a, q, *meas_a, r, tail)
     rows_b, ctrl_b, meas_b = frame(fa.x.cpu().numpy())
     return (p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *tail)
 

@@ -76,8 +76,8 @@ def _pair_problem(seed, capacity=100, nz=10):
     r = np.diag([0.1**2, 0.5 * np.pi / 180]).astype(np.float32)
     frame_a = _frame(rng, x, nz, capacity)
     rows, ctrl, meas = frame_a
-    fa = tfk.frame_step(_torch(p), _torch(x), _torch(rows), *map(_torch, ctrl), _torch(q),
-                        *map(_torch, meas), _torch(r), *TAIL, True)
+    fa = tfk.frame_step(_torch(p), _torch(x), _torch(_slots(rows)), capacity, *map(_torch, ctrl),
+                        _torch(q), *map(_torch, meas), _torch(r), *TAIL, True)
     frame_b = _frame(rng, fa.x.numpy(), nz, capacity)
     return p, x, frame_a, frame_b, q, r
 
@@ -88,6 +88,11 @@ def _args(prob, to, use_heading):
     return (to(p), to(x), to(rows_a.astype(np.int32)), tuple(map(to, ctrl_a)),
             tuple(map(to, meas_a)), to(rows_b.astype(np.int32)), tuple(map(to, ctrl_b)),
             tuple(map(to, meas_b)), to(q), to(r), *TAIL, use_heading)
+
+
+def _slots(rows):
+    """The map slots of gathered rows [0, 1, 2, 3 + 2 s, 4 + 2 s, ...]."""
+    return (np.asarray(rows)[3::2] - 3) // 2
 
 
 def _torch(a):
@@ -116,8 +121,8 @@ def test_frame_step_pair_matches_two_frames(use_heading, seed):
     args = _args(prob, _torch, use_heading)
     (p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *tail) = args
     got = tfk.frame_step_pair(*args)
-    fa = tfk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *tail)
-    fb = tfk.frame_step(fa.p, fa.x, rows_b, *ctrl_b, q, *meas_b, r, *tail)
+    fa = tfk.frame_step(p, x, _torch(_slots(rows_a)), 100, *ctrl_a, q, *meas_a, r, *tail)
+    fb = tfk.frame_step(fa.p, fa.x, _torch(_slots(rows_b)), 100, *ctrl_b, q, *meas_b, r, *tail)
     # The reference's CPU route: two jnp reference frames.
     jref = jfk.frame_step_pair(*_args(prob, jnp.asarray, use_heading))
     for pt, pose_mid, xb, pb, nis in (

@@ -2,7 +2,8 @@
 update Vt^T VBt is symmetric, so the kernel forms its upper triangle and
 mirrors it.
 
-Each caller of the port -- ``frame_step`` (M = blockdiag(-S^-1, K4)),
+Each caller of the port -- ``frame_step``'s split schedule (M =
+blockdiag(-S^-1, K4); H9 passes the same G and M G to the same tiles),
 ``frame_update_obs`` (M = blockdiag(B, -S^-1)) and ``frame_step_pair`` (M =
 blockdiag(M_A, M_B), VBt given) -- runs on the CPU through its plain
 versions on inputs made from a numpy seed at D = 256; the (P, Vt, VBt) it
@@ -64,9 +65,11 @@ def _state(seed, capacity=100):
 
 
 def _run_frame_step(seed):
+    # The split schedule hands (G, M) to H4; H9 runs the same tile pass on
+    # the same G and M G, formed inside its launch.
     rng, p, x, q, r = _state(seed)
     rows, ctrl, meas = _frame(rng, x.numpy(), 10, 100)
-    tfk.frame_step(p, x, rows, *ctrl, q, *meas, r, *TAIL)
+    tfk.frame_step(p, x, (rows[3::2] - 3) // 2, 100, *ctrl, q, *meas, r, *TAIL, schedule="split")
 
 
 def _run_frame_update_obs(seed):
@@ -80,7 +83,8 @@ def _run_frame_update_obs(seed):
 def _run_frame_step_pair(seed):
     rng, p, x, q, r = _state(seed)
     rows_a, ctrl_a, meas_a = _frame(rng, x.numpy(), 10, 100)
-    fa = tfk.frame_step(p, x, rows_a, *ctrl_a, q, *meas_a, r, *TAIL, plain=True)
+    fa = tfk.frame_step(p, x, (rows_a[3::2] - 3) // 2, 100, *ctrl_a, q, *meas_a, r, *TAIL,
+                        plain=True)
     rows_b, ctrl_b, meas_b = _frame(rng, fa.x.numpy(), 10, 100)
     tfk.frame_step_pair(p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *TAIL)
 

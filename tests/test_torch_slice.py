@@ -18,6 +18,7 @@ Tolerances, each with its reason:
   * ATE: rtol 1e-2.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -37,6 +38,8 @@ from conan_slam_tpu.sim import precompute as jprecompute
 from conan_slam_tpu.sim.world import World as JWorld, default_world as j_default_world
 from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.filters.ekf import init_state_with_map
+from conan_slam_tpu_torch.filters.ekf import update as ekf_update
+from conan_slam_tpu_torch.ops import frame_kernel as tfk
 from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
 from conan_slam_tpu_torch.runner.metrics import ate_rmse
 from conan_slam_tpu_torch.sim.world import _WP_X, _WP_Y, world_from_numpy
@@ -103,6 +106,31 @@ def test_slice_matches_reference(n_landmarks, n_steps, seed, dim, frame_pair):
     ate = float(ate_rmse(outs.x_true, outs.x_est, ~outs.done))
     jate = float(jmetrics.ate_rmse(jouts.x_true, jouts.x_est, ~jouts.done))
     np.testing.assert_allclose(ate, jate, rtol=1e-2)
+
+
+def test_slice_schedules_agree(monkeypatch):
+    # The same frames through the resident route (H9's plain version, the
+    # default) and the split schedule's plain versions: one algebra, fp32
+    # rounding apart (the closed form against the p2 row vs G^T M G), held
+    # at this file's tolerances.  The split is chosen through frame_step's
+    # own test hook, bound where fused_frame_step looks it up.
+    jworld = _jax_world(200, 5)
+    cfg = SlamConfig(max_landmarks=200, max_obs=16, enable_augment=False)
+    world = world_from_numpy(np.asarray(jworld.landmarks), np.asarray(jworld.waypoints), "cpu")
+    roll = precompute_rollout(world, cfg, 300)
+    rng = np.random.default_rng(5)
+    noise = dict(ctrl_noise=torch.as_tensor(rng.normal(size=(50, 6, 2)).astype(np.float32)),
+                 obs_noise=torch.as_tensor(rng.normal(size=(50, 16, 2)).astype(np.float32)))
+    state0 = init_state_with_map(world.landmarks, sigma0=1.0)
+    s_res, o_res = run_ekf_slam_precomputed(world, cfg, None, 300, state0, roll, **noise)
+    monkeypatch.setattr(ekf_update, "frame_step",
+                        functools.partial(tfk.frame_step, schedule="split"))
+    s_split, o_split = run_ekf_slam_precomputed(world, cfg, None, 300, state0, roll, **noise)
+    np.testing.assert_allclose(o_res.x_est.numpy(), o_split.x_est.numpy(), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(s_res.x.numpy(), s_split.x.numpy(), rtol=0, atol=2e-2)
+    np.testing.assert_allclose(s_res.p.numpy(), s_split.p.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(o_res.consistency.numpy(), o_split.consistency.numpy(),
+                               rtol=2e-2, atol=1e-3)
 
 
 def test_state_carries_across_from_the_reference():
