@@ -25,15 +25,23 @@ Phases:
           against MP and S, its phases (%globaltimer), its plan and bound;
           and the routes past H1's registers: the frame and the pair at
           MP 240 on the split schedule with H1's cooperative sweep (H1 also
-          at MP 480), the plain route with no launch where neither package
+          at MP 480), the gated frame at MP 160-224 (H10) and 240/480 (the
+          split with H7 in bands), the known frame at S = 17/33/64 (H9 and
+          the split), the plain route with no launch where neither package
           has a kernel, and a raise with no launch where only the
           reference has one;
-       b. the gated frame (H5-H8, H1, H4 and the whole frame_update_obs) at
-          BASELINE config 2's shape (D = 1024, NZ = 64, K = 510) on a
-          mid-run frame, at a ragged D (1003) and at the 10k-landmark shape
-          (D = 20,224), with a cross-check against the known-association
-          frame on the same rows and the frame's mean against a float64
-          witness;
+       b. the gated frame (H5-H8, H1, H4, H10 and the whole
+          frame_update_obs on both routes) at BASELINE config 2's shape
+          (D = 1024, NZ = 64, K = 510) on a mid-run frame, at a ragged D
+          (1003) and at the 10k-landmark shape (D = 20,224), with a
+          cross-check against the known-association frame on the same rows
+          and the frame's mean against a float64 witness.  H10 (the default
+          route, one cooperative launch) against its plain version and
+          against the split kernels (within the fp32 rounding of the sums
+          they order differently), two calls bit-equal, asym(P) exactly 0;
+          its device time against the split's in turns (H10, split, split,
+          H10) at config 2 and at the 10k shape, against MP and NBP, its
+          phases (%globaltimer), its plan and bound;
        c. the frame pair (two frames, one H4 pass at r = 2 (MP + 8)) at the
           bench shape and at a ragged D, against its plain version and
           against two sequential kernel frames, and H4 at r = 272.
@@ -56,32 +64,35 @@ Phases:
        a. the bench workload (1024 landmarks from seed 42 over a 13 km
           square, all pre-registered; 64-slot measurement buffer;
           19,200 control steps = 3,200 frames) through H9, in turns with
-          the split schedule (H9, split, split, H9), and 3,000 steps with
+          the split schedule (H9, split, split, H9), and 600 steps with
           the plain versions.  Asserts H9 launched once per frame and H1-H4
           never on the H9 runs (H1-H4 once per frame on the split runs),
           and the reference's accuracy gate on each: ATE < 0.05 m,
           asym(P) < 1e-4.
        b. BASELINE config 2 (500 landmarks of random_world(PRNGKey(7), 500)
           on the default tour, empty map, gated association and
-          augmentation; 25,002 steps = 4,167 frames) with the kernels:
-          asserts the reference's gated_full gate (ATE < 0.5 m,
-          270 <= mapped <= 340) and that H5, H6, H7, H8, H1 and H4 launched
-          once per frame and H2, H3 never.  3,000 steps with the plain
-          versions (the reference's gated gate: finite, mapped > 0,
-          ATE < 1 m), against the kernels' first 3,000 steps.  600 steps
-          of a 10,000-landmark world with the kernels, after 60 untimed
-          steps.
+          augmentation; 25,002 steps = 4,167 frames) through H10 in turns
+          with the split schedule (H10, split, split, H10): asserts the
+          reference's gated_full gate (ATE < 0.5 m, 270 <= mapped <= 340)
+          on each run, and that H5, H6 and H10 launched once per frame and
+          no other kernel (H5, H6, H7, H8, H1 and H4 on the split runs);
+          the two routes' largest |dx_est| and the steps whose map sizes
+          differ.  600 steps with the plain versions (the reference's gated
+          gate: finite, mapped > 0, ATE < 1 m), against the kernels' first
+          600 steps.  600 steps of a 10,000-landmark world on each route,
+          after 60 untimed steps.
        c. the bench workload in frame pairs (cfg.frame_pair): 19,200 steps =
           1,600 pairs with the kernels, timed in turns with the per-frame
           path (H9; per-frame, pair, pair, per-frame); the ate gate, H2, H1
-          and H3 twice per pair and H4 once; 600 steps of the plain pair.
+          and H3 twice per pair and H4 once; 300 steps of the plain pair.
        d. the chunked driver (run_ekf_slam_precomputed_chunked) on the pair
           path in chunks of 4,800 steps with checkpoints: a run killed in
           its third chunk and resumed must equal an uninterrupted run bit
           for bit; the seconds and bytes of one checkpoint.
      Then a torch.profiler trace of 100 frames of each path (the known
-     path through H9 and through the split schedule, 100 pairs of the pair
-     path, 20 frames of the 10k-landmark shape) gives each kernel's device
+     path and the gated path each through its one-launch kernel and
+     through the split schedule, 100 pairs of the pair path, 20 frames of
+     the 10k-landmark shape on both routes) gives each kernel's device
      time per frame, the PyTorch ops dispatched per frame and the device's
      busy share.
   5. The kernel table and the card as JSON lines, then the last line
@@ -108,23 +119,24 @@ import numpy as np
 N_LANDMARKS = 1024      # all pre-registered: D = 3 + 2 * 1024 = 2051, padded 2304
 WORLD_EXTENT = 6500.0   # ~40 landmarks visible per frame at 2000 m range
 BENCH_STEPS = 19200
-PLAIN_STEPS = 3000      # the known path's plain-version run (its kernels run all 19,200)
+PLAIN_STEPS = 600       # the known path's plain-version run (its kernels run all 19,200)
 SEED = 42
 SIGMA0 = 1.0
 PROFILE_FRAMES = 100    # frames of each main path traced with torch.profiler
 GATED_STEPS = 25_002    # BASELINE config 2: 25,000 steps rounded up to whole frames
-GATED_PLAIN_STEPS = 3000
-PAIR_PLAIN_STEPS = 600  # the pair path's plain run (its kernels run all 19,200)
+GATED_PLAIN_STEPS = 600 # the gated path's plain run (its kernels run all 25,002)
+PAIR_PLAIN_STEPS = 300  # the pair path's plain run (its kernels run all 19,200)
 BIG_LANDMARKS = 10_000  # the 10k-landmark shape: D = 20,224, K = 10,110
 BIG_STEPS = 600
 BIG_WARM_STEPS = 60     # untimed steps before the timed 10k run
 BIG_PROFILE_FRAMES = 20 # frames of the 10k shape traced with torch.profiler
 KNOWN_KERNELS = ("frame_step",)   # H9: the known frame's default route
 SPLIT_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
-GATED_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse", "obs_panels",
-                 "rank_update")
+GATED_KERNELS = ("factor_strip", "gating_scores", "obs_step")   # H10: the gated default
+GATED_SPLIT_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
+                       "obs_panels", "rank_update")
 ORDER = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update", "factor_strip",
-         "gating_scores", "obs_chain", "obs_panels", "frame_step")
+         "gating_scores", "obs_chain", "obs_panels", "frame_step", "obs_step")
 CHUNK_STEPS = 4800      # the chunked driver's chunk: 800 frames = 400 pairs
 # The card's published peaks (H100 SXM data sheet, at 700 W): fp32 outside
 # the tensor cores, and HBM3.
@@ -471,14 +483,15 @@ def ulp_bounds(fargs, got) -> dict:
                 nis=u * (vsi @ ch.rowc[:, 7].abs()))
 
 
-def split_excess(fargs, got, split) -> dict:
-    """Each of H9's outputs against the split schedule's: the largest
-    |H9 - split| over its ulp_bounds tolerance (at most 1 passes; an entry
-    whose tolerance is 0, a zero row of P past D, passes only if equal)."""
+def split_excess(bounds: dict, got, split) -> dict:
+    """Each output of a one-launch kernel (H9, H10) against the split
+    schedule's: the largest |kernel - split| over its fp32 bound in
+    ``bounds`` (ulp_bounds, obs_ulp_bounds; at most 1 passes; an entry
+    whose bound is 0, a zero row of P past D, passes only if equal)."""
     import torch
 
     out = {}
-    for key, tol in ulp_bounds(fargs, got).items():
+    for key, tol in bounds.items():
         err = (getattr(got, key) - getattr(split, key)).abs()
         ratio = torch.where(err == 0, 0.0, err / tol)
         out[key] = float(torch.nan_to_num(ratio, nan=float("inf")).max())
@@ -497,7 +510,7 @@ def h9_checks(label: str, args, tail, split_frame, oracle) -> float:
 
     got, again = fk.frame_step(*args, *tail), fk.frame_step(*args, *tail)
     plain = fk.frame_step(*args, *tail, plain=True)
-    excess = split_excess((*args, *tail), got, split_frame)
+    excess = split_excess(ulp_bounds((*args, *tail), got), got, split_frame)
     require(max(excess.values()) <= 1.0, f"H9 {label} vs split kernels",
             "|H9 - split| over its fp32 bound (4 (MP + 8) eps x the terms' magnitudes) at most "
             "1: " + ", ".join(f"{k} {v:.3f}" for k, v in excess.items()))
@@ -605,7 +618,7 @@ def h9_sweep(device) -> None:
         ref = fk.frame_step(*args, plain=True)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         asym = float((got.p - got.p.T).abs().max())
-        excess = split_excess(args, got, split)
+        excess = split_excess(ulp_bounds(args, got), got, split)
         for key, v in excess.items():
             excess_max[key] = max(excess_max.get(key, 0.0), v)
         ok = same and asym == 0.0 and max(excess.values()) <= 1.0
@@ -696,39 +709,50 @@ def synthetic_pair(device, d: int, nz: int, seed: int = 83):
     return (p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b, q, r, *tail)
 
 
-def route_checks(device) -> dict:
-    """F2: the frames past H1's registers and past the port's kernels.
-    MP 240 (NZ 120) at D = 2304 and 403: frame_step and frame_step_pair take
-    the split schedule, with H1's cooperative sweep, held to their plain
-    versions; H1 alone at MP 240 and 480 against its plain version, with
-    its device time.  frame_update_obs at MP 240, D = 403, and frame_step
-    over 17 sub-steps at D = 2051: the plain route on the card (neither the
-    port's kernels nor the reference's TPU schedules hold them), the same
-    numbers as on the CPU, no launch.  17 sub-steps at D = 2304 and
-    frame_update_obs at MP 240, D = 1024 ("unported": only the reference's
-    TPU schedule holds them): a raise before any launch.  Returns H1's
-    device ms by MP past 224."""
+def synthetic_gated(device, d: int, nz: int, s_steps: int = 6, use_heading: bool = True):
+    """frame_update_obs's arguments for a synthetic gated frame at D = ``d``
+    (synthetic_frame's state and measurements, the factors from H5's plain
+    version: NBP 16, 24 or 56 at S 6 without and with the heading update,
+    S 18 with it)."""
     import torch
 
     from conan_slam_tpu_torch.filters.ekf.state import EKFState
+    from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference
+
+    p, x, slots, cap, vns, swans, phis, acts, q, zr, zb, mask, r, *tail = synthetic_frame(
+        device, d, nz, s_steps, use_heading)
+    st = EKFState(x=x, p=p, n_active=torch.tensor(cap, device=device),
+                  table=torch.zeros(1, dtype=torch.int64, device=device))
+    st1, _, vtf, bmat = _frame_factors_reference(st, vns, swans, phis, acts, q, *tail)
+    return (st1.p, st1.x, slots, cap, zr, zb, mask, r, bmat, vtf)
+
+
+def route_checks(device) -> dict:
+    """F2 and F3: the frames past H1's registers, past 16 sub-steps and past
+    the port's kernels.  MP 240 (NZ 120) at D = 2304 and 403: frame_step
+    and frame_step_pair take the split schedule, with H1's cooperative
+    sweep, held to their plain versions; H1 alone at MP 240 and 480 against
+    its plain version, with its device time.  The gated frame at MP 160,
+    192 and 224 (D = 1024): H10, one launch; at MP 240 and 480: the split
+    with H7 in bands and H1's cooperative sweep; each against its plain
+    version.  The known frame at S = 17, 33 and 64 (D = 2304): H9, and the
+    split schedule's H2 and H1-H4, against the plain version.  frame_step
+    over 257 sub-steps at D = 2051 and frame_update_obs at MP 2080 (D =
+    2063): the plain route on the card (neither the port's kernels nor the
+    reference's TPU schedules hold them), the same numbers as on the CPU,
+    no launch.  257 sub-steps at D = 2304 (frame_step) and D = 1024
+    (frame_factors_fused): "unported", a raise before any launch.  Returns
+    H1's device ms by MP past 224."""
+    import torch
+
     from conan_slam_tpu_torch.ops import cuda
     from conan_slam_tpu_torch.ops import frame_kernel as fk
-    from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference
+    from conan_slam_tpu_torch.ops.factor_kernel import frame_factors_fused
     from conan_slam_tpu_torch.ops.spd_inverse import sweep_si, sweep_si_reference
-
-    def gated(d, nz):
-        """frame_update_obs's arguments for a synthetic frame at D = d."""
-        p, x, slots, cap, vns, swans, phis, acts, q, zr, zb, mask, r, *tail = synthetic_frame(
-            device, d, nz, 6, True)
-        st = EKFState(x=x, p=p, n_active=torch.tensor(cap, device=device),
-                      table=torch.zeros(1, dtype=torch.int64, device=device))
-        st1, _, vtf, bmat = _frame_factors_reference(st, vns, swans, phis, acts, q, *tail)
-        return (st1.p, st1.x, fk.frame_rows(slots, cap), zr, zb, mask, r, bmat, vtf)
 
     split = dict.fromkeys(("sweep_inverse", "frame_chain", "frame_panels"), 1)
     for d in (2304, 403):
         fargs = synthetic_frame(device, d, 120, 6, True)
-        p, x, slots, cap, vns, swans, phis, acts, q, zr, zb, mask, r, *tail = fargs
         route = fk.frame_route(d, 120, device, 6)
         cuda.reset_launch_counts()
         got = fk.frame_step(*fargs)
@@ -775,17 +799,80 @@ def route_checks(device) -> dict:
     log("  H1 cooperative sweep device time (all pivots): " + ", ".join(
         f"MP={m} {t * 1e3:.2f} us ({t * 1e3 / (m // 2):.2f} us a pivot)" for m, t in coop.items()))
 
+    # F3a: the gated frame from MP 160 (where H7's one block outgrew shared
+    # memory) to 480.
+    obs_split = dict.fromkeys(("obs_chain", "sweep_inverse", "obs_panels", "rank_update"), 1)
+    gated_us = {}
+    for nz in (80, 96, 112, 120, 240):
+        uargs = synthetic_gated(device, 1024, nz)
+        mp = fk.frame_shapes(nz)[0]
+        route = fk.obs_route(1024, nz, uargs[8].shape[0], device)
+        cuda.reset_launch_counts()
+        got = fk.frame_update_obs(*uargs)
+        torch.cuda.synchronize()
+        launched = launched_now()
+        want = {"obs_step": 1} if mp <= 224 else obs_split
+        log(f"gated MP {mp} (NZ {nz}, D 1024): obs_route {route!r}, launches {launched}")
+        require(route == ("resident" if mp <= 224 else "split") and launched == want,
+                f"gated MP {mp} route", "H10 once to MP 224, then H7 (bands), H1 (cooperative), "
+                "H8, H4 once each")
+        ref = fk.frame_update_obs(*uargs, plain=True)
+        check(f"gated MP {mp} vs plain: x", got.x, ref.x, 1e-4, 1e-4,
+              "the reference's megakernel-test tolerance")
+        check(f"gated MP {mp} vs plain: P", got.p, ref.p, 1e-3, 1e-4,
+              "the reference's megakernel-test tolerance")
+        check(f"gated MP {mp} vs plain: nis", got.nis, ref.nis, 1e-3, 1e-5,
+              "the reference's megakernel-test tolerance")
+        kernel = "obs_step_kernel" if mp <= 224 else "obs_chain_kernel"
+        gated_us[mp] = (kernel, 1e3 * device_ms(lambda: fk.frame_update_obs(*uargs), kernel=kernel))
+    log("  gated frame device time: " + ", ".join(
+        f"MP={m} {k} {t:.2f} us" for m, (k, t) in gated_us.items()))
+
+    # F3b: the known frame past 16 sub-steps, on both schedules.
+    from conan_slam_tpu_torch.filters.ekf.state import EKFState
+
+    steps_us = {}
+    for s_steps in (17, 33, 64):
+        fargs = synthetic_frame(device, 2304, 64, s_steps, True)
+        route = fk.frame_route(2304, 64, device, s_steps)
+        cuda.reset_launch_counts()
+        got = fk.frame_step(*fargs)
+        sp = fk.frame_step(*fargs, schedule="split")
+        torch.cuda.synchronize()
+        launched = launched_now()
+        log(f"S {s_steps} (D 2304, NZ 64): frame_route {route!r}, launches {launched}")
+        require(route == "resident" and launched == {"frame_step": 1, **split, "rank_update": 1},
+                f"S {s_steps} kernels", "H9 once, and H2, H1, H3, H4 once on the split schedule")
+        ref = fk.frame_step(*fargs, plain=True)
+        for name, out in (("H9", got), ("split", sp)):
+            check(f"S {s_steps} {name} vs plain: pose trace", out.pose_trace, ref.pose_trace, 1e-5,
+                  1e-4, "poses to ~55 m over 64 sub-steps: a few fp32 ulps")
+            check(f"S {s_steps} {name} vs plain: x", out.x, ref.x, 1e-4, 1e-4,
+                  "the reference test's tolerance")
+            check(f"S {s_steps} {name} vs plain: P", out.p, ref.p, 1e-3, 1e-4,
+                  "the reference test's tolerance")
+            check(f"S {s_steps} {name} vs plain: nis", out.nis, ref.nis, 1e-3, 1e-5,
+                  "the reference test's tolerance")
+        st = EKFState(x=fargs[1], p=fargs[0], n_active=torch.tensor(0, device=device),
+                      table=torch.zeros(1, dtype=torch.int64, device=device))
+        steps_us[s_steps] = tuple(1e3 * device_ms(fn, kernel=kernel) for fn, kernel in (
+            (lambda: fk.frame_step(*fargs), "frame_step_kernel"),
+            (lambda: fk.frame_step(*fargs, schedule="split"), "frame_chain_kernel"),
+            (lambda: frame_factors_fused(st, *fargs[4:9], *fargs[13:]), "factor_strip_kernel")))
+    log("  device time past 16 sub-steps (D 2304, MP 128): " + ", ".join(
+        f"S={k} H9 {a:.2f} us, H2 {b:.2f} us, H5 {c:.2f} us" for k, (a, b, c) in steps_us.items()))
+
     cpu = lambda a: a.cpu() if torch.is_tensor(a) else a  # noqa: E731
-    fargs = synthetic_frame(device, 2051, 64, 17, True)
-    uargs = gated(403, 120)
-    route = fk.frame_route(2051, 64, device, 17)
-    oroute = fk.obs_route(403, 120, uargs[7].shape[0], device)
+    fargs = synthetic_frame(device, 2051, 64, 257, True)
+    uargs = synthetic_gated(device, 2063, 1030)
+    route = fk.frame_route(2051, 64, device, 257)
+    oroute = fk.obs_route(2063, 1030, uargs[8].shape[0], device)
     cuda.reset_launch_counts()
     fs, fu = fk.frame_step(*fargs), fk.frame_update_obs(*uargs)
     torch.cuda.synchronize()
     launched = launched_now()
     fs_c, fu_c = fk.frame_step(*map(cpu, fargs)), fk.frame_update_obs(*map(cpu, uargs))
-    log(f"S 17 (D 2051): frame_route {route!r}; MP 240 (D 403): obs_route {oroute!r}")
+    log(f"S 257 (D 2051): frame_route {route!r}; MP 2080 (D 2063): obs_route {oroute!r}")
     require(route == "plain" and oroute == "plain" and not launched, "plain route",
             f"no kernel of the port or the reference holds these frames; launches "
             f"{launched or 'none'}")
@@ -794,17 +881,20 @@ def route_checks(device) -> dict:
         check(f"plain route {name} card vs CPU", a.cpu(), b, 1e-3, 1e-4,
               "the same plain route, cuBLAS/cuSOLVER vs CPU order")
 
-    fargs = synthetic_frame(device, 2304, 64, 17, True)
-    uargs = gated(1024, 120)
-    routes = (fk.frame_route(2304, 64, device, 17),
-              fk.obs_route(1024, 120, uargs[7].shape[0], device))
+    fargs = synthetic_frame(device, 2304, 64, 257, True)
+    p, x, slots, cap, vns, swans, phis, acts, q, *_, tail_wb, tail_dt, tail_sh, _ = fargs
+    st = EKFState(x=x[:1024].contiguous(), p=p[:1024, :1024].contiguous(),
+                  n_active=torch.tensor(0, device=device),
+                  table=torch.zeros(1, dtype=torch.int64, device=device))
+    route = fk.frame_route(2304, 64, device, 257)
     cuda.reset_launch_counts()
     raised = (raises_unported(lambda: fk.frame_step(*fargs)),
-              raises_unported(lambda: fk.frame_update_obs(*uargs)))
+              raises_unported(lambda: frame_factors_fused(st, vns, swans, phis, acts, q, tail_wb,
+                                                          tail_dt, tail_sh, True)))
     torch.cuda.synchronize()
     launched = launched_now()
-    log(f"S 17 (D 2304) and gated MP 240 (D 1024): routes {routes}, raised: {raised}")
-    require(routes == ("unported", "unported") and launched == {}
+    log(f"S 257 (D 2304 frame, D 1024 factors): frame_route {route!r}, raised: {raised}")
+    require(route == "unported" and launched == {}
             and all("reference runs a TPU kernel" in e for e in raised), "unported frames raise",
             f"before any launch ({launched or 'none'}): the reference runs a TPU kernel there "
             "and no kernel of the port holds the frame")
@@ -823,7 +913,7 @@ def h9_measure(device, args, tail, err: float, nblk: int) -> dict:
     fargs = (*args, *tail)
     d, nz = args[0].shape[0], args[9].shape[0]
     mp, rp = fk.frame_shapes(nz)
-    plan = fk.frame_step_plan(d, mp, device)
+    plan = fk.frame_step_plan(d, mp, device, args[4].shape[0])
     out = fk.frame_step(*fargs)
     ins = [a for a in fargs if torch.is_tensor(a)]
     st = dict(max_abs_err=err, library_ms=None,
@@ -849,22 +939,22 @@ def h9_measure(device, args, tail, err: float, nblk: int) -> dict:
     return st
 
 
-def h9_phases(fargs, grid: int, launches: int = 20) -> dict:
-    """H9's phases at frame_step's ``fargs``, from each block's %globaltimer
-    at its phase boundaries (ops.frame_kernel._frame_step_h9's ``stamps``),
-    the median over ``launches`` launches, in us: the chain (first start to
-    the last block done), each barrier (last block in to last block out),
-    block 0's sweep and the other blocks' pht panels (side by side), the
-    gains and the mean, the P pass, and the whole launch.  The stamps add a
-    block barrier at each phase's end."""
+def stamp_phases(name: str, launch, grid: int, device, launches: int = 20) -> dict:
+    """A cooperative kernel's phases (H9, H10), from each block's
+    %globaltimer at its phase boundaries (``launch(stamps)`` runs the kernel
+    once with a (grid, 8) int64 ``stamps`` buffer: ops.frame_kernel's
+    _frame_step_h9 and _obs_step_h10), the median over ``launches``
+    launches, in us: the chain (first start to the last block done), each
+    barrier (last block in to last block out), block 0's sweep and the
+    other blocks' pht panels (side by side), the gains and the mean, the P
+    pass, and the whole launch.  The stamps add a block barrier at each
+    phase's end."""
     import torch
-
-    from conan_slam_tpu_torch.ops import frame_kernel as fk
 
     runs = []
     for _ in range(launches + 2):
-        stamps = torch.zeros((grid, 8), dtype=torch.int64, device=fargs[0].device)
-        fk._frame_step_h9(*fargs, stamps=stamps)
+        stamps = torch.zeros((grid, 8), dtype=torch.int64, device=device)
+        launch(stamps)
         runs.append(stamps)
     torch.cuda.synchronize()
     rows = []
@@ -879,9 +969,17 @@ def h9_phases(fargs, grid: int, launches: int = 20) -> dict:
             "barrier 3": last[6] - last[5], "P pass": last[7] - last[6],
             "launch": last[7] - t[:, 0].min()})
     phases = {k: float(torch.tensor([r[k] for r in rows]).median()) for k in rows[0]}
-    log("  H9 phases (median of %d launches, %%globaltimer): " % launches + ", ".join(
+    log(f"  {name} phases (median of {launches} launches, %globaltimer): " + ", ".join(
         f"{k} {v:.2f} us" for k, v in phases.items()))
     return phases
+
+
+def h9_phases(fargs, grid: int) -> dict:
+    """H9's phases at frame_step's ``fargs`` (stamp_phases)."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    return stamp_phases("H9", lambda st: fk._frame_step_h9(*fargs, stamps=st), grid,
+                        fargs[0].device)
 
 
 def kernel_checks(device) -> dict:
@@ -1065,15 +1163,16 @@ def gated_cases(device):
     yield "10k landmarks, D=20224", state, cfg, (ctrl, obs, noise)
 
 
-def gated_witness(p, x, rows, zr, zb, mask, r_cov, bmat, vtf):
+def gated_witness(p, x, slots, cap, zr, zb, mask, r_cov, bmat, vtf):
     """The gated frame in float64 through the port's independent oracle
-    (dense products and a Cholesky inverse, not the split schedule):
+    (dense products and a Cholesky inverse, neither H10 nor the split):
     ``FrameUpdateObs(p, x, nis)``."""
     import torch
     import torch.nn.functional as F
 
     from conan_slam_tpu_torch.ops import frame_kernel as fk
 
+    rows = fk.frame_rows(slots, cap)
     f64 = torch.float64
     mp, rp = fk.frame_shapes(zr.shape[0])
     zin, rsc, _ = fk._pack_meas(zr.to(f64), zb.to(f64), mask, r_cov.to(f64), mp // 2)
@@ -1081,6 +1180,137 @@ def gated_witness(p, x, rows, zr, zb, mask, r_cov, bmat, vtf):
     prows = F.pad(p[rows].to(f64), (0, 0, 0, pad))
     return fk._frame_update_obs_reference(p.to(f64), x.to(f64), F.pad(rows, (0, pad), value=-1),
                                           prows, zin, rsc, bmat.to(f64), vtf.to(f64), mp, rp)
+
+
+def obs_ulp_bounds(uargs, got) -> dict:
+    """Elementwise bounds on two fp32 routes of one gated frame
+    (frame_update_obs's ``uargs``) that differ only in the order of their
+    sums: H10 and the split run the same chain, sweep and pht code and sum
+    M G and the mean in other orders; each rounds two nested sums of at
+    most r = MP + NBP + 8 terms, each within r eps of its terms' magnitudes
+    to first order, so they differ by at most 4 r eps times |P| +
+    |G|^T |M| |G| for P, |x| + |xn| + |v|^T |S^-1| |pht| for the mean,
+    |v|^T |S^-1| |v| for the NIS (from the plain versions)."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_si_reference
+
+    p, x, slots, cap, zr, zb, mask, r, bmat, vtf = uargs
+    oi = fk.obs_inputs(p, x, fk.frame_rows(slots, cap), zr, zb, mask, r, vtf)
+    s, rowc, hvb = fk._obs_chain_reference(oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
+    si = sweep_si_reference(s, oi.nblk)
+    pht = fk._obs_panels_reference(rowc, hvb, si, oi.prows, vtf, x)[0]
+    gabs = torch.cat([vtf, pht]).abs()
+    mabs = torch.block_diag(bmat.abs(), si.abs())
+    vsi = rowc[:, 7].abs() @ si.abs()
+    u = 4.0 * (oi.mp + bmat.shape[0] + 8) * 2.0**-23
+    return dict(x=u * (x.abs() + got.x.abs() + vsi @ pht.abs()),
+                p=u * (p.abs() + gabs.T @ (mabs @ gabs)), nis=u * (vsi @ rowc[:, 7].abs()))
+
+
+def h10_checks(label: str, uargs, split, plain, dx_tol: float) -> float:
+    """H10 at a gated frame (``frame_update_obs``'s arguments ``uargs``)
+    against its plain version (``plain``) at the gated frame's tolerances
+    (the mean within ``dx_tol``), against the split schedule's kernels
+    (``split``) within the fp32 rounding of the sums the two order
+    differently (obs_ulp_bounds); two calls bit-equal; an exactly
+    symmetric P stays exactly symmetric.  Returns P's max abs error
+    against the plain version."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    got, again = fk.frame_update_obs(*uargs), fk.frame_update_obs(*uargs)
+    excess = split_excess(obs_ulp_bounds(uargs, got), got, split)
+    require(max(excess.values()) <= 1.0, f"H10 {label} vs split kernels",
+            "|H10 - split| over its fp32 bound (4 (MP + NBP + 8) eps x the terms' magnitudes) "
+            "at most 1: " + ", ".join(f"{k} {v:.3f}" for k, v in excess.items()))
+    check(f"H10 {label} vs plain: x", got.x, plain.x, 1e-6, dx_tol,
+          "~5 km means, fp32 ulps, plus twice the plain version's distance from a float64 "
+          "witness")
+    err = check(f"H10 {label} vs plain: P", got.p, plain.p, 1e-3,
+                1e-4 * max(1.0, float(plain.p.abs().max())),
+                "the reference test's tolerance, on P's scale")
+    check(f"H10 {label} vs plain: nis", got.nis, plain.nis, 1e-3, 1e-5,
+          "the reference test's tolerance")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"H10 {label} deterministic",
+            "two calls on the same inputs are bit for bit equal")
+    p = uargs[0]
+    sym = fk.frame_update_obs(0.5 * (p + p.T), *uargs[1:])
+    asym = float((sym.p - sym.p.T).abs().max())
+    require(asym == 0.0, f"H10 {label} symmetry",
+            f"symmetric P -> asym(P out) = {asym:.1e} (must be exactly 0: the upper triangle is "
+            "mirrored)")
+    log(f"  H10 {label}: vs split within " + ", ".join(f"{k} {v:.3f}" for k, v in excess.items())
+        + f" of the fp32 bound; two calls bit-equal; asym(P) {asym:.1e}")
+    return err
+
+
+def h10_work(d: int, mp: int, rp: int, nbp: int, nblk: int) -> float:
+    """H10's operations: the chain (as H7), the sweep over nblk pivots (as
+    H1), pht = Hc P[rows] + hvb vtf and the mean (as H8), -S^-1 pht and
+    B vtf, the P pass's upper triangle at r = NBP + MP (D (D + 1) r) and
+    its add."""
+    chain = (10.0 * mp * nbp + 2.0 * mp * nbp * nbp + 10.0 * mp * rp + 2.0 * mp * nbp * rp
+             + 10.0 * mp * mp)
+    return (chain + 4.0 * mp * mp * nblk + (12.0 + 2.0 * nbp) * mp * d + 2.0 * mp * mp * d
+            + 2.0 * nbp * nbp * d + d * (d + 1.0) * (nbp + mp) + d * d)
+
+
+def h10_phases(uargs, grid: int, launches: int = 20) -> dict:
+    """H10's phases at frame_update_obs's ``uargs`` (stamp_phases)."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    return stamp_phases("H10", lambda st: fk._obs_step_h10(*uargs, stamps=st), grid,
+                        uargs[0].device, launches)
+
+
+def h10_measure(device, uargs, err: float, nblk: int) -> dict:
+    """H10 at config 2's check frame: CUDA-event time of the wrapper,
+    device time (profiler), the plain version's time, its plan, bound and
+    phases; its device time against MP (32, 128, 224 at NBP 24) and NBP
+    (16, 24, 56 at MP 128) on synthetic frames at D = 1024; and the split
+    schedule's device time on the same frame, in turns (H10, split, split,
+    H10)."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    d, nz, nbp = uargs[0].shape[0], uargs[4].shape[0], uargs[8].shape[0]
+    mp, rp = fk.frame_shapes(nz)
+    plan = fk.obs_step_plan(d, mp, nbp, device)
+    out = fk.frame_update_obs(*uargs)
+    ins = [a for a in uargs if torch.is_tensor(a)]
+    h10 = lambda: fk.frame_update_obs(*uargs)                     # noqa: E731
+    split = lambda: fk.frame_update_obs(*uargs, schedule="split")  # noqa: E731
+    turns = [device_ms(fn) for fn in (h10, split, split, h10)]
+    st = dict(max_abs_err=err, library_ms=None, ms=time_ms(h10, 50),
+              device_ms=device_ms(h10, kernel="obs_step_kernel"),
+              plain_ms=time_ms(lambda: fk.frame_update_obs(*uargs, plain=True), 10),
+              split_ms=time_ms(split, 50), device_ms_turns=turns,
+              plan=f"grid {plan.grid} x {plan.block} threads, {plan.smem:,} B shared; "
+                   f"{plan.bands} chain bands, {plan.panels} panels, {plan.tiles} tiles of "
+                   f"{plan.tile}",
+              **bound(nbytes(*ins, *out), h10_work(d, mp, rp, nbp, nblk)))
+    log(f"  H10 vs split, device time of a call in turns (all its kernels and copies): "
+        + ", ".join(f"{n} {t * 1e3:.2f} us" for n, t in zip(("H10", "split", "split", "H10"),
+                                                             turns)))
+    by_mp, by_nbp = {}, {}
+    for nz_, s, h in ((16, 6, True), (64, 6, True), (112, 6, True), (64, 6, False),
+                      (64, 18, True)):
+        a = synthetic_gated(device, 1024, nz_, s, h)
+        t = device_ms(lambda: fk.frame_update_obs(*a), kernel="obs_step_kernel")
+        if (s, h) == (6, True):
+            by_mp[fk.frame_shapes(nz_)[0]] = t
+        if nz_ == 64:
+            by_nbp[a[8].shape[0]] = t
+    st.update(device_ms_by_mp=by_mp, device_ms_by_nbp=by_nbp,
+              phases_us=h10_phases(uargs, plan.grid))
+    log("  H10 device time against MP (NBP 24): " + ", ".join(
+        f"MP={m} {t * 1e3:.2f} us" for m, t in by_mp.items()) + "; against NBP (MP 128): "
+        + ", ".join(f"NBP={k} {t * 1e3:.2f} us" for k, t in sorted(by_nbp.items())))
+    return st
 
 
 def gated_kernel_checks(device) -> dict:
@@ -1183,9 +1413,9 @@ def gated_kernel_checks(device) -> dict:
         e4 = check(f"H4 {label} P + G^T M G (r={gmat.shape[0]})", pu_k, pu_p, 1e-4,
                    1e-6 * float(pu_p.abs().max()),
                    "fp32 sums over r terms whose products reach P's largest prior")
-        uargs = (st1.p, st1.x, rows, obs.z[:, 0], obs.z[:, 1], mask, noise.re, bmat, vtf)
-        full_k = fk.frame_update_obs(*uargs)
-        full_p = fk.frame_update_obs(*uargs, plain=True)
+        uargs = (st1.p, st1.x, slots, k, obs.z[:, 0], obs.z[:, 1], mask, noise.re, bmat, vtf)
+        full_k = fk.frame_update_obs(*uargs, schedule="split")
+        full_p = fk.frame_update_obs(*uargs, plain=True, schedule="split")
         # The mean's correction siv pht carries S's fp32 rounding through
         # S^-1, amplified by S's condition number, in any order of the
         # products.  An independent float64 witness measures how far the
@@ -1209,12 +1439,16 @@ def gated_kernel_checks(device) -> dict:
               "the reference test's tolerance, on P's scale")
         check(f"gated frame {label} vs plain: nis", full_k.nis, full_p.nis, 1e-3, 1e-5,
               "the reference test's tolerance")
+        # H10, the default route, against its plain version and the split's
+        # kernels.
+        h10_plain = fk.frame_update_obs(*uargs, plain=True)
+        e10 = h10_checks(label, uargs, full_k, h10_plain, dx_tol)
         # The factored frame equals slice 1's frame on the same rows:
         # P + vtf^T B vtf = P + U K4 U^T.
         fs = fk.frame_step(state.p, state.x, slots, k, *ctrl, noise.qe, obs.z[:, 0], obs.z[:, 1],
                            mask, noise.re, cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
                            cfg.switch_heading_known)
-        fu = fk.frame_update_obs(st1.p, fk_k[0].x, rows, obs.z[:, 0], obs.z[:, 1], mask,
+        fu = fk.frame_update_obs(st1.p, fk_k[0].x, slots, k, obs.z[:, 0], obs.z[:, 1], mask,
                                  noise.re, fk_k[3], fk_k[2])
         check(f"cross {label} frame_update_obs vs frame_step: pose trace", fk_k[1],
               fs.pose_trace, 1e-6, 1e-3, "~5 km positions, fp32 ulps")
@@ -1267,8 +1501,31 @@ def gated_kernel_checks(device) -> dict:
                 **bound(nbytes(s_p, oi.nblk, si_k), 4.0 * mp * mp * int(oi.nblk)))
             stats["gated rank_update"] = h4_measure("config 2", st1.p, gmat, mmid, e4)
             stats["frame_update_obs"] = dict(
-                ms=time_ms(lambda: fk.frame_update_obs(*uargs), 50),
-                plain_ms=time_ms(lambda: fk.frame_update_obs(*uargs, plain=True), 10))
+                ms=time_ms(lambda: fk.frame_update_obs(*uargs, schedule="split"), 50),
+                plain_ms=time_ms(lambda: fk.frame_update_obs(*uargs, plain=True,
+                                                             schedule="split"), 10))
+            stats["obs_step"] = h10_measure(device, uargs, e10, int(oi.nblk))
+        if label.startswith("10k"):
+            # H10 against the split at the 10k-landmark shape, where the P
+            # pass dominates: each call's device time in turns.
+            h10 = lambda: fk.frame_update_obs(*uargs)                     # noqa: E731
+            split = lambda: fk.frame_update_obs(*uargs, schedule="split")  # noqa: E731
+            turns = [device_ms(fn, iters=5) for fn in (h10, split, split, h10)]
+            big = bound(nbytes(*(a for a in uargs if torch.is_tensor(a)), *full_k),
+                        h10_work(d, oi.mp, oi.prows.shape[0], bmat.shape[0], int(oi.nblk)))
+            plan = fk.obs_step_plan(d, oi.mp, bmat.shape[0], device)
+            stats["obs_step"].update(
+                device_ms_10k=device_ms(h10, iters=5, kernel="obs_step_kernel"),
+                device_ms_turns_10k=turns, bound_ms_10k=big["bound_ms"],
+                bound_by_10k=big["bound_by"], tile_10k=plan.tile,
+                phases_us_10k=h10_phases(uargs, plan.grid, launches=5))
+            log(f"  H10 vs split at {label}, device time of a call in turns (all its kernels "
+                "and copies): " + ", ".join(
+                    f"{n} {t * 1e3:.2f} us" for n, t in zip(("H10", "split", "split", "H10"),
+                                                             turns))
+                + f"; H10 alone {stats['obs_step']['device_ms_10k'] * 1e3:.2f} us "
+                f"(P-pass tile {plan.tile}), bound {big['bound_ms'] * 1e3:.2f} us "
+                f"({big['bound_by']})")
     log_times(stats, " (config 2 shape)")
     return stats
 
@@ -1608,9 +1865,26 @@ def chunked_path(device) -> dict:
                 save_s=save_s, restore_s=restore_s, bit_identical=all(same), ate=ate)
 
 
-def gated_path(device) -> tuple[dict, dict]:
-    """Phase 4b: BASELINE config 2 through the port's driver, with the
-    kernels and with the plain versions, and the 10k-landmark shape."""
+@contextlib.contextmanager
+def gated_schedule(schedule: str):
+    """The frame loop's gated frames on ``schedule`` ("auto": H10, "split"):
+    frame_update_obs's own test hook, bound where fused_frame_update looks
+    frame_update_obs up."""
+    from conan_slam_tpu_torch.filters.ekf import update
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    update.frame_update_obs = functools.partial(fk.frame_update_obs, schedule=schedule)
+    try:
+        yield
+    finally:
+        update.frame_update_obs = fk.frame_update_obs
+
+
+def gated_path(device) -> tuple[dict, dict, dict]:
+    """Phase 4b: BASELINE config 2 through the port's frame loop: H10 in turns
+    with the split schedule (H10, split, split, H10), then the plain
+    versions; and the 10k-landmark shape on both routes.  Returns the
+    results and the launch counts of an H10 run and of a split run."""
     import torch
 
     from conan_slam_tpu_torch.ops import cuda
@@ -1628,40 +1902,55 @@ def gated_path(device) -> tuple[dict, dict]:
     ctrl = torch.randn((n_frames, s, 2), generator=gen, device=device)
     obsn = torch.randn((n_frames, nz, 2), generator=gen, device=device)
     log(f"main path (gated, BASELINE config 2): 500 landmarks, empty map, K=500 in D=1024, "
-        f"NZ={nz}, {n_steps} steps = {n_frames} frames with the kernels, "
-        f"{GATED_PLAIN_STEPS} steps with the plain versions")
+        f"NZ={nz}, {n_steps} steps = {n_frames} frames through H10 in turns with the split "
+        f"schedule, {GATED_PLAIN_STEPS} steps with the plain versions")
 
-    def drive(plain: bool, steps: int):
+    def drive(plain: bool, steps: int, schedule: str = "auto"):
         f = steps // s
         part = (tuple(a[:steps] for a in roll[0]), tuple(a[:f] for a in roll[1]))
         warm = (tuple(a[:60] for a in roll[0]), tuple(a[:10] for a in roll[1]))
-        run_ekf_slam_precomputed(world, cfg, None, 60, None, warm,
-                                 ctrl_noise=ctrl[:10], obs_noise=obsn[:10], plain=plain)
-        torch.cuda.synchronize()
-        cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, outs = run_ekf_slam_precomputed(world, cfg, None, steps, None, part,
-                                               ctrl_noise=ctrl[:f], obs_noise=obsn[:f],
-                                               plain=plain)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        with gated_schedule(schedule):
+            run_ekf_slam_precomputed(world, cfg, None, 60, None, warm,
+                                     ctrl_noise=ctrl[:10], obs_noise=obsn[:10], plain=plain)
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, outs = run_ekf_slam_precomputed(world, cfg, None, steps, None, part,
+                                                   ctrl_noise=ctrl[:f], obs_noise=obsn[:f],
+                                                   plain=plain)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         counts = launches()
         res = dict(steps_per_s=steps / secs, seconds=secs, counts=counts, outs=outs,
                    ate=float(ate_rmse(outs.x_true, outs.x_est, ~outs.done)),
                    mapped=int(state.n_active),
                    finite=bool(torch.isfinite(state.p).all() and torch.isfinite(state.x).all()
                                and torch.isfinite(outs.x_est).all()))
-        log(f"  {'plain' if plain else 'kernels'}: {steps} steps in {secs:.3f} s = "
+        label = "plain" if plain else "H10" if schedule == "auto" else "split schedule"
+        log(f"  {label}: {steps} steps in {secs:.3f} s = "
             f"{steps / secs:,.1f} steps/s, ATE={res['ate']:.4f} m, mapped={res['mapped']}, "
             f"finite={res['finite']}, launches={counts}")
         return res
 
-    k = drive(False, n_steps)
-    want = {**dict.fromkeys(k["counts"], 0), **dict.fromkeys(GATED_KERNELS, n_frames)}
-    require(k["counts"] == want, "gated path launches",
-            f"H5, H6, H7, H8, H1, H4 once per frame ({n_frames}); H2, H3 never")
-    require(k["finite"] and k["ate"] < 0.5 and 270 <= k["mapped"] <= 340, "gated_full gate",
-            f"finite, ATE {k['ate']:.4f} < 0.5 m, 270 <= mapped {k['mapped']} <= 340")
+    order = ("auto", "split", "split", "auto")
+    runs = [drive(False, n_steps, schedule) for schedule in order]
+    for schedule, res in zip(order, runs):
+        kernels = GATED_KERNELS if schedule == "auto" else GATED_SPLIT_KERNELS
+        want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(kernels, n_frames)}
+        require(res["counts"] == want, f"gated path launches ({schedule})",
+                ("H5, H6, H10" if schedule == "auto" else "H5, H6, H7, H8, H1, H4")
+                + f" once per frame ({n_frames}), no other kernel")
+        require(res["finite"] and res["ate"] < 0.5 and 270 <= res["mapped"] <= 340,
+                f"gated_full gate ({schedule})",
+                f"finite, ATE {res['ate']:.4f} < 0.5 m, 270 <= mapped {res['mapped']} <= 340")
+    k, sp = runs[0], runs[1]
+    dx_split = float((k["outs"].x_est - sp["outs"].x_est).abs().max())
+    dmap_split = (k["outs"].n_active - sp["outs"].n_active).abs()
+    log(f"  H10 vs split over {n_steps} steps: max |dx_est| = {dx_split:.3e} m, mapped "
+        f"{k['mapped']} vs {sp['mapped']}, steps with a different map size: "
+        f"{int((dmap_split > 0).sum())} (max |d mapped| {int(dmap_split.max())})")
+    log("  steps/s in turns: " + ", ".join(
+        f"{'H10' if o == 'auto' else 'split'} {r['steps_per_s']:,.1f}" for o, r in zip(order, runs)))
     p = drive(True, GATED_PLAIN_STEPS)
     require(not any(p["counts"].values()), "gated path plain launches",
             "the plain run launched no kernel")
@@ -1675,29 +1964,42 @@ def gated_path(device) -> tuple[dict, dict]:
         f"max |d mapped| over the steps = {int(dmap.max())}, "
         f"steps with a different map size: {int((dmap > 0).sum())}")
 
-    # The 10k-landmark shape, kernels only: no gate is stored for it.  A few
-    # untimed frames first, so the timed run starts warm.
+    # The 10k-landmark shape, kernels only, on both routes: no gate is
+    # stored for it.  A few untimed frames first, so the timed run starts
+    # warm.
     big, bcfg = big_world(device), gated_cfg(BIG_LANDMARKS)
-    run_ekf_slam_precomputed(big, bcfg, torch.Generator(device=device).manual_seed(1),
-                             BIG_WARM_STEPS)
-    torch.cuda.synchronize()
-    cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    state, outs = run_ekf_slam_precomputed(big, bcfg, torch.Generator(device=device)
-                                           .manual_seed(0), BIG_STEPS)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    bf = outs.x_est.shape[0] // s
-    counts = launches()
-    finite = bool(torch.isfinite(state.p).all() and torch.isfinite(outs.x_est).all())
-    log(f"  10k landmarks: D={state.x.shape[0]}, K={state.capacity}, {bf * s} steps in "
-        f"{secs:.3f} s = {bf * s / secs:,.1f} steps/s (after {BIG_WARM_STEPS} untimed steps), mapped="
-        f"{int(state.n_active)}, finite={finite}, launches={counts}")
-    want = {**dict.fromkeys(counts, 0), **dict.fromkeys(GATED_KERNELS, bf)}
-    require(finite and int(state.n_active) > 0 and counts == want, "10k-landmark run",
-            "finite, mapped > 0, the gated kernels once per frame")
-    return dict(steps_per_s=k["steps_per_s"], ate=k["ate"], mapped=k["mapped"],
-                plain_steps_per_s=p["steps_per_s"], big_steps_per_s=bf * s / secs), k["counts"]
+    big_runs = {}
+    for schedule in ("auto", "split"):
+        with gated_schedule(schedule):
+            run_ekf_slam_precomputed(big, bcfg, torch.Generator(device=device).manual_seed(1),
+                                     BIG_WARM_STEPS)
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, outs = run_ekf_slam_precomputed(big, bcfg, torch.Generator(device=device)
+                                                   .manual_seed(0), BIG_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        bf = outs.x_est.shape[0] // s
+        counts = launches()
+        finite = bool(torch.isfinite(state.p).all() and torch.isfinite(outs.x_est).all())
+        label = "H10" if schedule == "auto" else "split schedule"
+        log(f"  10k landmarks ({label}): D={state.x.shape[0]}, K={state.capacity}, {bf * s} "
+            f"steps in {secs:.3f} s = {bf * s / secs:,.1f} steps/s (after {BIG_WARM_STEPS} "
+            f"untimed steps), mapped={int(state.n_active)}, finite={finite}, launches={counts}")
+        kernels = GATED_KERNELS if schedule == "auto" else GATED_SPLIT_KERNELS
+        want = {**dict.fromkeys(counts, 0), **dict.fromkeys(kernels, bf)}
+        require(finite and int(state.n_active) > 0 and counts == want,
+                f"10k-landmark run ({schedule})", "finite, mapped > 0, the route's kernels once "
+                "per frame")
+        big_runs[schedule] = bf * s / secs
+    return (dict(steps_per_s=k["steps_per_s"], ate=k["ate"], mapped=k["mapped"],
+                 turns=[r["steps_per_s"] for r in runs], split_ate=sp["ate"],
+                 split_mapped=sp["mapped"], dx_split=dx_split,
+                 map_steps_differ=int((dmap_split > 0).sum()),
+                 plain_steps_per_s=p["steps_per_s"], big_steps_per_s=big_runs["auto"],
+                 big_split_steps_per_s=big_runs["split"]),
+            k["counts"], sp["counts"])
 
 
 def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
@@ -1714,7 +2016,7 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
     n_steps = n_frames * cfg.observe_interval
     roll = precompute_rollout(world, cfg, n_steps)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    with known_schedule(schedule):
+    with known_schedule(schedule), gated_schedule(schedule):
         run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1798,7 +2100,7 @@ def main() -> int:
     # --- phase 4: the main paths ---
     t0 = time.perf_counter()
     results, counts, scounts = main_path(device, opts.steps)
-    gated, gcounts = gated_path(device)
+    gated, gcounts, gscounts = gated_path(device)
     paired, pcounts = pair_path(device)
     chunked = chunked_path(device)
     log(f"main paths: {time.perf_counter() - t0:.1f} s")
@@ -1810,23 +2112,29 @@ def main() -> int:
     profile_frames(device, PROFILE_FRAMES, "known association (H9)", world, known_cfg, state0)
     profile_frames(device, PROFILE_FRAMES, "known association, split schedule", world, known_cfg,
                    state0, schedule="split")
-    profile_frames(device, PROFILE_FRAMES, "gated, config 2", config2_world(device),
-                   gated_cfg(500), init_state(500, 500, device=device))
+    for schedule, label in (("auto", "H10"), ("split", "split schedule")):
+        profile_frames(device, PROFILE_FRAMES, f"gated, config 2 ({label})", config2_world(device),
+                       gated_cfg(500), init_state(500, 500, device=device), schedule=schedule)
     profile_frames(device, 2 * PROFILE_FRAMES, "known association, frame pairs", world,
                    known_cfg.replace(frame_pair=True), state0)
-    profile_frames(device, BIG_PROFILE_FRAMES, "gated, 10k landmarks", big_world(device),
-                   gated_cfg(BIG_LANDMARKS), None)
+    for schedule, label in (("auto", "H10"), ("split", "split schedule")):
+        profile_frames(device, BIG_PROFILE_FRAMES, f"gated, 10k landmarks ({label})",
+                       big_world(device), gated_cfg(BIG_LANDMARKS), None, schedule=schedule)
 
     # --- phase 5: report ---
     allstats = {**stats, **gstats}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extras = ("device_ms", "fixed_ms", "library_device_ms", "wrapper_ms", "bound_square_ms", "tile",
-              "grid", "plan", "device_ms_by_s", "device_ms_by_mp", "phases_us", "device_ms_coop")
+              "grid", "plan", "device_ms_by_s", "device_ms_by_mp", "phases_us", "device_ms_coop",
+              "device_ms_by_nbp", "device_ms_turns", "split_ms", "device_ms_10k",
+              "device_ms_turns_10k", "bound_ms_10k", "bound_by_10k", "tile_10k", "phases_us_10k")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": counts[k.name] + scounts[k.name] + gcounts[k.name] + pcounts[k.name],
+         "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
+                      + pcounts[k.name]),
          "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
-                              "gated": gcounts[k.name], "pair": pcounts[k.name]},
+                              "gated": gcounts[k.name], "gated_split": gscounts[k.name],
+                              "pair": pcounts[k.name]},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items() if n.startswith(f"{k.name}_kernel")}}
@@ -1845,9 +2153,17 @@ def main() -> int:
         "gated_steps_per_s": gated["steps_per_s"],
         "gated_plain_steps_per_s": gated["plain_steps_per_s"],
         "gated_ate_m": gated["ate"], "gated_mapped": gated["mapped"],
-        "gated_frame_ms": gstats["frame_update_obs"]["ms"],
-        "gated_frame_plain_ms": gstats["frame_update_obs"]["plain_ms"],
+        "gated_turns_steps_per_s": dict(zip(("h10_1", "split_1", "split_2", "h10_2"),
+                                            gated["turns"])),
+        "gated_split_ate_m": gated["split_ate"], "gated_split_mapped": gated["split_mapped"],
+        "h10_vs_split_dx_est_m": gated["dx_split"],
+        "h10_vs_split_map_steps_differ": gated["map_steps_differ"],
+        "gated_frame_ms": gstats["obs_step"]["ms"],
+        "gated_frame_plain_ms": gstats["obs_step"]["plain_ms"],
+        "gated_split_frame_ms": gstats["frame_update_obs"]["ms"],
+        "gated_split_frame_plain_ms": gstats["frame_update_obs"]["plain_ms"],
         "big_steps_per_s": gated["big_steps_per_s"],
+        "big_split_steps_per_s": gated["big_split_steps_per_s"],
         "pair_vs_frame_steps_per_s": dict(zip(("frame_1", "pair_1", "pair_2", "frame_2"),
                                               paired["steps_per_s"])),
         "pair_ate_m": paired["ate"], "pair_asym_p": paired["asym"],

@@ -31,18 +31,20 @@ static __device__ __forceinline__ float coeff_k4_entry(const float* cols, int S,
 // pose pose0 (3,) and p2h = (P e2)[0:3], then K4.  Writes the frame scalars
 // ms (32,) [pose, corr0, alpha, g (3), m3 (9), 0...] to shared memory, and
 // where non-null the pose trace pt_out (S, 3) and k4_out (8, 8) (K4 in the
-// leading 4 x 4, zero elsewhere) to device memory.  cols is shared memory
-// of 4 CSL_MAX_COLS floats.
+// leading 4 x 4, zero elsewhere) to device memory.  coeff is the
+// recursion's shared memory, csl_coeff_smem_floats(S) floats (its
+// coefficient columns first).
 static __device__ __forceinline__ void csl_chain_scalars(
     const float* subs, int S, const float* qc, const float* p2h, const float* pose0,
     float wheel_base, float dt, float r_head, bool heading, float* pt_out, float* k4_out,
-    float* ms, float* cols) {
+    float* ms, float* coeff) {
+    const float* cols = coeff;
     const int tid = threadIdx.x;
     const float p2[3] = {p2h[0], p2h[1], p2h[2]};
     float pose[3] = {pose0[0], pose0[1], pose0[2]};
     float corr0;
     csl_coeff_recursion(subs, S, qc, p2, pose, wheel_base, dt, r_head, heading, pt_out, &corr0,
-                        cols);
+                        coeff);
     const int r = (tid >> 2) & 3, c = tid & 3;
     const float k4 = coeff_k4_entry(cols, S, p2[2], r_head, heading, r, c);
     if (tid < 16) {
@@ -157,7 +159,8 @@ static __device__ __forceinline__ void csl_chain_band(const float* prb, int rpa,
 }
 
 // Shared memory of one chain block (floats): prc rows 0-2 and a band of
-// slot rows, x0rows, zin, R, rowc as structure of arrays, psub.
+// slot rows, x0rows, zin, R, rowc as structure of arrays, psub; the
+// recursion's (csl_coeff_smem_floats) follows it.
 __host__ __device__ __forceinline__ int csl_chain_smem_floats(int mp, int rp, int band) {
     const int rpa = (rp + 3) & ~3;
     return (4 + band) * rpa + ((3 * (mp / 2) + 3) & ~3) + 4 + 8 * mp + band * rp;

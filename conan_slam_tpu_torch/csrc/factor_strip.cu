@@ -22,8 +22,8 @@
 // What bounds it on the card: latency.  It moves ~(NBP + 3) D floats
 // (~110 KB at D = 1024) and does no arithmetic to speak of; its time is
 // the recursion (sinf/cosf and divisions in a dependent chain) plus one
-// launch.  The design keeps that chain in the registers of one warp per
-// block (a lane per sub-step holds its terms), never waits on another block, and
+// launch.  The design keeps that chain on one warp per block (its
+// per-sub-step terms in shared memory, coeff.cuh), never waits on another block, and
 // writes the strip with one thread per column so that every row store is
 // a coalesced line per warp.  Columns past D are masked: any D works.
 #include "coeff.cuh"
@@ -36,8 +36,9 @@ factor_strip_kernel(const float* __restrict__ subs, const float* __restrict__ qc
                     float* __restrict__ xf, float* __restrict__ pt, float* __restrict__ vtf,
                     float* __restrict__ bm, int S, int nbp, int d, float wheel_base, float dt,
                     float sigma_heading, int use_heading) {
-    __shared__ float cols[4 * CSL_MAX_COLS];
-    __shared__ float scal[4];   // pose (3), corr0
+    extern __shared__ float coeff[];   // the recursion's (csl_coeff_smem_floats(S)), columns first
+    __shared__ float scal[4];          // pose (3), corr0
+    const float* cols = coeff;
     const bool heading = use_heading != 0;
     const float r_head = sigma_heading * sigma_heading;
     const int nb = csl_coeff_cols(S, heading);
@@ -46,7 +47,7 @@ factor_strip_kernel(const float* __restrict__ subs, const float* __restrict__ qc
         float pose[3] = {x0[0], x0[1], x0[2]};
         float corr0;
         csl_coeff_recursion(subs, S, qc, p2h, pose, wheel_base, dt, r_head, heading,
-                            blockIdx.x == 0 ? pt : nullptr, &corr0, cols);
+                            blockIdx.x == 0 ? pt : nullptr, &corr0, coeff);
         if (threadIdx.x == 0) {
             scal[0] = pose[0];
             scal[1] = pose[1];
@@ -87,8 +88,11 @@ extern "C" int csl_factor_strip(const float* subs, const float* qc, const float*
                                 float sigma_heading, int use_heading, void* stream) {
     if (S <= 0 || S > CSL_MAX_STEPS || d < 3 || nbp < csl_coeff_cols(S, use_heading != 0))
         return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)csl_coeff_smem_floats(S) * sizeof(float);
+    const cudaError_t err = csl_allow_smem(factor_strip_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
     const dim3 grid((d + FS_THREADS - 1) / FS_THREADS);
-    factor_strip_kernel<<<grid, FS_THREADS, 0, (cudaStream_t)stream>>>(
+    factor_strip_kernel<<<grid, FS_THREADS, smem, (cudaStream_t)stream>>>(
         subs, qc, x0, p2, xf, pt, vtf, bm, S, nbp, d, wheel_base, dt, sigma_heading,
         use_heading);
     return (int)cudaGetLastError();

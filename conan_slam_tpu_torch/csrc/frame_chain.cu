@@ -32,9 +32,10 @@
 //   - At entry every thread issues cp.async copies of the band's prc rows,
 //     x0rows, zin and R into shared memory; warp 0 then runs the recursion
 //     while they are in flight.
-//   - The recursion runs on one warp with a lane per sub-step holding its
-//     terms in registers (coeff.cuh): no local memory.  K4's 16 entries
-//     are formed on 16 lanes.
+//   - The recursion runs on one warp, its per-sub-step terms in shared
+//     memory after the band's (coeff.cuh), so S is bounded by shared
+//     memory only (CSL_MAX_STEPS): no local memory.  K4's 16 entries are
+//     formed on 16 lanes.
 //   - Compact Hc, hp2, hg and v are kept as structure of arrays in shared
 //     memory, so the S phase reads consecutive words (no bank conflicts).
 //   - Exactly one block (0) writes pt, k4 and ms; each band writes its rows
@@ -61,7 +62,6 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
                    float* __restrict__ ms_out, int S, int mp, int rp, int band,
                    float wheel_base, float dt, float sigma_heading, int use_heading) {
     extern __shared__ __align__(16) float smem[];
-    __shared__ float cols[4 * CSL_MAX_COLS];
     __shared__ float ms[32];                      // frame scalars, as ms_out
     const int tid = threadIdx.x;
     const int nzl = mp / 2;
@@ -75,6 +75,7 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
     float* rs = zs + ((3 * nzl + 3) & ~3);        // (4,) rsc
     float* hc = rs + 4;                           // (8, mp) rowc as structure of arrays
     float* ps = hc + 8 * mp;                      // (band, rp) the band's rows of psub
+    float* coeff = smem + csl_chain_smem_floats(mp, rp, band);   // the recursion's (coeff.cuh)
 
     // --- the band's inputs into shared memory, in flight during the recursion ---
     for (int r = 0; r < 3 + sr; ++r)
@@ -88,7 +89,7 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
         csl_chain_scalars(subs, S, qc, prc + 2 * rp, x0rows, wheel_base, dt,
                           sigma_heading * sigma_heading, use_heading != 0,
                           blockIdx.x == 0 ? pt_out : nullptr, blockIdx.x == 0 ? k4_out : nullptr,
-                          ms, cols);
+                          ms, coeff);
     csl_cp_async_commit();
     csl_cp_async_wait<0>();
     __syncthreads();
@@ -103,9 +104,10 @@ frame_chain_kernel(const float* __restrict__ subs, const float* __restrict__ qc,
     csl_chain_band(prb, rpa, hc, ms, zs, rs, ps, i0, nb, mp, rp, s_out, rowc_out);
 }
 
-// Shared memory of one block: prc rows, x0rows, zin, R, rowc, psub.
-static size_t frame_chain_smem(int mp, int rp, int band) {
-    return (size_t)csl_chain_smem_floats(mp, rp, band) * sizeof(float);
+// Shared memory of one block: prc rows, x0rows, zin, R, rowc, psub, then
+// the recursion's columns and per-sub-step terms.
+static size_t frame_chain_smem(int mp, int rp, int band, int S) {
+    return (size_t)(csl_chain_smem_floats(mp, rp, band) + csl_coeff_smem_floats(S)) * sizeof(float);
 }
 
 extern "C" int csl_frame_chain(const float* subs, const float* qc, const float* zin,
@@ -115,7 +117,7 @@ extern "C" int csl_frame_chain(const float* subs, const float* qc, const float* 
                                float sigma_heading, int use_heading, void* stream) {
     if (S <= 0 || S > CSL_MAX_STEPS || mp <= 0 || mp % 2 || rp < 3 || band <= 0 || band % 2)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = frame_chain_smem(mp, rp, band);
+    const size_t smem = frame_chain_smem(mp, rp, band, S);
     if (smem > CSL_MAX_SMEM) return (int)cudaErrorInvalidValue;
     cudaError_t err = csl_allow_smem(frame_chain_kernel, smem);
     if (err != cudaSuccess) return (int)err;

@@ -148,7 +148,7 @@ __device__ __forceinline__ void stage_cg(float* dst, const float* src, int n) {
 
 // --- phase 1: the chain, one band of measurement rows a block ---
 __device__ __forceinline__ void chain_phase(const Frame& f, float* smem, const int* rows,
-                                            float* subs, float* qc, float* ms, float* cols) {
+                                            float* qc, float* ms) {
     const int tid = threadIdx.x;
     const int mp = f.mp, rp = f.rp, nzl = mp / 2, band = f.band;
     const int nbands = (mp + band - 1) / band;
@@ -159,13 +159,15 @@ __device__ __forceinline__ void chain_phase(const Frame& f, float* smem, const i
     float* rs = zs + ((3 * nzl + 3) & ~3);        // (4,) R
     float* hc = rs + 4;                           // (8, mp) rowc as structure of arrays
     float* ps = hc + 8 * mp;                      // (band, rp) the band's rows of psub
+    float* subs = smem + csl_chain_smem_floats(mp, rp, band);   // (4, S) the controls
+    float* coeff = subs + 4 * f.S;                // the recursion's (coeff.cuh)
 
     // The packing of ops/frame_kernel.py _pack_ctrl and _pack_meas.
-    if (tid < f.S) {
-        subs[tid] = f.vns[(size_t)tid * f.vns_st];
-        subs[f.S + tid] = f.swans[(size_t)tid * f.swans_st];
-        subs[2 * f.S + tid] = f.phis[(size_t)tid * f.phis_st];
-        subs[3 * f.S + tid] = f.actives[(size_t)tid * f.actives_st] ? 1.f : 0.f;
+    for (int k = tid; k < f.S; k += FS_THREADS) {
+        subs[k] = f.vns[(size_t)k * f.vns_st];
+        subs[f.S + k] = f.swans[(size_t)k * f.swans_st];
+        subs[2 * f.S + k] = f.phis[(size_t)k * f.phis_st];
+        subs[3 * f.S + k] = f.actives[(size_t)k * f.actives_st] ? 1.f : 0.f;
     }
     if (tid == 0) {   // chol(Q) in closed form; the intrinsics keep l10^2 unfused
         const float l00 = sqrtf(f.q_cov[0]);
@@ -204,7 +206,7 @@ __device__ __forceinline__ void chain_phase(const Frame& f, float* smem, const i
     if (tid < 32)
         csl_chain_scalars(subs, f.S, qc, f.p + 2 * (size_t)f.d, f.x, f.wheel_base, f.dt,
                           f.sigma_heading * f.sigma_heading, f.use_heading != 0,
-                          blockIdx.x == 0 ? f.pt : nullptr, nullptr, ms, cols);
+                          blockIdx.x == 0 ? f.pt : nullptr, nullptr, ms, coeff);
     csl_cp_async_commit();
     csl_cp_async_wait<0>();
     __syncthreads();
@@ -406,17 +408,15 @@ __global__ void __launch_bounds__(FS_THREADS, 1)
 frame_step_kernel(const __grid_constant__ Frame f) {
     extern __shared__ __align__(16) float smem[];
     __shared__ int rows[FS_MAX_RP];
-    __shared__ float subs[4 * CSL_MAX_STEPS];
     __shared__ float qc[4];
     __shared__ float ms[32];
-    __shared__ float cols[4 * CSL_MAX_COLS];
     __shared__ int wmax[FS_THREADS / 32];
     cg::grid_group grid = cg::this_grid();
     stamp(f, 0, false);
     for (int a = threadIdx.x; a < f.rp; a += FS_THREADS) rows[a] = gathered_row(f, a);
 
     // Every block reaches every grid barrier: no phase returns from the kernel.
-    if ((int)blockIdx.x < (f.mp + f.band - 1) / f.band) chain_phase(f, smem, rows, subs, qc, ms, cols);
+    if ((int)blockIdx.x < (f.mp + f.band - 1) / f.band) chain_phase(f, smem, rows, qc, ms);
     stamp(f, 1, true);
     grid.sync();
     stamp(f, 2, false);
@@ -442,10 +442,11 @@ frame_step_kernel(const __grid_constant__ Frame f) {
     stamp(f, 7, true);
 }
 
-// Dynamic shared memory (bytes): the largest of the phases' needs.
-size_t smem_bytes(int mp, int rp, int band) {
+// Dynamic shared memory (bytes): the largest of the phases' needs (the
+// chain's with the controls and the recursion's, sized by S).
+size_t smem_bytes(int mp, int rp, int band, int S) {
     const int w = 32 * ((mp + 31) / 32);
-    size_t fl = (size_t)csl_chain_smem_floats(mp, rp, band);
+    size_t fl = (size_t)(csl_chain_smem_floats(mp, rp, band) + 4 * S + csl_coeff_smem_floats(S));
     fl = std::max(fl, csl_sweep::smem_bytes(mp, w) / sizeof(float));
     fl = std::max(fl, (size_t)(8 * mp + 32 + rp * FS_LD));
     fl = std::max(fl, (size_t)(mp * (mp + 4) + mp * FS_W + FS_THREADS + mp + 32));
@@ -510,7 +511,7 @@ cudaError_t plan(size_t smem, int* grid) {
 
 template <int RX>
 cudaError_t launch(const Frame& f, cudaStream_t stream) {
-    const size_t smem = smem_bytes(f.mp, f.rp, f.band);
+    const size_t smem = smem_bytes(f.mp, f.rp, f.band, f.S);
     int grid = 0;
     cudaError_t err = plan<RX>(smem, &grid);
     if (err != cudaSuccess) return err;
@@ -530,29 +531,30 @@ cudaError_t launch(const Frame& f, cudaStream_t stream) {
 }
 
 template <int RX>
-cudaError_t plan_only(int mp, int rp, int band, int* grid, int* smem) {
-    const size_t bytes = smem_bytes(mp, rp, band);
+cudaError_t plan_only(int mp, int rp, int band, int S, int* grid, int* smem) {
+    const size_t bytes = smem_bytes(mp, rp, band, S);
     *smem = (int)bytes;
     return plan<RX>(bytes, grid);
 }
 
 }  // namespace
 
-// The grid, block and dynamic shared memory of a launch at (mp, rp, band)
-// on the current device; launches nothing.
-extern "C" int csl_frame_step_plan(int mp, int rp, int band, int* grid, int* block, int* smem) {
+// The grid, block and dynamic shared memory of a launch at (mp, rp, band,
+// S) on the current device; launches nothing.
+extern "C" int csl_frame_step_plan(int mp, int rp, int band, int S, int* grid, int* block,
+                                   int* smem) {
     if (mp <= 0 || mp % 32 || mp > FS_MAX_MP || rp < 3 || rp > FS_MAX_RP || band <= 0 ||
-        band % 2)
+        band % 2 || S <= 0 || S > CSL_MAX_STEPS)
         return (int)cudaErrorInvalidValue;
     *block = FS_THREADS;
     switch (mp / 32) {
-        case 1: return (int)plan_only<1>(mp, rp, band, grid, smem);
-        case 2: return (int)plan_only<2>(mp, rp, band, grid, smem);
-        case 3: return (int)plan_only<3>(mp, rp, band, grid, smem);
-        case 4: return (int)plan_only<4>(mp, rp, band, grid, smem);
-        case 5: return (int)plan_only<5>(mp, rp, band, grid, smem);
-        case 6: return (int)plan_only<6>(mp, rp, band, grid, smem);
-        default: return (int)plan_only<7>(mp, rp, band, grid, smem);
+        case 1: return (int)plan_only<1>(mp, rp, band, S, grid, smem);
+        case 2: return (int)plan_only<2>(mp, rp, band, S, grid, smem);
+        case 3: return (int)plan_only<3>(mp, rp, band, S, grid, smem);
+        case 4: return (int)plan_only<4>(mp, rp, band, S, grid, smem);
+        case 5: return (int)plan_only<5>(mp, rp, band, S, grid, smem);
+        case 6: return (int)plan_only<6>(mp, rp, band, S, grid, smem);
+        default: return (int)plan_only<7>(mp, rp, band, S, grid, smem);
     }
 }
 

@@ -1,6 +1,7 @@
 // H8 obs_panels: the gated frame's row strips pht = P' H^T (MP, D), the
 // gains siv = v^T S^-1, the updated mean xn (D,) and the NIS, one column
-// panel of D per block.
+// panel of D per block: the gated frame's split route (its default route
+// is H10, obs_step.cu).
 //
 // Replaces the panel work of the TPU kernel conan_slam_tpu/ops/
 // frame_kernel.py:535 frame_update_obs (pallas_call :607, body
@@ -21,10 +22,11 @@
 // D = 1024 (26 MB at D = 20,224), with 5 + NBP FMAs per output.  The
 // design gives each thread one column and walks the rows, so every row
 // read and every pht write is a coalesced line per warp; the block's
-// (NBP, 32) panel of vtf and the (MP, NBP) hvb sit in shared memory, where
-// a warp (one row i) reads hvb[i, b] as a broadcast; the xn reduction over
-// rows happens in shared memory, so pht is never read back.  Columns past
-// D are masked: any D works.
+// (NBP, 32) panel of vtf sits in shared memory, and a warp (one row i)
+// reads hvb[i, b] as a broadcast through L1, so the block's shared memory
+// does not grow with MP x NBP (it holds MP 2048 at NBP 776, S = 256); the
+// xn reduction over rows happens in shared memory, so pht is never read
+// back.  Columns past D are masked: any D works.
 #include "common.cuh"
 
 #define OP_W 32
@@ -38,8 +40,7 @@ obs_panels_kernel(const float* __restrict__ rowc_g, const float* __restrict__ hv
                   int mp, int rp, int nbp, int d) {
     extern __shared__ float smem[];
     float* rowc = smem;                  // (mp, 8): col 7 = v
-    float* hvb = rowc + 8 * mp;          // (mp, nbp)
-    float* vpan = hvb + mp * nbp;        // (nbp, OP_W) this block's columns of vtf
+    float* vpan = rowc + 8 * mp;         // (nbp, OP_W) this block's columns of vtf
     float* part = vpan + nbp * OP_W;     // (OP_H, OP_W)
     float* siv = part + OP_H * OP_W;     // (mp,)
     const int tx = threadIdx.x, ty = threadIdx.y;
@@ -50,7 +51,6 @@ obs_panels_kernel(const float* __restrict__ rowc_g, const float* __restrict__ hv
     const int nc = live ? n : 0;         // a safe column for masked lanes
 
     for (int e = tid; e < 8 * mp; e += nth) rowc[e] = rowc_g[e];
-    for (int e = tid; e < mp * nbp; e += nth) hvb[e] = hvb_g[e];
     for (int b = ty; b < nbp; b += OP_H) vpan[b * OP_W + tx] = vtf[(size_t)b * d + nc];
     __syncthreads();
     for (int j = tid; j < mp; j += nth) {
@@ -70,13 +70,13 @@ obs_panels_kernel(const float* __restrict__ rowc_g, const float* __restrict__ hv
     float xsum = 0.f;
     for (int i = ty; i < mp; i += OP_H) {
         const float* h = rowc + 8 * i;
-        const float* hb = hvb + i * nbp;
+        const float* hb = hvb_g + (size_t)i * nbp;
         const int cx = 3 + 2 * (i / 2), cy = cx + 1;
         float acc = h[0] * p0 + h[1] * p1 + h[2] * p2;
         if (cx < rp) acc += h[3] * prows[(size_t)cx * d + nc];
         if (cy < rp) acc += h[4] * prows[(size_t)cy * d + nc];
         float cpl = 0.f;
-        for (int b = 0; b < nbp; ++b) cpl += hb[b] * vpan[b * OP_W + tx];
+        for (int b = 0; b < nbp; ++b) cpl += __ldg(hb + b) * vpan[b * OP_W + tx];
         acc += cpl;
         if (live) pht[(size_t)i * d + n] = acc;
         xsum += siv[i] * acc;
@@ -96,7 +96,7 @@ extern "C" int csl_obs_panels(const float* rowc, const float* hvb, const float* 
                               float* xn, float* nis, int mp, int rp, int nbp, int d,
                               void* stream) {
     const size_t smem =
-        (size_t)(9 * mp + mp * nbp + nbp * OP_W + OP_H * OP_W) * sizeof(float);
+        (size_t)(9 * mp + nbp * OP_W + OP_H * OP_W) * sizeof(float);
     if (mp <= 0 || mp % 2 || rp < 3 || nbp <= 0 || d < 3 || smem > CSL_MAX_SMEM)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = csl_allow_smem(obs_panels_kernel, smem);

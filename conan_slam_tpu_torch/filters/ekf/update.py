@@ -44,7 +44,7 @@ def fused_frame_pair_step(state: EKFState, vns2, swans2, phis2, actives2, q_cov,
     index the same table (the caller runs no augmentation between them).
 
     The pair runs the split schedule wherever it fits.  Past its limits
-    (16 sub-steps, MP 2048) it is two sequential frames of the plain route
+    (256 sub-steps, MP 2048) it is two sequential frames of the plain route
     where the reference, too, falls back to two frames (its TPU schedule
     has no tile), and raises on the card where the reference has one.
     Returns
@@ -72,18 +72,21 @@ def fused_frame_update(state: EKFState, bmat, vtf, obs: CompactObs, slots, mask,
     correction vtf^T B vtf, given as the row strip ``vtf`` (r, D) and
     ``bmat`` (r, r) of ops.factor_kernel.  The update runs against the
     virtual covariance P' = P + vtf^T B vtf without materialising it
-    (ops.frame_kernel.frame_update_obs: the split schedule where its kernels
-    fit, the reference's jnp route past them where the reference has no TPU
-    schedule either).  Masked measurements
-    contribute nothing, so a frame with none applies the correction alone.
+    (ops.frame_kernel.frame_update_obs: H10, one launch, by default; the
+    split schedule past MP 224; the reference's jnp route past the port's
+    kernels where the reference has no TPU schedule either).  The frame's
+    raw slots and the table's capacity go to ``frame_update_obs``, whose
+    default route forms the gathered rows and the packing in its launch.
+    Masked measurements contribute nothing, so a frame with none applies
+    the correction alone.
 
     Returns the new state, and with ``return_nis`` also the stacked NIS per
     associated measurement.  ``plain=True`` runs the kernels' plain
     versions.
     """
     fu = frame_update_obs(
-        state.p, state.x, frame_rows(slots, state.capacity), obs.z[:, 0], obs.z[:, 1],
-        mask, r_cov, bmat, vtf, plain=plain,
+        state.p, state.x, slots, state.capacity, obs.z[:, 0], obs.z[:, 1], mask, r_cov, bmat,
+        vtf, plain=plain,
     )
     new_state = state._replace(x=fu.x, p=fu.p)
     if return_nis:

@@ -6,7 +6,8 @@ update P0 + vtf^T B vtf (filters.ekf.fastframe).  Kernel H5
 (``csrc/factor_strip.cu``) writes the post-frame mean, the pose trace, the
 row-major factor strip vtf (NBP, D) and B (NBP, NBP), zero-padded from
 NB = 2 + 3S to NBP = round_up(NB, 8); every block reruns the coefficient
-recursion that H2 runs too (``csrc/coeff.cuh``) and writes its column panel.
+recursion that H2 runs too (``csrc/coeff.cuh``, to 256 sub-steps) and
+writes its column panel.
 The plain version is ``fastframe.frame_factors`` padded the same way.
 """
 
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from conan_slam_tpu_torch.ops import cuda
-from conan_slam_tpu_torch.ops.frame_kernel import MAX_STEPS, _pack_ctrl
+from conan_slam_tpu_torch.ops.frame_kernel import MAX_STEPS, _pack_ctrl, _past_the_kernels
 
 if TYPE_CHECKING:   # filters.ekf imports this module
     from conan_slam_tpu_torch.filters.ekf.state import EKFState
@@ -48,7 +49,7 @@ def _frame_factors_reference(state: EKFState, vns, swans, phi_meas, active, q_co
         sigma_heading, use_heading,
     )
     nb, nbp = factor_shapes(vns.shape[0], use_heading)
-    vtf = F.pad(vmat.T, (0, 0, 0, nbp - nb))
+    vtf = F.pad(vmat.T, (0, 0, 0, nbp - nb)).contiguous()   # row-major, as H5 writes it
     return new_state, pose_trace, vtf, F.pad(bmat, (0, nbp - nb, 0, nbp - nb))
 
 
@@ -60,15 +61,18 @@ def frame_factors_fused(state: EKFState, vns, swans, phi_meas, active, q_cov,
     bmat (NBP, NBP))``, the frame covariance being P + vtf^T bmat vtf.
 
     The plain version for CPU tensors (or with ``plain=True``), kernel H5
-    for CUDA tensors.
+    for CUDA tensors up to MAX_STEPS = 256 sub-steps.  Past that bound the
+    plain version runs on the card where the reference, too, runs its jnp
+    route (D not a multiple of 128), and the frame raises where the
+    reference runs its TPU kernel (``_past_the_kernels``).
     """
-    if plain or cuda.on_cpu(state.x, state.p, vns, swans, phi_meas, active, q_cov):
+    tensors = (state.x, state.p, vns, swans, phi_meas, active, q_cov)
+    s_steps, d = vns.shape[0], state.x.shape[0]
+    route = "kernel" if s_steps <= MAX_STEPS else "unported" if d % 128 == 0 else "plain"
+    if plain or cuda.on_cpu(*tensors) or _past_the_kernels(route, "frame_factors_fused", plain,
+                                                             *tensors):
         return _frame_factors_reference(state, vns, swans, phi_meas, active, q_cov,
                                         wheel_base, dt, sigma_heading, use_heading)
-    s_steps = vns.shape[0]
-    if s_steps > MAX_STEPS:
-        raise ValueError(f"frame_factors_fused: S={s_steps} exceeds {MAX_STEPS}")
-    d = state.x.shape[0]
     _, nbp = factor_shapes(s_steps, use_heading)
     subs, qc = _pack_ctrl(vns, swans, phi_meas, active, q_cov)
     p2 = state.p[2]               # row 2 of the symmetric P: contiguous

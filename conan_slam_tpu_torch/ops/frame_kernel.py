@@ -50,11 +50,18 @@ H3 twice, frame B against strips rebuilt from frame A's (G, M), and one H4
 pass at r = 2 (MP + 8) for both frames.
 
 The gated frame (``frame_update_obs``, the reference's ``_fullframe_kernel``)
-gets its factors P' = P + vtf^T B vtf from H5 (ops.factor_kernel) and runs
+gets its factors P' = P + vtf^T B vtf from H5 (ops.factor_kernel).  Its
+default route is H10 ``obs_step`` (csrc/obs_step.cu), ONE cooperative
+launch as H9's: the chain in bands (the packing from the raw slots, the
+observe, compact Hc, the hvb coupling and S), the sweep beside the pht
+panels, the gains [B vtf; -S^-1 pht] and the mean, the P pass
+P + [vtf; pht]^T [B vtf; -S^-1 pht] (``obs_route``; its plain version
+``_frame_update_obs_resident_reference``).  Its split schedule, under
+``schedule="split"`` and past MP 224, runs
 
-  H7 ``obs_chain`` (one block): observe, compact Hc, v, R, the coupling
-      hvb = (Hc vtf[:, rows]^T) B and S = (Hc P[rows][:, rows] + hvb
-      vtf[:, rows]) Hc^T + R.
+  H7 ``obs_chain`` (one block a band of one measurement): observe, compact
+      Hc, v, R, the coupling hvb = (Hc vtf[:, rows]^T) B and S = (Hc
+      P[rows][:, rows] + hvb vtf[:, rows]) Hc^T + R.
   H1 ``sweep_si``: S^-1, as above.
   H8 ``obs_panels`` (many blocks): pht = Hc P[rows] + hvb vtf, the gains,
       the updated mean and the NIS.
@@ -105,7 +112,9 @@ from conan_slam_tpu_torch.ops.spd_inverse import (
 )
 
 MS_LEN = 32
-MAX_STEPS = 16     # sub-steps per frame the chain kernel holds
+# Sub-steps per frame the recursion of H2, H5 and H9 holds (csrc/coeff.cuh
+# CSL_MAX_STEPS): its per-sub-step terms live in shared memory sized by S.
+MAX_STEPS = 256
 
 N_SM = 132          # SMs of an H100 SXM, the most blocks H2's bands spread over
 PANEL_W = 16        # H3's columns of D a block (csrc/frame_panels.cu)
@@ -124,9 +133,19 @@ FS_LD = 24
 FS_TILE = 32
 FS_GROUPS = 8
 FS_MAX_RP = 232
-_MAX_COLS = 2 + 3 * MAX_STEPS   # the recursion's coefficient columns (csrc/coeff.cuh)
-# H9's static shared memory: rows, subs, qc, ms, the columns, a max per warp.
-FS_STATIC_BYTES = 4 * (FS_MAX_RP + 4 * MAX_STEPS + 4 + MS_LEN + 4 * _MAX_COLS + FS_THREADS // 32)
+# H9's static shared memory: rows, qc, ms, a max per warp.
+FS_STATIC_BYTES = 4 * (FS_MAX_RP + 4 + MS_LEN + FS_THREADS // 32)
+
+# H10 (csrc/obs_step.cuh): H9's block and panels; the most gathered rows
+# (MP = 224).
+OS_THREADS = 512
+OS_W = 16
+OS_LD = 24
+OS_MAX_RP = 232
+# H10's static shared memory: rows, a max per warp.
+OS_STATIC_BYTES = 4 * (OS_MAX_RP + OS_THREADS // 32)
+# The gated chain's rows a band, in H7 and H10 alike: one measurement.
+OBS_BAND = 2
 
 FRAME_CHAIN = cuda.CudaKernel(
     "frame_chain", "csl_frame_chain",
@@ -162,6 +181,13 @@ OBS_PANELS = cuda.CudaKernel(
     [cuda.P] * 9 + [cuda.I, cuda.I, cuda.I, cuda.I],
     source="conan_slam_tpu_torch/csrc/obs_panels.cu",
     replaces="conan_slam_tpu/ops/frame_kernel.py:535 (frame_update_obs -> pallas_call :607, panels)",
+)
+OBS_STEP = cuda.CudaKernel(
+    "obs_step", "csl_obs_step",
+    [cuda.P] * 14 + [cuda.I] * 11,
+    source="conan_slam_tpu_torch/csrc/obs_step.cu",
+    replaces="conan_slam_tpu/ops/frame_kernel.py:535 (frame_update_obs -> pallas_call :607, "
+             "_fullframe_kernel :381)",
 )
 
 
@@ -386,10 +412,18 @@ def _frame_chain_reference(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base,
     )
 
 
-def _chain_smem_bytes(mp: int, rp: int, band: int) -> int:
-    """Shared memory of one H2 block (csrc/frame_chain.cu frame_chain_smem)."""
+def _coeff_smem_floats(s_steps: int) -> int:
+    """The recursion's shared memory: its columns and per-sub-step inputs
+    and terms (csrc/coeff.cuh csl_coeff_smem_floats)."""
+    return 41 * s_steps + 8
+
+
+def _chain_smem_bytes(mp: int, rp: int, band: int, s_steps: int = MAX_STEPS) -> int:
+    """Shared memory of one H2 block at ``s_steps`` sub-steps (by default
+    the most it takes; csrc/frame_chain.cu frame_chain_smem)."""
     rpa = _round_up(rp, 4)
-    return 4 * ((4 + band) * rpa + _round_up(3 * (mp // 2), 4) + 4 + 8 * mp + band * rp)
+    return 4 * ((4 + band) * rpa + _round_up(3 * (mp // 2), 4) + 4 + 8 * mp + band * rp
+                + _coeff_smem_floats(s_steps))
 
 
 def frame_chain(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
@@ -405,7 +439,7 @@ def frame_chain(subs, qc, zin, rsc, x0rows, prc, mp, wheel_base, dt,
     s_steps = subs.shape[1]
     rp = prc.shape[0]
     plan = frame_chain_plan(mp)
-    if s_steps > MAX_STEPS or _chain_smem_bytes(mp, rp, plan.band) > cuda.MAX_SMEM_BYTES:
+    if s_steps > MAX_STEPS or _chain_smem_bytes(mp, rp, plan.band, s_steps) > cuda.MAX_SMEM_BYTES:
         raise ValueError(f"frame_chain: S={s_steps}, MP={mp}, RP={rp} exceed one block")
     cuda.check(subs, "subs", (4, s_steps))
     cuda.check(qc, "qc", (3,))
@@ -560,11 +594,12 @@ def _smem_limit(device) -> int:
     return getattr(props, "shared_memory_per_block_optin", cuda.MAX_SMEM_BYTES)
 
 
-def _frame_step_smem_bytes(mp: int, rp: int, band: int) -> int:
-    """H9's dynamic shared memory: the largest of its phases' needs
-    (csrc/frame_step.cu smem_bytes)."""
+def _frame_step_smem_bytes(mp: int, rp: int, band: int, s_steps: int = MAX_STEPS) -> int:
+    """H9's dynamic shared memory at ``s_steps`` sub-steps (by default the
+    most it takes): the largest of its phases' needs (csrc/frame_step.cu
+    smem_bytes; the chain's holds the controls too)."""
     return max(
-        _chain_smem_bytes(mp, rp, band),
+        _chain_smem_bytes(mp, rp, band, s_steps) + 16 * s_steps,
         _sweep_smem_bytes(mp),
         4 * (8 * mp + MS_LEN + FS_LD * rp),                         # pht panels
         4 * (mp * (mp + 4) + FS_W * mp + FS_THREADS + mp + MS_LEN),  # gains
@@ -575,7 +610,7 @@ def _frame_step_smem_bytes(mp: int, rp: int, band: int) -> int:
 def _split_fits(mp: int, rp: int, s_steps: int, limit: int) -> bool:
     """H2, H1 and H3 hold a frame of these shapes (H4 holds any)."""
     return (s_steps <= MAX_STEPS and sweep_fits(mp, limit) and mp <= PANEL_CLUSTER * PANEL_THREADS
-            and _chain_smem_bytes(mp, rp, frame_chain_plan(mp).band) <= limit
+            and _chain_smem_bytes(mp, rp, frame_chain_plan(mp).band, s_steps) <= limit
             and _panels_smem_bytes(mp, rp) <= limit)
 
 
@@ -640,8 +675,9 @@ def frame_route(d: int, nz: int, device, s_steps: int = 1, schedule: str = "auto
                   only the split fits (MP 226 to 2048: H1's cooperative
                   sweep);
       "plain"     the reference's jnp route (``_frame_step_reference``),
-                  where no kernel of the port fits (past 16 sub-steps, or
-                  MP 2048) and the reference has no TPU schedule either
+                  where no kernel of the port fits (past MAX_STEPS = 256
+                  sub-steps, or MP 2048) and the reference has no TPU
+                  schedule either
                   (``can_fuse_frame_step``: D not a multiple of 128, or no
                   VMEM tile);
       "unported"  no kernel of the port fits, but the reference has a TPU
@@ -659,7 +695,7 @@ def frame_route(d: int, nz: int, device, s_steps: int = 1, schedule: str = "auto
         return "unported" if _ref_frame_step_has_kernel(d, nz) else "plain"
     band = frame_chain_plan(mp).band
     if (schedule == "auto" and rp <= FS_MAX_RP
-            and _frame_step_smem_bytes(mp, rp, band) + FS_STATIC_BYTES <= limit):
+            and _frame_step_smem_bytes(mp, rp, band, s_steps) + FS_STATIC_BYTES <= limit):
         return "resident"
     return "split"
 
@@ -678,20 +714,21 @@ class FrameStepPlan(NamedTuple):
     tiles: int     # phase 4: upper-triangle tiles of 32 over P
 
 
-def frame_step_plan(d: int, mp: int, device) -> FrameStepPlan:
+def frame_step_plan(d: int, mp: int, device, s_steps: int = MAX_STEPS) -> FrameStepPlan:
     """The grid, block and shared memory H9 takes at D = ``d``, MP = ``mp``
-    (RP the largest for that MP) on the CUDA ``device``, and each phase's
-    work; launches nothing."""
+    (RP the largest for that MP) and ``s_steps`` sub-steps on the CUDA
+    ``device``, and each phase's work; launches nothing."""
     rp = _round_up(3 + mp, 8)
     band = frame_chain_plan(mp).band
     lib = cuda.library()
     fn = lib.csl_frame_step_plan
     out = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [cuda.I, cuda.I, cuda.I, out, out, out]
+    fn.argtypes = [cuda.I, cuda.I, cuda.I, cuda.I, out, out, out]
     fn.restype = ctypes.c_int
     grid, block, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        err = fn(mp, rp, band, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(smem))
+        err = fn(mp, rp, band, s_steps, ctypes.byref(grid), ctypes.byref(block),
+                 ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"frame_step plan failed: {lib.csl_error_string(err).decode()} ({err})")
     nt = -(-d // FS_TILE)
@@ -756,7 +793,7 @@ def _frame_step_h9(p, x, slots, capacity: int, vns, swans, phis, actives, q_cov,
     nis = torch.empty((1,), dtype=f32, device=dev)
     scratch = torch.empty((_frame_step_scratch_floats(mp, ldg),), dtype=f32, device=dev)
     if stamps is not None:
-        cuda.check(stamps, "stamps", (frame_step_plan(d, mp, dev).grid, 8), torch.int64)
+        cuda.check(stamps, "stamps", (frame_step_plan(d, mp, dev, s_steps).grid, 8), torch.int64)
     FRAME_STEP(
         dev, *(cuda.ptr(t) for t in (p, x, slots, vns, swans, phis, actives, q_cov, zr, zb, mask,
                                      r_cov, p_out, xn, pt, nis, scratch)),
@@ -872,7 +909,7 @@ def frame_step_pair(p, x, rows_a, ctrl_a, meas_a, rows_b, ctrl_b, meas_b,
     ``ctrl_*`` = (vns, swans, phis, actives), ``meas_*`` = (zr, zb, mask),
     the other arguments as ``frame_step``'s; ``plain=True`` runs the same
     pair algebra through the plain versions.  Where the split schedule does
-    not fit (``frame_route``: past 16 sub-steps or MP 2048), the pair is two
+    not fit (``frame_route``: past 256 sub-steps or MP 2048), the pair is two
     frames of ``frame_step``'s plain route, as the reference's jnp route,
     and raises on the card where the reference has a TPU schedule
     ("unported").  P is not modified in place.
@@ -921,19 +958,30 @@ def _obs_chain_reference(zin, rsc, xrows, prc, vrows, bmat, mp):
     return s, rowc, hvb
 
 
-def _obs_smem_bytes(mp: int, rp: int, nbp: int) -> int:
-    return 4 * (rp * rp + mp * rp + nbp * rp + 2 * mp * nbp + nbp * nbp + 8 * mp + rp)
+def _obs_smem_bytes(mp: int, rp: int, nbp: int, band: int = OBS_BAND) -> int:
+    """Shared memory of one H7 band block, or of H10's chain phase
+    (csrc/obs_band.cuh csl_obs_smem_floats)."""
+    rpa = _round_up(rp, 4)
+    return 4 * (rpa + _round_up(3 * (mp // 2), 4) + 4 + 6 * mp + (3 + band) * rpa
+                + 2 * band * nbp + band * rp)
+
+
+def obs_chain_plan(mp: int) -> ChainPlan:
+    """H7's bands at MP = ``mp``: one measurement (two rows) a block."""
+    return ChainPlan(band=OBS_BAND, grid=mp // OBS_BAND, mp=mp)
 
 
 def obs_chain(zin, rsc, xrows, prc, vrows, bmat, mp):
     """The gated frame's chain up to S: plain version for CPU tensors,
-    kernel H7 (one block) for CUDA tensors."""
+    kernel H7 (one block a band of one measurement, ``obs_chain_plan``) for
+    CUDA tensors."""
     if cuda.on_cpu(zin, rsc, xrows, prc, vrows, bmat):
         return _obs_chain_reference(zin, rsc, xrows, prc, vrows, bmat, mp)
     rp = prc.shape[0]
     nbp = bmat.shape[0]
-    if _obs_smem_bytes(mp, rp, nbp) > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"obs_chain: MP={mp}, RP={rp}, NBP={nbp} exceed one block")
+    plan = obs_chain_plan(mp)
+    if _obs_smem_bytes(mp, rp, nbp, plan.band) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"obs_chain: MP={mp}, RP={rp}, NBP={nbp} exceed a block")
     cuda.check(zin, "zin", (3, mp // 2))
     cuda.check(rsc, "rsc", (4,))
     cuda.check(xrows, "xrows", (rp,))
@@ -945,7 +993,7 @@ def obs_chain(zin, rsc, xrows, prc, vrows, bmat, mp):
     rowc = torch.empty((mp, 8), dtype=f32, device=dev)
     hvb = torch.empty((mp, nbp), dtype=f32, device=dev)
     OBS_CHAIN(dev, *(cuda.ptr(t) for t in (zin, rsc, xrows, prc, vrows, bmat, s, rowc, hvb)),
-              mp, rp, nbp)
+              mp, rp, nbp, plan.band)
     return s, rowc, hvb
 
 
@@ -961,6 +1009,12 @@ def _obs_panels_reference(rowc, hvb, si, prows, vtf, x):
     xn = x + siv @ pht
     xn = torch.cat([xn[:2], wrap_angle(xn[2:3]), xn[3:]])
     return pht, xn, nis
+
+
+def _obs_panels_smem_bytes(mp: int, nbp: int) -> int:
+    """Shared memory of one H8 block (csrc/obs_panels.cu): rowc, a panel of
+    vtf, the partial sums, siv."""
+    return 4 * (9 * mp + nbp * OBS_PANEL_W + OBS_PANEL_H * OBS_PANEL_W)
 
 
 def obs_panels(rowc, hvb, si, prows, vtf, x):
@@ -1013,47 +1067,183 @@ def obs_inputs(p, x, rows, zr, zb, mask, r_cov, vtf) -> ObsInputs:
     )
 
 
+# ------------------------------------------------ H10: the gated frame
+
+
+def _obs_step_smem_bytes(mp: int, rp: int, nbp: int, tile: int = 128) -> int:
+    """H10's dynamic shared memory with the P pass on tiles of ``tile``
+    (the larger of the two by default): the largest of its phases' needs
+    (csrc/obs_step.cu smem_floats)."""
+    ring = 2 * 128 * 129 if tile == 128 else (OS_THREADS // 64) * 4 * 2 * 16 * 32
+    return max(
+        _obs_smem_bytes(mp, rp, nbp, OBS_BAND),
+        _sweep_smem_bytes(mp),
+        4 * (8 * mp + mp * nbp + rp * OS_LD + nbp * OS_W),                # pht panels
+        4 * (mp * (mp + 4) + mp * OS_W + OS_THREADS + mp),                # gains
+        4 * ring,                                                         # P pass rings
+    )
+
+
+def _obs_split_fits(mp: int, rp: int, nbp: int, limit: int) -> bool:
+    """H7, H1 and H8 hold a gated frame of these shapes (H4 holds any)."""
+    return (sweep_fits(mp, limit) and _obs_smem_bytes(mp, rp, nbp) <= limit
+            and _obs_panels_smem_bytes(mp, nbp) <= limit)
+
+
 @functools.lru_cache(maxsize=None)
-def obs_route(d: int, nz: int, nbp: int, device) -> str:
+def obs_route(d: int, nz: int, nbp: int, device, schedule: str = "auto") -> str:
     """The route ``frame_update_obs`` takes at D = ``d`` for ``nz``
-    measurement slots and ``nbp`` factor rows on ``device``, from the
-    shapes alone: "split" (H7 -> H1 -> H8 -> H4) where H7's one block and H1
-    hold the frame; past them (H7's block outgrowing shared memory, from
-    MP 160 at NBP 24) "plain" (the reference's jnp route) where
-    the reference has no TPU schedule either (``can_fuse_frame``: D not a
-    multiple of 128, or no VMEM tile), else "unported": such a frame raises
-    on the card (the plain route on the CPU)."""
+    measurement slots and ``nbp`` factor rows on ``device``: a function of
+    the shapes alone, chosen before any launch:
+
+      "resident"  H10, one cooperative launch, where its phases fit a block
+                  (MP <= 224, H1's register limit);
+      "split"     H7 -> H1 -> H8 -> H4, under ``schedule="split"``, or where
+                  only the split fits: MP 226 to 2048 (H7 in bands of one
+                  measurement, H1's cooperative sweep, H8's panels), for
+                  any NBP the factors give up to 256 sub-steps;
+      "plain"     the reference's jnp route (``_frame_update_obs_reference``)
+                  where no kernel of the port fits and the reference has no
+                  TPU schedule either (``can_fuse_frame``: D not a multiple
+                  of 128, or no VMEM tile);
+      "unported"  no kernel of the port fits, but the reference has a TPU
+                  schedule: the frame raises on the card (the plain route
+                  on the CPU).
+
+    D limits none of the port's kernels.  On the CPU a route's plain
+    versions run; the shapes decide the route the same way, against the
+    card's shared memory."""
+    if schedule not in ("auto", "split"):
+        raise ValueError(f"obs_route: schedule must be 'auto' or 'split', got {schedule!r}")
     mp, rp = frame_shapes(nz)
     limit = _smem_limit(device)
-    fits = (sweep_fits(mp, limit) and _obs_smem_bytes(mp, rp, nbp) <= limit
-            and 4 * (9 * mp + mp * nbp + nbp * OBS_PANEL_W + OBS_PANEL_H * OBS_PANEL_W) <= limit)
-    if fits:
+    if (schedule == "auto" and mp <= MAX_MP and rp <= OS_MAX_RP
+            and _obs_step_smem_bytes(mp, rp, nbp) + OS_STATIC_BYTES <= limit):
+        return "resident"
+    if _obs_split_fits(mp, rp, nbp, limit):
         return "split"
     return "unported" if _ref_frame_update_has_kernel(d, nz, nbp) else "plain"
 
 
-def frame_update_obs(p, x, rows, zr, zb, mask, r_cov, bmat, vtf,
-                     *, plain: bool = False) -> FrameUpdateObs:
+class ObsStepPlan(NamedTuple):
+    """H10's launch and the work of each of its phases."""
+
+    grid: int      # blocks: one an SM (a cooperative launch)
+    block: int     # threads a block, in every phase
+    smem: int      # dynamic shared memory a block, the largest phase's
+    tile: int      # phase 4's tile edge (32 or 128, H4's rule)
+    bands: int     # phase 1: blocks that form rows of S (one measurement each)
+    panels: int    # phases 2 and 3: 16-column panels of D
+    tiles: int     # phase 4: upper-triangle tiles of P
+
+
+def obs_step_plan(d: int, mp: int, nbp: int, device) -> ObsStepPlan:
+    """The grid, block, shared memory and P-pass tile H10 takes at D = ``d``,
+    MP = ``mp`` (RP the largest for that MP) and NBP = ``nbp`` on the CUDA
+    ``device``, and each phase's work; launches nothing."""
+    rp = _round_up(3 + mp, 8)
+    lib = cuda.library()
+    fn = lib.csl_obs_step_plan
+    out = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [cuda.I, cuda.I, cuda.I, cuda.I, out, out, out, out]
+    fn.restype = ctypes.c_int
+    grid, block, smem, tile = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = fn(d, mp, rp, nbp, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(smem),
+                 ctypes.byref(tile))
+    if err != 0:
+        raise RuntimeError(f"obs_step plan failed: {lib.csl_error_string(err).decode()} ({err})")
+    nt = -(-d // tile.value)
+    return ObsStepPlan(grid=grid.value, block=block.value, smem=smem.value, tile=tile.value,
+                       bands=mp // OBS_BAND, panels=-(-d // OS_W), tiles=nt * (nt + 1) // 2)
+
+
+def _obs_step_scratch_floats(mp: int, nbp: int, ldg: int) -> int:
+    """H10's scratch: S, S^-1, rowc, hvb, siv and the strips G, MG
+    (NBP + MP, ldg)."""
+    return 2 * mp * mp + 9 * mp + mp * nbp + 2 * (nbp + mp) * ldg
+
+
+def _frame_update_obs_resident_reference(p, x, oi: ObsInputs, bmat, vtf) -> FrameUpdateObs:
+    """Plain version of H10: the one-dispatch body's algebra on the packed
+    inputs: the chain (as H7), the sweep, pht, siv, xn and the NIS (as H8),
+    then P + G^T MG with G = [vtf; pht], MG = [B vtf; -S^-1 pht]."""
+    s, rowc, hvb = _obs_chain_reference(oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
+    si = sweep_si_reference(s, oi.nblk)
+    pht, xn, nis = _obs_panels_reference(rowc, hvb, si, oi.prows, vtf, x)
+    gmat = torch.cat([vtf, pht])
+    mg = torch.cat([bmat @ vtf, -(si @ pht)])
+    return FrameUpdateObs(p=rank_update_vbt_reference(p, gmat, mg), x=xn, nis=nis[0])
+
+
+def _obs_step_h10(p, x, slots, capacity: int, zr, zb, mask, r_cov, bmat, vtf,
+                  stamps=None) -> FrameUpdateObs:
+    """Launch H10 on CUDA tensors (``frame_update_obs``'s resident route).
+    ``stamps``, a (grid, 8) int64 CUDA tensor, takes each block's
+    %globaltimer (ns) at its phase boundaries: the start, the chain done,
+    past barrier 1, the sweep or the pht panels done, past barrier 2, the
+    gains done, past barrier 3, the P pass done; None records nothing."""
+    d, nz, nbp = p.shape[0], slots.shape[0], bmat.shape[0]
+    mp, rp = frame_shapes(nz)
+    cuda.check(p, "p", (d, d))
+    cuda.check(x, "x", (d,))
+    cuda.check(r_cov, "r_cov", (2, 2))
+    cuda.check(bmat, "bmat", (nbp, nbp))
+    cuda.check(vtf, "vtf", (nbp, d))
+    strides = (
+        cuda.vector_stride(slots, "slots", nz, torch.int64),
+        cuda.vector_stride(zr, "zr", nz),
+        cuda.vector_stride(zb, "zb", nz),
+        cuda.vector_stride(mask, "mask", nz, torch.bool),
+    )
+    dev, f32 = p.device, torch.float32
+    ldg = _round_up(d, 4)
+    p_out = torch.empty_like(p)
+    xn = torch.empty((d,), dtype=f32, device=dev)
+    nis = torch.empty((1,), dtype=f32, device=dev)
+    scratch = torch.empty((_obs_step_scratch_floats(mp, nbp, ldg),), dtype=f32, device=dev)
+    if stamps is not None:
+        cuda.check(stamps, "stamps", (obs_step_plan(d, mp, nbp, dev).grid, 8), torch.int64)
+    OBS_STEP(
+        dev, *(cuda.ptr(t) for t in (p, x, slots, zr, zb, mask, r_cov, bmat, vtf, p_out, xn, nis,
+                                     scratch)),
+        None if stamps is None else cuda.ptr(stamps),
+        *strides, d, nz, int(capacity), mp, rp, nbp, ldg,
+    )
+    return FrameUpdateObs(p=p_out, x=xn, nis=nis[0])
+
+
+def frame_update_obs(p, x, slots, capacity: int, zr, zb, mask, r_cov, bmat, vtf,
+                     *, plain: bool = False, schedule: str = "auto") -> FrameUpdateObs:
     """The gated observation frame against the frame factors: observe,
     measurement chain, mean update and the one P pass
     P + vtf^T B vtf - pht^T S^-1 pht.
 
-    Args mirror the reference: ``p`` (D, D) frame-start covariance; ``x``
-    (D,) post-factor mean; ``rows`` (3 + 2 NZ,) gathered row indices
-    [0, 1, 2, slot rows...]; ``zr``/``zb``/``mask`` (NZ,) the measurement
-    buffer; ``bmat`` (NBP, NBP) and ``vtf`` (NBP, D) the factors
-    (ops.factor_kernel).  The route is ``obs_route``'s: H7 -> H1 -> H8 ->
-    H4 where they fit, else the reference's jnp route
-    (``_frame_update_obs_reference``) where the reference has no TPU
-    schedule either; a frame only the reference's TPU schedule holds raises
-    on the card.  ``plain=True`` runs the kernels' plain PyTorch versions
-    instead, on any device.  Returns ``FrameUpdateObs(p, x, nis)`` with the
-    updated mean; P is not modified in place.
+    Args mirror the reference, except that the frame takes its raw map
+    slots ``slots`` (NZ,) int64 and the table's ``capacity`` in place of
+    the gathered rows [0, 1, 2, 3 + 2 s, 4 + 2 s, ...] (``frame_rows``, the
+    slots clamped to [0, capacity - 1]): H10 forms the rows in its launch.
+    ``p`` (D, D) is the frame-start covariance; ``x`` (D,) the post-factor
+    mean; ``zr``/``zb``/``mask`` (NZ,) the measurement buffer (strided
+    views allowed); ``bmat`` (NBP, NBP) and ``vtf`` (NBP, D) the factors
+    (ops.factor_kernel).
+
+    The route is ``obs_route``'s, decided once: H10 by default, the split
+    H7 -> H1 -> H8 -> H4 under ``schedule="split"`` (a test hook) or past
+    MP 224, the plain route where neither the port nor the reference has a
+    kernel; a frame the reference runs on a TPU kernel and no kernel of the
+    port holds raises on the card.  CPU tensors, or ``plain=True`` on any
+    device, run the route's plain PyTorch versions.  Returns
+    ``FrameUpdateObs(p, x, nis)`` with the updated mean; P is not modified
+    in place.
     """
     nz, nbp = zr.shape[0], bmat.shape[0]
-    route = obs_route(p.shape[0], nz, nbp, p.device)
-    if _past_the_kernels(route, "frame_update_obs", plain, p, x, rows, zr, zb, mask, r_cov, bmat,
-                         vtf):
+    tensors = (p, x, slots, zr, zb, mask, r_cov, bmat, vtf)
+    route = obs_route(p.shape[0], nz, nbp, p.device, schedule)
+    if route == "resident" and not (plain or cuda.on_cpu(*tensors)):
+        return _obs_step_h10(p, x, slots, capacity, zr, zb, mask, r_cov, bmat, vtf)
+    rows = frame_rows(slots, capacity)
+    if _past_the_kernels(route, "frame_update_obs", plain, *tensors):
         mp, rp = frame_shapes(nz)
         nr = rows.shape[0]
         zin, rsc, _ = _pack_meas(zr, zb, mask, r_cov, mp // 2)
@@ -1061,6 +1251,8 @@ def frame_update_obs(p, x, rows, zr, zb, mask, r_cov, bmat, vtf,
                                            F.pad(p[rows], (0, 0, 0, rp - nr)), zin, rsc, bmat,
                                            vtf, mp, rp)
     oi = obs_inputs(p, x, rows, zr, zb, mask, r_cov, vtf)
+    if route == "resident":
+        return _frame_update_obs_resident_reference(p, x, oi, bmat, vtf)
     chain_args = (oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
     if plain:
         s, rowc, hvb = _obs_chain_reference(*chain_args)

@@ -254,47 +254,53 @@ def test_split_schedule_past_mp_224_matches_plain(dev, d):
 
 def test_frames_past_the_kernels_take_the_plain_route(dev):
     # Neither the port's kernels nor the reference's TPU schedules (D not a
-    # multiple of 128) hold these frames: frame_step over 17 sub-steps, and
-    # frame_update_obs at MP 240 (NZ 120), where H7's one block outgrows
-    # shared memory.  Both run the plain route on the card, as on the CPU.
-    args = _frame_args(dev, 403, nz=10, s_steps=17)
-    assert fk.frame_route(403, 10, dev, 17) == "plain"
+    # multiple of 128) hold these frames: frame_step over 257 sub-steps, and
+    # frame_update_obs at MP 2080 (NZ 1030), past H1's 2048.  Both run the
+    # plain route on the card, as on the CPU.
+    args = _frame_args(dev, 403, nz=10, s_steps=257)
+    assert fk.frame_route(403, 10, dev, 257) == "plain"
     cpu = lambda a: a.cpu() if torch.is_tensor(a) else a   # noqa: E731
     cuda.reset_launch_counts()
     got = fk.frame_step(*args)
-    st, fargs, (rows, zr, zb, mask, r) = _gated_frame(dev, 403, nz=120)
+    st, fargs, meas = _gated_frame(dev, 2063, nz=1030)
     st1, _, vtf, bmat = _frame_factors_reference(st, *fargs)
-    uargs = (st1.p, st1.x, rows, zr, zb, mask, r, bmat, vtf)
-    assert fk.obs_route(403, 120, bmat.shape[0], dev) == "plain"
+    uargs = (st1.p, st1.x, *meas, bmat, vtf)
+    assert fk.obs_route(2063, 1030, bmat.shape[0], dev) == "plain"
     got_obs = fk.frame_update_obs(*uargs)
     torch.cuda.synchronize()
     assert not any(k.launches for k in cuda.KERNELS.values())
     ref = fk.frame_step(*map(cpu, args))
-    # Over 17 sub-steps the pose reaches ~100 m: a few ulps (7.6e-6 m) there.
+    # Over 257 sub-steps the pose reaches ~200 m: a few ulps (1.5e-5 m) there.
     torch.testing.assert_close(got.pose_trace.cpu(), ref.pose_trace, rtol=1e-5, atol=1e-4)
     _assert_frame_close(fk.FrameStep(*map(cpu, got))._replace(pose_trace=ref.pose_trace), ref)
     ref_obs = fk.frame_update_obs(*map(cpu, uargs))
-    torch.testing.assert_close(got_obs.x.cpu(), ref_obs.x, rtol=1e-4, atol=1e-4)
+    # MP 2080: S's fp32 Cholesky on the card and on the CPU round apart by
+    # ~3e-4 in the mean (S's conditioning at this size), so the mean is held
+    # to a float64 witness: the card no further from it than twice the CPU,
+    # plus the reference's 1e-4.
+    wit = fk.frame_update_obs(*(a.cpu().double() if torch.is_tensor(a) and a.is_floating_point()
+                                else cpu(a) for a in uargs))
+    e_card, e_cpu = ((t.cpu().double() - wit.x).abs().max() for t in (got_obs.x, ref_obs.x))
+    assert e_card <= 2.0 * e_cpu + 1e-4, (float(e_card), float(e_cpu))
     torch.testing.assert_close(got_obs.p.cpu(), ref_obs.p, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(got_obs.nis.cpu(), ref_obs.nis, rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("entry", ["frame_step", "frame_step_pair", "frame_update_obs"])
+@pytest.mark.parametrize("entry", ["frame_step", "frame_step_pair", "frame_factors_fused"])
 def test_frames_only_the_reference_holds_raise(dev, entry):
-    # 17 sub-steps at D = 2304 (the known frame, the pair) and MP 240 at
-    # D = 1024 (the gated frame): the reference runs a TPU kernel there and
+    # 257 sub-steps at D = 2304 (the known frame, the pair) and D = 1024
+    # (the gated frame's factors): the reference runs a TPU kernel there and
     # no kernel of the port holds the frame, so the card raises before any
-    # launch.
+    # launch.  (Every gated frame the reference's one-dispatch kernel holds
+    # runs H10 or the split: tests/test_torch_obsstep.py.)
     cuda.reset_launch_counts()
-    if entry == "frame_update_obs":
-        st, fargs, (rows, zr, zb, mask, r) = _gated_frame(dev, 1024, nz=120)
-        st1, _, vtf, bmat = _frame_factors_reference(st, *fargs)
-        assert fk.obs_route(1024, 120, bmat.shape[0], dev) == "unported"
+    if entry == "frame_factors_fused":
+        st, fargs, _ = _gated_frame(dev, 1024, s_steps=257)
         with pytest.raises(ValueError, match="reference runs a TPU kernel"):
-            fk.frame_update_obs(st1.p, st1.x, rows, zr, zb, mask, r, bmat, vtf)
+            frame_factors_fused(st, *fargs)
     else:
-        args = _frame_args(dev, 2304, nz=10, s_steps=17)
-        assert fk.frame_route(2304, 10, dev, 17) == "unported"
+        args = _frame_args(dev, 2304, nz=10, s_steps=257)
+        assert fk.frame_route(2304, 10, dev, 257) == "unported"
         p, x, slots, cap, *rest = args
         rows = fk.frame_rows(slots, cap)
         ctrl, meas = tuple(rest[:4]), tuple(rest[5:8])
@@ -432,18 +438,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         sweep_si(p, torch.tensor([4], device=dev))      # nblk must be int32
 
 
-def _gated_frame(dev, d, use_heading=True, nz=10):
-    """A frame-start state, its H5 factors from the plain version, and the
-    frame's measurement inputs, as frame_update_obs takes them."""
+def _gated_frame(dev, d, use_heading=True, nz=10, s_steps=6):
+    """A frame-start state (an exactly symmetric P), its H5 arguments, and
+    the frame's measurement inputs as frame_update_obs takes them: (slots,
+    capacity, zr, zb, mask, r_cov)."""
     (p, x, slots, cap, vns, swans, phis, actives, q, zr, zb, mask, r, wb, dt, sh,
-     _) = _frame_args(dev, d, nz=nz)
-    rows = fk.frame_rows(slots, cap)
+     _) = _frame_args(dev, d, nz=nz, s_steps=s_steps)
     from conan_slam_tpu_torch.filters.ekf.state import EKFState
 
-    st = EKFState(x=x, p=p, n_active=torch.tensor(0, device=dev),
+    st = EKFState(x=x, p=0.5 * (p + p.T), n_active=torch.tensor(0, device=dev),
                   table=torch.zeros(1, dtype=torch.int64, device=dev))
     fargs = (vns, swans, phis, actives, q, wb, dt, sh, use_heading)
-    return st, fargs, (rows, zr, zb, mask, r)
+    return st, fargs, (slots, cap, zr, zb, mask, r)
 
 
 @pytest.mark.parametrize("d,use_heading", [(256, True), (203, True), (256, False)])
@@ -494,10 +500,10 @@ def test_gating_scores_kernel_matches_plain(dev, k):
 
 @pytest.mark.parametrize("d", [256, 203])
 def test_gated_frame_kernels_match_plain_versions(dev, d):
-    st, fargs, (rows, zr, zb, mask, r) = _gated_frame(dev, d)
+    st, fargs, (slots, cap, zr, zb, mask, r) = _gated_frame(dev, d)
     st1, _, vtf, bmat = _frame_factors_reference(st, *fargs)
-    args = (st1.p, st1.x, rows, zr, zb, mask, r, bmat, vtf)
-    oi = fk.obs_inputs(st1.p, st1.x, rows, zr, zb, mask, r, vtf)
+    args = (st1.p, st1.x, slots, cap, zr, zb, mask, r, bmat, vtf)
+    oi = fk.obs_inputs(st1.p, st1.x, fk.frame_rows(slots, cap), zr, zb, mask, r, vtf)
     chain = (oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
     s_k, rowc_k, hvb_k = fk.obs_chain(*chain)
     s_p, rowc_p, hvb_p = fk._obs_chain_reference(*chain)
@@ -510,16 +516,20 @@ def test_gated_frame_kernels_match_plain_versions(dev, d):
     pp = fk._obs_panels_reference(rowc_p, hvb_p, si, oi.prows, vtf, st1.x)
     for got, ref in zip(pk, pp):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
-    cuda.reset_launch_counts()
-    got = fk.frame_update_obs(*args)
-    ref = fk.frame_update_obs(*args, plain=True)
-    torch.cuda.synchronize()
-    assert {n: cuda.KERNELS[n].launches for n in
-            ("obs_chain", "sweep_inverse", "obs_panels", "rank_update")} == {
-        "obs_chain": 1, "sweep_inverse": 1, "obs_panels": 1, "rank_update": 1}
-    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
-    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+    # The default route (H10, one launch) and the split schedule (H7, H1,
+    # H8, H4 once each), each against its plain version.
+    for schedule, want in (("auto", {"obs_step": 1}),
+                           ("split", {"obs_chain": 1, "sweep_inverse": 1, "obs_panels": 1,
+                                      "rank_update": 1})):
+        cuda.reset_launch_counts()
+        got = fk.frame_update_obs(*args, schedule=schedule)
+        ref = fk.frame_update_obs(*args, plain=True, schedule=schedule)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+        assert counts == {**dict.fromkeys(counts, 0), **want}
+        torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
 
 
 def test_gated_run_matches_plain(dev):
@@ -538,15 +548,191 @@ def test_gated_run_matches_plain(dev):
         if plain:
             assert not any(counts.values())
         else:
-            want = dict.fromkeys(("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
-                                  "obs_panels", "rank_update"), 100)
-            assert counts == {**want, "frame_chain": 0, "frame_panels": 0, "frame_step": 0}
+            want = dict.fromkeys(("factor_strip", "gating_scores", "obs_step"), 100)
+            assert counts == {**dict.fromkeys(counts, 0), **want}
     (sk, ok), (sp, op) = out[False], out[True]
     assert bool(torch.isfinite(sk.p).all()) and int(sk.n_active) > 0
     assert torch.equal(ok.n_active, op.n_active)
     # The same association over 100 frames: trajectories agree to the
     # ulp-level drift of ~5 km positions (slice 1's bound).
     torch.testing.assert_close(ok.x_est, op.x_est, rtol=0, atol=2e-2)
+
+
+def _obs_args(dev, d, nz, s_steps=6, use_heading=True):
+    """A gated frame at D = d: frame_update_obs's arguments, the factors
+    from H5's plain version (NBP 16, 24 or 56 at S 6 without and with the
+    heading update, S 18 with it)."""
+    st, fargs, meas = _gated_frame(dev, d, use_heading, nz=nz, s_steps=s_steps)
+    st1, _, vtf, bmat = _frame_factors_reference(st, *fargs)
+    return (st1.p, st1.x, *meas, bmat, vtf)
+
+
+def _obs_ulp_bounds(args, got):
+    """Elementwise bounds on two fp32 routes of one gated frame that differ
+    only in the order of their sums (H10 and the split: the same chain,
+    sweep and pht code; M G and the mean summed in other orders).  Each
+    rounds two nested sums of at most r = MP + NBP + 8 terms, each within
+    r eps of its terms' magnitudes to first order: 4 r eps times |P| +
+    |G|^T |M| |G| for P, |x| + |xn| + |v|^T |S^-1| |pht| for the mean,
+    |v|^T |S^-1| |v| for the NIS, from the plain versions."""
+    p, x, slots, cap, zr, zb, mask, r, bmat, vtf = args
+    oi = fk.obs_inputs(p, x, fk.frame_rows(slots, cap), zr, zb, mask, r, vtf)
+    s, rowc, hvb = fk._obs_chain_reference(oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
+    si = sweep_si_reference(s, oi.nblk)
+    pht = fk._obs_panels_reference(rowc, hvb, si, oi.prows, vtf, x)[0]
+    gmat = torch.cat([vtf, pht]).abs()
+    mabs = torch.block_diag(bmat.abs(), si.abs())
+    vsi = rowc[:, 7].abs() @ si.abs()
+    u = 4.0 * (oi.mp + bmat.shape[0] + 8) * 2.0**-23
+    return dict(x=u * (x.abs() + got.x.abs() + vsi @ pht.abs()),
+                p=u * (p.abs() + gmat.T @ (mabs @ gmat)), nis=u * (vsi @ rowc[:, 7].abs()))
+
+
+# H10 over MP 32, 128 and 224, NBP 16, 24 and 56, at config 2's D, an
+# unpadded D and a D smaller than one tile.
+_OBS_CASES = [(d, nz, s, h) for d in (1024, 1003) for nz in (10, 64, 112)
+              for s, h in ((6, False), (6, True), (18, True))]
+_OBS_CASES += [(13, 5, s, h) for s, h in ((6, False), (6, True), (18, True))]
+
+
+@pytest.mark.parametrize("d,nz,s_steps,use_heading", _OBS_CASES)
+def test_obs_step_kernel_matches_plain(dev, d, nz, s_steps, use_heading):
+    args = _obs_args(dev, d, nz, s_steps, use_heading)
+    nbp = args[8].shape[0]
+    assert fk.obs_route(d, nz, nbp, dev) == "resident"
+    cuda.reset_launch_counts()
+    got, again = fk.frame_update_obs(*args), fk.frame_update_obs(*args)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "obs_step": 2}
+    # Against the split schedule's kernels (H7, H1, H8, H4): the same device
+    # code up to the order of M G's and the mean's sums (_obs_ulp_bounds).
+    split = fk.frame_update_obs(*args, schedule="split")
+    for key, tol in _obs_ulp_bounds(args, got).items():
+        err = (getattr(got, key) - getattr(split, key)).abs()
+        assert bool((err <= tol).all()), (key, float(err.max()), float((err - tol).max()))
+    # Against its plain version at the reference's megakernel tolerances.
+    ref = fk.frame_update_obs(*args, plain=True)
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+    # No atomics: two calls bit-identical; the mirrored P pass keeps an
+    # exactly symmetric P exactly symmetric.
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(got.p, got.p.T)
+
+
+def test_obs_step_kernel_all_masked_is_factor_only(dev):
+    args = list(_obs_args(dev, 1024, 64))
+    args[6] = torch.zeros_like(args[6])
+    got = fk.frame_update_obs(*args)
+    ref = fk.frame_update_obs(*args, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.x, args[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    assert float(got.nis) == 0.0
+
+
+def test_obs_step_kernel_takes_strided_inputs(dev):
+    # The frame loop hands H10 the columns of the measurement buffer and the
+    # association's slots: strided views, read in place.
+    args = list(_obs_args(dev, 1024, 64))
+    z = torch.stack([args[4], args[5]], dim=1)
+    sl = torch.stack([args[2], args[2]], dim=1)
+    args[4], args[5], args[2] = z[:, 0], z[:, 1], sl[:, 1]
+    got = fk.frame_update_obs(*args)
+    ref = fk.frame_update_obs(*(a.contiguous() if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_obs_step_kernel_replays_in_a_cuda_graph(dev):
+    args = _obs_args(dev, 1024, 64)
+    eager = fk.frame_update_obs(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fk.frame_update_obs(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+def test_obs_step_plan(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fk.obs_step_plan(1024, 128, 24, dev)
+    mp, rp = fk.frame_shapes(64)
+    assert plan.grid == sms and plan.block == fk.OS_THREADS and plan.tile == 32
+    assert plan.smem == fk._obs_step_smem_bytes(mp, rp, 24, plan.tile)
+    assert (plan.bands, plan.panels, plan.tiles) == (64, 64, 32 * 33 // 2)
+    big = fk.obs_step_plan(20_224, 128, 24, dev)
+    assert big.tile == 128 and big.tiles == 158 * 159 // 2
+
+
+@pytest.mark.parametrize("mp", [160, 224, 240, 480])
+def test_banded_obs_chain_matches_plain(dev, mp):
+    # H7 in bands of one measurement, where its one-block form outgrew
+    # shared memory (from MP 160); past MP 224 the split runs it beside
+    # H1's cooperative sweep.
+    args = _obs_args(dev, 1024, mp // 2)
+    p, x, slots, cap, zr, zb, mask, r, bmat, vtf = args
+    oi = fk.obs_inputs(p, x, fk.frame_rows(slots, cap), zr, zb, mask, r, vtf)
+    chain = (oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)
+    s_k, rowc_k, hvb_k = fk.obs_chain(*chain)
+    s_p, rowc_p, hvb_p = fk._obs_chain_reference(*chain)
+    torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=1e-6 * float(s_p.abs().max()))
+    torch.testing.assert_close(rowc_k, rowc_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(hvb_k, hvb_p, rtol=1e-4, atol=1e-6)
+    again = fk.obs_chain(*chain)
+    for a, b in zip((s_k, rowc_k, hvb_k), again):
+        assert torch.equal(a, b)
+    route = fk.obs_route(1024, mp // 2, bmat.shape[0], dev)
+    assert route == ("resident" if mp <= 224 else "split")
+    cuda.reset_launch_counts()
+    got = fk.frame_update_obs(*args)
+    ref = fk.frame_update_obs(*args, plain=True)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    want = ({"obs_step": 1} if route == "resident" else
+            {"obs_chain": 1, "sweep_inverse": 1, "obs_panels": 1, "rank_update": 1})
+    assert counts == {**dict.fromkeys(counts, 0), **want}
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("s_steps", [17, 33, 64])
+def test_recursion_past_16_sub_steps_matches_plain(dev, s_steps):
+    # H2 and H9 (the known frame) and H5 (the gated frame's factors) past
+    # one warp's lanes: the recursion's terms in shared memory.
+    args = list(_frame_args(dev, 2304, nz=64, s_steps=s_steps))
+    args[0] = 0.5 * (args[0] + args[0].T)
+    assert fk.frame_route(2304, 64, dev, s_steps) == "resident"
+    cuda.reset_launch_counts()
+    got = fk.frame_step(*args)
+    split = fk.frame_step(*args, schedule="split")
+    ref = fk.frame_step(*args, plain=True)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "frame_step": 1, "frame_chain": 1,
+                      "sweep_inverse": 1, "frame_panels": 1, "rank_update": 1}
+    for out in (got, split):
+        # Over 64 sub-steps the pose reaches ~55 m: a few ulps there.
+        torch.testing.assert_close(out.pose_trace, ref.pose_trace, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(out.x, ref.x, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(out.p, ref.p, rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(out.nis, ref.nis, rtol=1e-3, atol=1e-5)
+    assert torch.equal(got.p, got.p.T)
+    st, fargs, _ = _gated_frame(dev, 1024, s_steps=s_steps)
+    got = frame_factors_fused(st, *fargs)
+    ref = _frame_factors_reference(st, *fargs)
+    torch.testing.assert_close(got[0].x, ref[0].x, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-5 * float(ref[2].abs().max()))
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-6)
 
 
 def _pair_args(dev, d, seed=83, nz=10):

@@ -183,10 +183,15 @@ def test_frame_rows_match_reference_rows():
     (2304, 120, 6, "split", "split"),
     (403, 120, 6, "auto", "split"),
     (1003, 500, 6, "auto", "split"),        # SlamConfig()'s NZ = every landmark
-    # Past the port's 16 sub-steps: the reference's streaming chain kernel
+    # Past 16 sub-steps (one warp's lanes until F3b): H9.
+    (2304, 64, 17, "auto", "resident"),
+    (2051, 64, 33, "auto", "resident"),
+    (2304, 64, 256, "auto", "resident"),
+    (2304, 120, 64, "auto", "split"),
+    # Past the port's 256 sub-steps: the reference's streaming chain kernel
     # has a tile at D = 2304, none at a D that is no multiple of 128.
-    (2304, 64, 17, "auto", "unported"),
-    (2051, 64, 17, "auto", "plain"),
+    (2304, 64, 257, "auto", "unported"),
+    (2051, 64, 257, "auto", "plain"),
     (2304, 1100, 6, "auto", "plain"),       # past MP 2048, and past the reference's VMEM
     (13, 5, 1, "auto", "resident"),
 ])
@@ -198,33 +203,43 @@ def test_frame_route(d, nz, s, schedule, route):
         tfk.frame_route(d, nz, "cpu", s, "resident")
 
 
-@pytest.mark.parametrize("d,nz,nbp,route", [
-    (1024, 64, 24, "split"), (1024, 10, 56, "split"),
-    # H7 holds the gathered block, the factor strip's rows and S in one
-    # block: from MP 160 at NBP 24 that outgrows shared memory.  The
-    # reference's gated frame has a row panel at D = 1024, none at 2304.
-    (1024, 112, 24, "unported"), (2304, 112, 24, "plain"), (1024, 120, 24, "unported"),
-    (2304, 120, 24, "plain"), (403, 120, 24, "plain"), (1003, 500, 24, "plain"),
+@pytest.mark.parametrize("d,nz,nbp,schedule,route", [
+    (1024, 64, 24, "auto", "resident"), (1024, 10, 56, "auto", "resident"),
+    (1024, 64, 24, "split", "split"),
+    # MP 160 to 224: H10 (until H7 ran in bands these raised or took the
+    # plain route: H7's one block outgrew shared memory from MP 160).
+    (1024, 112, 24, "auto", "resident"), (2304, 112, 24, "auto", "resident"),
+    (1024, 80, 24, "auto", "resident"),
+    # Past MP 224: the split, H7 in bands and H1's cooperative sweep.
+    (1024, 120, 24, "auto", "split"), (2304, 120, 24, "auto", "split"),
+    (403, 120, 24, "auto", "split"), (1003, 500, 24, "auto", "split"),
+    (128, 320, 776, "auto", "split"),   # the reference's largest NZ at D = 128, S = 256
+    # Past MP 2048: the reference's gated frame has no row panel there.
+    (2304, 1100, 24, "auto", "plain"), (2304, 1100, 24, "split", "plain"),
 ])
-def test_obs_route(d, nz, nbp, route):
-    assert tfk.obs_route(d, nz, nbp, "cpu") == route
-    if route != "split":
+def test_obs_route(d, nz, nbp, schedule, route):
+    assert tfk.obs_route(d, nz, nbp, "cpu", schedule) == route
+    if route in ("plain", "unported"):
         assert (route == "unported") == jfk.can_fuse_frame(d, nz, nbp)
+    with pytest.raises(ValueError):
+        tfk.obs_route(d, nz, nbp, "cpu", "resident")
 
 
-def _big_problem(seed=101, nz=120):
-    """A frame past the kernels' limits: NZ 120 (MP 240) of 200 landmarks,
-    D = 403 (unpadded)."""
-    return _problem(seed, nz, 6, capacity=200, pad_multiple=0)
+def _big_problem(seed=101, nz=1030):
+    """A gated frame past the kernels' limits: NZ 1030 (MP 2080, past H1's
+    2048) of 1030 landmarks, D = 2063 (unpadded)."""
+    return _problem(seed, nz, 6, capacity=nz, pad_multiple=0)
 
 
 @pytest.mark.parametrize("capacity,pad,route", [(200, 0, "plain"), (126, 128, "unported")])
 def test_frame_step_past_the_kernels_takes_the_plain_route(capacity, pad, route):
-    # 17 sub-steps at D = 403 (plain) and D = 256 (unported: the reference
-    # has a TPU schedule, so the card raises; the CPU runs the plain route).
-    prob = _problem(101, 10, 17, capacity=capacity, pad_multiple=pad)
-    assert tfk.frame_route(prob["p"].shape[0], 10, "cpu", 17) == route
-    ref = jax.jit(jfk.frame_step, static_argnums=(12, 13, 14, 15))(*_jax_args(prob), *TAIL, True)
+    # 257 sub-steps, past the port's 256, at D = 403 (plain) and D = 256
+    # (unported: the reference has a TPU schedule, so the card raises; the
+    # CPU runs the plain route).
+    prob = _problem(101, 10, 257, capacity=capacity, pad_multiple=pad)
+    assert tfk.frame_route(prob["p"].shape[0], 10, "cpu", 257) == route
+    # Eager: jit would trace and compile all 257 sub-steps unrolled (minutes).
+    ref = jfk.frame_step(*_jax_args(prob), *TAIL, True)
     cuda.reset_launch_counts()
     got = tfk.frame_step(*_args(prob), *TAIL, True)
     assert not any(k.launches for k in cuda.KERNELS.values())
@@ -247,8 +262,8 @@ def test_frame_step_past_mp_224_takes_the_split_schedule():
 
 
 def test_frame_step_pair_past_the_kernels_is_two_plain_frames():
-    # Frame B sees the same landmarks with other controls; 17 sub-steps.
-    prob = _problem(101, 10, 17, capacity=200, pad_multiple=0)
+    # Frame B sees the same landmarks with other controls; 257 sub-steps.
+    prob = _problem(101, 10, 257, capacity=200, pad_multiple=0)
     t = {k: torch.as_tensor(prob[k]) for k in KEYS}
     slots = torch.as_tensor(prob["slots"])
     ctrl_a = (t["vns"], t["swans"], t["phis"], t["act"])
@@ -256,7 +271,7 @@ def test_frame_step_pair_past_the_kernels_is_two_plain_frames():
     meas = (t["zr"], t["zb"], t["mask"])
     pair = tfk.frame_step_pair(t["p"], t["x"], t["rows"], ctrl_a, meas, t["rows"], ctrl_b, meas,
                                t["q"], t["r"], *TAIL, True)
-    assert tfk.frame_route(prob["p"].shape[0], 10, "cpu", 17, "split") == "plain"
+    assert tfk.frame_route(prob["p"].shape[0], 10, "cpu", 257, "split") == "plain"
     fa = tfk.frame_step(t["p"], t["x"], slots, 200, *ctrl_a, t["q"], *meas, t["r"], *TAIL, True)
     fb = tfk.frame_step(fa.p, fa.x, slots, 200, *ctrl_b, t["q"], *meas, t["r"], *TAIL, True)
     for got, want in ((pair.p, fb.p), (pair.x, fb.x), (pair.pose_mid, fa.x[:3]),
@@ -270,16 +285,18 @@ def test_frame_update_obs_past_the_kernels_takes_the_plain_route():
 
     prob = _big_problem()
     j = dict(zip(KEYS, _jax_args(prob)))
-    state = jekf.init_state_with_map(np.zeros((200, 2), np.float32), pad_multiple=0)
+    state = jekf.init_state_with_map(np.zeros((1030, 2), np.float32), pad_multiple=0)
     state = state._replace(p=j["p"], x=j["x"])
     st1, _, vtf, bmat = j_frame_factors_fused(state, j["vns"], j["swans"], j["phis"], j["act"],
                                               j["q"], *TAIL, True)
     ref = jax.jit(jfk.frame_update_obs)(st1.p, st1.x, j["rows"], j["zr"], j["zb"], j["mask"],
                                         j["r"], bmat, vtf)
-    assert tfk.obs_route(403, 120, vtf.shape[0], "cpu") == "plain"
+    assert tfk.obs_route(2063, 1030, vtf.shape[0], "cpu") == "plain"
     t = lambda a: torch.as_tensor(np.array(a))   # noqa: E731
-    got = tfk.frame_update_obs(t(st1.p), t(st1.x), t(prob["rows"]), t(prob["zr"]), t(prob["zb"]),
-                               t(prob["mask"]), t(prob["r"]), t(bmat), t(vtf))
+    cuda.reset_launch_counts()
+    got = tfk.frame_update_obs(t(st1.p), t(st1.x), t(prob["slots"]), 1030, t(prob["zr"]),
+                               t(prob["zb"]), t(prob["mask"]), t(prob["r"]), t(bmat), t(vtf))
+    assert not any(k.launches for k in cuda.KERNELS.values())
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(float(got.nis), float(ref.nis), rtol=1e-3, atol=1e-5)

@@ -228,11 +228,12 @@ def _update_problem(seed, all_masked=False, nb=12):
 
 @pytest.mark.parametrize("all_masked", [False, True])
 def test_frame_update_obs_matches_reference_kernel(all_masked):
-    x, p, _, _, z, _, mask, vmat, bmat, rows = _update_problem(13, all_masked)
+    x, p, _, _, z, ids, mask, vmat, bmat, rows = _update_problem(13, all_masked)
     vtf = np.ascontiguousarray(vmat.T)
     args = (p, x, rows.astype(np.int32), z[:, 0], z[:, 1], mask, R_COV, bmat, vtf)
     ref = jfk.frame_update_obs(*map(_j, args), interpret=True)
-    got = tfk.frame_update_obs(*(_t(a) for a in args[:2]), _t(rows.astype(np.int64)),
+    # The port takes the raw slots and the table's capacity (100 slots).
+    got = tfk.frame_update_obs(*(_t(a) for a in args[:2]), _t(ids.astype(np.int64)), 100,
                                *map(_t, args[3:]))
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-3, atol=1e-4)

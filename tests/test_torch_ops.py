@@ -293,4 +293,4 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         tfk.obs_panels(*(torch.ones(2, 2).to("meta") for _ in range(6)))
     assert set(cuda.KERNELS) == {"sweep_inverse", "frame_chain", "frame_panels", "rank_update",
                                  "factor_strip", "gating_scores", "obs_chain", "obs_panels",
-                                 "frame_step"}
+                                 "frame_step", "obs_step"}

@@ -77,7 +77,10 @@ def _run_frame_update_obs(seed):
     rows, ctrl, meas = _frame(rng, x.numpy(), 10, 100)
     st = EKFState(x=x, p=p, n_active=torch.tensor(100), table=torch.zeros(1, dtype=torch.int64))
     st1, _, vtf, bmat = _frame_factors_reference(st, *ctrl, q, *TAIL)
-    tfk.frame_update_obs(st1.p, st1.x, rows, *meas, r, bmat, vtf)
+    # The split hands (G, M) to H4; H10 runs the same tile pass on the same
+    # G = [vtf; pht] and M G, formed inside its launch.
+    tfk.frame_update_obs(st1.p, st1.x, (rows[3::2] - 3) // 2, 100, *meas, r, bmat, vtf,
+                         schedule="split")
 
 
 def _run_frame_step_pair(seed):
