@@ -44,7 +44,20 @@ Phases:
           phases (%globaltimer), its plan and bound;
        c. the frame pair (two frames, one H4 pass at r = 2 (MP + 8)) at the
           bench shape and at a ragged D, against its plain version and
-          against two sequential kernel frames, and H4 at r = 272.
+          against two sequential kernel frames, and H4 at r = 272;
+       d. the T9 probes: H11 (the sweep variants unroll2, unroll4 and
+          wide4 at MP 128, NBLK 40 and 39: sym(unroll) bit for bit H1, each
+          against its plain version, the symmetry harness of
+          tests/test_pallas_ops.py:83, each variant's time a pivot), H12
+          (the stream copy at D 2304 and past the L2, its TB/s), H13, H14
+          (both observe paths) and H4's probe entry (its plan bit for bit
+          H4, tiles 32/64/128 persistent or one a tile, no P read, rank
+          3 r), each against its plain version; then, with the launch
+          counts set to 0, the port-side benches
+          (conan_slam_tpu_torch/benchmarks: probe_sweep, probe_rankpass,
+          probe_mosaic, and bench_framestep's graph-chained modes at
+          FS_STEPS 2400), each gating its kernels before it prints its µs
+          (CUDA graph and eager) beside the library call's.
      Beside them, the time of one PyTorch call computing the same function
      where there is one (torch.linalg.inv for H1, torch.addmm for H4), and
      each kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -117,11 +130,9 @@ import time
 import numpy as np
 
 N_LANDMARKS = 1024      # all pre-registered: D = 3 + 2 * 1024 = 2051, padded 2304
-WORLD_EXTENT = 6500.0   # ~40 landmarks visible per frame at 2000 m range
 BENCH_STEPS = 19200
 PLAIN_STEPS = 600       # the known path's plain-version run (its kernels run all 19,200)
 SEED = 42
-SIGMA0 = 1.0
 PROFILE_FRAMES = 100    # frames of each main path traced with torch.profiler
 GATED_STEPS = 25_002    # BASELINE config 2: 25,000 steps rounded up to whole frames
 GATED_PLAIN_STEPS = 600 # the gated path's plain run (its kernels run all 25,002)
@@ -136,7 +147,15 @@ GATED_KERNELS = ("factor_strip", "gating_scores", "obs_step")   # H10: the gated
 GATED_SPLIT_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
                        "obs_panels", "rank_update")
 ORDER = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update", "factor_strip",
-         "gating_scores", "obs_chain", "obs_panels", "frame_step", "obs_step")
+         "gating_scores", "obs_chain", "obs_panels", "frame_step", "obs_step", "sweep_probe",
+         "stream_copy", "probe_dots", "probe_observe", "rank_update_tile")
+# The kernels of the T9 probes (phase 3d): H11-H14 and H4's probe entry.
+PROBE_KERNELS = ("sweep_probe", "stream_copy", "probe_dots", "probe_observe", "rank_update_tile")
+# The kernels the probe path drives besides them (bench_framestep's modes).
+PROBE_PATH_KERNELS = PROBE_KERNELS + ("sweep_inverse", "rank_update", "frame_step", "obs_step",
+                                      "factor_strip", "frame_chain", "frame_panels")
+PROBE_FS_MODES = ("sweeponly", "sweep", "chol", "noop", "ppass", "stepkernel", "stepkernel_big",
+                  "fullkernel", "factkernel")
 CHUNK_STEPS = 4800      # the chunked driver's chunk: 800 frames = 400 pairs
 # The card's published peaks (H100 SXM data sheet, at 700 W): fp32 outside
 # the tensor cores, and HBM3.
@@ -342,15 +361,11 @@ def h4_measure(label: str, p, gmat, mmid, max_abs_err: float) -> dict:
 
 
 def bench_world(device, pad_multiple=256):
-    from conan_slam_tpu_torch.filters.ekf import init_state_with_map
-    from conan_slam_tpu_torch.sim.world import _WP_X, _WP_Y, world_from_numpy
+    """The bench workload's world and start state (benchmarks.world, which
+    bench_framestep runs on too)."""
+    from conan_slam_tpu_torch.benchmarks.world import bench_world as world_of
 
-    rng = np.random.default_rng(SEED)
-    lm = rng.uniform(-WORLD_EXTENT, WORLD_EXTENT, size=(N_LANDMARKS, 2)).astype(np.float32)
-    wp = np.stack([_WP_X, _WP_Y], axis=1).astype(np.float32)
-    world = world_from_numpy(lm, wp, device)
-    state0 = init_state_with_map(world.landmarks, sigma0=SIGMA0,
-                                 pad_multiple=pad_multiple, device=device)
+    _, world, state0 = world_of(N_LANDMARKS, device, pad_multiple)
     return world, state0
 
 
@@ -1625,6 +1640,277 @@ def pair_checks(device) -> dict:
     return stats
 
 
+def probe_checks(device) -> dict:
+    """Phase 3d, first half: each probe kernel (H11-H14, H4's probe entry)
+    against its plain version on the card at the probes' shapes, with its
+    time, its plain version's, the library call's and its bound."""
+    import torch
+
+    from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs, observe_inputs
+    from conan_slam_tpu_torch.benchmarks.probe_sweep import probe_matrix
+    from conan_slam_tpu_torch.ops import probes as pr
+    from conan_slam_tpu_torch.ops.rank_update import (
+        rank_update_plan,
+        rank_update_vbt,
+        rank_update_vbt_reference,
+    )
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_si
+
+    stats = {}
+    eps = torch.finfo(torch.float32).eps
+
+    # --- H11 at the sweep probe's shape (MP 128, NBLK 40), and NBLK 39 (R6) ---
+    mp = 128
+    s_np = probe_matrix(mp)
+    s_np = 0.5 * (s_np + s_np.T)
+    np.fill_diagonal(s_np, 1.0)      # H1's scaling and symmetrization are then the identity
+    s = torch.as_tensor(s_np, device=device)
+    log(f"H11 sweep_probe, MP {mp} (S exactly symmetric, unit diagonal):")
+    worst = 0.0
+    for nblk in (40, 39):
+        k = 2 * nblk
+        h1 = sweep_si(s, torch.tensor([nblk], dtype=torch.int32, device=device))
+        inv = torch.as_tensor(np.linalg.inv(s_np[:k, :k].astype(np.float64)), device=device)
+        for variant in pr.SWEEP_VARIANTS:
+            got = pr.sweep_probe(s, nblk, variant)
+            plain = pr.sweep_probe_reference(s, nblk, variant)
+            tol = 4 * mp * eps * float(h1[:k, :k].abs().max())
+            if variant != "wide4":
+                require(torch.equal(0.5 * (got + got.T), h1), f"H11 {variant} nblk={nblk} vs H1",
+                        "sym(H11) bit for bit H1, which symmetrizes after its sweep (the same "
+                        "fmaf chain a pivot)")
+            worst = max(worst, check(f"H11 {variant} nblk={nblk} vs plain", got, plain, 0.0, tol,
+                                     "the probe's algebra, another fp32 order: 4 MP eps x "
+                                     "max|swept block|"))
+            check(f"H11 {variant} nblk={nblk} swept block vs float64 inverse", got[:k, :k], inv,
+                  0.0, 1e-4, "the probe's own gate")
+        require(torch.equal(pr.sweep_probe(s, nblk, "wide4"), pr.sweep_probe(s, nblk, "wide4")),
+                f"H11 wide4 nblk={nblk} deterministic", "two calls bit for bit equal")
+    # The symmetry property of tests/test_pallas_ops.py:83 (an S with an
+    # antisymmetric 1e-3 part): H11 sweeps what it is given, so it is
+    # given sym(S), scaled to a unit diagonal, as H1 forms it.
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(mp, mp)).astype(np.float32)
+    e = rng.normal(size=(mp, mp)).astype(np.float32) * 1e-3
+    s_asym = (a @ a.T / mp + np.eye(mp, dtype=np.float32) + (e - e.T)).astype(np.float64)
+    s_sym = 0.5 * (s_asym + s_asym.T)
+    dsc = 1.0 / np.sqrt(np.diag(s_sym))
+    s_sc = torch.as_tensor((s_sym * dsc[:, None] * dsc[None, :]).astype(np.float32), device=device)
+    inv = torch.as_tensor(np.linalg.inv(s_sc.double().cpu().numpy()), device=device)
+    for variant in pr.SWEEP_VARIANTS:
+        got = pr.sweep_probe(s_sc, mp // 2, variant)
+        asym = float((got - got.T).abs().max())
+        require(asym < 1e-6, f"H11 {variant} symmetry",
+                f"sym(S) in -> asym(S^-1) = {asym:.1e} < 1e-6 (the harness's bound)")
+        check(f"H11 {variant} symmetry harness vs inverse", got, inv, 5e-3, 1e-4,
+              "the harness's bounds")
+    nb40 = 40
+    fn = lambda: pr.sweep_probe(s, nb40, "wide4")        # noqa: E731
+    st = dict(max_abs_err=worst, ms=time_ms(fn, 200),
+              plain_ms=time_ms(lambda: pr.sweep_probe_reference(s, nb40, "wide4"), 5),
+              library_ms=time_ms(lambda: torch.linalg.inv_ex(s), 200), device_ms=device_ms(fn),
+              **bound(2 * nbytes(s), nb40 * 4.0 * mp * mp))
+    # Each variant at NBLK 40 and at NBLK 0 (its load and store alone): the
+    # difference over 40 is its time a pivot.
+    h1_nb = {n: torch.tensor([n], dtype=torch.int32, device=device) for n in (0, nb40)}
+    st["variants_device_ms"], st["variants_fixed_ms"] = {}, {}
+    for v in pr.SWEEP_VARIANTS + ("v0 (H1)",):
+        for n, key in ((nb40, "variants_device_ms"), (0, "variants_fixed_ms")):
+            fn = ((lambda n=n: sweep_si(s, h1_nb[n])) if v == "v0 (H1)"
+                  else (lambda v=v, n=n: pr.sweep_probe(s, n, v)))
+            st[key][v] = device_ms(fn)
+    log("  H11 device time at NBLK 40 (profiler): " + ", ".join(
+        f"{k} {t * 1e3:.2f} us ({st['variants_fixed_ms'][k] * 1e3:.2f} at NBLK 0: "
+        f"{(t - st['variants_fixed_ms'][k]) * 1e3 / nb40:.3f} us a pivot)"
+        for k, t in st["variants_device_ms"].items()))
+    stats["sweep_probe"] = st
+
+    # --- H12 at the rank-pass probe's D (2304) ---
+    d = 2304
+    x = torch.randn((d, d), device=device, generator=torch.Generator(device).manual_seed(12))
+    out = torch.empty_like(x)
+    got = pr.stream_copy(x)
+    require(torch.equal(got, x), "H12 stream_copy", "bit for bit the input (D 2304)")
+    fn = lambda: pr.stream_copy(x)                        # noqa: E731
+    st = dict(max_abs_err=0.0, ms=time_ms(fn, 200), plain_ms=time_ms(lambda: x.clone(), 200),
+              library_ms=time_ms(lambda: out.copy_(x), 200), device_ms=device_ms(fn),
+              library_device_ms=device_ms(lambda: out.copy_(x)), **bound(2 * nbytes(x), 0.0))
+    st["tb_per_s"] = 2 * nbytes(x) / (st["device_ms"] * 1e-3) / 1e12
+    st["library_tb_per_s"] = 2 * nbytes(x) / (st["library_device_ms"] * 1e-3) / 1e12
+    log(f"  H12 at D {d}: {st['device_ms'] * 1e3:.2f} us of device time = {st['tb_per_s']:.3f} "
+        f"TB/s (Tensor.copy_ {st['library_device_ms'] * 1e3:.2f} us = "
+        f"{st['library_tb_per_s']:.3f} TB/s) against the 3.35 TB/s spec "
+        f"({st['bound_ms'] * 1e3:.2f} us); P's 21 MB in and out fit the 50 MB L2")
+    # Past the L2: a (4 D)^2 copy, 340 MB in and out, from device memory.
+    big = torch.randn((4 * d, 4 * d), device=device,
+                      generator=torch.Generator(device).manual_seed(13))
+    big_out = torch.empty_like(big)
+    require(torch.equal(pr.stream_copy(big), big), "H12 stream_copy past L2", "bit for bit")
+    t_big = device_ms(lambda: pr.stream_copy(big))
+    t_big_lib = device_ms(lambda: big_out.copy_(big))
+    st["tb_per_s_past_l2"] = 2 * nbytes(big) / (t_big * 1e-3) / 1e12
+    st["library_tb_per_s_past_l2"] = 2 * nbytes(big) / (t_big_lib * 1e-3) / 1e12
+    log(f"  H12 at D {4 * d} (past L2): {t_big * 1e3:.2f} us = {st['tb_per_s_past_l2']:.3f} TB/s "
+        f"(Tensor.copy_ {t_big_lib * 1e3:.2f} us = {st['library_tb_per_s_past_l2']:.3f} TB/s)")
+    del big, big_out
+    stats["stream_copy"] = st
+
+    # --- H13 at the dots probe's shape ---
+    args = [torch.as_tensor(a, device=device) for a in dots_inputs()]
+    got, ref = pr.probe_dots(*args), pr.probe_dots_reference(*args)
+    err = max(check(f"H13 probe_dots {n}", g, r, 0.0, 1e-5 * float(r.abs().max()),
+                    "sums of 136 / 128 products in another order: 1e-5 of max|ref|")
+              for n, g, r in zip(("phtt", "sipht", "sivpht"), got, ref))
+    dd, mpd, rpd = args[0].shape[1], args[1].shape[0], args[1].shape[1]
+
+    def dots_lib():
+        phtt = torch.matmul(args[0].T, args[1].T)
+        return phtt, torch.matmul(args[2], phtt.T), torch.matmul(args[3], phtt.T)
+    fn = lambda: pr.probe_dots(*args)                     # noqa: E731
+    st = dict(max_abs_err=err, ms=time_ms(fn, 200),
+              plain_ms=time_ms(lambda: pr.probe_dots_reference(*args), 200),
+              library_ms=time_ms(dots_lib, 200), device_ms=device_ms(fn),
+              **bound(nbytes(*args, *got), 2.0 * dd * mpd * rpd + 2.0 * mpd * mpd * dd
+                      + 2.0 * mpd * dd))
+    stats["probe_dots"] = st
+
+    # --- H14 at the observe probe's inputs, both paths ---
+    (xrows, zin, rsc, mpo, rpo), refs = observe_inputs()
+    args = [torch.as_tensor(a, device=device) for a in (xrows, zin, rsc)]
+    plain = pr.probe_observe_reference(*args, mpo, rpo)
+    err = 0.0
+    for path in pr.OBSERVE_PATHS:
+        got = pr.probe_observe(*args, mpo, rpo, path)
+        for (name, tol), g, p_, r in zip((("hc", 1e-4), ("rmat", 1e-5), ("v", 1e-4)), got,
+                                         plain, refs):
+            err = max(err, check(f"H14 {path} {name} vs plain", g, p_, 1e-5,
+                                 1.6e-5 if name == "v" else 1e-6,
+                                 "atan2f, sqrtf and divisions against torch's: a few ulps; v's "
+                                 "range rows are differences of ~60 m ranges (2 ulps of 64 m)"))
+            check(f"H14 {path} {name} vs numpy", g, torch.as_tensor(r, device=device), 0.0, tol,
+                  "the probe's own tolerance")
+    fn = lambda: pr.probe_observe(*args, mpo, rpo, "gated")     # noqa: E731
+    st = dict(max_abs_err=err, ms=time_ms(fn, 200),
+              plain_ms=time_ms(lambda: pr.probe_observe_reference(*args, mpo, rpo), 20),
+              library_ms=None, device_ms=device_ms(fn),
+              **bound(nbytes(*args, *plain), 40.0 * mpo // 2))
+    st["known_device_ms"] = device_ms(lambda: pr.probe_observe(*args, mpo, rpo, "known"))
+    stats["probe_observe"] = st
+
+    # --- H4's probe entry at the rank-pass probe's shape (D 2304, r 288) ---
+    r = 288
+    g = torch.Generator(device).manual_seed(4)
+    p = torch.randn((d, d), device=device, generator=g)
+    vt = torch.randn((r, d), device=device, generator=g) * 1e-2
+    b = torch.randn((r, r), device=device, generator=g)
+    vbt = (0.5 * (b + b.T)) @ vt
+    tile, grid = rank_update_plan(d, device)
+    default = rank_update_vbt(p, vt, vbt)
+    require(torch.equal(pr.rank_update_tile(p, vt, vbt, tile, grid), default),
+            "H4 probe entry at the plan", f"tile {tile}, grid {grid}: bit for bit H4's default")
+    ref = rank_update_vbt_reference(p, vt, vbt)
+    err = 0.0
+    for t in pr.RANK_TILES:
+        for gr in (0, grid):
+            err = max(err, check(f"H4 probe entry tile {t} grid {gr or 'one a tile'}",
+                                 pr.rank_update_tile(p, vt, vbt, t, gr), ref, 1e-5, 1e-4,
+                                 "fp32 sums of 288 products in another order"))
+        check(f"H4 probe entry tile {t}, no P read", pr.rank_update_tile(None, vt, vbt, t),
+              pr.rank_update_tile_reference(None, vt, vbt), 1e-5, 1e-4,
+              "fp32 sums of 288 products in another order")
+    fn = lambda: pr.rank_update_tile(p, vt, vbt, tile, grid)      # noqa: E731
+    st = dict(max_abs_err=err, ms=time_ms(fn, 50),
+              plain_ms=time_ms(lambda: rank_update_vbt_reference(p, vt, vbt), 50),
+              library_ms=time_ms(lambda: torch.addmm(p, vt.T, vbt), 50), device_ms=device_ms(fn),
+              **rank_update_entry_work(p, vt, vbt))
+    st["device_ms_by_tile"] = {
+        f"{t}, {'persistent' if gr else 'one a tile'}":
+            device_ms(lambda t=t, gr=gr: pr.rank_update_tile(p, vt, vbt, t, gr))
+        for t in pr.RANK_TILES for gr in (0, grid)}
+    st["no_p_device_ms_by_tile"] = {
+        t: device_ms(lambda t=t: pr.rank_update_tile(None, vt, vbt, t)) for t in pr.RANK_TILES}
+    # mmonly's plain version and torch.mm, and make_stacked's one pass at
+    # rank 3 r (H4's default entry) against its plain version and addmm.
+    st["no_p_plain_ms"] = time_ms(lambda: pr.rank_update_tile_reference(None, vt, vbt), 50)
+    st["no_p_library_ms"] = time_ms(lambda: torch.mm(vt.T, vbt), 50)
+    st["no_p_library_device_ms"] = device_ms(lambda: torch.mm(vt.T, vbt))
+    g3, m3 = torch.cat([vt] * 3), torch.cat([vbt] * 3)
+    st["stack3"] = dict(device_ms=device_ms(lambda: rank_update_vbt(p, g3, m3)),
+                        plain_ms=time_ms(lambda: rank_update_vbt_reference(p, g3, m3), 20),
+                        library_ms=time_ms(lambda: torch.addmm(p, g3.T, m3), 20),
+                        library_device_ms=device_ms(lambda: torch.addmm(p, g3.T, m3)),
+                        **rank_update_entry_work(p, g3, m3))
+    log(f"  H4 at rank 3 r = {3 * r} (stack3): {st['stack3']['device_ms'] * 1e3:.2f} us of device "
+        f"time (torch.addmm {st['stack3']['library_device_ms'] * 1e3:.2f} us), bound "
+        f"{st['stack3']['bound_ms'] * 1e3:.2f} us ({st['stack3']['bound_by']}); no P read, "
+        f"torch.mm {st['no_p_library_device_ms'] * 1e3:.2f} us")
+    log("  H4 probe entry at D 2304, r 288 (device time): " + ", ".join(
+        f"tile {k}: {v * 1e3:.2f} us" for k, v in st["device_ms_by_tile"].items())
+        + "; no P read: " + ", ".join(
+        f"tile {k}: {v * 1e3:.2f} us" for k, v in st["no_p_device_ms_by_tile"].items()))
+    stats["rank_update_tile"] = st
+    log_times({k: stats[k] for k in PROBE_KERNELS}, " (probe shapes)")
+    return stats
+
+
+def probe_path(device) -> tuple[dict, dict, dict]:
+    """Phase 3d, second half: the T9 probes' own path, the port-side
+    benches at their defaults (every variant of probe_sweep and
+    probe_rankpass, both probe_mosaic probes, and bench_framestep's
+    graph-chained modes at FS_STEPS 2400), with the launch counts of that
+    run alone: the wrappers' calls (captures, eager loops, warm-ups, gates)
+    and, apart, the launches replayed in CUDA graphs (captured x replays).
+    Each bench gates its kernels before it times them and holds each
+    graph's carry to the eager loop's; a bench that raises fails the
+    phase."""
+    import traceback
+
+    import torch
+
+    from conan_slam_tpu_torch.benchmarks import (
+        bench_framestep,
+        probe_mosaic,
+        probe_rankpass,
+        probe_sweep,
+    )
+    from conan_slam_tpu_torch.ops import cuda
+
+    runs = (("probe_sweep", probe_sweep, None), ("probe_rankpass", probe_rankpass,
+                                                  list(probe_rankpass.ALL)),
+            ("probe_mosaic", probe_mosaic, ["all"]),
+            ("bench_framestep", bench_framestep, list(PROBE_FS_MODES)))
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = {}
+    for name, module, argv in runs:
+        log(f"probe path: {name} {' '.join(argv or [])}")
+        try:
+            results[name] = module.main(argv, device=str(device))
+        except Exception:          # a failed gate or capture fails the phase, not the run
+            log(traceback.format_exc())
+            FAILURES.append(f"probe path: {name}")
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"probe path: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    for k in PROBE_PATH_KERNELS:
+        require(counts[k] > 0, f"probe path launches {k}", f"{counts[k]} launches")
+    replayed: dict[str, int] = {}
+
+    def add(tree):      # every scan_graph result's "launches" in the benches' results
+        if isinstance(tree, dict):
+            for k, n in tree.get("launches", {}).items():
+                replayed[k] = replayed.get(k, 0) + n
+            for v in tree.values():
+                add(v)
+    add(results)
+    log(f"probe path: launches replayed in CUDA graphs (captured x replays): {replayed}")
+    for k in PROBE_PATH_KERNELS:
+        require(replayed.get(k, 0) > 0, f"probe path replays {k}",
+                f"{replayed.get(k, 0)} launches replayed")
+    return results, counts, replayed
+
+
 def launches() -> dict:
     from conan_slam_tpu_torch.ops import cuda
 
@@ -2096,6 +2382,10 @@ def main() -> int:
     gstats = gated_kernel_checks(device)
     pstats = pair_checks(device)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prstats = probe_checks(device)
+    probes, pbcounts, pbreplayed = probe_path(device)
+    log(f"T9 probes (phase 3d): {time.perf_counter() - t0:.1f} s")
 
     # --- phase 4: the main paths ---
     t0 = time.perf_counter()
@@ -2122,19 +2412,24 @@ def main() -> int:
                        big_world(device), gated_cfg(BIG_LANDMARKS), None, schedule=schedule)
 
     # --- phase 5: report ---
-    allstats = {**stats, **gstats}
+    allstats = {**stats, **gstats, **prstats}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extras = ("device_ms", "fixed_ms", "library_device_ms", "wrapper_ms", "bound_square_ms", "tile",
               "grid", "plan", "device_ms_by_s", "device_ms_by_mp", "phases_us", "device_ms_coop",
               "device_ms_by_nbp", "device_ms_turns", "split_ms", "device_ms_10k",
-              "device_ms_turns_10k", "bound_ms_10k", "bound_by_10k", "tile_10k", "phases_us_10k")
+              "device_ms_turns_10k", "bound_ms_10k", "bound_by_10k", "tile_10k", "phases_us_10k",
+              "variants_device_ms", "variants_fixed_ms", "tb_per_s", "library_device_ms",
+              "library_tb_per_s", "tb_per_s_past_l2", "library_tb_per_s_past_l2",
+              "known_device_ms", "device_ms_by_tile", "no_p_device_ms_by_tile", "no_p_plain_ms",
+              "no_p_library_ms", "no_p_library_device_ms", "stack3")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
-                      + pcounts[k.name]),
+                      + pcounts[k.name] + pbcounts[k.name]),
          "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
                               "gated": gcounts[k.name], "gated_split": gscounts[k.name],
-                              "pair": pcounts[k.name]},
+                              "pair": pcounts[k.name], "probes": pbcounts[k.name],
+                              "probes_replayed": pbreplayed.get(k.name, 0)},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items() if n.startswith(f"{k.name}_kernel")}}
@@ -2174,6 +2469,17 @@ def main() -> int:
         "chunked_steps_per_s": chunked["steps_per_s"], "chunked_ate_m": chunked["ate"],
         "checkpoint_bytes": chunked["checkpoint_bytes"], "checkpoint_save_s": chunked["save_s"],
         "checkpoint_restore_s": chunked["restore_s"],
+        "probes_us": {
+            "sweep": {k: {"graph": v["us"], "eager": v["eager_us"]}
+                      for k, v in probes.get("probe_sweep", {}).get("variants", {}).items()},
+            "rankpass": {k: {"graph": v["us"], "eager": v["eager_us"], "library": v["library_us"]}
+                         for k, v in probes.get("probe_rankpass", {}).get("variants", {}).items()},
+            "copy_tb_per_s": probes.get("probe_rankpass", {}).get("variants", {}).get(
+                "copy", {}).get("tb_per_s"),
+            "framestep_us_per_frame": {
+                k: {"graph": v["us"], "eager": v["eager_us"]}
+                for k, v in probes.get("bench_framestep", {}).get("modes", {}).items()},
+        },
     }
     log(json.dumps(summary))
     log(f"smoke: {time.perf_counter() - t_start:.1f} s")

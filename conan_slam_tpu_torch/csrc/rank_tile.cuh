@@ -17,13 +17,13 @@ constexpr int BK = 16;
 
 template <int T>
 struct Cfg {
-    static_assert(T == 32 || T == 128, "tile edge");
-    static constexpr int F = T == 32 ? 1 : 2;     // 4-wide groups a thread holds a side
+    static_assert(T == 32 || T == 64 || T == 128, "tile edge");
+    static constexpr int F = T == 128 ? 2 : 1;    // 4-wide groups a thread holds a side
     static constexpr int TD = T / (4 * F);        // threads along each tile edge
     static constexpr int NT = TD * TD;            // threads a tile
     static constexpr int M = 4 * F;               // M x M outputs a thread
     static constexpr int STAGES = 4;
-    static constexpr int MIN_BLOCKS = T == 128 ? 2 : 12;
+    static constexpr int MIN_BLOCKS = T == 128 ? 2 : T == 64 ? 4 : 12;
     static constexpr int RING = STAGES * 2 * BK * T;
     static constexpr int SMEM_FLOATS = RING > T * (T + 1) ? RING : T * (T + 1);
 };
@@ -48,8 +48,9 @@ struct GroupSync {
 // upper half.  Consecutive threads walk along a row (coalesced); the padded
 // tile's row stride T + 1 keeps the transposed reads free of bank
 // conflicts.  Every P load of the pass is issued before its first store, so
-// a thread keeps a whole pass's loads in flight.
-template <int T, int NT, bool VEC>
+// a thread keeps a whole pass's loads in flight.  !READP (H4's no-P probe
+// entry): P is not read, out = X.
+template <int T, int NT, bool VEC, bool READP = true>
 __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* __restrict__ out,
                                            const float* ts, int d, int r0, int c0,
                                            bool transpose, bool diag, int tid) {
@@ -64,7 +65,7 @@ __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* _
         for (int q = 0; q < NV; ++q) {
             const int e = tid + q * NT;
             const int u = e / (T / 4), v = (e % (T / 4)) * 4;
-            pv[q] = (r0 + u < d && c0 + v < d)
+            pv[q] = (READP && r0 + u < d && c0 + v < d)
                         ? __ldcg(reinterpret_cast<const float4*>(p + (size_t)(r0 + u) * d + c0 + v))
                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
@@ -85,7 +86,8 @@ __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* _
         for (int q = 0; q < NS; ++q) {
             const int e = tid + q * NT;
             const int u = e / T, v = e % T;
-            pv[q] = (r0 + u < d && c0 + v < d) ? __ldcg(p + (size_t)(r0 + u) * d + c0 + v) : 0.f;
+            pv[q] = (READP && r0 + u < d && c0 + v < d) ? __ldcg(p + (size_t)(r0 + u) * d + c0 + v)
+                                                         : 0.f;
         }
 #pragma unroll
         for (int q = 0; q < NS; ++q) {
@@ -102,8 +104,9 @@ __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* _
 // ldg >= d; columns from d on are never stored.  VECG: 16-byte strip copies
 // (ldg % 4 == 0, 16-byte aligned strips); VECP: 16-byte P rows (d % 4 == 0).
 // The ring's 4-byte copies go through L1 (cp.async.ca): only a caller whose
-// strips were written before its launch may take VECG = false.
-template <int T, bool VECG, bool VECP, typename Sync>
+// strips were written before its launch may take VECG = false.  !READP:
+// out = G^T MG, P not read (H4's no-P probe entry).
+template <int T, bool VECG, bool VECP, typename Sync, bool READP = true>
 __device__ __forceinline__ void tile(const float* __restrict__ p, const float* g,
                                      const float* mg, float* __restrict__ out, int d, int ldg,
                                      int r, int i0, int j0, float* smem, int tid, Sync sync) {
@@ -189,8 +192,8 @@ __device__ __forceinline__ void tile(const float* __restrict__ p, const float* g
 
     // out[I, J], a diagonal tile's lower half from its upper half; then
     // out[J, I] = P[J, I] + acc^T.
-    store_pass<T, NT, VECP>(p, out, ts, d, i0, j0, false, diag, tid);
-    if (!diag) store_pass<T, NT, VECP>(p, out, ts, d, j0, i0, true, false, tid);
+    store_pass<T, NT, VECP, READP>(p, out, ts, d, i0, j0, false, diag, tid);
+    if (!diag) store_pass<T, NT, VECP, READP>(p, out, ts, d, j0, i0, true, false, tid);
     sync();                  // the tile is the next tile's ring
 }
 

@@ -40,13 +40,21 @@
 //     fmaf chain over k in order.  Any D and r; out of place (G holds a row
 //     of P on the frame's path).
 //   - The tile pass is rank_tile.cuh, which H9 (frame_step.cu) runs too.
+//
+// Two probe entries (csl_rank_update_tile), the counterparts of the
+// schedule variants of benchmarks/probe_rankpass.py (make_variant :105,
+// :121, mm_step :163, make_stacked :198): the plan forced (a tile edge of
+// 32, 64 or 128 and a grid, e.g. one tile a block instead of persistent
+// blocks), and out = G^T MG with no P read (READP = false).  They run the
+// same tile routine; at the plan's own tile and grid the forced entry is the
+// default entry, bit for bit.
 #include "rank_tile.cuh"
 
 namespace {
 
 using csl_rank::Cfg;
 
-template <int T, bool VEC>
+template <int T, bool VEC, bool READP = true>
 __global__ void __launch_bounds__(Cfg<T>::NT, Cfg<T>::MIN_BLOCKS)
 rank_update_kernel(const float* __restrict__ p, const float* __restrict__ g,
                    const float* __restrict__ mg, float* __restrict__ out, int d, int r, int nt,
@@ -55,8 +63,8 @@ rank_update_kernel(const float* __restrict__ p, const float* __restrict__ g,
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
         int ti, tj;
         csl_rank::tile_ij(tile, nt, &ti, &tj);
-        csl_rank::tile<T, VEC, VEC>(p, g, mg, out, d, d, r, ti * T, tj * T, smem, threadIdx.x,
-                                    csl_rank::BlockSync{});
+        csl_rank::tile<T, VEC, VEC, csl_rank::BlockSync, READP>(
+            p, g, mg, out, d, d, r, ti * T, tj * T, smem, threadIdx.x, csl_rank::BlockSync{});
     }
 }
 
@@ -152,4 +160,54 @@ extern "C" int csl_rank_update_plan(int d, int* tile, int* grid) {
     *tile = plan.tile;
     *grid = plan.grid;
     return (int)cudaSuccess;
+}
+
+namespace {
+
+// The probe entry's variants (16-byte strips only): one a tile edge and
+// P read or not, each with its shared-memory cap raised once a device.
+template <int T, bool READP>
+cudaError_t launch_tile(const float* p, const float* g, const float* mg, float* out, int d, int r,
+                        int grid, cudaStream_t stream) {
+    using C = Cfg<T>;
+    static bool raised[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    const auto fn = rank_update_kernel<T, true, READP>;
+    const size_t smem = (size_t)C::SMEM_FLOATS * sizeof(float);
+    if (!raised[dev]) {
+        err = csl_allow_smem(fn, smem);
+        if (err != cudaSuccess) return err;
+        raised[dev] = true;
+    }
+    const int nt = (d + T - 1) / T, ntiles = nt * (nt + 1) / 2;
+    rank_update_kernel<T, true, READP><<<grid < ntiles ? grid : ntiles, C::NT, smem, stream>>>(
+        p, g, mg, out, d, r, nt, ntiles);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// H4 with its plan forced: tile edge 32, 64 or 128, `grid` blocks (at most
+// one a tile; 0: one a tile), and P read (readp = 1: out = P + G^T MG) or
+// not (readp = 0: out = G^T MG, p unused).  D % 4 == 0 and 16-byte aligned
+// strips.
+extern "C" int csl_rank_update_tile(const float* p, const float* g, const float* mg, float* out,
+                                    int d, int r, int tile, int grid, int readp, void* stream) {
+    if (d <= 0 || r <= 0 || grid < 0 || d % 4 || !aligned16(g) || !aligned16(mg) ||
+        !aligned16(out) || (readp && !aligned16(p)))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int g0 = grid == 0 ? 1 << 30 : grid;
+    switch (tile * 2 + (readp ? 1 : 0)) {
+        case 65: return (int)launch_tile<32, true>(p, g, mg, out, d, r, g0, st);
+        case 64: return (int)launch_tile<32, false>(p, g, mg, out, d, r, g0, st);
+        case 129: return (int)launch_tile<64, true>(p, g, mg, out, d, r, g0, st);
+        case 128: return (int)launch_tile<64, false>(p, g, mg, out, d, r, g0, st);
+        case 257: return (int)launch_tile<128, true>(p, g, mg, out, d, r, g0, st);
+        case 256: return (int)launch_tile<128, false>(p, g, mg, out, d, r, g0, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

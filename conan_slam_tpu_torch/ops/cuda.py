@@ -111,6 +111,7 @@ def library() -> ctypes.CDLL:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 KERNELS: dict[str, "CudaKernel"] = {}

@@ -828,3 +828,148 @@ def test_constructors_default_to_the_card(dev):
 
     world = default_world()
     assert world.landmarks.is_cuda and init_state_with_map(world.landmarks).p.is_cuda
+
+
+# ------------------------------------------- the probe kernels (H11-H14)
+
+
+def _unit_diag_sym(mp):
+    """The sweep probe's S made exactly symmetric with an exactly unit
+    diagonal: H1's scaling and symmetrizations are then the identity, so
+    H1 and H11 sweep the same matrix."""
+    from conan_slam_tpu_torch.benchmarks.probe_sweep import probe_matrix
+
+    s = probe_matrix(mp)
+    s = 0.5 * (s + s.T)
+    np.fill_diagonal(s, 1.0)
+    return s
+
+
+@pytest.mark.parametrize("mp,nblk", [(64, 20), (128, 40), (128, 39), (128, 64)])
+def test_sweep_probe_unrolled_is_h1_bit_for_bit(dev, mp, nblk):
+    # H1 symmetrizes the swept matrix after the sweep, as the probe's
+    # kernels do not: sym(H11) is H1, element by element.
+    from conan_slam_tpu_torch.ops.probes import sweep_probe
+
+    s = torch.as_tensor(_unit_diag_sym(mp), device=dev)
+    h1 = sweep_si(s, torch.tensor([nblk], dtype=torch.int32, device=dev))
+    for variant in ("unroll2", "unroll4"):
+        got = sweep_probe(s, nblk, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(0.5 * (got + got.T), h1), variant
+
+
+@pytest.mark.parametrize("mp,nblk", [(64, 20), (128, 40), (128, 39), (128, 64)])
+def test_sweep_probe_wide4_matches_h1(dev, mp, nblk):
+    # Two pivots in one rank-4 update: the same inverse in another order,
+    # within 4 MP float32 epsilons of the swept block's largest entry.
+    from conan_slam_tpu_torch.ops.probes import sweep_probe, sweep_probe_reference
+
+    s = torch.as_tensor(_unit_diag_sym(mp), device=dev)
+    h1 = sweep_si(s, torch.tensor([nblk], dtype=torch.int32, device=dev))
+    got = sweep_probe(s, nblk, "wide4")
+    k = 2 * nblk
+    tol = 4 * mp * torch.finfo(torch.float32).eps * float(h1[:k, :k].abs().max())
+    assert float((got[:k, :k] - h1[:k, :k]).abs().max()) <= tol
+    plain = sweep_probe_reference(s, nblk, "wide4")
+    assert float((got - plain).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n,offset", [(2304 * 2304, 0), (1003 * 1003, 0), (4099, 1)])
+def test_stream_copy_is_bit_equal(dev, n, offset):
+    from conan_slam_tpu_torch.ops.probes import stream_copy
+
+    base = torch.randn((n + offset,), device=dev, generator=torch.Generator(dev).manual_seed(n))
+    x = base[offset:]       # offset 1: not 16-byte aligned, the 4-byte path
+    out = stream_copy(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x)
+
+
+def test_probe_dots_kernel_matches_plain(dev):
+    from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs
+    from conan_slam_tpu_torch.ops.probes import probe_dots, probe_dots_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [torch.as_tensor(a, device=dev) for a in dots_inputs()]
+    for got, ref in zip(probe_dots(*args), probe_dots_reference(*args)):
+        # Sums of 136 and 128 products in another order.
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_probe_observe_kernel_matches_plain(dev):
+    from conan_slam_tpu_torch.benchmarks.probe_mosaic import observe_inputs
+    from conan_slam_tpu_torch.ops.probes import probe_observe, probe_observe_reference
+
+    (xrows, zin, rsc, mp, rp), _ = observe_inputs()
+    args = [torch.as_tensor(a, device=dev) for a in (xrows, zin, rsc)]
+    ref = probe_observe_reference(*args, mp, rp)
+    for path in ("known", "gated"):
+        got = probe_observe(*args, mp, rp, path)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[1], ref[1])
+        # v's range rows are differences of ~60 m ranges: 2 ulps of 64 m.
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1.6e-5)
+
+
+@pytest.mark.parametrize("d,r", [(2304, 136), (1024, 72), (20_224, 24)])
+def test_rank_update_tile_at_the_plan_is_h4_bit_for_bit(dev, d, r):
+    from conan_slam_tpu_torch.ops.probes import rank_update_tile, rank_update_tile_reference
+    from conan_slam_tpu_torch.ops.rank_update import rank_update_plan
+
+    gen = torch.Generator(dev).manual_seed(d)
+    p = torch.randn((d, d), device=dev, generator=gen)
+    vt = torch.randn((r, d), device=dev, generator=gen)
+    b = torch.randn((r, r), device=dev, generator=gen)
+    vbt = (0.5 * (b + b.T)) @ vt
+    tile, grid = rank_update_plan(d, dev)
+    default = rank_update_vbt(p, vt, vbt)
+    assert torch.equal(rank_update_tile(p, vt, vbt, tile, grid), default)
+    if d > 4096:
+        return
+    for t in (32, 64, 128):
+        for g in (0, 7):
+            got = rank_update_tile(p, vt, vbt, t, g)
+            torch.testing.assert_close(got, default, rtol=1e-5, atol=1e-3)
+        prod = rank_update_tile(None, vt, vbt, t)
+        torch.testing.assert_close(prod, rank_update_tile_reference(None, vt, vbt),
+                                   rtol=1e-4, atol=1e-3)
+
+
+def test_scan_graph_replays_h1_and_h4_as_the_eager_loop(dev):
+    from conan_slam_tpu_torch.utils.profiling import scan_graph
+
+    gen = torch.Generator(dev).manual_seed(5)
+    d, r, mp = 512, 40, 128
+    p = torch.eye(d, device=dev)
+    vt = torch.randn((r, d), device=dev, generator=gen) * 1e-2
+    b = torch.eye(r, device=dev) * 1e-3
+    s = torch.as_tensor(_unit_diag_sym(mp), device=dev)
+    nb = torch.tensor([mp // 2], dtype=torch.int32, device=dev)
+
+    def step(c):
+        p, s = c
+        si = sweep_si(s, nb)
+        return rank_update_t(p, vt, b + 1e-9 * si[0, 0]), s + 1e-9 * si
+    res = scan_graph(step, (p, s), 12, 4)
+    c = (p, s)
+    for _ in range(12):
+        c = step(c)
+    for got, eager, want in zip(res.carry, res.eager_carry, c):
+        assert torch.equal(got, want) and torch.equal(eager, want)
+    assert res.launches == {"sweep_inverse": 12, "rank_update": 12}
+
+
+@pytest.mark.parametrize("mode", ["sweeponly", "sweep", "chol", "noop", "ppass", "stepkernel",
+                                  "stepkernel_big", "fullkernel", "factkernel"])
+def test_bench_framestep_graph_replays_the_eager_frames(mode, dev, monkeypatch):
+    # bench_framestep raises unless each mode's carry after the graph's
+    # replays is bit for bit its carry after the same frames run eagerly.
+    from conan_slam_tpu_torch.benchmarks import bench_framestep
+
+    monkeypatch.setenv("FS_STEPS", "240")
+    res = bench_framestep.main([mode], device=str(dev))
+    got = res["modes"][mode]
+    assert got["frames"] == 40 and got["us"] > 0
+    assert got["launches"] or mode in ("chol", "noop")

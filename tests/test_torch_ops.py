@@ -287,10 +287,11 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError):
         rank_update_t(torch.eye(3).to("meta"), torch.ones(1, 3), torch.ones(1, 1))
     # Every kernel of the port registers its launch count, once imported.
-    from conan_slam_tpu_torch.ops import factor_kernel, gating_kernel  # noqa: F401
+    from conan_slam_tpu_torch.ops import factor_kernel, gating_kernel, probes  # noqa: F401
 
     with pytest.raises(ValueError):
         tfk.obs_panels(*(torch.ones(2, 2).to("meta") for _ in range(6)))
     assert set(cuda.KERNELS) == {"sweep_inverse", "frame_chain", "frame_panels", "rank_update",
                                  "factor_strip", "gating_scores", "obs_chain", "obs_panels",
-                                 "frame_step", "obs_step"}
+                                 "frame_step", "obs_step", "sweep_probe", "stream_copy",
+                                 "probe_dots", "probe_observe", "rank_update_tile"}
