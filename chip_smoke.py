@@ -16,13 +16,16 @@ Phases:
      tolerance stated, and each kernel's time beside its plain version's
      (CUDA events):
        a. the known-association frame at the bench shape (D = 2304,
-          NZ = 64) and at a ragged D: H9 (the default route, one
-          cooperative launch) and the split schedule's H1-H4, each against
-          its plain version; H9 over MP 32/128/224, S 1/6/16, heading on
-          and off and D 2304/2051/13 against the split kernels (within the
-          fp32 rounding of the sums they order differently) and its plain
-          version (two calls bit-equal, asym(P) exactly 0), its device time
-          against MP and S, its phases (%globaltimer), its plan and bound;
+          NZ = 64) and at a ragged D: H9 (the default route: a cooperative
+          frame kernel, then the P pass launched behind it) and the split
+          schedule's H1-H4, each against its plain version; H9 over MP
+          32/128/224, S 1/6/16, heading on and off and D 2304/2051/13
+          against the split kernels (within the fp32 rounding of the sums
+          they order differently) and its plain version (two calls
+          bit-equal, asym(P) exactly 0), its device time against MP and S,
+          its phases (%globaltimer) beside H2, H1, H3 and H4 run alone on
+          the same frame, each variant's registers and local-memory bytes
+          beside H1's and H4's, its plan and bound;
           and the routes past H1's registers: the frame and the pair at
           MP 240 on the split schedule with H1's cooperative sweep (H1 also
           at MP 480), the gated frame at MP 160-224 (H10) and 240/480 (the
@@ -78,10 +81,10 @@ Phases:
           square, all pre-registered; 64-slot measurement buffer;
           19,200 control steps = 3,200 frames) through H9, in turns with
           the split schedule (H9, split, split, H9), and 600 steps with
-          the plain versions.  Asserts H9 launched once per frame and H1-H4
-          never on the H9 runs (H1-H4 once per frame on the split runs),
-          and the reference's accuracy gate on each: ATE < 0.05 m,
-          asym(P) < 1e-4.
+          the plain versions.  Asserts H9's two kernels launched once per
+          frame each and H1-H4 never on the H9 runs (H1-H4 once per frame
+          on the split runs), and the reference's accuracy gate on each:
+          ATE < 0.05 m, asym(P) < 1e-4.
        b. BASELINE config 2 (500 landmarks of random_world(PRNGKey(7), 500)
           on the default tour, empty map, gated association and
           augmentation; 25,002 steps = 4,167 frames) through H10 in turns
@@ -142,6 +145,11 @@ BIG_STEPS = 600
 BIG_WARM_STEPS = 60     # untimed steps before the timed 10k run
 BIG_PROFILE_FRAMES = 20 # frames of the 10k shape traced with torch.profiler
 KNOWN_KERNELS = ("frame_step",)   # H9: the known frame's default route
+# The device kernels of each wrapper that launches more than one: H9's frame
+# kernel and its P pass.  A wrapper's ptxas records and device time sum
+# over its kernels.
+DEVICE_KERNELS = {"frame_step": ("frame_step_kernel", "frame_pass_kernel")}
+H9_KERNELS = "|".join(DEVICE_KERNELS["frame_step"])
 SPLIT_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
 GATED_KERNELS = ("factor_strip", "gating_scores", "obs_step")   # H10: the gated default
 GATED_SPLIT_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
@@ -240,14 +248,20 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None) -> float:
+def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None,
+              per_call: int = 1) -> float:
     """Mean device milliseconds per call, without the host's work, from
     torch.profiler traces of ``iters`` calls (after two untraced ones):
     the sum, over the kernels and copies a call launches (each once), of
-    their median durations, or only the kernel named ``kernel``.  A name
-    seen fewer than iters / 2 times in a trace is a stray of another trace;
-    ``kernel`` matches a whole word of the demangled name (which may carry
-    ``void``, a namespace and template arguments).
+    their median durations, or only the kernel named ``kernel``; with
+    ``per_call`` > 1 (the kernels ``kernel`` names, that a call launches
+    in turn and that may overlap: H9's P pass is resident before its frame
+    kernel ends), the median span of a call's kernels, from the first's
+    start to the last's end.  A name seen fewer than iters / 2 times in a
+    trace is a stray of another trace;
+    ``kernel`` (a regular expression; alternatives with ``|``) matches a
+    whole word of the demangled name (which may carry ``void``, a namespace
+    and template arguments).
     The profiler can drop a trace's device events, which lowers its
     reading or leaves it empty, and one trace can read high (a clock dip),
     so up to 3 ``traces`` traces are taken until ``traces`` of them hold
@@ -270,12 +284,20 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None) -
                 fn()
             torch.cuda.synchronize()
         durations: dict[str, list[float]] = {}
+        spans = []
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        reading = sum(statistics.median(d) for name, d in durations.items()
-                      if len(d) >= iters / 2
-                      and (kernel is None or re.search(rf"\b{kernel}\b", name)))
+                if kernel is not None and re.search(rf"\b(?:{kernel})\b", e.name):
+                    spans.append((e.time_range.start, e.time_range.end))
+        if per_call > 1:
+            spans.sort()
+            calls = [spans[i:i + per_call] for i in range(0, len(spans) - per_call + 1, per_call)]
+            reading = statistics.median(max(e for _, e in c) - c[0][0] for c in calls) if calls else 0.0
+        else:
+            reading = sum(statistics.median(d) for name, d in durations.items()
+                          if len(d) >= iters / 2
+                          and (kernel is None or re.search(rf"\b(?:{kernel})\b", name)))
         if reading > 0.0:
             readings.append(reading)
     if not readings:
@@ -666,6 +688,14 @@ def h9_sweep(device) -> None:
             + ("; failed: " + "; ".join(bad) if bad else ""))
 
 
+def per_frame(kernels, n_frames: int) -> dict:
+    """The launch counts of ``n_frames`` frames that call each wrapper in
+    ``kernels`` once: its kernels a call (H9: two) x the frames."""
+    from conan_slam_tpu_torch.ops import cuda
+
+    return {k: n_frames * cuda.KERNELS[k].launches_per_call for k in kernels}
+
+
 def launched_now() -> dict:
     """The kernels launched since the counts were last set to 0."""
     from conan_slam_tpu_torch.ops import cuda
@@ -856,8 +886,10 @@ def route_checks(device) -> dict:
         torch.cuda.synchronize()
         launched = launched_now()
         log(f"S {s_steps} (D 2304, NZ 64): frame_route {route!r}, launches {launched}")
-        require(route == "resident" and launched == {"frame_step": 1, **split, "rank_update": 1},
-                f"S {s_steps} kernels", "H9 once, and H2, H1, H3, H4 once on the split schedule")
+        require(route == "resident"
+                and launched == {"frame_step": fk.FS_LAUNCHES, **split, "rank_update": 1},
+                f"S {s_steps} kernels",
+                "H9's two kernels once each, and H2, H1, H3, H4 once on the split schedule")
         ref = fk.frame_step(*fargs, plain=True)
         for name, out in (("H9", got), ("split", sp)):
             check(f"S {s_steps} {name} vs plain: pose trace", out.pose_trace, ref.pose_trace, 1e-5,
@@ -870,10 +902,10 @@ def route_checks(device) -> dict:
                   "the reference test's tolerance")
         st = EKFState(x=fargs[1], p=fargs[0], n_active=torch.tensor(0, device=device),
                       table=torch.zeros(1, dtype=torch.int64, device=device))
-        steps_us[s_steps] = tuple(1e3 * device_ms(fn, kernel=kernel) for fn, kernel in (
-            (lambda: fk.frame_step(*fargs), "frame_step_kernel"),
-            (lambda: fk.frame_step(*fargs, schedule="split"), "frame_chain_kernel"),
-            (lambda: frame_factors_fused(st, *fargs[4:9], *fargs[13:]), "factor_strip_kernel")))
+        steps_us[s_steps] = tuple(1e3 * device_ms(fn, kernel=kernel, per_call=n) for fn, kernel, n in (
+            (lambda: fk.frame_step(*fargs), H9_KERNELS, 2),
+            (lambda: fk.frame_step(*fargs, schedule="split"), "frame_chain_kernel", 1),
+            (lambda: frame_factors_fused(st, *fargs[4:9], *fargs[13:]), "factor_strip_kernel", 1)))
     log("  device time past 16 sub-steps (D 2304, MP 128): " + ", ".join(
         f"S={k} H9 {a:.2f} us, H2 {b:.2f} us, H5 {c:.2f} us" for k, (a, b, c) in steps_us.items()))
 
@@ -916,14 +948,22 @@ def route_checks(device) -> dict:
     return coop
 
 
-def h9_measure(device, args, tail, err: float, nblk: int) -> dict:
+def h9_measure(device, args, tail, err: float, nblk: int, alone: dict, calls: dict) -> dict:
     """H9 at the known check frame: CUDA-event time of the wrapper, device
-    time (profiler), the plain version's time, its plan and bound; and its
+    time (profiler), the plain version's time, its plan and bound; its
     device time against MP (32, 128, 224 at S = 6) and S (1, 6, 16 at MP
-    128) on synthetic frames at D = 2304."""
+    128) on synthetic frames at D = 2304; its phases beside the split's
+    kernels run alone on the same frame (``alone``: H2, H1, H3 and H4's
+    device ms, this call), and beside H1 and H4 (``calls``: a call of
+    each on this frame's S, and G and M) each run after a 128 MB read or
+    write has flushed the 50 MB L2, as a frame finds it after the last
+    frame's P pass; and each H9 variant's registers and local-memory bytes
+    a thread beside H1's and H4's."""
     import torch
 
     from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.rank_update import rank_update_attributes
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_inverse_attributes
 
     fargs = (*args, *tail)
     d, nz = args[0].shape[0], args[9].shape[0]
@@ -933,68 +973,130 @@ def h9_measure(device, args, tail, err: float, nblk: int) -> dict:
     ins = [a for a in fargs if torch.is_tensor(a)]
     st = dict(max_abs_err=err, library_ms=None,
               ms=time_ms(lambda: fk.frame_step(*fargs), 50),
-              device_ms=device_ms(lambda: fk.frame_step(*fargs), kernel="frame_step_kernel"),
+              device_ms=device_ms(lambda: fk.frame_step(*fargs), kernel=H9_KERNELS,
+                                  per_call=fk.FS_LAUNCHES),
               plain_ms=time_ms(lambda: fk.frame_step(*fargs, plain=True), 10),
-              plan=f"grid {plan.grid} x {plan.block} threads, {plan.smem:,} B shared; "
-                   f"{plan.bands} chain bands, {plan.panels} panels, {plan.tiles} tiles of "
-                   f"{fk.FS_TILE}",
+              plan=f"frame kernel: grid {plan.grid} x {plan.block} threads, {plan.smem:,} B "
+                   f"shared, {plan.regs} registers; {plan.bands} chain bands, {plan.panels} "
+                   f"panels, {plan.units} units of {plan.unit} columns; P pass: grid "
+                   f"{plan.pass_grid} x {plan.pass_block} threads ({plan.pass_occ} an SM), "
+                   f"{plan.pass_smem:,} B shared, {plan.pass_regs} registers, {plan.tiles} tiles "
+                   f"of {fk.FS_TILE}",
               **bound(nbytes(*ins, *out), h9_work(d, mp, rp, nblk)))
     by_mp, by_s = {}, {}
     for nz_, s in ((16, 6), (64, 6), (112, 6), (64, 1), (64, 16)):
         a = synthetic_frame(device, 2304, nz_, s, True)
-        t = device_ms(lambda: fk.frame_step(*a), kernel="frame_step_kernel")
+        t = device_ms(lambda: fk.frame_step(*a), kernel=H9_KERNELS, per_call=fk.FS_LAUNCHES)
         if s == 6:
             by_mp[fk.frame_shapes(nz_)[0]] = t
         if nz_ == 64:
             by_s[s] = t
-    st.update(device_ms_by_mp=by_mp, device_ms_by_s=by_s, phases_us=h9_phases(fargs, plan.grid))
+    st.update(device_ms_by_mp=by_mp, device_ms_by_s=by_s, phases_us=h9_phases(fargs, plan))
+    st["kernels_device_ms"] = {k: device_ms(lambda: fk.frame_step(*fargs), kernel=k)
+                               for k in DEVICE_KERNELS["frame_step"]}
     log("  H9 device time against MP (S = 6): " + ", ".join(
         f"MP={m} {t * 1e3:.2f} us" for m, t in by_mp.items()) + "; against S (MP = 128): "
         + ", ".join(f"S={k} {t * 1e3:.2f} us" for k, t in sorted(by_s.items())))
+    ph = st["phases_us"]
+    flush = torch.empty((32 * 2**20,), dtype=torch.float32, device=device)
+    for label, wipe in (("read", lambda: flush.sum()), ("write", lambda: flush.fill_(1.0))):
+        for name, kern in (("H1", "sweep_inverse_kernel"), ("H4", "rank_update_kernel")):
+            call = calls[name]
+            alone[f"{name} after an L2 {label} flush"] = device_ms(
+                lambda: (wipe(), call()), kernel=kern)
+    st["alone_us"] = {k: v * 1e3 for k, v in alone.items()}
+    log("  H1 and H4 alone after the L2 is flushed (device us): " + ", ".join(
+        f"{k} {v * 1e3:.2f}" for k, v in alone.items() if "flush" in k))
+    kd = st["kernels_device_ms"]
+    log("  H9 phases beside the split's kernels alone on this frame (device us): chain "
+        f"{ph['chain']:.2f} vs H2 {alone['H2'] * 1e3:.2f}; sweep {ph['sweep (block 0)']:.2f} "
+        f"vs H1 {alone['H1'] * 1e3:.2f}; gains and mean {ph['gains and mean']:.2f} vs H3 {alone['H3'] * 1e3:.2f}; P pass "
+        f"{ph['P pass']:.2f} vs H4 {alone['H4'] * 1e3:.2f}; device time: frame kernel "
+        + " + ".join(f"{k} {v * 1e3:.2f}" for k, v in kd.items())
+        + f" = {st['device_ms'] * 1e3:.2f} us")
+    regs = {}
+    for mp_ in range(32, fk.MAX_MP + 1, 32):
+        pl = fk.frame_step_plan(d, mp_, device)
+        regs[f"H9 frame kernel RX {mp_ // 32}"] = (pl.regs, pl.local)
+        regs[f"H1 RX {mp_ // 32}"] = sweep_inverse_attributes(mp_, device)
+    regs["H9 P pass"] = (plan.pass_regs, plan.pass_local)
+    regs[f"H4 D {d}"] = rank_update_attributes(d, device)
+    st["regs_local"] = regs
+    log("  registers, local bytes a thread: " + ", ".join(
+        f"{k} {r}, {b}" for k, (r, b) in regs.items()))
     return st
 
 
-def stamp_phases(name: str, launch, grid: int, device, launches: int = 20) -> dict:
-    """A cooperative kernel's phases (H9, H10), from each block's
-    %globaltimer at its phase boundaries (``launch(stamps)`` runs the kernel
-    once with a (grid, 8) int64 ``stamps`` buffer: ops.frame_kernel's
-    _frame_step_h9 and _obs_step_h10), the median over ``launches``
-    launches, in us: the chain (first start to the last block done), each
-    barrier (last block in to last block out), block 0's sweep and the
-    other blocks' pht panels (side by side), the gains and the mean, the P
-    pass, and the whole launch.  The stamps add a block barrier at each
-    phase's end."""
+def h10_phase_times(t) -> dict:
+    """H10's phases from one launch's stamps ``t`` (grid, 8), in us: the
+    chain (first start to the last block done), each barrier (last block in
+    to last block out), block 0's sweep and the other blocks' pht panels
+    (side by side), the gains and the mean, the P pass, and the launch."""
+    last = t.max(dim=0).values
+    return {
+        "chain": last[1] - t[:, 0].min(), "barrier 1": last[2] - last[1],
+        "sweep (block 0)": t[0, 3] - t[0, 2],
+        "pht panels (other blocks)": t[1:, 3].max() - t[1:, 2].min(),
+        "barrier 2": last[4] - last[3], "gains and mean": last[5] - last[4],
+        "barrier 3": last[6] - last[5], "P pass": last[7] - last[6],
+        "launch": last[7] - t[:, 0].min()}
+
+
+def stamp_phases(name: str, launch, shape: tuple, device, phase_times, launches: int = 20) -> dict:
+    """A kernel's phases (H9, H10) from each block's %globaltimer at its
+    phase boundaries: ``launch(stamps)`` runs it once with an int64
+    ``stamps`` buffer of ``shape`` (ops.frame_kernel's _frame_step_h9 and
+    _obs_step_h10), ``phase_times(stamps in us)`` reads one launch's phases;
+    the median over ``launches`` launches.  The stamps add a block barrier
+    at each phase's end."""
     import torch
 
     runs = []
     for _ in range(launches + 2):
-        stamps = torch.zeros((grid, 8), dtype=torch.int64, device=device)
+        stamps = torch.zeros(shape, dtype=torch.int64, device=device)
         launch(stamps)
         runs.append(stamps)
     torch.cuda.synchronize()
-    rows = []
-    for stamps in runs[2:]:
-        t = stamps.cpu().double() / 1e3
-        last = t.max(dim=0).values
-        rows.append({
-            "chain": last[1] - t[:, 0].min(), "barrier 1": last[2] - last[1],
-            "sweep (block 0)": t[0, 3] - t[0, 2],
-            "pht panels (other blocks)": t[1:, 3].max() - t[1:, 2].min(),
-            "barrier 2": last[4] - last[3], "gains and mean": last[5] - last[4],
-            "barrier 3": last[6] - last[5], "P pass": last[7] - last[6],
-            "launch": last[7] - t[:, 0].min()})
-    phases = {k: float(torch.tensor([r[k] for r in rows]).median()) for k in rows[0]}
+    rows = [phase_times(stamps.cpu().double() / 1e3) for stamps in runs[2:]]
+    phases = {k: float(torch.tensor([float(r[k]) for r in rows]).median()) for k in rows[0]}
     log(f"  {name} phases (median of {launches} launches, %globaltimer): " + ", ".join(
         f"{k} {v:.2f} us" for k, v in phases.items()))
     return phases
 
 
-def h9_phases(fargs, grid: int) -> dict:
-    """H9's phases at frame_step's ``fargs`` (stamp_phases)."""
+def h9_phases(fargs, plan) -> dict:
+    """H9's phases at frame_step's ``fargs`` (stamp_phases; its ``plan``,
+    ops.frame_kernel.frame_step_plan): in the frame kernel the chain, each
+    barrier, block 0's sweep and its siv and NIS, the other blocks' pht
+    units beside them, the gains and the mean; the gap from the frame
+    kernel's last block to the P pass's first (the programmatic launch);
+    the P pass (its first block's start to its last block's end); the whole
+    frame; and block 0's SM clock over the sweep (MHz, clock64 over
+    %globaltimer)."""
     from conan_slam_tpu_torch.ops import frame_kernel as fk
 
-    return stamp_phases("H9", lambda st: fk._frame_step_h9(*fargs, stamps=st), grid,
-                        fargs[0].device)
+    g = plan.grid
+
+    def times(t):
+        a, b = t[:g], t[g:]
+        last = a.max(dim=0).values
+        ns = (t[0, 3] - t[0, 2]) * 1e3
+        return {
+            "chain": last[1] - a[:, 0].min(), "barrier 1": last[2] - last[1],
+            "sweep (block 0)": a[0, 3] - a[0, 2],
+            "pht units (other blocks)": a[1:, 3].max() - a[1:, 2].min(),
+            "barrier 2": last[5] - a[:, 3].max(),
+            "gains and mean": last[6] - last[5],
+            "gains: S^-1 staged": (a[:, 9] - a[:, 5])[a[:, 9] > 0].max(),
+            "gains: first unit's MG": (a[:, 10] - a[:, 9])[a[:, 9] > 0].max(),
+            "gains: first unit's siv": (a[:, 11] - a[:, 9])[a[:, 9] > 0].max(),
+            "siv and NIS (block 0, beside the gains)": a[0, 4] - a[0, 5],
+            "launch gap": b[:, 0].min() - last[6], "P pass": b[:, 1].max() - b[:, 0].min(),
+            "launch": b[:, 1].max() - a[:, 0].min(),
+            "sweep SM clock MHz": (t[0, 8] - t[0, 7]) * 1e3 / ns * 1e3 if ns > 0 else 0.0}
+
+    return stamp_phases("H9", lambda st: fk._frame_step_h9(*fargs, stamps=st),
+                        (g + plan.pass_grid, fk.FS_STAMPS), fargs[0].device, times)
 
 
 def kernel_checks(device) -> dict:
@@ -1130,7 +1232,18 @@ def kernel_checks(device) -> dict:
                 library_ms=None,
                 **bound(nbytes(*(a for a in args if torch.is_tensor(a)), *full_k),
                         sum(stats[k]["flops"] for k in SPLIT_KERNELS)))
-            stats["frame_step"] = h9_measure(device, args, tail, e9, int(fi.nblk))
+            alone = {"H2": stats["frame_chain"]["device_ms"],
+                     "H1": stats["sweep_inverse"]["device_ms"],
+                     "H3": stats["frame_panels"]["device_ms"],
+                     "H4": stats["rank_update"]["device_ms"]}
+            calls = {"H1": lambda: sweep_si(ch_p.s, fi.nblk),
+                     "H4": lambda: rank_update_t(args[0], gmat, mmid)}
+            # H1 on the S that H2's device code forms, which H9's chain
+            # phase runs: the sweep's pivots and its decoupled block as H9's.
+            h1_own = alone["H1 on H2's S"] = device_ms(lambda: sweep_si(ch_k.s, fi.nblk))
+            log(f"  the frame's nblk {int(fi.nblk)}; H1 on the plain chain's S "
+                f"{alone['H1'] * 1e3:.2f} us, on H2's {h1_own * 1e3:.2f} us")
+            stats["frame_step"] = h9_measure(device, args, tail, e9, int(fi.nblk), alone, calls)
     h9_sweep(device)
     stats["sweep_inverse"]["device_ms_coop"] = route_checks(device)
     log_times(stats, "")
@@ -1277,8 +1390,8 @@ def h10_phases(uargs, grid: int, launches: int = 20) -> dict:
     """H10's phases at frame_update_obs's ``uargs`` (stamp_phases)."""
     from conan_slam_tpu_torch.ops import frame_kernel as fk
 
-    return stamp_phases("H10", lambda st: fk._obs_step_h10(*uargs, stamps=st), grid,
-                        uargs[0].device, launches)
+    return stamp_phases("H10", lambda st: fk._obs_step_h10(*uargs, stamps=st), (grid, 8),
+                        uargs[0].device, h10_phase_times, launches)
 
 
 def h10_measure(device, uargs, err: float, nblk: int) -> dict:
@@ -2009,12 +2122,16 @@ def main_path(device, n_steps: int) -> tuple[dict, dict, dict]:
     runs = [drive_known(workload, n_steps, schedule=schedule) for schedule in order]
     for schedule, res in zip(order, runs):
         kernels = KNOWN_KERNELS if schedule == "auto" else SPLIT_KERNELS
-        want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(kernels, n_frames)}
-        route = "H9" if schedule == "auto" else "H1-H4"
+        want = {**dict.fromkeys(res["counts"], 0), **per_frame(kernels, n_frames)}
+        route = "H9's two kernels" if schedule == "auto" else "H1-H4"
         require(res["counts"] == want, f"known path launches ({schedule})",
                 f"{route} once per frame ({n_frames}), no other kernel")
         require(res["ate"] < 0.05 and res["asym"] < 1e-4, f"accuracy gate ({schedule})",
                 f"ATE {res['ate']:.4f} < 0.05 m, asym(P) {res['asym']:.2e} < 1e-4")
+        if schedule == "auto":
+            require(res["asym"] == 0.0, "exact symmetry through H9",
+                    f"asym(P) {res['asym']:.1e} after {n_frames} frames (must be exactly 0: its "
+                    "P pass mirrors its upper-triangle tiles, from an exactly symmetric P)")
     results = {"kernels": runs[0], "split": runs[1],
                "plain": drive_known(workload, plain_steps, plain=True)}
     require(not any(results["plain"]["counts"].values()), "known path plain launches",
@@ -2222,7 +2339,7 @@ def gated_path(device) -> tuple[dict, dict, dict]:
     runs = [drive(False, n_steps, schedule) for schedule in order]
     for schedule, res in zip(order, runs):
         kernels = GATED_KERNELS if schedule == "auto" else GATED_SPLIT_KERNELS
-        want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(kernels, n_frames)}
+        want = {**dict.fromkeys(res["counts"], 0), **per_frame(kernels, n_frames)}
         require(res["counts"] == want, f"gated path launches ({schedule})",
                 ("H5, H6, H10" if schedule == "auto" else "H5, H6, H7, H8, H1, H4")
                 + f" once per frame ({n_frames}), no other kernel")
@@ -2316,7 +2433,14 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
             continue
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
         rows.append((us, e.count, e.key))
-    busy = sum(r[0] for r in rows)
+    # Busy: the union of the device's kernel and copy intervals (H9's P pass
+    # is resident, waiting, before its frame kernel ends: their sum would
+    # count the overlap twice).
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
     # Host work: the PyTorch ops the frame loop dispatches (outermost only).
     ops: dict[str, int] = {}
     for e in prof.events():
@@ -2328,7 +2452,7 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
         "ops dispatched per frame, most frequent: " + ", ".join(
             f"{k} {v / n_frames:.1f}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:8]))
     rows.sort(reverse=True)
-    ours = tuple(f"{name}_kernel" for name in ORDER)
+    ours = tuple(f"{name}_kernel" for name in ORDER) + DEVICE_KERNELS["frame_step"]
     for us, count, key in rows[:15] + [r for r in rows[15:] if r[2].startswith(ours)]:
         log(f"  {us / n_frames:9.2f} us/frame  {count / n_frames:5.2f} launches/frame  {key[:90]}")
 
@@ -2421,7 +2545,8 @@ def main() -> int:
               "variants_device_ms", "variants_fixed_ms", "tb_per_s", "library_device_ms",
               "library_tb_per_s", "tb_per_s_past_l2", "library_tb_per_s_past_l2",
               "known_device_ms", "device_ms_by_tile", "no_p_device_ms_by_tile", "no_p_plain_ms",
-              "no_p_library_ms", "no_p_library_device_ms", "stack3")
+              "no_p_library_ms", "no_p_library_device_ms", "stack3", "alone_us", "regs_local",
+              "kernels_device_ms")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
@@ -2432,7 +2557,8 @@ def main() -> int:
                               "probes_replayed": pbreplayed.get(k.name, 0)},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
-         "ptxas": {n: r for n, r in ptxas.items() if n.startswith(f"{k.name}_kernel")}}
+         "ptxas": {n: r for n, r in ptxas.items()
+                   if n.startswith(DEVICE_KERNELS.get(k.name, (f"{k.name}_kernel",)))}}
         for k in sorted(cuda.KERNELS.values(), key=lambda k: ORDER.index(k.name))
     ]}
     summary = {

@@ -73,6 +73,18 @@ __device__ __forceinline__ void csl_stage(float* dst, const float* src, int n) {
     }
 }
 
+// A kernel's registers a thread and local-memory bytes a thread (spills and
+// stack) as the runtime reports them (cudaFuncGetAttributes).
+template <typename Kernel>
+static cudaError_t csl_func_regs(Kernel kernel, int* regs, int* local) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    *regs = attr.numRegs;
+    *local = (int)attr.localSizeBytes;
+    return cudaSuccess;
+}
+
 // Raise a kernel's dynamic shared-memory cap once; returns the CUDA error.
 template <typename Kernel>
 static cudaError_t csl_allow_smem(Kernel kernel, size_t bytes) {

@@ -1,6 +1,8 @@
-// H9 frame_step: the whole known-association frame in ONE cooperative
-// launch: the packing, the S-step recursion, observe, S, the sweep inverse,
-// the gains, the updated mean, the NIS and the P pass.
+// H9 frame_step: the whole known-association frame in TWO launches on one
+// stream: a cooperative frame kernel (the packing, the S-step recursion,
+// observe, S, the sweep inverse, siv, the NIS, the gains and the updated
+// mean) and the P pass at H4's own occupancy, launched right behind it with
+// programmatic dependent launch.
 //
 // Replaces the TPU kernel conan_slam_tpu/ops/frame_kernel.py:1312
 // frame_step (pallas_call :1399, body _framestep_kernel :655-907), the
@@ -9,9 +11,9 @@
 // scratch, and every step then wrote one row panel of
 // P + p2 (x) wrow - (pht^T_panel S^-1) pht plus the 3-row border.  Hopper
 // blocks run in no order, so the phases here are separated by grid
-// barriers (cooperative_groups grid sync; the launch is cooperative, one
-// block an SM, every block resident), and what the TPU kept in scratch goes
-// through device memory (L2) between phases:
+// barriers (cooperative_groups grid sync; the frame kernel's launch is
+// cooperative, one block an SM, every block resident), and what the TPU
+// kept in scratch goes through device memory (L2) between phases:
 //
 //   1. Chain.  Each block that owns a band of measurement rows (the plan of
 //      H2, ops/frame_kernel.py frame_chain_plan) packs the frame's raw
@@ -21,41 +23,60 @@
 //      the band's rows of P[rows][:, rows] and x[rows] from P and x, runs the
 //      recursion on one warp, the observe, and its rows of psub and S
 //      (chain_band.cuh, H2's phases).  Block 0 writes the pose trace and the
-//      frame scalars.
+//      frame scalars, and finds nblk = last valid slot + 1 meanwhile.
 //   2. Block 0 inverts S by H1's register-resident sweep (sweep.cuh) over
-//      nblk = last valid slot + 1 pivots and forms siv = v^T S^-1 and the
-//      NIS.  Meanwhile the other blocks form pht = Hc P'[rows] in 16-column
-//      panels (panel.cuh, H3's column) into the strip G.
-//   3. Every block takes 16-column panels of the strips: -S^-1 pht into MG,
-//      the K4 rows of G = [pht; p2; e0; e1; e2; 0] and MG = [-S^-1 pht;
+//      nblk pivots and stores S^-1; nothing else is on its path to the
+//      barrier.  Meanwhile every other block takes units of FS_UNIT columns
+//      of D: it forms the unit's pht = Hc P'[rows] in
+//      16-column panels (panel.cuh, H3's column) into the strip G and into
+//      its own shared memory, which it keeps for phase 3, and writes the
+//      unit's K4 rows of G = [pht; p2; e0; e1; e2; 0] and MG = [-S^-1 pht;
 //      wrow; border; 0] (the closed form U K4 U^T, U = [p2, e0, e1, e2]),
-//      and the mean xn = base + siv pht, heading wrapped.
-//   4. The P pass: out = P + G^T MG = P + p2 (x) wrow + border
-//      - pht^T S^-1 pht, over H4's upper-triangle tiles of 32
-//      (rank_tile.cuh), each mirrored: P comes out exactly symmetric
-//      whenever it goes in exactly symmetric.  A block runs 8 tiles at a
-//      time, one on each group of 2 warps with its own named barrier.
+//      which need no S^-1.
+//   3. The gains: each block with a unit brings S^-1 into shared memory by
+//      bulk copies (TMA) and, for the unit it formed last in phase 2 (its
+//      pht still in shared memory; at D 2304 its only unit, so one round), forms -S^-1 pht into MG on 8 warps while the other 8
+//      form siv = v^T S^-1 from the same S^-1 and the mean xn = base + siv
+//      pht, heading wrapped.  Block 0, beside them, turns its swept tile
+//      into S^-1 in place and forms siv (the same bits) and the NIS.
+//   4. The P pass (frame_pass_kernel, the second launch): out = P + G^T MG
+//      = P + p2 (x) wrow + border - pht^T S^-1 pht over H4's upper-triangle
+//      tiles of 32 (rank_tile.cuh), each mirrored: P comes out exactly
+//      symmetric whenever it goes in exactly symmetric.  It runs H4's
+//      32-tile blocks, Cfg<32>: 64 threads and a 16 KB ring a block, 12 or
+//      13 resident an SM, one block a tile, so as many tiles are in flight
+//      as in H4.  The frame kernel cannot hold them: its blocks are 512
+//      threads for the sweep's layout, and 12 tile groups a block would cap
+//      a thread at ~80 registers, under the sweep's 96 at MP 128.  The
+//      launch carries the programmatic-stream-serialization attribute; the
+//      frame kernel lets it launch once every block has passed barrier 2,
+//      and the P pass waits (griddepcontrol.wait) until the frame kernel is
+//      complete and its writes visible, so its launch overlaps the gains.
 //
 // What bounds it on the card: at the bench shape (D = 2304, MP = 128) P's
 // bytes, 2 D^2 x 4 B = 42.5 MB (12.7 us at 3.35 TB/s), against ~0.7 GFLOP
 // of the P pass (10.8 us at 67 TFLOP/s fp32); in practice the serial sweep
-// (phase 2, one block) and the P pass.  fp32 FMA only (TF32 off, no tensor
-// cores).  No atomics: every sum is one thread's fixed chain or a
-// fixed-order reduction, so two calls are bit for bit equal.
+// (phase 2, one block) and the P pass, which is FMA-issue bound at the
+// tiles in flight.  fp32 FMA only (TF32 off, no tensor cores).  No atomics:
+// every sum is one thread's fixed chain or a fixed-order reduction, so two
+// calls are bit for bit equal.
 //
-// Block size: 512 threads for every phase, the sweep's 16 warps (H1's
-// register layout needs them); the panels take 16 columns x 32 row groups,
-// the P pass 8 groups of H4's 64-thread 32-tile.  Shared memory is the
-// largest of the phases' needs, not their sum.  Data written during the
-// launch is read with __ldcg or cp.async.cg (through L2, never from a
+// The frame kernel's blocks are 512 threads in every phase, the sweep's 16
+// warps (H1's register layout needs them); the panels take 16 columns x 32
+// row groups.  Its shared memory is the largest of its phases' needs, not
+// their sum.  Data written during the launch is read with __ldcg,
+// cp.async.cg or bulk copies after a proxy fence (through L2, never from a
 // stale L1 line or the read-only path).
 //
-// The C entry launches on the stream it is given, allocates nothing (the
-// caller hands it one scratch buffer), and
-// returns cudaGetLastError(), so the launch can be captured in a CUDA graph.
+// The C entry launches both kernels on the stream it is given, allocates
+// nothing (the caller hands it one scratch buffer), and returns the first
+// launch error, so the pair can be captured in a CUDA graph (the
+// programmatic edge included).  If either launch fails the call fails: there
+// is no other route.
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <vector>
 
 #include "chain_band.cuh"
 #include "panel.cuh"
@@ -65,20 +86,20 @@
 namespace cg = cooperative_groups;
 
 #define FS_THREADS 512      // 16 warps: H1's sweep layout (csl_sweep::NT)
-#define FS_W 16             // columns of a panel (H3's PANEL_W)
+#define FS_W 16             // columns of a pht panel (H3's PANEL_W)
 #define FS_LD 24            // row stride of a gathered panel (H3's PANEL_LD)
+#define FS_UNIT 24          // columns of D a block takes through phases 2 and 3
 #define FS_TILE 32          // the P pass's tile edge (H4's small tile)
-#define FS_GROUP 64         // threads of one P-pass tile (csl_rank::Cfg<32>::NT)
 #define FS_MAX_MP 224       // H1's register limit: 7 x 7 elements a thread
 #define FS_MAX_RP 232       // gathered rows at MP = 224
+#define FS_XG 32            // the mean's partial fmaf chains a column, summed in order
+#define FS_STAMPS 12        // stamps a block (stamp())
+#define FS_PLAN 13          // values csl_frame_step_plan reports
 
 namespace {
 
-static_assert(FS_THREADS == csl_sweep::NT, "one block size for every phase");
-static_assert(FS_GROUP == csl_rank::Cfg<FS_TILE>::NT, "the P pass's tile group");
-constexpr int FS_GROUPS = FS_THREADS / FS_GROUP;     // tiles a block runs at once
-constexpr int FS_ROWG = FS_THREADS / FS_W;           // row groups of a panel
-constexpr int FS_COLG = FS_W / 4;                    // 4-column groups of a panel
+static_assert(FS_THREADS == csl_sweep::NT, "one block size for every phase of the frame kernel");
+using PassCfg = csl_rank::Cfg<FS_TILE>;
 
 // The frame: inputs, outputs, the scratch carved by the host, strides (in
 // elements) of the 1-D inputs, shapes and scalars.
@@ -106,7 +127,7 @@ struct Frame {
     float* siv;                     // (mp,)
     float* g;                       // (mp + 8, ldg)  G
     float* mg;                      // (mp + 8, ldg)  M G
-    unsigned long long* stamps;     // (grid, 8) phase boundary times, or null
+    unsigned long long* stamps;     // (grid + pass grid, FS_STAMPS) phase times, or null
     int slots_st, vns_st, swans_st, phis_st, actives_st, zr_st, zb_st, mask_st;
     int d, nz, S, cap, mp, rp, ldg, band;
     int vecp;                       // P's rows take 16-byte accesses
@@ -126,24 +147,51 @@ __device__ __forceinline__ int gathered_row(const Frame& f, int a) {
     return 3 + 2 * (int)s + ((a - 3) & 1);
 }
 
-// Block b's %globaltimer (ns) into stamps[b, k] when the caller asked for
-// them: k = 0 the start, 1 the chain done, 2 past barrier 1, 3 the sweep or
-// the pht panels done, 4 past barrier 2, 5 the gains done, 6 past barrier 3,
-// 7 the P pass done.  A "done" stamp waits for the whole block first.
+__device__ __forceinline__ unsigned long long globaltimer() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+// The frame kernel's block b writes its %globaltimer (ns) into stamps[b, k]
+// when the caller asked for them: k = 0 the start, 1 the chain done, 2 past
+// barrier 1, 3 block 0's sweep done or another block's pht units done, 4
+// block 0's siv and NIS done (phase 3), 5 past barrier 2, 6 the gains
+// done, 9 its first unit's S^-1 in shared memory, 10 that unit's MG
+// stored, 11 that unit's siv formed;
+// block 0 also its SM's clock64 at 7 the sweep's start and 8 its end
+// (cycles over ns: the SM clock during the sweep).  The P pass's block b writes
+// stamps[grid + b, 0] as it starts its tiles and [grid + b, 1] when done.
+// A "done" stamp waits for the whole block first.
 __device__ __forceinline__ void stamp(const Frame& f, int k, bool done) {
     if (f.stamps == nullptr) return;
     if (done) __syncthreads();
-    if (threadIdx.x == 0) {
-        unsigned long long t;
-        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-        f.stamps[(size_t)blockIdx.x * 8 + k] = t;
-    }
+    if (threadIdx.x == 0) f.stamps[(size_t)blockIdx.x * FS_STAMPS + k] = globaltimer();
+}
+
+__device__ __forceinline__ void stamp_clock(const Frame& f, int k) {
+    if (f.stamps != nullptr && threadIdx.x == 0) f.stamps[k] = clock64();
 }
 
 // n floats (n % 4 == 0, 16-byte aligned ends) written earlier in this
 // launch, into shared memory through L2 (cp.async.cg).
 __device__ __forceinline__ void stage_cg(float* dst, const float* src, int n) {
     for (int e = 4 * threadIdx.x; e < n; e += 4 * FS_THREADS) csl_cp_async16(dst + e, src + e, true);
+}
+
+// nblk = last valid slot + 1 (ops/frame_kernel.py _pack_meas), in every
+// thread of the block.
+__device__ __forceinline__ int last_valid_slot(const Frame& f, int* wmax) {
+    const int tid = threadIdx.x;
+    int nb = 0;
+    for (int l = tid; l < f.nz; l += FS_THREADS)
+        if (f.mask[(size_t)l * f.mask_st]) nb = l + 1;
+    nb = __reduce_max_sync(0xffffffffu, nb);
+    if ((tid & 31) == 0) wmax[tid >> 5] = nb;
+    __syncthreads();
+    nb = 0;
+    for (int w = 0; w < FS_THREADS / 32; ++w) nb = max(nb, wmax[w]);
+    return nb;
 }
 
 // --- phase 1: the chain, one band of measurement rows a block ---
@@ -226,149 +274,123 @@ __device__ __forceinline__ void chain_phase(const Frame& f, float* smem, const i
     }
 }
 
-// --- phase 2, block 0: S^-1 by the sweep, siv = v^T S^-1 and the NIS ---
-template <int RX>
-__device__ __forceinline__ void sweep_phase(const Frame& f, float* smem, int* wmax) {
-    const int tid = threadIdx.x, mp = f.mp;
-    // nblk = last valid slot + 1 (ops/frame_kernel.py _pack_meas).
-    int nb = 0;
-    for (int l = tid; l < f.nz; l += FS_THREADS)
-        if (f.mask[(size_t)l * f.mask_st]) nb = l + 1;
-    nb = __reduce_max_sync(0xffffffffu, nb);
-    if ((tid & 31) == 0) wmax[tid >> 5] = nb;
-    __syncthreads();
-    nb = 0;
-    for (int w = 0; w < FS_THREADS / 32; ++w) nb = max(nb, wmax[w]);
-    csl_sweep::inverse<RX, true>(f.s, nb, f.si, mp, smem);
-    __syncthreads();      // S^-1 is stored; the sweep's shared memory is free
+// The sweep phase's shared memory (floats): the sweep's (sweep.cuh), then
+// the innovation and siv.
+__host__ __device__ constexpr int sweep_phase_floats(int mp) {
+    return mp * (mp + 1) + mp + 8 * 32 * ((mp + 31) / 32) + 2 * mp;
+}
 
-    float* v = smem;      // (mp,) the innovation
-    float* sv = v + mp;   // (mp,) siv
-    for (int i = tid; i < mp; i += FS_THREADS) v[i] = __ldcg(f.rowc + 8 * i + 7);
-    __syncthreads();
-    for (int j = tid; j < mp; j += FS_THREADS) {
-        float acc = 0.f;
+// --- phase 2, block 0: S^-1 by the sweep.  Returns whether a value was
+//     non-finite (S^-1 is then zero); the swept tile stays in shared memory
+//     for phase 3 ---
+template <int RX>
+__device__ __forceinline__ bool sweep_phase(const Frame& f, float* smem, int nb) {
+    stamp_clock(f, 7);
+    const bool bad = csl_sweep::inverse<RX, true>(f.s, nb, f.si, f.mp, smem);
+    stamp_clock(f, 8);
+    stamp(f, 3, true);
+    return bad;
+}
+
+// siv_j = sum_i v_i S^-1[i, j] for j < mp, one fmaf chain over i in order a
+// column, by the block's threads first .. first + mp - 1; si has row
+// stride ld.
+__device__ __forceinline__ void siv_chain(const float* si, int ld, const float* v, float* siv,
+                                          int mp, int first) {
+    const int j = (int)threadIdx.x - first;
+    if (j < 0 || j >= mp) return;
+    float acc = 0.f;
 #pragma unroll 8
-        for (int i = 0; i < mp; ++i) acc += v[i] * __ldcg(f.si + (size_t)i * mp + j);
-        sv[j] = acc;
-        f.siv[j] = acc;
-    }
+    for (int i = 0; i < mp; ++i) acc = fmaf(v[i], si[i * ld + j], acc);
+    siv[j] = acc;
+}
+
+// --- phase 3, block 0 (off the critical path: no block waits for it): the
+//     swept tile becomes S^-1 in place, then siv and the NIS ---
+template <int RX>
+__device__ __forceinline__ void nis_phase(const Frame& f, float* smem, bool bad) {
+    const int tid = threadIdx.x, mp = f.mp, tp = mp + 1;
+    float* ts = smem;                                    // (mp, mp + 1) the swept tile
+    const float* dsc = ts + mp * tp;
+    float* v = smem + sweep_phase_floats(mp) - 2 * mp;   // (mp,) the innovation
+    float* sv = v + mp;                                  // (mp,) siv
+    for (int i = tid; i < mp; i += FS_THREADS) v[i] = __ldcg(f.rowc + 8 * i + 7);
+    // S^-1[i, j] = 0.5 (x_ij + x_ji), x_ij = -A_ij dsc_i dsc_j, as the
+    // sweep's store forms it (the same bits), or 0 where the sweep zeroed
+    // S^-1; one thread forms and writes both (i, j) and (j, i).
+    const int tx = tid & 31;
+#pragma unroll 2
+    for (int i = tid >> 5; i < mp; i += FS_THREADS / 32)
+#pragma unroll
+        for (int b = 0; b < RX; ++b) {
+            const int j = tx + 32 * b;
+            if (j >= i && j < mp) {
+                const float xij = __fmul_rn(__fmul_rn(-ts[i * tp + j], dsc[i]), dsc[j]);
+                const float xji = __fmul_rn(__fmul_rn(-ts[j * tp + i], dsc[j]), dsc[i]);
+                const float sij = bad ? 0.f : 0.5f * __fadd_rn(xij, xji);
+                ts[i * tp + j] = sij;
+                ts[j * tp + i] = sij;
+            }
+        }
     __syncthreads();
+    siv_chain(ts, tp, v, sv, mp, 0);
+    __syncthreads();
+    if (tid < mp) f.siv[tid] = sv[tid];
     if (tid < 32) {
         float s = 0.f;
         for (int j = tid; j < mp; j += 32) s += sv[j] * v[j];
         for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
         if (tid == 0) f.nis[0] = s;
     }
+    stamp(f, 4, true);
 }
 
-// --- phase 2, the other blocks: one 16-column panel of pht into G ---
-__device__ __forceinline__ void pht_panel(const Frame& f, float* smem, const int* rows, int panel) {
-    const int tid = threadIdx.x, mp = f.mp, rp = f.rp, nzl = mp / 2;
-    float* rc = smem;                  // (mp, 8) rowc
+// --- phase 2, the other blocks: one unit of U columns: pht into G and into
+//     shared memory (kept for phase 3), and the unit's K4 rows of G, MG, in
+//     panels of FS_W columns at offsets 0, FS_W, ..., the last one ending at
+//     the unit's end (at U = 24 the two panels overlap by 8 columns, which
+//     get the same values twice) ---
+template <int U>
+__device__ __forceinline__ void pht_unit(const Frame& f, float* smem, const int* rows, int unit) {
+    const int tid = threadIdx.x, mp = f.mp, rp = f.rp, nzl = mp / 2, ldg = f.ldg;
+    float* pht_s = smem;               // (mp, U) the unit's pht
+    float* rc = pht_s + mp * U;        // (mp, 8) rowc
     float* msh = rc + 8 * mp;          // (32,)
     float* pan = msh + 32;             // (rp, FS_LD) P[rows][:, c0 : c0 + FS_W]
-    const int c0 = panel * FS_W;
+    const int tx = tid % FS_W, ty = tid / FS_W;
     __syncthreads();                   // the shared memory's earlier readers are done
     stage_cg(rc, f.rowc, 8 * mp);
     stage_cg(msh, f.ms, 32);
-    csl_stage_panel(pan, [&](int r) { return f.p + (size_t)rows[r] * f.d; }, rp, FS_W, FS_LD, c0,
-                    f.d, f.vecp != 0);
-    csl_cp_async_commit();
-    csl_cp_async_wait<0>();
-    __syncthreads();
-    const int tx = tid % FS_W, ty = tid / FS_W, n = c0 + tx;
-    const CslPanelColumn col = csl_panel_column(msh, pan[tx], pan[FS_LD + tx], pan[2 * FS_LD + tx], n);
-    if (n >= f.ldg) return;
-    for (int l = ty; l < nzl; l += FS_ROWG) {
-        const int cx = 3 + 2 * l, cy = cx + 1;
-        const float sx = cx < rp ? pan[cx * FS_LD + tx] : 0.f;
-        const float sy = cy < rp ? pan[cy * FS_LD + tx] : 0.f;
-        for (int k = 0; k < 2; ++k) {
-            const int i = 2 * l + k;
-            const float acc = csl_pht_entry(rc + 8 * i, col, sx, sy, cx < rp, cy < rp);
-            f.g[(size_t)i * f.ldg + n] = n < f.d ? acc : 0.f;
-        }
-    }
-}
-
-// --- phase 3: the gains of 16-column panels: MG's -S^-1 pht, the K4 rows
-//     of G and MG, and the mean ---
-template <int RX>
-__device__ __forceinline__ void gain_phase(const Frame& f, float* smem) {
-    constexpr int KR = (32 * RX + FS_THREADS / FS_COLG - 1) / (FS_THREADS / FS_COLG);
-    const int tid = threadIdx.x, mp = f.mp, ldg = f.ldg, sl = mp + 4;
-    const int npanel = (ldg + FS_W - 1) / FS_W;
-    if ((int)blockIdx.x >= npanel) return;
-    float* si_s = smem;                // (mp, mp + 4) S^-1: rows 4 floats apart in the banks
-    float* pht_s = si_s + mp * sl;     // (mp, FS_W) the panel of pht
-    float* part = pht_s + mp * FS_W;   // (FS_THREADS,) partial sums
-    float* siv_s = part + FS_THREADS;  // (mp,)
-    float* msh = siv_s + mp;           // (32,)
-    for (int e = tid; e < mp * (mp / 4); e += FS_THREADS) {
-        const int i = e / (mp / 4), c = 4 * (e % (mp / 4));
-        csl_cp_async16(si_s + i * sl + c, f.si + (size_t)i * mp + c, true);
-    }
-    stage_cg(siv_s, f.siv, mp);
-    stage_cg(msh, f.ms, 32);
-    for (int panel = blockIdx.x; panel < npanel; panel += gridDim.x) {
-        const int c0 = panel * FS_W;
-        __syncthreads();               // the last panel's readers are done
-        for (int e = tid; e < mp * FS_COLG; e += FS_THREADS) {
-            const int i = e / FS_COLG, c = 4 * (e % FS_COLG);
-            const bool in = c0 + c < ldg;   // ldg % 4 == 0: four columns all in or all out
-            csl_cp_async16(pht_s + i * FS_W + c, in ? f.g + (size_t)i * ldg + c0 + c : f.g, in);
-        }
+#pragma unroll 1
+    for (int sub = 0; sub < (U + FS_W - 1) / FS_W; ++sub) {
+        const int off = min(sub * FS_W, U - FS_W), c0 = unit * U + off, n = c0 + tx;
+        if (sub > 0) __syncthreads();  // the last panel's readers are done
+        csl_stage_panel(pan, [&](int r) { return f.p + (size_t)rows[r] * f.d; }, rp, FS_W, FS_LD,
+                        c0, f.d, f.vecp != 0);
         csl_cp_async_commit();
         csl_cp_async_wait<0>();
         __syncthreads();
-
-        // MG rows k = rg + 128 m: -sum_i S^-1[k, i] pht[i, c0 + 4 cg + (0..3)],
-        // one fmaf chain over i in order.
-        {
-            const int cg4 = tid % FS_COLG, rg = tid / FS_COLG;
-            float acc[KR][4];
-            int krow[KR];
-#pragma unroll
-            for (int m = 0; m < KR; ++m) {
-                krow[m] = min(rg + m * (FS_THREADS / FS_COLG), mp - 1);
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
-            }
-#pragma unroll 4
-            for (int i = 0; i < mp; ++i) {
-                const float4 pv = *reinterpret_cast<const float4*>(pht_s + i * FS_W + 4 * cg4);
-#pragma unroll
-                for (int m = 0; m < KR; ++m) {
-                    const float sv = si_s[krow[m] * sl + i];
-                    acc[m][0] = fmaf(sv, pv.x, acc[m][0]);
-                    acc[m][1] = fmaf(sv, pv.y, acc[m][1]);
-                    acc[m][2] = fmaf(sv, pv.z, acc[m][2]);
-                    acc[m][3] = fmaf(sv, pv.w, acc[m][3]);
-                }
-            }
-            const int n4 = c0 + 4 * cg4;
-#pragma unroll
-            for (int m = 0; m < KR; ++m) {
-                const int k = rg + m * (FS_THREADS / FS_COLG);
-                if (k < mp && n4 < ldg)
-                    *reinterpret_cast<float4*>(f.mg + (size_t)k * ldg + n4) =
-                        make_float4(-acc[m][0], -acc[m][1], -acc[m][2], -acc[m][3]);
+        const float p2 = pan[2 * FS_LD + tx];      // P[2, n]: gathered row 2 is P's row 2
+        const CslPanelColumn col = csl_panel_column(msh, pan[tx], pan[FS_LD + tx], p2, n);
+        for (int l = ty; l < nzl; l += FS_THREADS / FS_W) {
+            const int cx = 3 + 2 * l, cy = cx + 1;
+            const float sx = cx < rp ? pan[cx * FS_LD + tx] : 0.f;
+            const float sy = cy < rp ? pan[cy * FS_LD + tx] : 0.f;
+            for (int k = 0; k < 2; ++k) {
+                const int i = 2 * l + k;
+                const float acc = n < f.d ? csl_pht_entry(rc + 8 * i, col, sx, sy, cx < rp, cy < rp)
+                                          : 0.f;
+                if (n < ldg) f.g[(size_t)i * ldg + n] = acc;
+                pht_s[i * U + off + tx] = acc;
             }
         }
-
-        const int tx = tid % FS_W, ty = tid / FS_W, n = c0 + tx;
-        float xs = 0.f;
-        for (int i = ty; i < mp; i += FS_ROWG) xs += siv_s[i] * pht_s[i * FS_W + tx];
-        part[tid] = xs;
-        const float p2 = n < f.d ? f.p[2 * (size_t)f.d + n] : 0.f;
         // G rows mp .. mp + 7 = [p2; e0; e1; e2; 0], MG's = K4 [p2; e0; e1; e2]
         // = [wrow; g_r p2 + m3[r, :]; 0].
         if (ty < 8 && n < ldg) {
             float gv = 0.f, mv = 0.f;
             if (ty == 0) {
                 gv = p2;
-                mv = csl_panel_column(msh, 0.f, 0.f, p2, n).wrow;
+                mv = col.wrow;
             } else if (ty < 4) {
                 const int r = ty - 1;
                 gv = n == r ? 1.f : 0.f;
@@ -377,35 +399,214 @@ __device__ __forceinline__ void gain_phase(const Frame& f, float* smem) {
             f.g[(size_t)(mp + ty) * ldg + n] = gv;
             f.mg[(size_t)(mp + ty) * ldg + n] = mv;
         }
+    }
+}
+
+// The gains phase's shared memory (floats): a unit's pht, S^-1, the mean's
+// partial sums (FS_XG a column), v, siv, ms and an mbarrier for each 32
+// rows of S^-1 (16 floats hold the 7 of MP 224).
+__host__ __device__ constexpr int gains_floats(int mp) {
+    return mp * FS_UNIT + mp * mp + FS_XG * FS_UNIT + 2 * mp + 32 + 16;
+}
+
+// The units of block b > 0 (block 0 sweeps): first = b - 1, first +
+// workers, ..., last, below nunits; last = -1 if it has none.
+struct Units {
+    int first, workers, last;
+};
+
+__device__ __forceinline__ Units block_units(int nunits) {
+    Units u;
+    u.workers = gridDim.x - 1;
+    u.first = (int)blockIdx.x - 1;
+    u.last = u.first < nunits ? u.first + ((nunits - 1 - u.first) / u.workers) * u.workers : -1;
+    return u;
+}
+
+// A one-arrival mbarrier in shared memory, armed for `bytes` of one bulk
+// copy, and the copy: n bytes (n % 16 == 0, 16-byte aligned ends) from
+// device memory into shared memory by the tensor memory accelerator.  The
+// caller (one thread) fences first: the barriers' init, and the generic
+// proxy's earlier accesses to both ends, against the async proxy's.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(csl_smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            csl_smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(csl_smem_addr(bar))
+        : "memory");
+}
+
+// Wait for phase 0 of the mbarrier (its one bulk copy landed).
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar) {
+    unsigned done = 0;
+    while (!done)
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(csl_smem_addr(bar))
+            : "memory");
+}
+
+// MG rows krow[m], 8 columns, over S^-1 rows i0 .. i1 - 1: acc[m][q] +=
+// S^-1[i, krow[m]] pht[i, 8 cg + q].  S^-1 is exactly symmetric, so its row
+// i gives column i: a warp's rows (lane + 32 ...) read 32 consecutive
+// floats, and the warp's one column group's 8 pht values are a broadcast.
+template <int R, int U>
+__device__ __forceinline__ void mg_rows(float (&acc)[R][8], const int (&krow)[R],
+                                        const float* si_s, int mp, const float* pht_s, int cg,
+                                        int i0, int i1) {
+#pragma unroll 2
+    for (int i = i0; i < i1; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(pht_s + i * U + 8 * cg);
+        const float4 b = *reinterpret_cast<const float4*>(pht_s + i * U + 8 * cg + 4);
+        const float pv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+            const float sv = si_s[i * mp + krow[m]];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) acc[m][q] = fmaf(sv, pv[q], acc[m][q]);
+        }
+    }
+}
+
+// --- phase 3: each unit's MG = -S^-1 pht and mean, last unit first (its
+//     pht still in shared memory from phase 2) ---
+//
+// S^-1 comes into shared memory by the tensor memory accelerator, in bulk
+// copies of 32 rows, one mbarrier each (issued by one thread, so the
+// block's threads spend nothing on the copy), and MG runs over each chunk
+// as it lands.  MG runs on MW = 2 U / 8 warps (6 at U = 24), each thread a
+// tile of R rows x 8 columns (16 fmaf to 2 + 2 loads at MP 128): warp w
+// takes the 8 columns 8 (w % C8) .. of the unit and the rows lane + 32
+// (w / C8 + 2 m); each entry is one fmaf chain over i in order.  Meanwhile
+// the other warps form siv from the staged S^-1 (as block 0 does, the same
+// bits) and the mean's partial sums.
+template <int RX, int U>
+__device__ __forceinline__ void gain_phase(const Frame& f, float* smem) {
+    constexpr int C8 = U / 8;                              // 8-column groups of a unit
+    constexpr int WG = 2;                                  // warps a column group
+    constexpr int MW = C8 * WG;                            // MG's warps
+    constexpr int R = (RX + WG - 1) / WG;                  // MG rows a thread
+    constexpr int XT = FS_THREADS - 32 * MW;               // siv's and the mean's threads
+    static_assert(U % 8 == 0 && XT >= FS_MAX_MP, "MG's warps");
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int mp = f.mp, ldg = f.ldg;
+    if (blockIdx.x == 0) return;
+    const Units us = block_units((ldg + U - 1) / U);
+    if (us.last < 0) return;
+    float* pht_s = smem;               // (mp, U)
+    float* si_s = pht_s + mp * U;      // (mp, mp) S^-1
+    float* part = si_s + mp * mp;      // (FS_XG, U) the mean's partial sums
+    float* v_s = part + FS_XG * U;     // (mp,) the innovation
+    float* siv_s = v_s + mp;           // (mp,)
+    float* msh = siv_s + mp;           // (32,)
+    unsigned long long* bar = reinterpret_cast<unsigned long long*>(msh + 32);   // (RX,)
+    if (tid == 0) {
+#pragma unroll
+        for (int c = 0; c < RX; ++c)
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(csl_smem_addr(bar + c))
+                         : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        // S^-1 was stored by block 0 (the generic proxy) before barrier 2,
+        // and this shared memory last held phase 2's panels.
+        asm volatile("fence.proxy.async;\n" ::: "memory");
+#pragma unroll
+        for (int c = 0; c < RX; ++c)
+            bulk_load(si_s + 32 * c * mp, f.si + 32 * c * mp, 32u * mp * 4u, bar + c);
+    }
+    for (int i = tid; i < mp; i += FS_THREADS) v_s[i] = __ldcg(f.rowc + 8 * i + 7);
+    stage_cg(msh, f.ms, 32);
+    csl_cp_async_commit();
+    const int cg = w % C8, wg = w / C8;
+    int krow[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) krow[m] = min(lane + 32 * (wg + WG * m), mp - 1);
+    const int tx = tid % U;
+#pragma unroll 1
+    for (int unit = us.last; unit >= us.first; unit -= us.workers) {
+        const bool first = unit == us.last;   // its pht is in shared memory
+        const int c0 = unit * U, n = c0 + tx;
+        if (!first) {                  // another unit's pht, from G
+            __syncthreads();           // the last unit's readers are done
+            for (int e = tid; e < mp * (U / 4); e += FS_THREADS) {
+                const int i = e / (U / 4), c = 4 * (e % (U / 4));
+                const bool in = c0 + c < ldg;   // ldg % 4 == 0: four columns all in or all out
+                csl_cp_async16(pht_s + i * U + c, in ? f.g + (size_t)i * ldg + c0 + c : f.g, in);
+            }
+            csl_cp_async_commit();
+        }
+        // The mean's base: inputs of the launch, read while the copies fly.
+        float xv = 0.f, p2 = 0.f;
+        if (tid < U && n < f.d) {
+            xv = f.x[n];
+            p2 = f.p[2 * (size_t)f.d + n];
+        }
+        csl_cp_async_wait<0>();        // ms (and another unit's pht)
+        __syncthreads();               // and the mbarriers are initialised
+        if (w < MW) {
+            float acc[R][8];
+#pragma unroll
+            for (int m = 0; m < R; ++m)
+#pragma unroll
+                for (int q = 0; q < 8; ++q) acc[m][q] = 0.f;
+#pragma unroll
+            for (int c = 0; c < RX; ++c) {
+                bulk_wait(bar + c);    // chunk c of S^-1 landed
+                if (first && c == 0) stamp(f, 9, false);
+                mg_rows<R, U>(acc, krow, si_s, mp, pht_s, cg, 32 * c, 32 * c + 32);
+            }
+            const int n8 = c0 + 8 * cg;
+#pragma unroll
+            for (int m = 0; m < R; ++m) {
+                const int k = lane + 32 * (wg + WG * m);
+                float* row = f.mg + (size_t)k * ldg + n8;
+                if (k < mp && n8 < ldg)
+                    *reinterpret_cast<float4*>(row) =
+                        make_float4(-acc[m][0], -acc[m][1], -acc[m][2], -acc[m][3]);
+                if (k < mp && n8 + 4 < ldg)
+                    *reinterpret_cast<float4*>(row + 4) =
+                        make_float4(-acc[m][4], -acc[m][5], -acc[m][6], -acc[m][7]);
+            }
+            if (first) stamp(f, 10, false);
+        } else {
+            if (first) {
+#pragma unroll
+                for (int c = 0; c < RX; ++c) bulk_wait(bar + c);   // S^-1 landed
+                siv_chain(si_s, mp, v_s, siv_s, mp, 32 * MW);
+                // siv is complete: a barrier of the XT threads past MG's.
+                asm volatile("bar.sync 1, %0;\n" ::"n"(XT) : "memory");
+                if (f.stamps != nullptr && tid == 32 * MW)
+                    f.stamps[(size_t)blockIdx.x * FS_STAMPS + 11] = globaltimer();
+            }
+            // The mean: FS_XG partial fmaf chains a column (i = g, g + FS_XG,
+            // ...), summed in order.
+            for (int e = tid - 32 * MW; e < FS_XG * U; e += XT) {
+                const int g = e / U, col = e % U;
+                float xs = 0.f;
+                for (int i = g; i < mp; i += FS_XG) xs = fmaf(siv_s[i], pht_s[i * U + col], xs);
+                part[g * U + col] = xs;
+            }
+        }
         __syncthreads();
-        if (ty == 0 && n < f.d) {
+        if (tid < U && n < f.d) {
             float s = 0.f;
-            for (int r = 0; r < FS_ROWG; ++r) s += part[r * FS_W + tx];
-            const float base = n < 3 ? msh[n] : f.x[n] + p2 * msh[3];
+            for (int r = 0; r < FS_XG; ++r) s += part[r * U + tx];
+            const float base = n < 3 ? msh[n] : xv + p2 * msh[3];
             const float v = base + s;
             f.xn[n] = n == 2 ? csl_wrap(v) : v;
         }
     }
 }
 
-// --- phase 4: out = P + G^T MG over the upper-triangle tiles, mirrored ---
-template <bool VECP>
-__device__ __forceinline__ void p_pass(const Frame& f, float* smem) {
-    const int group = threadIdx.x / FS_GROUP, gtid = threadIdx.x % FS_GROUP;
-    float* ring = smem + group * csl_rank::Cfg<FS_TILE>::SMEM_FLOATS;
-    const int nt = (f.d + FS_TILE - 1) / FS_TILE, ntiles = nt * (nt + 1) / 2;
-    const csl_rank::GroupSync sync{1 + group, FS_GROUP};
-    for (int t = blockIdx.x * FS_GROUPS + group; t < ntiles; t += gridDim.x * FS_GROUPS) {
-        int ti, tj;
-        csl_rank::tile_ij(t, nt, &ti, &tj);
-        csl_rank::tile<FS_TILE, true, VECP>(f.p, f.g, f.mg, f.p_out, f.d, f.ldg, f.mp + 8,
-                                           ti * FS_TILE, tj * FS_TILE, ring, gtid, sync);
-    }
-}
-
 template <int RX>
 __global__ void __launch_bounds__(FS_THREADS, 1)
 frame_step_kernel(const __grid_constant__ Frame f) {
+    constexpr int U = FS_UNIT;
     extern __shared__ __align__(16) float smem[];
     __shared__ int rows[FS_MAX_RP];
     __shared__ float qc[4];
@@ -414,65 +615,91 @@ frame_step_kernel(const __grid_constant__ Frame f) {
     cg::grid_group grid = cg::this_grid();
     stamp(f, 0, false);
     for (int a = threadIdx.x; a < f.rp; a += FS_THREADS) rows[a] = gathered_row(f, a);
+    const int nb = blockIdx.x == 0 ? last_valid_slot(f, wmax) : 0;
 
-    // Every block reaches every grid barrier: no phase returns from the kernel.
+    // Every block reaches every grid barrier: no phase returns from the
+    // kernel before barrier 2.
     if ((int)blockIdx.x < (f.mp + f.band - 1) / f.band) chain_phase(f, smem, rows, qc, ms);
     stamp(f, 1, true);
     grid.sync();
     stamp(f, 2, false);
 
-    if (blockIdx.x == 0) sweep_phase<RX>(f, smem, wmax);
-    if (blockIdx.x > 0 || gridDim.x == 1) {
-        const int workers = gridDim.x > 1 ? gridDim.x - 1 : 1;
-        const int first = gridDim.x > 1 ? blockIdx.x - 1 : 0;
-        for (int panel = first; panel < (f.ldg + FS_W - 1) / FS_W; panel += workers)
-            pht_panel(f, smem, rows, panel);
+    // Phase 2: block 0 sweeps; every other block takes its units of pht.
+    bool bad = false;
+    if (blockIdx.x == 0) {
+        bad = sweep_phase<RX>(f, smem, nb);
+    } else {
+        const Units us = block_units((f.ldg + U - 1) / U);
+        for (int unit = us.first; unit >= 0 && unit <= us.last; unit += us.workers)
+            pht_unit<U>(f, smem, rows, unit);
+        stamp(f, 3, true);
     }
-    stamp(f, 3, true);
     grid.sync();
-    stamp(f, 4, false);
+    // The P pass may launch now; it waits for this kernel's end to read G
+    // and MG (griddepcontrol.wait).
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    stamp(f, 5, false);
 
-    gain_phase<RX>(f, smem);
-    stamp(f, 5, true);
-    grid.sync();
-    stamp(f, 6, false);
-
-    if (f.vecp) p_pass<true>(f, smem);
-    else p_pass<false>(f, smem);
-    stamp(f, 7, true);
+    // Phase 3: the gains, and block 0's siv and NIS beside them.
+    if (blockIdx.x == 0) nis_phase<RX>(f, smem, bad);
+    gain_phase<RX, U>(f, smem);
+    stamp(f, 6, true);
 }
 
-// Dynamic shared memory (bytes): the largest of the phases' needs (the
-// chain's with the controls and the recursion's, sized by S).
+// --- the second launch: out = P + G^T MG over the upper-triangle tiles,
+//     mirrored, one H4 32-tile a block ---
+template <bool VECP>
+__global__ void __launch_bounds__(PassCfg::NT, PassCfg::MIN_BLOCKS)
+frame_pass_kernel(const float* __restrict__ p, const float* __restrict__ g,
+                  const float* __restrict__ mg, float* __restrict__ out, int d, int ldg, int r,
+                  int nt, int ntiles, unsigned long long* stamps) {
+    extern __shared__ __align__(16) float smem[];
+    // The frame kernel is complete and its G and MG visible (a no-op when
+    // this launch was not made dependent on it).
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    if (stamps != nullptr && threadIdx.x == 0) stamps[(size_t)blockIdx.x * FS_STAMPS] = globaltimer();
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        int ti, tj;
+        csl_rank::tile_ij(tile, nt, &ti, &tj);
+        csl_rank::tile<FS_TILE, true, VECP, csl_rank::BlockSync, true, true>(
+            p, g, mg, out, d, ldg, r, ti * FS_TILE, tj * FS_TILE, smem, threadIdx.x,
+            csl_rank::BlockSync{});
+    }
+    if (stamps != nullptr) {
+        __syncthreads();
+        if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * FS_STAMPS + 1] = globaltimer();
+    }
+}
+
+// The frame kernel's dynamic shared memory (bytes): the largest of its
+// phases' needs (the chain's with the controls and the recursion's, sized
+// by S).
 size_t smem_bytes(int mp, int rp, int band, int S) {
-    const int w = 32 * ((mp + 31) / 32);
     size_t fl = (size_t)(csl_chain_smem_floats(mp, rp, band) + 4 * S + csl_coeff_smem_floats(S));
-    fl = std::max(fl, csl_sweep::smem_bytes(mp, w) / sizeof(float));
-    fl = std::max(fl, (size_t)(8 * mp + 32 + rp * FS_LD));
-    fl = std::max(fl, (size_t)(mp * (mp + 4) + mp * FS_W + FS_THREADS + mp + 32));
-    fl = std::max(fl, (size_t)FS_GROUPS * csl_rank::Cfg<FS_TILE>::SMEM_FLOATS);
+    fl = std::max(fl, (size_t)sweep_phase_floats(mp));
+    fl = std::max(fl, (size_t)(mp * FS_UNIT + 8 * mp + 32 + rp * FS_LD));
+    fl = std::max(fl, (size_t)gains_floats(mp));
     return fl * sizeof(float);
 }
 
 constexpr int MAX_DEVICES = 64;
 constexpr int VARIANTS = FS_MAX_MP / 32;      // RX = 1 .. 7
+constexpr size_t PASS_SMEM = PassCfg::SMEM_FLOATS * sizeof(float);
 
-// Per device, cached on first use: the SM count, and each variant's static
-// shared memory (its dynamic cap raised once) and its last occupancy query.
+// Per device, cached on first use: the SM count, each frame-kernel
+// variant's static shared memory (its dynamic cap raised once) and its last
+// occupancy query, and the P pass's blocks an SM (P rows 16-byte or not).
 struct DeviceInfo {
     int sms = 0;
     int static_bytes[VARIANTS + 1] = {};
     bool raised[VARIANTS + 1] = {};
     size_t occ_smem[VARIANTS + 1] = {};
     int occ[VARIANTS + 1] = {};
+    int pass_occ[2] = {0, 0};
 };
 DeviceInfo g_info[MAX_DEVICES];
 
-// The grid of variant RX at `smem` dynamic bytes: one block an SM, after
-// checking that a block of FS_THREADS fits an SM at all (the cooperative
-// launch needs every block resident).
-template <int RX>
-cudaError_t plan(size_t smem, int* grid) {
+cudaError_t device_info(DeviceInfo** out) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
@@ -485,35 +712,99 @@ cudaError_t plan(size_t smem, int* grid) {
         if (err == cudaSuccess) err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
         if (err != cudaSuccess) return err;
     }
-    const auto fn = frame_step_kernel<RX>;
-    if (!info.raised[RX]) {
-        cudaFuncAttributes attr;
-        err = cudaFuncGetAttributes(&attr, fn);
-        if (err != cudaSuccess) return err;
-        info.static_bytes[RX] = (int)attr.sharedSizeBytes;
-        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   CSL_MAX_SMEM - (int)attr.sharedSizeBytes);
-        if (err != cudaSuccess) return err;
-        info.raised[RX] = true;
-    }
-    if (smem + info.static_bytes[RX] > CSL_MAX_SMEM) return cudaErrorInvalidValue;
-    if (info.occ_smem[RX] != smem) {
-        int occ = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, FS_THREADS, smem);
-        if (err != cudaSuccess) return err;
-        info.occ[RX] = occ;
-        info.occ_smem[RX] = smem;
-    }
-    if (info.occ[RX] < 1) return cudaErrorCooperativeLaunchTooLarge;
-    *grid = info.sms;
+    *out = &info;
     return cudaSuccess;
 }
 
+// The frame kernel's grid for variant RX at `smem` dynamic bytes: one block
+// an SM, after checking that a block of FS_THREADS fits an SM at all (the
+// cooperative launch needs every block resident) and that there are two
+// SMs at least (block 0 sweeps while the others form pht).
 template <int RX>
-cudaError_t launch(const Frame& f, cudaStream_t stream) {
+cudaError_t plan_frame(size_t smem, int* grid) {
+    DeviceInfo* info = nullptr;
+    cudaError_t err = device_info(&info);
+    if (err != cudaSuccess) return err;
+    const auto fn = frame_step_kernel<RX>;
+    if (!info->raised[RX]) {
+        cudaFuncAttributes attr;
+        err = cudaFuncGetAttributes(&attr, fn);
+        if (err != cudaSuccess) return err;
+        info->static_bytes[RX] = (int)attr.sharedSizeBytes;
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   CSL_MAX_SMEM - (int)attr.sharedSizeBytes);
+        if (err != cudaSuccess) return err;
+        info->raised[RX] = true;
+    }
+    if (smem + info->static_bytes[RX] > CSL_MAX_SMEM) return cudaErrorInvalidValue;
+    if (info->occ_smem[RX] != smem) {
+        int occ = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, FS_THREADS, smem);
+        if (err != cudaSuccess) return err;
+        info->occ[RX] = occ;
+        info->occ_smem[RX] = smem;
+    }
+    if (info->occ[RX] < 1 || info->sms < 2) return cudaErrorCooperativeLaunchTooLarge;
+    *grid = info->sms;
+    return cudaSuccess;
+}
+
+// The P pass's grid at D = d: one block a tile.  The hardware hands out
+// the tiles as blocks retire, so the blocks that become resident early
+// (on the SMs whose frame-kernel block left first, before the frame kernel
+// ends) take no larger share of the tiles than the others; persistent
+// blocks, as H4 plans them, would.  The occupancy query (12 or 13 blocks
+// an SM, as H4's) is reported.
+struct PassPlan {
+    int grid, nt, ntiles;
+};
+
+template <bool VECP>
+cudaError_t plan_pass(int d, PassPlan* plan) {
+    DeviceInfo* info = nullptr;
+    cudaError_t err = device_info(&info);
+    if (err != cudaSuccess) return err;
+    int& occ = info->pass_occ[VECP ? 1 : 0];
+    if (occ == 0) {
+        err = csl_allow_smem(frame_pass_kernel<VECP>, PASS_SMEM);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, frame_pass_kernel<VECP>,
+                                                                PassCfg::NT, PASS_SMEM);
+        if (err != cudaSuccess) return err;
+        if (occ < 1) return cudaErrorInvalidConfiguration;
+    }
+    plan->nt = (d + FS_TILE - 1) / FS_TILE;
+    plan->ntiles = plan->nt * (plan->nt + 1) / 2;
+    plan->grid = plan->ntiles;
+    return cudaSuccess;
+}
+
+template <bool VECP>
+cudaError_t launch_pass(const Frame& f, int grid_a, cudaStream_t stream) {
+    PassPlan plan;
+    cudaError_t err = plan_pass<VECP>(f.d, &plan);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(plan.grid);
+    cfg.blockDim = dim3(PassCfg::NT);
+    cfg.dynamicSmemBytes = PASS_SMEM;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    unsigned long long* stamps = f.stamps ? f.stamps + (size_t)grid_a * FS_STAMPS : nullptr;
+    return cudaLaunchKernelEx(&cfg, frame_pass_kernel<VECP>, f.p, (const float*)f.g,
+                              (const float*)f.mg, f.p_out, f.d, f.ldg, f.mp + 8, plan.nt,
+                              plan.ntiles, stamps);
+}
+
+template <int RX>
+cudaError_t launch(const Frame& f, bool vecp, cudaStream_t stream) {
     const size_t smem = smem_bytes(f.mp, f.rp, f.band, f.S);
     int grid = 0;
-    cudaError_t err = plan<RX>(smem, &grid);
+    cudaError_t err = plan_frame<RX>(smem, &grid);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(grid);
@@ -527,34 +818,58 @@ cudaError_t launch(const Frame& f, cudaStream_t stream) {
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, frame_step_kernel<RX>, f);
     if (err != cudaSuccess) return err;
+    err = vecp ? launch_pass<true>(f, grid, stream) : launch_pass<false>(f, grid, stream);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
+// What csl_frame_step_plan reports for variant RX (see there).
 template <int RX>
-cudaError_t plan_only(int mp, int rp, int band, int S, int* grid, int* smem) {
+cudaError_t plan_only(int mp, int rp, int band, int S, int d, int* out) {
     const size_t bytes = smem_bytes(mp, rp, band, S);
-    *smem = (int)bytes;
-    return plan<RX>(bytes, grid);
+    cudaError_t err = plan_frame<RX>(bytes, &out[0]);
+    if (err != cudaSuccess) return err;
+    out[1] = FS_THREADS;
+    out[2] = (int)bytes;
+    err = csl_func_regs(frame_step_kernel<RX>, &out[3], &out[4]);
+    if (err != cudaSuccess) return err;
+    PassPlan pass;
+    err = plan_pass<true>(d, &pass);
+    if (err != cudaSuccess) return err;
+    out[5] = pass.grid;
+    out[6] = PassCfg::NT;
+    out[7] = (int)PASS_SMEM;
+    err = csl_func_regs(frame_pass_kernel<true>, &out[8], &out[9]);
+    if (err != cudaSuccess) return err;
+    out[10] = FS_UNIT;
+    out[11] = pass.ntiles;
+    DeviceInfo* info = nullptr;
+    err = device_info(&info);
+    if (err != cudaSuccess) return err;
+    out[12] = info->pass_occ[1];
+    return cudaSuccess;
 }
 
 }  // namespace
 
-// The grid, block and dynamic shared memory of a launch at (mp, rp, band,
-// S) on the current device; launches nothing.
-extern "C" int csl_frame_step_plan(int mp, int rp, int band, int S, int* grid, int* block,
-                                   int* smem) {
+// The plan of a frame at (mp, rp, band, S, d) on the current device, as
+// FS_PLAN ints: the frame kernel's grid, block, dynamic shared memory
+// (bytes), registers and local-memory bytes a thread; the P pass's grid,
+// block, shared memory, registers and local bytes (16-byte P rows); the
+// unit's columns; the P pass's tiles and its blocks an SM.  Launches
+// nothing.
+extern "C" int csl_frame_step_plan(int mp, int rp, int band, int S, int d, int* out) {
     if (mp <= 0 || mp % 32 || mp > FS_MAX_MP || rp < 3 || rp > FS_MAX_RP || band <= 0 ||
-        band % 2 || S <= 0 || S > CSL_MAX_STEPS)
+        band % 2 || S <= 0 || S > CSL_MAX_STEPS || d < 3)
         return (int)cudaErrorInvalidValue;
-    *block = FS_THREADS;
     switch (mp / 32) {
-        case 1: return (int)plan_only<1>(mp, rp, band, S, grid, smem);
-        case 2: return (int)plan_only<2>(mp, rp, band, S, grid, smem);
-        case 3: return (int)plan_only<3>(mp, rp, band, S, grid, smem);
-        case 4: return (int)plan_only<4>(mp, rp, band, S, grid, smem);
-        case 5: return (int)plan_only<5>(mp, rp, band, S, grid, smem);
-        case 6: return (int)plan_only<6>(mp, rp, band, S, grid, smem);
-        default: return (int)plan_only<7>(mp, rp, band, S, grid, smem);
+        case 1: return (int)plan_only<1>(mp, rp, band, S, d, out);
+        case 2: return (int)plan_only<2>(mp, rp, band, S, d, out);
+        case 3: return (int)plan_only<3>(mp, rp, band, S, d, out);
+        case 4: return (int)plan_only<4>(mp, rp, band, S, d, out);
+        case 5: return (int)plan_only<5>(mp, rp, band, S, d, out);
+        case 6: return (int)plan_only<6>(mp, rp, band, S, d, out);
+        default: return (int)plan_only<7>(mp, rp, band, S, d, out);
     }
 }
 
@@ -563,18 +878,19 @@ extern "C" int csl_frame_step_plan(int mp, int rp, int band, int S, int* grid, i
 // (2, 2), p (d, d) and x (d,) contiguous; scratch of 2 mp^2 + 9 mp + 32 +
 // 2 (mp + 8) ldg floats, 16-byte aligned: S, S^-1, rowc, ms, siv, G, MG
 // (ops/frame_kernel.py _frame_step_scratch_floats); stamps null, or
-// (grid, 8) for each block's phase times (see stamp()).  mp =
-// 2 nz rounded up to 32, rp = 3 + 2 nz rounded up to 8, ldg = d rounded up
-// to 4, band = the chain plan's rows a block.
+// (grid + pass grid, FS_STAMPS) for each block's phase times (see stamp()).
+// mp = 2 nz rounded up to 32, rp = 3 + 2 nz rounded up to 8, ldg = d
+// rounded up to 4, band = the chain plan's rows a block.
 extern "C" int csl_frame_step(const float* p, const float* x, const long long* slots,
                               const float* vns, const float* swans, const float* phis,
                               const unsigned char* actives, const float* q_cov, const float* zr,
                               const float* zb, const unsigned char* mask, const float* r_cov,
                               float* p_out, float* xn, float* pt, float* nis, float* scratch,
                               unsigned long long* stamps, int slots_st, int vns_st,
-                              int swans_st, int phis_st, int actives_st, int zr_st, int zb_st, int mask_st, int d, int nz, int S, int cap,
-                              int mp, int rp, int ldg, int band, float wheel_base, float dt,
-                              float sigma_heading, int use_heading, void* stream) {
+                              int swans_st, int phis_st, int actives_st, int zr_st, int zb_st,
+                              int mask_st, int d, int nz, int S, int cap, int mp, int rp, int ldg,
+                              int band, float wheel_base, float dt, float sigma_heading,
+                              int use_heading, void* stream) {
     if (d < 3 || nz <= 0 || S <= 0 || S > CSL_MAX_STEPS || cap <= 0 || mp % 32 || mp < 2 * nz ||
         mp > FS_MAX_MP || rp < 3 + 2 * nz || rp > FS_MAX_RP || ldg < d || ldg % 4 || band <= 0 ||
         band % 2 || (reinterpret_cast<size_t>(scratch) & 15u))
@@ -620,20 +936,52 @@ extern "C" int csl_frame_step(const float* p, const float* x, const long long* s
     f.rp = rp;
     f.ldg = ldg;
     f.band = band;
-    f.vecp = d % 4 == 0 && !(reinterpret_cast<size_t>(p) & 15u) &&
-             !(reinterpret_cast<size_t>(p_out) & 15u);
     f.wheel_base = wheel_base;
     f.dt = dt;
     f.sigma_heading = sigma_heading;
     f.use_heading = use_heading;
+    // P's rows take 16-byte accesses in the panels and the P pass.
+    const bool vecp = d % 4 == 0 && !(reinterpret_cast<size_t>(p) & 15u) &&
+                      !(reinterpret_cast<size_t>(p_out) & 15u);
+    f.vecp = vecp;
     const cudaStream_t st = (cudaStream_t)stream;
     switch (mp / 32) {
-        case 1: return (int)launch<1>(f, st);
-        case 2: return (int)launch<2>(f, st);
-        case 3: return (int)launch<3>(f, st);
-        case 4: return (int)launch<4>(f, st);
-        case 5: return (int)launch<5>(f, st);
-        case 6: return (int)launch<6>(f, st);
-        default: return (int)launch<7>(f, st);
+        case 1: return (int)launch<1>(f, vecp, st);
+        case 2: return (int)launch<2>(f, vecp, st);
+        case 3: return (int)launch<3>(f, vecp, st);
+        case 4: return (int)launch<4>(f, vecp, st);
+        case 5: return (int)launch<5>(f, vecp, st);
+        case 6: return (int)launch<6>(f, vecp, st);
+        default: return (int)launch<7>(f, vecp, st);
     }
+}
+
+// The programmatic edges (programmatic dependent launch: H9's P pass on its
+// frame kernel) of a CUDA graph, e.g. one captured from a stream; launches
+// nothing.  Needs CUDA 12.3's edge data.
+extern "C" int csl_graph_programmatic_edges(void* graph, int* edges) {
+#if CUDART_VERSION >= 12030
+#if CUDART_VERSION >= 13000
+#define CSL_GRAPH_EDGES cudaGraphGetEdges
+#else
+#define CSL_GRAPH_EDGES cudaGraphGetEdges_v2
+#endif
+    const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+    size_t n = 0;
+    cudaError_t err = CSL_GRAPH_EDGES(g, nullptr, nullptr, nullptr, &n);
+    if (err != cudaSuccess) return (int)err;
+    std::vector<cudaGraphNode_t> from(n), to(n);
+    std::vector<cudaGraphEdgeData> data(n);
+    if (n > 0) err = CSL_GRAPH_EDGES(g, from.data(), to.data(), data.data(), &n);
+    if (err != cudaSuccess) return (int)err;
+#undef CSL_GRAPH_EDGES
+    int count = 0;
+    for (size_t i = 0; i < n; ++i) count += data[i].type == cudaGraphDependencyTypeProgrammatic;
+    *edges = count;
+    return (int)cudaSuccess;
+#else
+    (void)graph;
+    (void)edges;
+    return (int)cudaErrorNotSupported;
+#endif
 }

@@ -42,6 +42,14 @@ struct GroupSync {
     }
 };
 
+// A read of P: evict-first (ld.cs) when STREAM, else through L2 at the
+// normal priority (ld.cg).
+template <bool STREAM, typename V>
+__device__ __forceinline__ V load_p(const V* a) {
+    if constexpr (STREAM) return __ldcs(a);
+    else return __ldcg(a);
+}
+
 // One pass of the epilogue over the T x T block at (r0, c0):
 // out[r0 + u][c0 + v] = P[r0 + u][c0 + v] + X[u][v], X = ts^T when
 // `transpose`, else ts with a diagonal tile's lower half taken from its
@@ -49,8 +57,11 @@ struct GroupSync {
 // tile's row stride T + 1 keeps the transposed reads free of bank
 // conflicts.  Every P load of the pass is issued before its first store, so
 // a thread keeps a whole pass's loads in flight.  !READP (H4's no-P probe
-// entry): P is not read, out = X.
-template <int T, int NT, bool VEC, bool READP = true>
+// entry): P is not read, out = X.  STREAMP: P is read evict-first (ld.cs),
+// so that the pass's stream of P does not push out of the L2 what the
+// next launch reads (H9's frame kernel: its code and the frame's state);
+// otherwise through L2 at the normal priority (ld.cg).
+template <int T, int NT, bool VEC, bool READP = true, bool STREAMP = false>
 __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* __restrict__ out,
                                            const float* ts, int d, int r0, int c0,
                                            bool transpose, bool diag, int tid) {
@@ -66,7 +77,8 @@ __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* _
             const int e = tid + q * NT;
             const int u = e / (T / 4), v = (e % (T / 4)) * 4;
             pv[q] = (READP && r0 + u < d && c0 + v < d)
-                        ? __ldcg(reinterpret_cast<const float4*>(p + (size_t)(r0 + u) * d + c0 + v))
+                        ? load_p<STREAMP>(
+                              reinterpret_cast<const float4*>(p + (size_t)(r0 + u) * d + c0 + v))
                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
@@ -86,7 +98,7 @@ __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* _
         for (int q = 0; q < NS; ++q) {
             const int e = tid + q * NT;
             const int u = e / T, v = e % T;
-            pv[q] = (READP && r0 + u < d && c0 + v < d) ? __ldcg(p + (size_t)(r0 + u) * d + c0 + v)
+            pv[q] = (READP && r0 + u < d && c0 + v < d) ? load_p<STREAMP>(p + (size_t)(r0 + u) * d + c0 + v)
                                                          : 0.f;
         }
 #pragma unroll
@@ -105,8 +117,9 @@ __device__ __forceinline__ void store_pass(const float* __restrict__ p, float* _
 // (ldg % 4 == 0, 16-byte aligned strips); VECP: 16-byte P rows (d % 4 == 0).
 // The ring's 4-byte copies go through L1 (cp.async.ca): only a caller whose
 // strips were written before its launch may take VECG = false.  !READP:
-// out = G^T MG, P not read (H4's no-P probe entry).
-template <int T, bool VECG, bool VECP, typename Sync, bool READP = true>
+// out = G^T MG, P not read (H4's no-P probe entry).  STREAMP: P read
+// evict-first (store_pass).
+template <int T, bool VECG, bool VECP, typename Sync, bool READP = true, bool STREAMP = false>
 __device__ __forceinline__ void tile(const float* __restrict__ p, const float* g,
                                      const float* mg, float* __restrict__ out, int d, int ldg,
                                      int r, int i0, int j0, float* smem, int tid, Sync sync) {
@@ -192,8 +205,8 @@ __device__ __forceinline__ void tile(const float* __restrict__ p, const float* g
 
     // out[I, J], a diagonal tile's lower half from its upper half; then
     // out[J, I] = P[J, I] + acc^T.
-    store_pass<T, NT, VECP, READP>(p, out, ts, d, i0, j0, false, diag, tid);
-    if (!diag) store_pass<T, NT, VECP, READP>(p, out, ts, d, j0, i0, true, false, tid);
+    store_pass<T, NT, VECP, READP, STREAMP>(p, out, ts, d, i0, j0, false, diag, tid);
+    if (!diag) store_pass<T, NT, VECP, READP, STREAMP>(p, out, ts, d, j0, i0, true, false, tid);
     sync();                  // the tile is the next tile's ring
 }
 

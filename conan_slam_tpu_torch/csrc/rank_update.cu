@@ -162,6 +162,16 @@ extern "C" int csl_rank_update_plan(int d, int* tile, int* grid) {
     return (int)cudaSuccess;
 }
 
+// The registers and local-memory bytes a thread of the variant
+// csl_rank_update takes for D = d (with aligned strips).
+extern "C" int csl_rank_update_attributes(int d, int* regs, int* local) {
+    if (d <= 0) return (int)cudaErrorInvalidValue;
+    Plan plan;
+    const cudaError_t err = make_plan(d, d % 4 == 0, &plan);
+    if (err != cudaSuccess) return (int)err;
+    return (int)csl_func_regs(plan.fn, regs, local);
+}
+
 namespace {
 
 // The probe entry's variants (16-byte strips only): one a tile edge and

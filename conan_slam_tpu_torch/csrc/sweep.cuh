@@ -190,9 +190,12 @@ __device__ void sweep_blocks(int q, float* ts, int tp, int mp, float* rows, int 
 // so an asymmetric S (from the row strips of an asymmetric P) would give an
 // S^-1 whose asymmetry feeds back into P with gain every frame.  mp <= 32 RX.
 // S is read with __ldcg when COHERENT (written earlier in the same launch,
-// by other blocks), else with __ldg.
+// by other blocks), else with __ldg.  Returns, in every thread, whether a
+// value was non-finite (out is then zero); on return the scaled swept tile
+// and the scale are still in smem (see the layout below), so a caller can
+// form products with S^-1 there without reading out back.
 template <int RX, bool COHERENT>
-__device__ __forceinline__ void inverse(const float* s, int nblk, float* out, int mp, float* smem) {
+__device__ __forceinline__ bool inverse(const float* s, int nblk, float* out, int mp, float* smem) {
     const int tp = mp + 1;
     float* ts = smem;                  // (mp, mp + 1) padded tile
     float* dsc = ts + mp * tp;         // (mp,) the Jacobi scale
@@ -260,12 +263,14 @@ __device__ __forceinline__ void inverse(const float* s, int nblk, float* out, in
                 out[i * mp + j] = v;
             }
         }
-    if (__syncthreads_or(bad)) {
+    const bool any_bad = __syncthreads_or(bad);
+    if (any_bad) {
         for (int i = ty; i < mp; i += TY)
 #pragma unroll
             for (int b = 0; b < RX; ++b)
                 if (tx + 32 * b < mp) out[i * mp + tx + 32 * b] = 0.f;
     }
+    return any_bad;
 }
 
 // Shared memory of the sweep: the padded tile, the scale and two buffers of

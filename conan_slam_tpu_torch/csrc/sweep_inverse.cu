@@ -236,6 +236,21 @@ extern "C" int csl_sweep_inverse(const float* s, const int* nblk, float* out, fl
     }
 }
 
+// The registers and local-memory bytes a thread of the register sweep's
+// variant for mp (at most 224) takes.
+extern "C" int csl_sweep_inverse_attributes(int mp, int* regs, int* local) {
+    if (mp <= 0 || mp > REG_MAX_MP) return (int)cudaErrorInvalidValue;
+    switch ((mp + 31) / 32) {
+        case 1: return (int)csl_func_regs(sweep_inverse_kernel<1>, regs, local);
+        case 2: return (int)csl_func_regs(sweep_inverse_kernel<2>, regs, local);
+        case 3: return (int)csl_func_regs(sweep_inverse_kernel<3>, regs, local);
+        case 4: return (int)csl_func_regs(sweep_inverse_kernel<4>, regs, local);
+        case 5: return (int)csl_func_regs(sweep_inverse_kernel<5>, regs, local);
+        case 6: return (int)csl_func_regs(sweep_inverse_kernel<6>, regs, local);
+        default: return (int)csl_func_regs(sweep_inverse_kernel<7>, regs, local);
+    }
+}
+
 extern "C" const char* csl_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }

@@ -122,16 +122,19 @@ class CudaKernel:
 
     ``source`` is the CUDA file in the repo, ``replaces`` the TPU kernel of
     the reference it ports (file:line).  The stream is appended to every
-    call: PyTorch's current stream on the tensors' device.
+    call: PyTorch's current stream on the tensors' device.  A call that
+    succeeds adds ``launches_per_call`` to the count: the kernels the entry
+    launches.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list, source: str,
-                 replaces: str):
+                 replaces: str, launches_per_call: int = 1):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes) + [P]
         self.source = source
         self.replaces = replaces
+        self.launches_per_call = launches_per_call
         self.launches = 0
         KERNELS[name] = self
 
@@ -146,7 +149,39 @@ class CudaKernel:
         if err != 0:
             msg = lib.csl_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: {msg} ({err})")
-        self.launches += 1
+        self.launches += self.launches_per_call
+
+
+def attributes(symbol: str, device: torch.device, *args: int) -> tuple[int, int]:
+    """``(registers, local-memory bytes)`` a thread of the kernel that the C
+    entry ``symbol(*args, &regs, &local)`` reports (cudaFuncGetAttributes);
+    launches nothing."""
+    lib = library()
+    fn = getattr(lib, symbol)
+    fn.argtypes = [I] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = fn(*args, ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: {lib.csl_error_string(err).decode()} ({err})")
+    return regs.value, local.value
+
+
+def programmatic_edges(graph: int) -> int:
+    """The programmatic-dependent-launch edges of the CUDA graph whose
+    ``cudaGraph_t`` is ``graph`` (``torch.cuda.CUDAGraph(keep_graph=True)``'s
+    ``raw_cuda_graph()`` after capture); launches nothing."""
+    lib = library()
+    fn = lib.csl_graph_programmatic_edges
+    fn.argtypes = [P, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    edges = ctypes.c_int()
+    err = fn(P(graph), ctypes.byref(edges))
+    if err != 0:
+        raise RuntimeError(f"csl_graph_programmatic_edges failed: "
+                           f"{lib.csl_error_string(err).decode()} ({err})")
+    return edges.value
 
 
 def reset_launch_counts() -> None:

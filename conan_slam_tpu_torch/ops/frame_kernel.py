@@ -4,11 +4,13 @@ frame_update_obs and their references).
 
 The reference runs the known frame on the TPU as one resident kernel
 (``_framestep_kernel``) whose grid steps run in order.  The port's default
-is its Hopper counterpart, H9 ``frame_step`` (csrc/frame_step.cu): ONE
-cooperative launch, one block an SM, whose phases (the chain, the sweep
-with the pht panels beside it, the gains and the mean, the P pass) are
-separated by grid barriers.  ``frame_step`` takes the frame's raw slots and
-buffers, and H9 does the packing and the gathers itself (its plain version
+is its Hopper counterpart, H9 ``frame_step`` (csrc/frame_step.cu): TWO
+launches from one C entry: a cooperative frame kernel, one block an SM,
+whose phases (the chain, the sweep with the pht units beside it, the gains
+and the mean) are separated by grid barriers, then the P pass at H4's
+occupancy, launched behind it with programmatic dependent launch.
+``frame_step`` takes the frame's raw slots and buffers, and H9 does the
+packing and the gathers itself (its plain version
 ``_frame_step_resident_reference``).
 
 ``frame_route`` names the route a frame takes, from its shapes alone:
@@ -52,7 +54,7 @@ pass at r = 2 (MP + 8) for both frames.
 The gated frame (``frame_update_obs``, the reference's ``_fullframe_kernel``)
 gets its factors P' = P + vtf^T B vtf from H5 (ops.factor_kernel).  Its
 default route is H10 ``obs_step`` (csrc/obs_step.cu), ONE cooperative
-launch as H9's: the chain in bands (the packing from the raw slots, the
+launch: the chain in bands (the packing from the raw slots, the
 observe, compact Hc, the hvb coupling and S), the sweep beside the pht
 panels, the gains [B vtf; -S^-1 pht] and the mean, the P pass
 P + [vtf; pht]^T [B vtf; -S^-1 pht] (``obs_route``; its plain version
@@ -124,15 +126,20 @@ PANEL_LD = 24       # H3's panel row stride in shared memory
 OBS_PANEL_W = 32    # H8's columns and row groups a block (csrc/obs_panels.cu)
 OBS_PANEL_H = 8
 
-# H9 (csrc/frame_step.cu): one block size for every phase, the sweep's 16
-# warps; 16-column panels (32 row groups); the P pass as 8 groups of H4's
-# 64-thread 32-tile; the most gathered rows (MP = 224).
+# H9 (csrc/frame_step.cu): the frame kernel's one block size for every
+# phase, the sweep's 16 warps; 16-column pht panels (32 row groups) in
+# units of 24 columns a block through the panels and the gains; the P pass, its second launch, on H4's 64-thread 32-tiles; the
+# most gathered rows (MP = 224).
 FS_THREADS = 512
 FS_W = 16
 FS_LD = 24
+FS_UNIT = 24
+FS_XG = 32          # the mean's partial sums a column
 FS_TILE = 32
-FS_GROUPS = 8
 FS_MAX_RP = 232
+FS_STAMPS = 12      # H9's phase stamps a block (csrc/frame_step.cu stamp())
+FS_LAUNCHES = 2     # kernels a call launches: the frame kernel, the P pass
+FS_PLAN = 13        # values csl_frame_step_plan reports
 # H9's static shared memory: rows, qc, ms, a max per warp.
 FS_STATIC_BYTES = 4 * (FS_MAX_RP + 4 + MS_LEN + FS_THREADS // 32)
 
@@ -167,6 +174,7 @@ FRAME_STEP = cuda.CudaKernel(
     source="conan_slam_tpu_torch/csrc/frame_step.cu",
     replaces="conan_slam_tpu/ops/frame_kernel.py:1312 (frame_step -> pallas_call :1399, "
              "_framestep_kernel :655)",
+    launches_per_call=FS_LAUNCHES,
 )
 
 
@@ -595,15 +603,16 @@ def _smem_limit(device) -> int:
 
 
 def _frame_step_smem_bytes(mp: int, rp: int, band: int, s_steps: int = MAX_STEPS) -> int:
-    """H9's dynamic shared memory at ``s_steps`` sub-steps (by default the
-    most it takes): the largest of its phases' needs (csrc/frame_step.cu
-    smem_bytes; the chain's holds the controls too)."""
+    """The dynamic shared memory of H9's frame kernel at ``s_steps``
+    sub-steps (by default the most it takes): the largest of its phases'
+    needs (csrc/frame_step.cu smem_bytes; the chain's holds the controls
+    too).  The P pass, its second launch, takes H4's ring of 32-tiles."""
+    unit = FS_UNIT
     return max(
         _chain_smem_bytes(mp, rp, band, s_steps) + 16 * s_steps,
-        _sweep_smem_bytes(mp),
-        4 * (8 * mp + MS_LEN + FS_LD * rp),                         # pht panels
-        4 * (mp * (mp + 4) + FS_W * mp + FS_THREADS + mp + MS_LEN),  # gains
-        4 * FS_GROUPS * 2 * 4 * 16 * FS_TILE,                       # P pass rings
+        _sweep_smem_bytes(mp) + 4 * 2 * mp,                          # sweep, v, siv
+        4 * (mp * unit + 8 * mp + MS_LEN + FS_LD * rp),              # pht units
+        4 * (mp * unit + mp * mp + FS_XG * unit + 2 * mp + MS_LEN + 16),  # gains, 7 mbarriers
     )
 
 
@@ -669,7 +678,8 @@ def frame_route(d: int, nz: int, device, s_steps: int = 1, schedule: str = "auto
     measurement slots and ``s_steps`` sub-steps on ``device``: a function
     of the shapes alone, chosen before any launch:
 
-      "resident"  H9, one cooperative launch, where its phases fit a block
+      "resident"  H9 (a cooperative frame kernel and the P pass), where its
+                  phases fit a block
                   (MP <= 224, H1's register limit);
       "split"     H2 -> H1 -> H3 -> H4, under ``schedule="split"``, or where
                   only the split fits (MP 226 to 2048: H1's cooperative
@@ -704,37 +714,49 @@ def frame_route(d: int, nz: int, device, s_steps: int = 1, schedule: str = "auto
 
 
 class FrameStepPlan(NamedTuple):
-    """H9's launch and the work of each of its phases."""
+    """H9's two launches and the work of each of its phases."""
 
-    grid: int      # blocks: one an SM (a cooperative launch)
-    block: int     # threads a block, in every phase
-    smem: int      # dynamic shared memory a block, the largest phase's
-    bands: int     # phase 1: blocks that form rows of S (frame_chain_plan)
-    panels: int    # phases 2 and 3: 16-column panels of D
-    tiles: int     # phase 4: upper-triangle tiles of 32 over P
+    grid: int        # frame kernel blocks: one an SM (a cooperative launch)
+    block: int       # its threads a block, in every phase
+    smem: int        # its dynamic shared memory a block, the largest phase's
+    regs: int        # its registers a thread (cudaFuncGetAttributes)
+    local: int       # its local-memory bytes a thread: spills and stack
+    bands: int       # phase 1: blocks that form rows of S (frame_chain_plan)
+    panels: int      # phase 2: 16-column pht panels of D
+    unit: int        # phases 2 and 3: columns of D a block takes at a time
+    units: int       # phases 2 and 3: units of D
+    pass_grid: int   # the P pass: blocks, one a tile
+    pass_block: int  # its threads a block: one 32-tile (H4's Cfg<32>)
+    pass_smem: int   # its shared memory a block: H4's ring
+    pass_regs: int   # its registers a thread
+    pass_local: int  # its local-memory bytes a thread
+    pass_occ: int    # its blocks an SM (the occupancy query)
+    tiles: int       # the P pass: upper-triangle tiles of 32 over P
 
 
 def frame_step_plan(d: int, mp: int, device, s_steps: int = MAX_STEPS) -> FrameStepPlan:
-    """The grid, block and shared memory H9 takes at D = ``d``, MP = ``mp``
-    (RP the largest for that MP) and ``s_steps`` sub-steps on the CUDA
-    ``device``, and each phase's work; launches nothing."""
+    """The grids, blocks and shared memory of H9's two launches at D =
+    ``d``, MP = ``mp`` (RP the largest for that MP) and ``s_steps``
+    sub-steps on the CUDA ``device``, their registers, and each phase's
+    work; launches nothing."""
     rp = _round_up(3 + mp, 8)
     band = frame_chain_plan(mp).band
     lib = cuda.library()
     fn = lib.csl_frame_step_plan
-    out = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [cuda.I, cuda.I, cuda.I, cuda.I, out, out, out]
+    fn.argtypes = [cuda.I] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    grid, block, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    out = (ctypes.c_int * FS_PLAN)()
     with torch.cuda.device(device):
-        err = fn(mp, rp, band, s_steps, ctypes.byref(grid), ctypes.byref(block),
-                 ctypes.byref(smem))
+        err = fn(mp, rp, band, s_steps, d, out)
     if err != 0:
         raise RuntimeError(f"frame_step plan failed: {lib.csl_error_string(err).decode()} ({err})")
-    nt = -(-d // FS_TILE)
-    return FrameStepPlan(grid=grid.value, block=block.value, smem=smem.value,
-                         bands=frame_chain_plan(mp).grid, panels=-(-d // FS_W),
-                         tiles=nt * (nt + 1) // 2)
+    (grid, block, smem, regs, local, pass_grid, pass_block, pass_smem, pass_regs, pass_local,
+     unit, tiles, pass_occ) = out
+    return FrameStepPlan(grid=grid, block=block, smem=smem, regs=regs, local=local,
+                         bands=frame_chain_plan(mp).grid, panels=-(-d // FS_W), unit=unit,
+                         units=-(-_round_up(d, 4) // unit), pass_grid=pass_grid,
+                         pass_block=pass_block, pass_smem=pass_smem, pass_regs=pass_regs,
+                         pass_local=pass_local, pass_occ=pass_occ, tiles=tiles)
 
 
 def _frame_step_scratch_floats(mp: int, ldg: int) -> int:
@@ -764,11 +786,17 @@ def _frame_step_resident_reference(p, x, fi: FrameInputs, wheel_base, dt, sigma_
 def _frame_step_h9(p, x, slots, capacity: int, vns, swans, phis, actives, q_cov, zr, zb, mask,
                    r_cov, wheel_base, dt, sigma_heading, use_heading: bool,
                    stamps=None) -> FrameStep:
-    """Launch H9 on CUDA tensors (``frame_step``'s resident route).
-    ``stamps``, a (grid, 8) int64 CUDA tensor, takes each block's
-    %globaltimer (ns) at its phase boundaries: the start, the chain done,
-    past barrier 1, the sweep or the pht panels done, past barrier 2, the
-    gains done, past barrier 3, the P pass done; None records nothing."""
+    """Launch H9 on CUDA tensors (``frame_step``'s resident route): the
+    frame kernel, then the P pass.  ``stamps``, a (grid + pass_grid,
+    FS_STAMPS) int64 CUDA tensor (``frame_step_plan``), takes the frame
+    kernel's blocks' %globaltimer (ns) at their phase boundaries in rows
+    0 .. grid - 1: the start, the chain done, past barrier 1, block 0's
+    sweep or another block's pht units done, block 0's siv and NIS done
+    (beside the gains), past barrier 2, the gains done, block 0's SM
+    clock64 at the sweep's start and end, then the first unit's S^-1
+    staged, its MG stored and its siv formed; and each P-pass block's start
+    (past its wait for the frame kernel) and end in the rows after them.
+    None records nothing."""
     d, nz, s_steps = p.shape[0], slots.shape[0], vns.shape[0]
     mp, rp = frame_shapes(nz)
     cuda.check(p, "p", (d, d))
@@ -793,7 +821,8 @@ def _frame_step_h9(p, x, slots, capacity: int, vns, swans, phis, actives, q_cov,
     nis = torch.empty((1,), dtype=f32, device=dev)
     scratch = torch.empty((_frame_step_scratch_floats(mp, ldg),), dtype=f32, device=dev)
     if stamps is not None:
-        cuda.check(stamps, "stamps", (frame_step_plan(d, mp, dev, s_steps).grid, 8), torch.int64)
+        plan = frame_step_plan(d, mp, dev, s_steps)
+        cuda.check(stamps, "stamps", (plan.grid + plan.pass_grid, FS_STAMPS), torch.int64)
     FRAME_STEP(
         dev, *(cuda.ptr(t) for t in (p, x, slots, vns, swans, phis, actives, q_cov, zr, zb, mask,
                                      r_cov, p_out, xn, pt, nis, scratch)),

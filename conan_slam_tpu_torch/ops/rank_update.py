@@ -97,3 +97,9 @@ def rank_update_plan(d: int, device: torch.device) -> tuple[int, int]:
     if err != 0:
         raise RuntimeError(f"rank_update plan failed: {lib.csl_error_string(err).decode()} ({err})")
     return tile.value, grid.value
+
+
+def rank_update_attributes(d: int, device: torch.device) -> tuple[int, int]:
+    """``(registers, local-memory bytes)`` a thread of the variant H4 takes
+    at D = ``d`` on the CUDA ``device``; launches nothing."""
+    return cuda.attributes("csl_rank_update_attributes", device, d)

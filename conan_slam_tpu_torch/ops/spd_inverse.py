@@ -130,6 +130,13 @@ def sweep_si(s: torch.Tensor, nblk: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sweep_inverse_attributes(mp: int, device: torch.device) -> tuple[int, int]:
+    """``(registers, local-memory bytes)`` a thread of H1's register sweep
+    for MP = ``mp`` (at most MAX_MP) on the CUDA ``device``; launches
+    nothing."""
+    return cuda.attributes("csl_sweep_inverse_attributes", device, mp)
+
+
 def spd_inverse_reference(s: torch.Tensor) -> torch.Tensor:
     """Plain SPD inverse: the reference's off-TPU Cholesky route with the
     same Jacobi scaling and the same zero-on-failure guard."""

@@ -302,20 +302,62 @@ def test_frame_update_obs_past_the_kernels_takes_the_plain_route():
     np.testing.assert_allclose(float(got.nis), float(ref.nis), rtol=1e-3, atol=1e-5)
 
 
-def test_frame_step_constants_match_the_kernel_source():
+def _frame_step_consts():
     src = (cuda.CSRC / "frame_step.cu").read_text()
-    consts = {k: int(v) for k, v in re.findall(r"#define (FS_\w+) +(\d+)", src)}
+    return src, {k: int(v) for k, v in re.findall(r"#define (FS_\w+) +(\d+)", src)}
+
+
+def test_frame_step_constants_match_the_kernel_source():
+    src, consts = _frame_step_consts()
     assert consts["FS_THREADS"] == tfk.FS_THREADS
     assert consts["FS_W"] == tfk.FS_W
     assert consts["FS_LD"] == tfk.FS_LD
+    assert consts["FS_UNIT"] == tfk.FS_UNIT
     assert consts["FS_TILE"] == tfk.FS_TILE
-    assert consts["FS_THREADS"] // consts["FS_GROUP"] == tfk.FS_GROUPS
+    assert consts["FS_STAMPS"] == tfk.FS_STAMPS
+    assert consts["FS_XG"] == tfk.FS_XG
+    assert consts["FS_PLAN"] == tfk.FS_PLAN
     assert consts["FS_MAX_RP"] == tfk.FS_MAX_RP == tfk.frame_shapes(112)[1]
     assert consts["FS_MAX_MP"] == tfk.MAX_MP
+    # Two launches a call: the frame kernel, then the P pass on H4's tiles
+    # of FS_TILE (rank_tile.cuh's Cfg<32>), with the programmatic launch.
+    assert tfk.FS_LAUNCHES == 2 == tfk.FRAME_STEP.launches_per_call
+    assert "frame_pass_kernel<VECP>" in src and "csl_rank::Cfg<FS_TILE>" in src
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in src
+    assert "griddepcontrol.wait" in src
     # The largest frame H9 holds fits a block with its static shared memory.
     mp, rp = tfk.frame_shapes(112)
     assert (tfk._frame_step_smem_bytes(mp, rp, tfk.frame_chain_plan(mp).band)
             + tfk.FS_STATIC_BYTES <= cuda.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("rx", range(1, 8))
+def test_frame_step_smem_mirrors_the_kernel_source(rx):
+    # H9's frame kernel at every RX: the Python mirror of its shared memory
+    # reads the source's phases (the sweep with v and siv, the pht units,
+    # the gains: the unit's pht, S^-1, the mean's partials, v, siv, ms and
+    # the mbarriers of its bulk copies), all within the card's beside the
+    # static shared memory at 256 sub-steps; and at the bench D every block
+    # but the sweep's takes one unit of FS_UNIT columns, so the gains run
+    # in one round on the pht the block kept.
+    src, consts = _frame_step_consts()
+    assert "return mp * (mp + 1) + mp + 8 * 32 * ((mp + 31) / 32) + 2 * mp;" in src
+    assert "return mp * FS_UNIT + mp * mp + FS_XG * FS_UNIT + 2 * mp + 32 + 16;" in src
+    assert "fl = std::max(fl, (size_t)(mp * FS_UNIT + 8 * mp + 32 + rp * FS_LD));" in src
+    mp = 32 * rx
+    rp = tfk.frame_shapes(mp // 2)[1]
+    band = tfk.frame_chain_plan(mp).band
+    u = consts["FS_UNIT"]
+    phases = (tfk._sweep_smem_bytes(mp) + 4 * 2 * mp,
+              4 * (mp * u + 8 * mp + tfk.MS_LEN + tfk.FS_LD * rp),
+              4 * (mp * u + mp * mp + tfk.FS_XG * u + 2 * mp + tfk.MS_LEN + 16))
+    for s in (1, 6, 256):
+        chain = tfk._chain_smem_bytes(mp, rp, band, s) + 16 * s
+        assert tfk._frame_step_smem_bytes(mp, rp, band, s) == max(chain, *phases)
+    assert max(phases) + tfk.FS_STATIC_BYTES <= cuda.MAX_SMEM_BYTES
+    assert (tfk._frame_step_smem_bytes(mp, rp, band, 256) + tfk.FS_STATIC_BYTES
+            <= cuda.MAX_SMEM_BYTES)
+    assert -(-2304 // u) <= tfk.N_SM - 1
 
 
 def test_sweep_constants_match_the_kernel_source():
