@@ -39,12 +39,16 @@ Phases:
           (1003) and at the 10k-landmark shape (D = 20,224), with a
           cross-check against the known-association frame on the same rows
           and the frame's mean against a float64 witness.  H10 (the default
-          route, one cooperative launch) against its plain version and
-          against the split kernels (within the fp32 rounding of the sums
-          they order differently), two calls bit-equal, asym(P) exactly 0;
-          its device time against the split's in turns (H10, split, split,
-          H10) at config 2 and at the 10k shape, against MP and NBP, its
-          phases (%globaltimer), its plan and bound;
+          route: a cooperative frame kernel, then the P pass launched
+          behind it) against its plain version and against the split
+          kernels (within the fp32 rounding of the sums they order
+          differently), two calls bit-equal, asym(P) exactly 0; its device
+          time (the span of its two kernels) against the split's in turns
+          (H10, split, split, H10) at config 2 and at the 10k shape, against
+          MP and NBP, its phases (%globaltimer) beside H1 and H4 run alone
+          on the same frame, its sweep beside H1 back to back and right
+          after H4's pass over the 10k P, each variant's registers and
+          local-memory bytes, its plan and bound;
        c. the frame pair (two frames, one H4 pass at r = 2 (MP + 8)) at the
           bench shape and at a ragged D, against its plain version and
           against two sequential kernel frames, and H4 at r = 272;
@@ -90,8 +94,9 @@ Phases:
           augmentation; 25,002 steps = 4,167 frames) through H10 in turns
           with the split schedule (H10, split, split, H10): asserts the
           reference's gated_full gate (ATE < 0.5 m, 270 <= mapped <= 340)
-          on each run, and that H5, H6 and H10 launched once per frame and
-          no other kernel (H5, H6, H7, H8, H1 and H4 on the split runs);
+          on each run, and that H5 and H6 launched once per frame, H10's
+          two kernels once each, and no other kernel (H5, H6, H7, H8, H1
+          and H4 on the split runs);
           the two routes' largest |dx_est| and the steps whose map sizes
           differ.  600 steps with the plain versions (the reference's gated
           gate: finite, mapped > 0, ATE < 1 m), against the kernels' first
@@ -106,8 +111,8 @@ Phases:
           its third chunk and resumed must equal an uninterrupted run bit
           for bit; the seconds and bytes of one checkpoint.
      Then a torch.profiler trace of 100 frames of each path (the known
-     path and the gated path each through its one-launch kernel and
-     through the split schedule, 100 pairs of the pair path, 20 frames of
+     path and the gated path each through its one-launch frame (H9,
+     H10) and through the split schedule, 100 pairs of the pair path, 20 frames of
      the 10k-landmark shape on both routes) gives each kernel's device
      time per frame, the PyTorch ops dispatched per frame and the device's
      busy share.
@@ -145,11 +150,13 @@ BIG_STEPS = 600
 BIG_WARM_STEPS = 60     # untimed steps before the timed 10k run
 BIG_PROFILE_FRAMES = 20 # frames of the 10k shape traced with torch.profiler
 KNOWN_KERNELS = ("frame_step",)   # H9: the known frame's default route
-# The device kernels of each wrapper that launches more than one: H9's frame
-# kernel and its P pass.  A wrapper's ptxas records and device time sum
-# over its kernels.
-DEVICE_KERNELS = {"frame_step": ("frame_step_kernel", "frame_pass_kernel")}
+# The device kernels of each wrapper that launches more than one: H9's and
+# H10's frame kernel and their P pass.  A wrapper's ptxas records and device
+# time sum over its kernels.
+DEVICE_KERNELS = {"frame_step": ("frame_step_kernel", "frame_pass_kernel"),
+                  "obs_step": ("obs_step_kernel", "obs_pass_kernel")}
 H9_KERNELS = "|".join(DEVICE_KERNELS["frame_step"])
+H10_KERNELS = "|".join(DEVICE_KERNELS["obs_step"])
 SPLIT_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
 GATED_KERNELS = ("factor_strip", "gating_scores", "obs_step")   # H10: the gated default
 GATED_SPLIT_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
@@ -778,7 +785,7 @@ def route_checks(device) -> dict:
     and frame_step_pair take the split schedule, with H1's cooperative
     sweep, held to their plain versions; H1 alone at MP 240 and 480 against
     its plain version, with its device time.  The gated frame at MP 160,
-    192 and 224 (D = 1024): H10, one launch; at MP 240 and 480: the split
+    192 and 224 (D = 1024): H10's two kernels; at MP 240 and 480: the split
     with H7 in bands and H1's cooperative sweep; each against its plain
     version.  The known frame at S = 17, 33 and 64 (D = 2304): H9, and the
     split schedule's H2 and H1-H4, against the plain version.  frame_step
@@ -856,11 +863,11 @@ def route_checks(device) -> dict:
         got = fk.frame_update_obs(*uargs)
         torch.cuda.synchronize()
         launched = launched_now()
-        want = {"obs_step": 1} if mp <= 224 else obs_split
+        want = per_frame(("obs_step",), 1) if mp <= 224 else obs_split
         log(f"gated MP {mp} (NZ {nz}, D 1024): obs_route {route!r}, launches {launched}")
         require(route == ("resident" if mp <= 224 else "split") and launched == want,
-                f"gated MP {mp} route", "H10 once to MP 224, then H7 (bands), H1 (cooperative), "
-                "H8, H4 once each")
+                f"gated MP {mp} route", "H10 (its two kernels) to MP 224, then H7 (bands), H1 "
+                "(cooperative), H8, H4 once each")
         ref = fk.frame_update_obs(*uargs, plain=True)
         check(f"gated MP {mp} vs plain: x", got.x, ref.x, 1e-4, 1e-4,
               "the reference's megakernel-test tolerance")
@@ -868,8 +875,9 @@ def route_checks(device) -> dict:
               "the reference's megakernel-test tolerance")
         check(f"gated MP {mp} vs plain: nis", got.nis, ref.nis, 1e-3, 1e-5,
               "the reference's megakernel-test tolerance")
-        kernel = "obs_step_kernel" if mp <= 224 else "obs_chain_kernel"
-        gated_us[mp] = (kernel, 1e3 * device_ms(lambda: fk.frame_update_obs(*uargs), kernel=kernel))
+        kernel, calls = (H10_KERNELS, fk.OS_LAUNCHES) if mp <= 224 else ("obs_chain_kernel", 1)
+        gated_us[mp] = (kernel, 1e3 * device_ms(lambda: fk.frame_update_obs(*uargs), kernel=kernel,
+                                                per_call=calls))
     log("  gated frame device time: " + ", ".join(
         f"MP={m} {k} {t:.2f} us" for m, (k, t) in gated_us.items()))
 
@@ -1027,21 +1035,6 @@ def h9_measure(device, args, tail, err: float, nblk: int, alone: dict, calls: di
     return st
 
 
-def h10_phase_times(t) -> dict:
-    """H10's phases from one launch's stamps ``t`` (grid, 8), in us: the
-    chain (first start to the last block done), each barrier (last block in
-    to last block out), block 0's sweep and the other blocks' pht panels
-    (side by side), the gains and the mean, the P pass, and the launch."""
-    last = t.max(dim=0).values
-    return {
-        "chain": last[1] - t[:, 0].min(), "barrier 1": last[2] - last[1],
-        "sweep (block 0)": t[0, 3] - t[0, 2],
-        "pht panels (other blocks)": t[1:, 3].max() - t[1:, 2].min(),
-        "barrier 2": last[4] - last[3], "gains and mean": last[5] - last[4],
-        "barrier 3": last[6] - last[5], "P pass": last[7] - last[6],
-        "launch": last[7] - t[:, 0].min()}
-
-
 def stamp_phases(name: str, launch, shape: tuple, device, phase_times, launches: int = 20) -> dict:
     """A kernel's phases (H9, H10) from each block's %globaltimer at its
     phase boundaries: ``launch(stamps)`` runs it once with an int64
@@ -1064,39 +1057,44 @@ def stamp_phases(name: str, launch, shape: tuple, device, phase_times, launches:
     return phases
 
 
+def resident_phase_times(t, g: int) -> dict:
+    """The phases of a one-launch frame (H9, H10: the stamps of
+    csrc/frame_step.cu and csrc/obs_step.cuh, one layout) from one launch's
+    stamps ``t`` (grid + pass grid, 12) in us, its frame kernel's grid
+    ``g``: in the frame kernel the chain, each barrier, block 0's sweep and
+    its siv and NIS, the other blocks' pht units beside them, the gains and
+    the mean (the first unit's S^-1 staged, its MG and its siv); the gap
+    from the frame kernel's last block to the P pass's first (the
+    programmatic launch); the P pass (its first block's start to its last
+    block's end); the whole frame; and block 0's SM clock over the sweep
+    (MHz, clock64 over %globaltimer)."""
+    a, b = t[:g], t[g:]
+    b = b[b[:, 0] > 0]          # the pass's blocks (a persistent plan leaves rows unused)
+    last = a.max(dim=0).values
+    ns = (t[0, 3] - t[0, 2]) * 1e3
+    return {
+        "chain": last[1] - a[:, 0].min(), "barrier 1": last[2] - last[1],
+        "sweep (block 0)": a[0, 3] - a[0, 2],
+        "pht units (other blocks)": a[1:, 3].max() - a[1:, 2].min(),
+        "barrier 2": last[5] - a[:, 3].max(),
+        "gains and mean": last[6] - last[5],
+        "gains: S^-1 staged": (a[:, 9] - a[:, 5])[a[:, 9] > 0].max(),
+        "gains: first unit's MG": (a[:, 10] - a[:, 9])[a[:, 9] > 0].max(),
+        "gains: first unit's siv": (a[:, 11] - a[:, 9])[a[:, 9] > 0].max(),
+        "siv and NIS (block 0, beside the gains)": a[0, 4] - a[0, 5],
+        "launch gap": b[:, 0].min() - last[6], "P pass": b[:, 1].max() - b[:, 0].min(),
+        "launch": b[:, 1].max() - a[:, 0].min(),
+        "sweep SM clock MHz": (t[0, 8] - t[0, 7]) * 1e3 / ns * 1e3 if ns > 0 else 0.0}
+
+
 def h9_phases(fargs, plan) -> dict:
-    """H9's phases at frame_step's ``fargs`` (stamp_phases; its ``plan``,
-    ops.frame_kernel.frame_step_plan): in the frame kernel the chain, each
-    barrier, block 0's sweep and its siv and NIS, the other blocks' pht
-    units beside them, the gains and the mean; the gap from the frame
-    kernel's last block to the P pass's first (the programmatic launch);
-    the P pass (its first block's start to its last block's end); the whole
-    frame; and block 0's SM clock over the sweep (MHz, clock64 over
-    %globaltimer)."""
+    """H9's phases at frame_step's ``fargs`` (stamp_phases,
+    resident_phase_times; its ``plan``, ops.frame_kernel.frame_step_plan)."""
     from conan_slam_tpu_torch.ops import frame_kernel as fk
 
-    g = plan.grid
-
-    def times(t):
-        a, b = t[:g], t[g:]
-        last = a.max(dim=0).values
-        ns = (t[0, 3] - t[0, 2]) * 1e3
-        return {
-            "chain": last[1] - a[:, 0].min(), "barrier 1": last[2] - last[1],
-            "sweep (block 0)": a[0, 3] - a[0, 2],
-            "pht units (other blocks)": a[1:, 3].max() - a[1:, 2].min(),
-            "barrier 2": last[5] - a[:, 3].max(),
-            "gains and mean": last[6] - last[5],
-            "gains: S^-1 staged": (a[:, 9] - a[:, 5])[a[:, 9] > 0].max(),
-            "gains: first unit's MG": (a[:, 10] - a[:, 9])[a[:, 9] > 0].max(),
-            "gains: first unit's siv": (a[:, 11] - a[:, 9])[a[:, 9] > 0].max(),
-            "siv and NIS (block 0, beside the gains)": a[0, 4] - a[0, 5],
-            "launch gap": b[:, 0].min() - last[6], "P pass": b[:, 1].max() - b[:, 0].min(),
-            "launch": b[:, 1].max() - a[:, 0].min(),
-            "sweep SM clock MHz": (t[0, 8] - t[0, 7]) * 1e3 / ns * 1e3 if ns > 0 else 0.0}
-
     return stamp_phases("H9", lambda st: fk._frame_step_h9(*fargs, stamps=st),
-                        (g + plan.pass_grid, fk.FS_STAMPS), fargs[0].device, times)
+                        (plan.grid + plan.pass_grid, fk.FS_STAMPS), fargs[0].device,
+                        lambda t: resident_phase_times(t, plan.grid))
 
 
 def kernel_checks(device) -> dict:
@@ -1386,21 +1384,74 @@ def h10_work(d: int, mp: int, rp: int, nbp: int, nblk: int) -> float:
             + 2.0 * nbp * nbp * d + d * (d + 1.0) * (nbp + mp) + d * d)
 
 
-def h10_phases(uargs, grid: int, launches: int = 20) -> dict:
-    """H10's phases at frame_update_obs's ``uargs`` (stamp_phases)."""
+def h10_phases(uargs, plan, launches: int = 20) -> dict:
+    """H10's phases at frame_update_obs's ``uargs`` (stamp_phases,
+    resident_phase_times; its ``plan``, ops.frame_kernel.obs_step_plan)."""
     from conan_slam_tpu_torch.ops import frame_kernel as fk
 
-    return stamp_phases("H10", lambda st: fk._obs_step_h10(*uargs, stamps=st), (grid, 8),
-                        uargs[0].device, h10_phase_times, launches)
+    return stamp_phases("H10", lambda st: fk._obs_step_h10(*uargs, stamps=st),
+                        (plan.grid + plan.pass_grid, fk.OS_STAMPS), uargs[0].device,
+                        lambda t: resident_phase_times(t, plan.grid), launches)
 
 
-def h10_measure(device, uargs, err: float, nblk: int) -> dict:
+def h10_alone_log(label: str, ph: dict, alone: dict, kd: dict, total: float) -> None:
+    h1_own = alone["H1 on H7's S"]
+    log(f"  H10 {label} phases beside the split's kernels alone on this frame (device us): "
+        f"sweep {ph['sweep (block 0)']:.2f} vs H1 {alone['H1'] * 1e3:.2f} (on the frame's S; "
+        f"{h1_own * 1e3:.2f} on the S of H7's device code, which H10 runs); "
+        f"gains and mean {ph['gains and mean']:.2f}; P pass {ph['P pass']:.2f} vs H4 "
+        f"{alone['H4'] * 1e3:.2f} (on the frame's G and MG); device time: "
+        + " + ".join(f"{k} {v * 1e3:.2f}" for k, v in kd.items())
+        + f" = {total * 1e3:.2f} us (the span of its two kernels)")
+
+
+def h10_turns(label: str, uargs, iters: int = 20) -> list:
+    """H10 against the split schedule on one gated frame, in turns (H10,
+    split, split, H10): the device time of a call, H10's the span of its two
+    kernels (its P pass is resident, waiting, before its frame kernel ends),
+    the split's the sum of its kernels and copies."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    h10 = lambda: fk.frame_update_obs(*uargs)                     # noqa: E731
+    split = lambda: fk.frame_update_obs(*uargs, schedule="split")  # noqa: E731
+    turns = [device_ms(h10, iters=iters, kernel=H10_KERNELS, per_call=fk.OS_LAUNCHES) if h
+             else device_ms(split, iters=iters) for h in (True, False, False, True)]
+    log(f"  H10 vs split at {label}, device time of a call in turns: " + ", ".join(
+        f"{n} {t * 1e3:.2f} us" for n, t in zip(("H10", "split", "split", "H10"), turns))
+        + f"; H10 / split {(turns[0] + turns[3]) / (turns[1] + turns[2]):.3f}")
+    return turns
+
+
+def h10_regs(device, d: int, nbp: int) -> dict:
+    """Registers and local-memory bytes a thread of each H10 frame-kernel
+    variant and of its P pass at both tile edges, beside H1's and H4's."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.rank_update import rank_update_attributes
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_inverse_attributes
+
+    regs = {}
+    for mp_ in range(32, fk.MAX_MP + 1, 32):
+        pl = fk.obs_step_plan(d, mp_, nbp, device)
+        regs[f"H10 frame kernel RX {mp_ // 32}"] = (pl.regs, pl.local)
+        regs[f"H1 RX {mp_ // 32}"] = sweep_inverse_attributes(mp_, device)
+    for dd in (d, 20_224):
+        pl = fk.obs_step_plan(dd, 128, nbp, device)
+        regs[f"H10 P pass tile {pl.tile}"] = (pl.pass_regs, pl.pass_local)
+        regs[f"H4 D {dd}"] = rank_update_attributes(dd, device)
+    log("  registers, local bytes a thread: " + ", ".join(
+        f"{k} {r}, {b}" for k, (r, b) in regs.items()))
+    return regs
+
+
+def h10_measure(device, uargs, err: float, nblk: int, alone: dict) -> dict:
     """H10 at config 2's check frame: CUDA-event time of the wrapper,
-    device time (profiler), the plain version's time, its plan, bound and
-    phases; its device time against MP (32, 128, 224 at NBP 24) and NBP
-    (16, 24, 56 at MP 128) on synthetic frames at D = 1024; and the split
-    schedule's device time on the same frame, in turns (H10, split, split,
-    H10)."""
+    device time (profiler: the span of its two kernels), the plain
+    version's time, its plan, bound and phases, beside H1 and H4 run alone
+    on the frame's S and on its G and MG (``alone``, device ms); its device
+    time against MP (32, 128, 224 at NBP 24) and NBP (16, 24, 56 at MP 128)
+    on synthetic frames at D = 1024; the split schedule's device time on
+    the same frame, in turns (H10, split, split, H10); and each variant's
+    registers and local-memory bytes."""
     import torch
 
     from conan_slam_tpu_torch.ops import frame_kernel as fk
@@ -1412,33 +1463,75 @@ def h10_measure(device, uargs, err: float, nblk: int) -> dict:
     ins = [a for a in uargs if torch.is_tensor(a)]
     h10 = lambda: fk.frame_update_obs(*uargs)                     # noqa: E731
     split = lambda: fk.frame_update_obs(*uargs, schedule="split")  # noqa: E731
-    turns = [device_ms(fn) for fn in (h10, split, split, h10)]
+    turns = h10_turns("config 2", uargs)
     st = dict(max_abs_err=err, library_ms=None, ms=time_ms(h10, 50),
-              device_ms=device_ms(h10, kernel="obs_step_kernel"),
+              device_ms=device_ms(h10, kernel=H10_KERNELS, per_call=fk.OS_LAUNCHES),
               plain_ms=time_ms(lambda: fk.frame_update_obs(*uargs, plain=True), 10),
               split_ms=time_ms(split, 50), device_ms_turns=turns,
-              plan=f"grid {plan.grid} x {plan.block} threads, {plan.smem:,} B shared; "
-                   f"{plan.bands} chain bands, {plan.panels} panels, {plan.tiles} tiles of "
-                   f"{plan.tile}",
+              plan=f"frame kernel: grid {plan.grid} x {plan.block} threads, {plan.smem:,} B "
+                   f"shared, {plan.regs} registers; {plan.bands} chain bands, {plan.units} "
+                   f"units of {plan.unit} columns; P pass: grid {plan.pass_grid} x "
+                   f"{plan.pass_block} threads ({plan.pass_occ} an SM), {plan.pass_smem:,} B "
+                   f"shared, {plan.pass_regs} registers, {plan.tiles} tiles of {plan.tile}",
               **bound(nbytes(*ins, *out), h10_work(d, mp, rp, nbp, nblk)))
-    log(f"  H10 vs split, device time of a call in turns (all its kernels and copies): "
-        + ", ".join(f"{n} {t * 1e3:.2f} us" for n, t in zip(("H10", "split", "split", "H10"),
-                                                             turns)))
     by_mp, by_nbp = {}, {}
     for nz_, s, h in ((16, 6, True), (64, 6, True), (112, 6, True), (64, 6, False),
                       (64, 18, True)):
         a = synthetic_gated(device, 1024, nz_, s, h)
-        t = device_ms(lambda: fk.frame_update_obs(*a), kernel="obs_step_kernel")
+        t = device_ms(lambda: fk.frame_update_obs(*a), kernel=H10_KERNELS,
+                      per_call=fk.OS_LAUNCHES)
         if (s, h) == (6, True):
             by_mp[fk.frame_shapes(nz_)[0]] = t
         if nz_ == 64:
             by_nbp[a[8].shape[0]] = t
-    st.update(device_ms_by_mp=by_mp, device_ms_by_nbp=by_nbp,
-              phases_us=h10_phases(uargs, plan.grid))
+    st.update(device_ms_by_mp=by_mp, device_ms_by_nbp=by_nbp, phases_us=h10_phases(uargs, plan),
+              alone_us={k: v * 1e3 for k, v in alone.items()},
+              kernels_device_ms={k: device_ms(h10, kernel=k) for k in DEVICE_KERNELS["obs_step"]})
+    h10_alone_log("config 2", st["phases_us"], alone, st["kernels_device_ms"], st["device_ms"])
     log("  H10 device time against MP (NBP 24): " + ", ".join(
         f"MP={m} {t * 1e3:.2f} us" for m, t in by_mp.items()) + "; against NBP (MP 128): "
         + ", ".join(f"NBP={k} {t * 1e3:.2f} us" for k, t in sorted(by_nbp.items())))
+    st["regs_local"] = h10_regs(device, d, nbp)
     return st
+
+
+def h10_cold_sweep(device, p_big, g_big, mg_big) -> dict:
+    """Block 0's sweep in H10 (its stamps) beside H1 alone on the same S, on
+    a synthetic gated frame at D = 1024 with all 64 slots valid: back to
+    back, and each right after H4's pass over the 10k shape's P, G and MG
+    (``p_big``, ...: 1.64 GB through the L2), as a frame finds the card
+    after a 10k frame's P pass; the median of 8 launches, in us."""
+    import statistics
+
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.rank_update import rank_update_vbt
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_si
+
+    a = synthetic_gated(device, 1024, 64)
+    a = a[:6] + (torch.ones_like(a[6]),) + a[7:]
+    p, x, slots, cap, zr, zb, mask, r, bmat, vtf = a
+    oi = fk.obs_inputs(p, x, fk.frame_rows(slots, cap), zr, zb, mask, r, vtf)
+    s = fk.obs_chain(oi.zin, oi.rsc, oi.xrows, oi.prc, oi.vrows, bmat, oi.mp)[0]
+    plan = fk.obs_step_plan(1024, oi.mp, bmat.shape[0], device)
+    out = {}
+    for label, pre in (("back to back", lambda: None),
+                       ("after H4's 10k pass", lambda: rank_update_vbt(p_big, g_big, mg_big))):
+        h1 = device_ms(lambda: (pre(), sweep_si(s, oi.nblk)), iters=8, kernel="sweep_inverse_kernel")
+        sweeps = []
+        for _ in range(10):
+            pre()
+            st = torch.zeros((plan.grid + plan.pass_grid, fk.OS_STAMPS), dtype=torch.int64,
+                             device=device)
+            fk._obs_step_h10(*a, stamps=st)
+            torch.cuda.synchronize()
+            sweeps.append(float(st[0, 3] - st[0, 2]) / 1e3)
+        out[label] = {"H10 sweep": statistics.median(sweeps[2:]), "H1": h1 * 1e3}
+    log(f"  H10's sweep and H1 alone on one S (D 1024, nblk {int(oi.nblk)}), back to back and "
+        "right after H4's pass over the 10k P: " + "; ".join(
+            f"{k}: sweep {v['H10 sweep']:.2f}, H1 {v['H1']:.2f} us" for k, v in out.items()))
+    return out
 
 
 def gated_kernel_checks(device) -> dict:
@@ -1453,7 +1546,11 @@ def gated_kernel_checks(device) -> dict:
         frame_factors_fused,
     )
     from conan_slam_tpu_torch.ops.gating_kernel import _gating_scores_reference, gating_scores
-    from conan_slam_tpu_torch.ops.rank_update import rank_update_t, rank_update_t_reference
+    from conan_slam_tpu_torch.ops.rank_update import (
+        rank_update_t,
+        rank_update_t_reference,
+        rank_update_vbt,
+    )
     from conan_slam_tpu_torch.ops.spd_inverse import sweep_si, sweep_si_reference
 
     stats = {}
@@ -1632,28 +1729,45 @@ def gated_kernel_checks(device) -> dict:
                 ms=time_ms(lambda: fk.frame_update_obs(*uargs, schedule="split"), 50),
                 plain_ms=time_ms(lambda: fk.frame_update_obs(*uargs, plain=True,
                                                              schedule="split"), 10))
-            stats["obs_step"] = h10_measure(device, uargs, e10, int(oi.nblk))
+            alone = {"H1": stats["gated sweep_inverse"]["device_ms"],
+                     "H1 on H7's S": device_ms(lambda: sweep_si(s_k, oi.nblk)),
+                     "H4": stats["gated rank_update"]["device_ms"]}
+            stats["obs_step"] = h10_measure(device, uargs, e10, int(oi.nblk), alone)
         if label.startswith("10k"):
             # H10 against the split at the 10k-landmark shape, where the P
             # pass dominates: each call's device time in turns.
             h10 = lambda: fk.frame_update_obs(*uargs)                     # noqa: E731
-            split = lambda: fk.frame_update_obs(*uargs, schedule="split")  # noqa: E731
-            turns = [device_ms(fn, iters=5) for fn in (h10, split, split, h10)]
+            turns = h10_turns(label, uargs, iters=5)
             big = bound(nbytes(*(a for a in uargs if torch.is_tensor(a)), *full_k),
                         h10_work(d, oi.mp, oi.prows.shape[0], bmat.shape[0], int(oi.nblk)))
             plan = fk.obs_step_plan(d, oi.mp, bmat.shape[0], device)
             stats["obs_step"].update(
-                device_ms_10k=device_ms(h10, iters=5, kernel="obs_step_kernel"),
+                device_ms_10k=device_ms(h10, iters=5, kernel=H10_KERNELS,
+                                        per_call=fk.OS_LAUNCHES),
                 device_ms_turns_10k=turns, bound_ms_10k=big["bound_ms"],
                 bound_by_10k=big["bound_by"], tile_10k=plan.tile,
-                phases_us_10k=h10_phases(uargs, plan.grid, launches=5))
-            log(f"  H10 vs split at {label}, device time of a call in turns (all its kernels "
-                "and copies): " + ", ".join(
-                    f"{n} {t * 1e3:.2f} us" for n, t in zip(("H10", "split", "split", "H10"),
-                                                             turns))
-                + f"; H10 alone {stats['obs_step']['device_ms_10k'] * 1e3:.2f} us "
-                f"(P-pass tile {plan.tile}), bound {big['bound_ms'] * 1e3:.2f} us "
-                f"({big['bound_by']})")
+                phases_us_10k=h10_phases(uargs, plan, launches=5))
+            mg = mmid @ gmat
+            # H1 also right behind H4's pass over this P (1.64 GB through
+            # the L2), as the frame kernel's sweep runs after the last
+            # frame's P pass.
+            alone = {"H1": device_ms(lambda: sweep_si(s_p, oi.nblk), iters=5),
+                     "H1 on H7's S": device_ms(lambda: sweep_si(s_k, oi.nblk), iters=5),
+                     "H4": device_ms(lambda: rank_update_vbt(st1.p, gmat, mg), iters=5),
+                     "H1 after H4's pass": device_ms(
+                         lambda: (rank_update_vbt(st1.p, gmat, mg), sweep_si(s_k, oi.nblk)),
+                         iters=5, kernel="sweep_inverse_kernel")}
+            kd = {k: device_ms(h10, iters=5, kernel=k) for k in DEVICE_KERNELS["obs_step"]}
+            stats["obs_step"].update(alone_us_10k={k: v * 1e3 for k, v in alone.items()},
+                                     kernels_device_ms_10k=kd)
+            h10_alone_log("10k", stats["obs_step"]["phases_us_10k"], alone, kd,
+                          stats["obs_step"]["device_ms_10k"])
+            behind = alone["H1 after H4's pass"]
+            log(f"  H1 on H7's S right behind H4's pass over this P: {behind * 1e3:.2f} us")
+            stats["obs_step"]["cold_sweep_us"] = h10_cold_sweep(device, st1.p, gmat, mg)
+            log(f"  H10 at {label}: {stats['obs_step']['device_ms_10k'] * 1e3:.2f} us (P-pass "
+                f"tile {plan.tile}, units of {plan.unit} columns), bound "
+                f"{big['bound_ms'] * 1e3:.2f} us ({big['bound_by']})")
     log_times(stats, " (config 2 shape)")
     return stats
 
@@ -2391,7 +2505,7 @@ def gated_path(device) -> tuple[dict, dict, dict]:
             f"steps in {secs:.3f} s = {bf * s / secs:,.1f} steps/s (after {BIG_WARM_STEPS} "
             f"untimed steps), mapped={int(state.n_active)}, finite={finite}, launches={counts}")
         kernels = GATED_KERNELS if schedule == "auto" else GATED_SPLIT_KERNELS
-        want = {**dict.fromkeys(counts, 0), **dict.fromkeys(kernels, bf)}
+        want = {**dict.fromkeys(counts, 0), **per_frame(kernels, bf)}
         require(finite and int(state.n_active) > 0 and counts == want,
                 f"10k-landmark run ({schedule})", "finite, mapped > 0, the route's kernels once "
                 "per frame")
@@ -2452,7 +2566,7 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
         "ops dispatched per frame, most frequent: " + ", ".join(
             f"{k} {v / n_frames:.1f}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:8]))
     rows.sort(reverse=True)
-    ours = tuple(f"{name}_kernel" for name in ORDER) + DEVICE_KERNELS["frame_step"]
+    ours = tuple(f"{name}_kernel" for name in ORDER) + sum(DEVICE_KERNELS.values(), ())
     for us, count, key in rows[:15] + [r for r in rows[15:] if r[2].startswith(ours)]:
         log(f"  {us / n_frames:9.2f} us/frame  {count / n_frames:5.2f} launches/frame  {key[:90]}")
 
@@ -2546,7 +2660,7 @@ def main() -> int:
               "library_tb_per_s", "tb_per_s_past_l2", "library_tb_per_s_past_l2",
               "known_device_ms", "device_ms_by_tile", "no_p_device_ms_by_tile", "no_p_plain_ms",
               "no_p_library_ms", "no_p_library_device_ms", "stack3", "alone_us", "regs_local",
-              "kernels_device_ms")
+              "kernels_device_ms", "alone_us_10k", "kernels_device_ms_10k", "cold_sweep_us")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]

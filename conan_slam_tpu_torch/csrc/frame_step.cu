@@ -45,7 +45,9 @@
 //      symmetric whenever it goes in exactly symmetric.  It runs H4's
 //      32-tile blocks, Cfg<32>: 64 threads and a 16 KB ring a block, 12 or
 //      13 resident an SM, one block a tile, so as many tiles are in flight
-//      as in H4.  The frame kernel cannot hold them: its blocks are 512
+//      as in H4 (where D gives fewer tiles than that, at most ceil(tiles /
+//      SMs) an SM, so that they spread over every SM).  Its body, plan and
+//      launch are H10's too (resident.cuh).  The frame kernel cannot hold them: its blocks are 512
 //      threads for the sweep's layout, and 12 tile groups a block would cap
 //      a thread at ~80 registers, under the sweep's 96 at MP 128.  The
 //      launch carries the programmatic-stream-serialization attribute; the
@@ -81,6 +83,7 @@
 #include "chain_band.cuh"
 #include "panel.cuh"
 #include "rank_tile.cuh"
+#include "resident.cuh"
 #include "sweep.cuh"
 
 namespace cg = cooperative_groups;
@@ -100,6 +103,10 @@ namespace {
 
 static_assert(FS_THREADS == csl_sweep::NT, "one block size for every phase of the frame kernel");
 using PassCfg = csl_rank::Cfg<FS_TILE>;
+using csl_res::block_units;
+using csl_res::bulk_wait;
+using csl_res::globaltimer;
+using csl_res::Units;
 
 // The frame: inputs, outputs, the scratch carved by the host, strides (in
 // elements) of the 1-D inputs, shapes and scalars.
@@ -147,12 +154,6 @@ __device__ __forceinline__ int gathered_row(const Frame& f, int a) {
     return 3 + 2 * (int)s + ((a - 3) & 1);
 }
 
-__device__ __forceinline__ unsigned long long globaltimer() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
-}
-
 // The frame kernel's block b writes its %globaltimer (ns) into stamps[b, k]
 // when the caller asked for them: k = 0 the start, 1 the chain done, 2 past
 // barrier 1, 3 block 0's sweep done or another block's pht units done, 4
@@ -177,21 +178,6 @@ __device__ __forceinline__ void stamp_clock(const Frame& f, int k) {
 // launch, into shared memory through L2 (cp.async.cg).
 __device__ __forceinline__ void stage_cg(float* dst, const float* src, int n) {
     for (int e = 4 * threadIdx.x; e < n; e += 4 * FS_THREADS) csl_cp_async16(dst + e, src + e, true);
-}
-
-// nblk = last valid slot + 1 (ops/frame_kernel.py _pack_meas), in every
-// thread of the block.
-__device__ __forceinline__ int last_valid_slot(const Frame& f, int* wmax) {
-    const int tid = threadIdx.x;
-    int nb = 0;
-    for (int l = tid; l < f.nz; l += FS_THREADS)
-        if (f.mask[(size_t)l * f.mask_st]) nb = l + 1;
-    nb = __reduce_max_sync(0xffffffffu, nb);
-    if ((tid & 31) == 0) wmax[tid >> 5] = nb;
-    __syncthreads();
-    nb = 0;
-    for (int w = 0; w < FS_THREADS / 32; ++w) nb = max(nb, wmax[w]);
-    return nb;
 }
 
 // --- phase 1: the chain, one band of measurement rows a block ---
@@ -292,56 +278,12 @@ __device__ __forceinline__ bool sweep_phase(const Frame& f, float* smem, int nb)
     return bad;
 }
 
-// siv_j = sum_i v_i S^-1[i, j] for j < mp, one fmaf chain over i in order a
-// column, by the block's threads first .. first + mp - 1; si has row
-// stride ld.
-__device__ __forceinline__ void siv_chain(const float* si, int ld, const float* v, float* siv,
-                                          int mp, int first) {
-    const int j = (int)threadIdx.x - first;
-    if (j < 0 || j >= mp) return;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < mp; ++i) acc = fmaf(v[i], si[i * ld + j], acc);
-    siv[j] = acc;
-}
-
 // --- phase 3, block 0 (off the critical path: no block waits for it): the
 //     swept tile becomes S^-1 in place, then siv and the NIS ---
 template <int RX>
 __device__ __forceinline__ void nis_phase(const Frame& f, float* smem, bool bad) {
-    const int tid = threadIdx.x, mp = f.mp, tp = mp + 1;
-    float* ts = smem;                                    // (mp, mp + 1) the swept tile
-    const float* dsc = ts + mp * tp;
-    float* v = smem + sweep_phase_floats(mp) - 2 * mp;   // (mp,) the innovation
-    float* sv = v + mp;                                  // (mp,) siv
-    for (int i = tid; i < mp; i += FS_THREADS) v[i] = __ldcg(f.rowc + 8 * i + 7);
-    // S^-1[i, j] = 0.5 (x_ij + x_ji), x_ij = -A_ij dsc_i dsc_j, as the
-    // sweep's store forms it (the same bits), or 0 where the sweep zeroed
-    // S^-1; one thread forms and writes both (i, j) and (j, i).
-    const int tx = tid & 31;
-#pragma unroll 2
-    for (int i = tid >> 5; i < mp; i += FS_THREADS / 32)
-#pragma unroll
-        for (int b = 0; b < RX; ++b) {
-            const int j = tx + 32 * b;
-            if (j >= i && j < mp) {
-                const float xij = __fmul_rn(__fmul_rn(-ts[i * tp + j], dsc[i]), dsc[j]);
-                const float xji = __fmul_rn(__fmul_rn(-ts[j * tp + i], dsc[j]), dsc[i]);
-                const float sij = bad ? 0.f : 0.5f * __fadd_rn(xij, xji);
-                ts[i * tp + j] = sij;
-                ts[j * tp + i] = sij;
-            }
-        }
-    __syncthreads();
-    siv_chain(ts, tp, v, sv, mp, 0);
-    __syncthreads();
-    if (tid < mp) f.siv[tid] = sv[tid];
-    if (tid < 32) {
-        float s = 0.f;
-        for (int j = tid; j < mp; j += 32) s += sv[j] * v[j];
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-        if (tid == 0) f.nis[0] = s;
-    }
+    float* v = smem + sweep_phase_floats(f.mp) - 2 * f.mp;   // (mp,) the innovation, then siv
+    csl_res::swept_siv_nis<RX, FS_THREADS>(smem, f.mp, f.rowc, v, v + f.mp, bad, f.siv, f.nis);
     stamp(f, 4, true);
 }
 
@@ -409,49 +351,6 @@ __host__ __device__ constexpr int gains_floats(int mp) {
     return mp * FS_UNIT + mp * mp + FS_XG * FS_UNIT + 2 * mp + 32 + 16;
 }
 
-// The units of block b > 0 (block 0 sweeps): first = b - 1, first +
-// workers, ..., last, below nunits; last = -1 if it has none.
-struct Units {
-    int first, workers, last;
-};
-
-__device__ __forceinline__ Units block_units(int nunits) {
-    Units u;
-    u.workers = gridDim.x - 1;
-    u.first = (int)blockIdx.x - 1;
-    u.last = u.first < nunits ? u.first + ((nunits - 1 - u.first) / u.workers) * u.workers : -1;
-    return u;
-}
-
-// A one-arrival mbarrier in shared memory, armed for `bytes` of one bulk
-// copy, and the copy: n bytes (n % 16 == 0, 16-byte aligned ends) from
-// device memory into shared memory by the tensor memory accelerator.  The
-// caller (one thread) fences first: the barriers' init, and the generic
-// proxy's earlier accesses to both ends, against the async proxy's.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
-                                          unsigned long long* bar) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(csl_smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-            csl_smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(csl_smem_addr(bar))
-        : "memory");
-}
-
-// Wait for phase 0 of the mbarrier (its one bulk copy landed).
-__device__ __forceinline__ void bulk_wait(unsigned long long* bar) {
-    unsigned done = 0;
-    while (!done)
-        asm volatile(
-            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-            " selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(csl_smem_addr(bar))
-            : "memory");
-}
-
 // MG rows krow[m], 8 columns, over S^-1 rows i0 .. i1 - 1: acc[m][q] +=
 // S^-1[i, krow[m]] pht[i, 8 cg + q].  S^-1 is exactly symmetric, so its row
 // i gives column i: a warp's rows (lane + 32 ...) read 32 consecutive
@@ -506,19 +405,7 @@ __device__ __forceinline__ void gain_phase(const Frame& f, float* smem) {
     float* siv_s = v_s + mp;           // (mp,)
     float* msh = siv_s + mp;           // (32,)
     unsigned long long* bar = reinterpret_cast<unsigned long long*>(msh + 32);   // (RX,)
-    if (tid == 0) {
-#pragma unroll
-        for (int c = 0; c < RX; ++c)
-            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(csl_smem_addr(bar + c))
-                         : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        // S^-1 was stored by block 0 (the generic proxy) before barrier 2,
-        // and this shared memory last held phase 2's panels.
-        asm volatile("fence.proxy.async;\n" ::: "memory");
-#pragma unroll
-        for (int c = 0; c < RX; ++c)
-            bulk_load(si_s + 32 * c * mp, f.si + 32 * c * mp, 32u * mp * 4u, bar + c);
-    }
+    if (tid == 0) csl_res::bulk_load_si<RX>(si_s, f.si, mp, bar);
     for (int i = tid; i < mp; i += FS_THREADS) v_s[i] = __ldcg(f.rowc + 8 * i + 7);
     stage_cg(msh, f.ms, 32);
     csl_cp_async_commit();
@@ -577,7 +464,7 @@ __device__ __forceinline__ void gain_phase(const Frame& f, float* smem) {
             if (first) {
 #pragma unroll
                 for (int c = 0; c < RX; ++c) bulk_wait(bar + c);   // S^-1 landed
-                siv_chain(si_s, mp, v_s, siv_s, mp, 32 * MW);
+                csl_res::siv_chain(si_s, mp, v_s, siv_s, mp, 32 * MW);
                 // siv is complete: a barrier of the XT threads past MG's.
                 asm volatile("bar.sync 1, %0;\n" ::"n"(XT) : "memory");
                 if (f.stamps != nullptr && tid == 32 * MW)
@@ -615,7 +502,8 @@ frame_step_kernel(const __grid_constant__ Frame f) {
     cg::grid_group grid = cg::this_grid();
     stamp(f, 0, false);
     for (int a = threadIdx.x; a < f.rp; a += FS_THREADS) rows[a] = gathered_row(f, a);
-    const int nb = blockIdx.x == 0 ? last_valid_slot(f, wmax) : 0;
+    const int nb = blockIdx.x == 0 ? csl_res::last_valid_slot<FS_THREADS>(f.mask, f.mask_st, f.nz, wmax)
+                                   : 0;
 
     // Every block reaches every grid barrier: no phase returns from the
     // kernel before barrier 2.
@@ -647,28 +535,14 @@ frame_step_kernel(const __grid_constant__ Frame f) {
 }
 
 // --- the second launch: out = P + G^T MG over the upper-triangle tiles,
-//     mirrored, one H4 32-tile a block ---
+//     mirrored, one H4 32-tile a block (csl_res::pass_tiles, shared with
+//     H10), P read evict-first ---
 template <bool VECP>
 __global__ void __launch_bounds__(PassCfg::NT, PassCfg::MIN_BLOCKS)
 frame_pass_kernel(const float* __restrict__ p, const float* __restrict__ g,
                   const float* __restrict__ mg, float* __restrict__ out, int d, int ldg, int r,
                   int nt, int ntiles, unsigned long long* stamps) {
-    extern __shared__ __align__(16) float smem[];
-    // The frame kernel is complete and its G and MG visible (a no-op when
-    // this launch was not made dependent on it).
-    asm volatile("griddepcontrol.wait;\n" ::: "memory");
-    if (stamps != nullptr && threadIdx.x == 0) stamps[(size_t)blockIdx.x * FS_STAMPS] = globaltimer();
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        int ti, tj;
-        csl_rank::tile_ij(tile, nt, &ti, &tj);
-        csl_rank::tile<FS_TILE, true, VECP, csl_rank::BlockSync, true, true>(
-            p, g, mg, out, d, ldg, r, ti * FS_TILE, tj * FS_TILE, smem, threadIdx.x,
-            csl_rank::BlockSync{});
-    }
-    if (stamps != nullptr) {
-        __syncthreads();
-        if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * FS_STAMPS + 1] = globaltimer();
-    }
+    csl_res::pass_tiles<FS_TILE, VECP>(p, g, mg, out, d, ldg, r, nt, ntiles, stamps, FS_STAMPS);
 }
 
 // The frame kernel's dynamic shared memory (bytes): the largest of its
@@ -684,18 +558,17 @@ size_t smem_bytes(int mp, int rp, int band, int S) {
 
 constexpr int MAX_DEVICES = 64;
 constexpr int VARIANTS = FS_MAX_MP / 32;      // RX = 1 .. 7
-constexpr size_t PASS_SMEM = PassCfg::SMEM_FLOATS * sizeof(float);
 
 // Per device, cached on first use: the SM count, each frame-kernel
 // variant's static shared memory (its dynamic cap raised once) and its last
-// occupancy query, and the P pass's blocks an SM (P rows 16-byte or not).
+// occupancy query, and the P pass's record (P rows 16-byte or not).
 struct DeviceInfo {
     int sms = 0;
     int static_bytes[VARIANTS + 1] = {};
     bool raised[VARIANTS + 1] = {};
     size_t occ_smem[VARIANTS + 1] = {};
     int occ[VARIANTS + 1] = {};
-    int pass_occ[2] = {0, 0};
+    csl_res::PassInfo pass[2];
 };
 DeviceInfo g_info[MAX_DEVICES];
 
@@ -749,55 +622,24 @@ cudaError_t plan_frame(size_t smem, int* grid) {
     return cudaSuccess;
 }
 
-// The P pass's grid at D = d: one block a tile.  The hardware hands out
-// the tiles as blocks retire, so the blocks that become resident early
-// (on the SMs whose frame-kernel block left first, before the frame kernel
-// ends) take no larger share of the tiles than the others; persistent
-// blocks, as H4 plans them, would.  The occupancy query (12 or 13 blocks
-// an SM, as H4's) is reported.
-struct PassPlan {
-    int grid, nt, ntiles;
-};
-
+// The P pass's plan at D = d (csl_res::plan_pass: one block a tile), its
+// occupancy query (12 or 13 blocks an SM, as H4's) cached per device.
 template <bool VECP>
-cudaError_t plan_pass(int d, PassPlan* plan) {
+cudaError_t plan_pass(int d, csl_res::PassPlan* plan) {
     DeviceInfo* info = nullptr;
-    cudaError_t err = device_info(&info);
+    const cudaError_t err = device_info(&info);
     if (err != cudaSuccess) return err;
-    int& occ = info->pass_occ[VECP ? 1 : 0];
-    if (occ == 0) {
-        err = csl_allow_smem(frame_pass_kernel<VECP>, PASS_SMEM);
-        if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, frame_pass_kernel<VECP>,
-                                                                PassCfg::NT, PASS_SMEM);
-        if (err != cudaSuccess) return err;
-        if (occ < 1) return cudaErrorInvalidConfiguration;
-    }
-    plan->nt = (d + FS_TILE - 1) / FS_TILE;
-    plan->ntiles = plan->nt * (plan->nt + 1) / 2;
-    plan->grid = plan->ntiles;
-    return cudaSuccess;
+    return csl_res::plan_pass<FS_TILE>(frame_pass_kernel<VECP>, d, &info->pass[VECP ? 1 : 0], plan);
 }
 
 template <bool VECP>
 cudaError_t launch_pass(const Frame& f, int grid_a, cudaStream_t stream) {
-    PassPlan plan;
-    cudaError_t err = plan_pass<VECP>(f.d, &plan);
+    csl_res::PassPlan plan;
+    const cudaError_t err = plan_pass<VECP>(f.d, &plan);
     if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(plan.grid);
-    cfg.blockDim = dim3(PassCfg::NT);
-    cfg.dynamicSmemBytes = PASS_SMEM;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
     unsigned long long* stamps = f.stamps ? f.stamps + (size_t)grid_a * FS_STAMPS : nullptr;
-    return cudaLaunchKernelEx(&cfg, frame_pass_kernel<VECP>, f.p, (const float*)f.g,
-                              (const float*)f.mg, f.p_out, f.d, f.ldg, f.mp + 8, plan.nt,
-                              plan.ntiles, stamps);
+    return csl_res::launch_pass<FS_TILE>(frame_pass_kernel<VECP>, plan, f.p, f.g, f.mg, f.p_out,
+                                         f.d, f.ldg, f.mp + 8, stamps, stream);
 }
 
 template <int RX>
@@ -833,20 +675,17 @@ cudaError_t plan_only(int mp, int rp, int band, int S, int d, int* out) {
     out[2] = (int)bytes;
     err = csl_func_regs(frame_step_kernel<RX>, &out[3], &out[4]);
     if (err != cudaSuccess) return err;
-    PassPlan pass;
+    csl_res::PassPlan pass;
     err = plan_pass<true>(d, &pass);
     if (err != cudaSuccess) return err;
     out[5] = pass.grid;
     out[6] = PassCfg::NT;
-    out[7] = (int)PASS_SMEM;
+    out[7] = (int)pass.smem;
     err = csl_func_regs(frame_pass_kernel<true>, &out[8], &out[9]);
     if (err != cudaSuccess) return err;
     out[10] = FS_UNIT;
     out[11] = pass.ntiles;
-    DeviceInfo* info = nullptr;
-    err = device_info(&info);
-    if (err != cudaSuccess) return err;
-    out[12] = info->pass_occ[1];
+    out[12] = pass.occ;
     return cudaSuccess;
 }
 

@@ -1,8 +1,8 @@
 // H10 obs_step's device code and its plan and launch templates, shared by
-// obs_step.cu (the C entries and the variants with the P pass on tiles of
-// 32) and obs_step_big.cu (the variants on tiles of 128), which compile
-// apart, in parallel.  See obs_step.cu for what H10 computes and its
-// design.
+// obs_step.cu (the C entries, the frame kernel's variants and the P pass on
+// tiles of 32) and obs_step_big.cu (the P pass on tiles of 128), which
+// compile apart, in parallel.  See obs_step.cu for what H10 computes and
+// its design.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -11,22 +11,28 @@
 
 #include "obs_band.cuh"
 #include "panel.cuh"
-#include "rank_tile.cuh"
+#include "resident.cuh"
 #include "sweep.cuh"
 
 namespace cg = cooperative_groups;
 
 #define OS_THREADS 512      // 16 warps: H1's sweep layout (csl_sweep::NT)
-#define OS_W 16             // columns of a panel
-#define OS_LD 24            // row stride of a gathered panel
+#define OS_COLS 8           // columns of a unit's column group (a unit is 1 to 4 of them)
+#define OS_MAX_UNIT 32      // the most columns of D a block takes through phases 2 and 3
 #define OS_BAND 2           // measurement rows a chain band: one measurement
 #define OS_MAX_MP 224       // H1's register limit: 7 x 7 elements a thread
 #define OS_MAX_RP 232       // gathered rows at MP = 224
+#define OS_XG 32            // the mean's partial fmaf chains a column, summed in order
+#define OS_MG_WARPS 8       // the gains' warps that form MG; the other 8 form siv and the mean
+#define OS_STAMPS 12        // stamps a block (stamp())
+#define OS_PLAN 14          // values csl_obs_step_plan reports
 
 namespace csl_h10 {
 
-static_assert(OS_THREADS == csl_sweep::NT, "one block size for every phase");
-constexpr int OS_ROWG = OS_THREADS / OS_W;           // row groups of a panel
+static_assert(OS_THREADS == csl_sweep::NT, "one block size for every phase of the frame kernel");
+constexpr int OS_ROWG = OS_THREADS / OS_COLS;        // row groups of a unit's column group
+// The frame kernel's static shared memory: rows, a max per warp.
+constexpr int OS_STATIC_BYTES = 4 * (OS_MAX_RP + OS_THREADS / 32);
 
 // The frame: inputs, outputs, the scratch carved by the host, strides (in
 // elements) of the 1-D inputs, shapes.
@@ -50,9 +56,10 @@ struct Frame {
     float* siv;                     // (mp,)
     float* g;                       // (nbp + mp, ldg)  G = [vtf; pht]
     float* mg;                      // (nbp + mp, ldg)  M G = [B vtf; -S^-1 pht]
-    unsigned long long* stamps;     // (grid, 8) phase boundary times, or null
+    unsigned long long* stamps;     // (grid + pass grid, OS_STAMPS) phase times, or null
     int slots_st, zr_st, zb_st, mask_st;
     int d, nz, cap, mp, rp, nbp, ldg;
+    int unit;                       // columns of D a block takes at a time (unit_cols)
     int vecp;                       // P's rows and vtf's take 16-byte accesses
 };
 
@@ -68,18 +75,24 @@ __device__ __forceinline__ int gathered_row(const Frame& f, int a) {
     return 3 + 2 * (int)s + ((a - 3) & 1);
 }
 
-// Block b's %globaltimer (ns) into stamps[b, k] when the caller asked for
-// them: k = 0 the start, 1 the chain done, 2 past barrier 1, 3 the sweep or
-// the pht panels done, 4 past barrier 2, 5 the gains done, 6 past barrier 3,
-// 7 the P pass done.  A "done" stamp waits for the whole block first.
+// The frame kernel's block b writes its %globaltimer (ns) into stamps[b, k]
+// when the caller asked for them: k = 0 the start, 1 the chain done, 2 past
+// barrier 1, 3 block 0's sweep done or another block's pht units done, 4
+// block 0's siv and NIS done (phase 3), 5 past barrier 2, 6 the gains done,
+// 9 its first unit's S^-1 in shared memory, 10 that unit's MG stored (warp
+// 0's items), 11 that unit's siv formed; block 0 also its SM's clock64 at
+// 7 the sweep's start and 8 its end (cycles over ns: the SM clock during
+// the sweep).  The P pass's block b writes stamps[grid + b, 0] as it starts
+// its tiles and [grid + b, 1] when done.  A "done" stamp waits for the
+// whole block first.
 __device__ __forceinline__ void stamp(const Frame& f, int k, bool done) {
     if (f.stamps == nullptr) return;
     if (done) __syncthreads();
-    if (threadIdx.x == 0) {
-        unsigned long long t;
-        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-        f.stamps[(size_t)blockIdx.x * 8 + k] = t;
-    }
+    if (threadIdx.x == 0) f.stamps[(size_t)blockIdx.x * OS_STAMPS + k] = csl_res::globaltimer();
+}
+
+__device__ __forceinline__ void stamp_clock(const Frame& f, int k) {
+    if (f.stamps != nullptr && threadIdx.x == 0) f.stamps[k] = clock64();
 }
 
 // n floats (n % 4 == 0, 16-byte aligned ends) written earlier in this
@@ -145,175 +158,202 @@ __device__ __forceinline__ void chain_phase(const Frame& f, float* smem, const i
     }
 }
 
-// --- phase 2, block 0: S^-1 by the sweep, siv = v^T S^-1 and the NIS ---
-template <int RX>
-__device__ __forceinline__ void sweep_phase(const Frame& f, float* smem, int* wmax) {
-    const int tid = threadIdx.x, mp = f.mp;
-    // nblk = last valid slot + 1 (ops/frame_kernel.py _pack_meas).
-    int nb = 0;
-    for (int l = tid; l < f.nz; l += OS_THREADS)
-        if (f.mask[(size_t)l * f.mask_st]) nb = l + 1;
-    nb = __reduce_max_sync(0xffffffffu, nb);
-    if ((tid & 31) == 0) wmax[tid >> 5] = nb;
-    __syncthreads();
-    nb = 0;
-    for (int w = 0; w < OS_THREADS / 32; ++w) nb = max(nb, wmax[w]);
-    csl_sweep::inverse<RX, true>(f.s, nb, f.si, mp, smem);
-    __syncthreads();      // S^-1 is stored; the sweep's shared memory is free
-
-    float* v = smem;      // (mp,) the innovation
-    float* sv = v + mp;   // (mp,) siv
-    for (int i = tid; i < mp; i += OS_THREADS) v[i] = __ldcg(f.rowc + 8 * i + 7);
-    __syncthreads();
-    for (int j = tid; j < mp; j += OS_THREADS) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int i = 0; i < mp; ++i) acc += v[i] * __ldcg(f.si + (size_t)i * mp + j);
-        sv[j] = acc;
-        f.siv[j] = acc;
-    }
-    __syncthreads();
-    if (tid < 32) {
-        float s = 0.f;
-        for (int j = tid; j < mp; j += 32) s += sv[j] * v[j];
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-        if (tid == 0) f.nis[0] = s;
-    }
-}
-
-// --- phase 2, the other blocks: 16-column panels of G = [vtf; pht] ---
-__device__ __forceinline__ void pht_phase(const Frame& f, float* smem, const int* rows, int first,
-                                          int stride) {
-    const int tid = threadIdx.x, mp = f.mp, rp = f.rp, nbp = f.nbp, ldg = f.ldg;
-    const int npanel = (ldg + OS_W - 1) / OS_W;
-    if (first >= npanel) return;
-    float* rc = smem;                  // (mp, 8) rowc
+// --- phase 2, the other blocks: one unit of U = f.unit columns of D (U a
+//     multiple of OS_COLS): pht = Hc P[rows] + hvb vtf into G and into
+//     shared memory (kept for phase 3), and the unit's vtf rows of G and
+//     B vtf rows of MG, which need no S^-1.  `staged`: rowc and hvb are in
+//     shared memory already (the block's earlier unit) ---
+__device__ __forceinline__ void pht_unit(const Frame& f, float* smem, const int* rows, int unit,
+                                         bool staged) {
+    const int tid = threadIdx.x, mp = f.mp, rp = f.rp, nbp = f.nbp, ldg = f.ldg, d = f.d;
+    const int u = f.unit, pl = u + 4;
+    float* pht_s = smem;               // (mp, pl) the unit's pht
+    float* rc = pht_s + mp * pl;       // (mp, 8) rowc
     float* hv = rc + 8 * mp;           // (mp, nbp) hvb
-    float* pan = hv + mp * nbp;        // (rp, OS_LD) P[rows][:, c0 : c0 + OS_W]
-    float* vp = pan + rp * OS_LD;      // (nbp, OS_W) vtf[:, c0 : c0 + OS_W]
-    stage_cg(rc, f.rowc, 8 * mp);
-    stage_cg(hv, f.hvb, mp * nbp);
-    const int tx = tid % OS_W, ty = tid / OS_W;
-    for (int panel = first; panel < npanel; panel += stride) {
-        const int c0 = panel * OS_W, n = c0 + tx;
-        __syncthreads();               // the last panel's readers are done
-        csl_stage_panel(pan, [&](int r) { return f.p + (size_t)rows[r] * f.d; }, rp, OS_W, OS_LD, c0,
-                        f.d, f.vecp != 0);
-        csl_stage_panel(vp, [&](int b) { return f.vtf + (size_t)b * f.d; }, nbp, OS_W, OS_W, c0, f.d,
-                        f.vecp != 0);
-        csl_cp_async_commit();
-        csl_cp_async_wait<0>();
-        __syncthreads();
-        if (n >= ldg) continue;
-        const float p0 = pan[tx], p1 = pan[OS_LD + tx], p2 = pan[2 * OS_LD + tx];
+    float* pan = hv + mp * nbp;        // (rp, pl) P[rows][:, c0 : c0 + u]
+    float* vp = pan + rp * pl;         // (nbp, u) vtf[:, c0 : c0 + u]
+    const int c0 = unit * u;
+    __syncthreads();                   // the shared memory's earlier readers are done
+    if (!staged) {
+        stage_cg(rc, f.rowc, 8 * mp);
+        stage_cg(hv, f.hvb, mp * nbp);
+    }
+    csl_stage_panel(pan, [&](int r) { return f.p + (size_t)rows[r] * d; }, rp, u, pl, c0, d,
+                    f.vecp != 0);
+    csl_stage_panel(vp, [&](int b) { return f.vtf + (size_t)b * d; }, nbp, u, u, c0, d,
+                    f.vecp != 0);
+    csl_cp_async_commit();
+    csl_cp_async_wait<0>();
+    __syncthreads();
+    const int tx = tid % OS_COLS, ty = tid / OS_COLS;
+    for (int q = 0; q < u / OS_COLS; ++q) {
+        const int col = OS_COLS * q + tx, n = c0 + col;
+        const float p0 = pan[col], p1 = pan[pl + col], p2 = pan[2 * pl + col];
         for (int i = ty; i < mp; i += OS_ROWG) {
             const float* h = rc + 8 * i;
             const float* hb = hv + i * nbp;
             const int cx = 3 + 2 * (i / 2), cy = cx + 1;
             float acc = h[0] * p0 + h[1] * p1 + h[2] * p2;
-            if (cx < rp) acc += h[3] * pan[cx * OS_LD + tx];
-            if (cy < rp) acc += h[4] * pan[cy * OS_LD + tx];
+            if (cx < rp) acc += h[3] * pan[cx * pl + col];
+            if (cy < rp) acc += h[4] * pan[cy * pl + col];
             float cpl = 0.f;
-            for (int b = 0; b < nbp; ++b) cpl += hb[b] * vp[b * OS_W + tx];
+            for (int b = 0; b < nbp; ++b) cpl += hb[b] * vp[b * u + col];
             acc += cpl;
-            f.g[(size_t)(nbp + i) * ldg + n] = n < f.d ? acc : 0.f;
+            const float v = n < d ? acc : 0.f;
+            pht_s[i * pl + col] = v;
+            if (n < ldg) f.g[(size_t)(nbp + i) * ldg + n] = v;
         }
-        for (int b = ty; b < nbp; b += OS_ROWG) f.g[(size_t)b * ldg + n] = vp[b * OS_W + tx];
-    }
-}
-
-// The gains phase's split of a panel's -S^-1 pht rows over blocks: where
-// the card has more blocks than panels, up to one part of 32 rows a block.
-__host__ __device__ __forceinline__ int gain_parts(int grid, int npanel, int mp) {
-    const int parts = grid / npanel;
-    return parts < 1 ? 1 : (parts > mp / 32 ? mp / 32 : parts);
-}
-
-// --- phase 3: the gains of 16-column panels: MG = [B vtf; -S^-1 pht] and
-//     the mean ---
-__device__ __forceinline__ void gain_phase(const Frame& f, float* smem) {
-    const int tid = threadIdx.x, mp = f.mp, nbp = f.nbp, ldg = f.ldg, sl = mp + 4;
-    const int npanel = (ldg + OS_W - 1) / OS_W;
-    const int parts = gain_parts(gridDim.x, npanel, mp);
-    const int groups = gridDim.x / parts;
-    const int part = blockIdx.x % parts, group = blockIdx.x / parts;
-    if (group >= groups || group >= npanel) return;
-    const int kpart = (mp + parts - 1) / parts;
-    const int k0 = part * kpart, k1 = min(mp, k0 + kpart);
-    float* si_s = smem;                // (k1 - k0, mp + 4) rows k0 .. k1 - 1 of S^-1
-    float* pht_s = si_s + kpart * sl;  // (mp, OS_W) the panel of pht
-    float* part_s = pht_s + mp * OS_W; // (OS_THREADS,) partial sums of the mean
-    float* siv_s = part_s + OS_THREADS;  // (mp,)
-    for (int e = tid; e < (k1 - k0) * (mp / 4); e += OS_THREADS) {
-        const int i = e / (mp / 4), c = 4 * (e % (mp / 4));
-        csl_cp_async16(si_s + i * sl + c, f.si + (size_t)(k0 + i) * mp + c, true);
-    }
-    if (part == 0) stage_cg(siv_s, f.siv, mp);
-    const int tx = tid % OS_W, ty = tid / OS_W;
-    for (int panel = group; panel < npanel; panel += groups) {
-        const int c0 = panel * OS_W, n = c0 + tx;
-        __syncthreads();               // the last panel's readers are done
-        for (int e = tid; e < mp * (OS_W / 4); e += OS_THREADS) {
-            const int i = e / (OS_W / 4), c = 4 * (e % (OS_W / 4));
-            const bool in = c0 + c < ldg;   // ldg % 4 == 0: four columns all in or all out
-            csl_cp_async16(pht_s + i * OS_W + c, in ? f.g + (size_t)(nbp + i) * ldg + c0 + c : f.g,
-                           in);
-        }
-        csl_cp_async_commit();
-        csl_cp_async_wait<0>();
-        __syncthreads();
-
-        // MG rows nbp + k, k in this block's part: -sum_i S^-1[k, i]
-        // pht[i, n], one fmaf chain over i in order.
-        for (int k = k0 + ty; k < k1; k += OS_ROWG) {
-            const float* sk = si_s + (k - k0) * sl;
-            float acc = 0.f;
-#pragma unroll 8
-            for (int i = 0; i < mp; ++i) acc = fmaf(sk[i], pht_s[i * OS_W + tx], acc);
-            if (n < ldg) f.mg[(size_t)(nbp + k) * ldg + n] = -acc;
-        }
-        if (part != 0) continue;
-        // MG rows b < nbp: (B vtf)[b, n] = sum_j B[b, j] vtf[j, n], from G's
-        // rows 0 .. nbp - 1 (phase 2's copy of vtf, zero past column d).
+        if (n >= ldg) continue;
+        // G rows b < nbp: vtf (zero past column d); MG's: (B vtf)[b, n] =
+        // sum_j B[b, j] vtf[j, n], one fmaf chain over j in order (B an
+        // input of the launch, read through L1).
         for (int b = ty; b < nbp; b += OS_ROWG) {
+            f.g[(size_t)b * ldg + n] = vp[b * u + col];
             float acc = 0.f;
-            if (n < ldg)
-                for (int j = 0; j < nbp; ++j)
-                    acc = fmaf(__ldg(f.bmat + (size_t)b * nbp + j), __ldcg(f.g + (size_t)j * ldg + n),
-                               acc);
-            if (n < ldg) f.mg[(size_t)b * ldg + n] = acc;
+            for (int j = 0; j < nbp; ++j)
+                acc = fmaf(__ldg(f.bmat + (size_t)b * nbp + j), vp[j * u + col], acc);
+            f.mg[(size_t)b * ldg + n] = acc;
         }
-        float xs = 0.f;
-        for (int i = ty; i < mp; i += OS_ROWG) xs += siv_s[i] * pht_s[i * OS_W + tx];
-        part_s[tid] = xs;
+    }
+}
+
+// MG rows nbp + k, k = 32 rb + lane, over the unit's columns W cg .. W cg +
+// W - 1, for the items it = w, w + mw, ... of RX row blocks x the unit's
+// W-column groups: acc[q] = sum_i S^-1[i, k] pht[i, W cg + q], one fmaf
+// chain over i in order, over each 32-row chunk of S^-1 as it lands (S^-1
+// is exactly symmetric, so its row i gives column i: a warp's 32 rows read
+// 32 consecutive floats, the item's W pht values are a broadcast).
+template <int RX, int W>
+__device__ __forceinline__ void mg_items(const Frame& f, const float* si_s, const float* pht_s,
+                                         int c0, int w, int mw, bool first,
+                                         unsigned long long* bar) {
+    const int lane = threadIdx.x & 31, mp = f.mp, ldg = f.ldg, pl = f.unit + 4;
+    const int groups = f.unit / W, items = RX * groups;
+#pragma unroll 1
+    for (int it = w; it < items; it += mw) {
+        const int rb = it / groups, cg = it - rb * groups, k = 32 * rb + lane;
+        float acc[W];
+#pragma unroll
+        for (int q = 0; q < W; ++q) acc[q] = 0.f;
+#pragma unroll
+        for (int c = 0; c < RX; ++c) {
+            csl_res::bulk_wait(bar + c);   // chunk c of S^-1 landed
+            if (first && c == 0 && it == w) stamp(f, 9, false);
+#pragma unroll 4
+            for (int i = 32 * c; i < 32 * c + 32; ++i) {
+                const float sv = si_s[i * mp + k];
+#pragma unroll
+                for (int q4 = 0; q4 < W / 4; ++q4) {
+                    const float4 a = *reinterpret_cast<const float4*>(pht_s + i * pl + W * cg + 4 * q4);
+                    acc[4 * q4] = fmaf(sv, a.x, acc[4 * q4]);
+                    acc[4 * q4 + 1] = fmaf(sv, a.y, acc[4 * q4 + 1]);
+                    acc[4 * q4 + 2] = fmaf(sv, a.z, acc[4 * q4 + 2]);
+                    acc[4 * q4 + 3] = fmaf(sv, a.w, acc[4 * q4 + 3]);
+                }
+            }
+        }
+        float* row = f.mg + (size_t)(f.nbp + k) * ldg + c0 + W * cg;
+#pragma unroll
+        for (int q4 = 0; q4 < W / 4; ++q4)
+            if (c0 + W * cg + 4 * q4 < ldg)   // ldg % 4 == 0: four columns all in or all out
+                *reinterpret_cast<float4*>(row + 4 * q4) =
+                    make_float4(-acc[4 * q4], -acc[4 * q4 + 1], -acc[4 * q4 + 2], -acc[4 * q4 + 3]);
+    }
+}
+
+// --- phase 3: each unit's MG rows -S^-1 pht and mean, last unit first (its
+//     pht still in shared memory from phase 2) ---
+//
+// S^-1 comes into shared memory by the tensor memory accelerator, in bulk
+// copies of 32 rows, one mbarrier each (issued by one thread), and MG runs
+// over each chunk as it lands (mg_items).  For the first unit MG runs on
+// OS_MG_WARPS warps while the other warps form siv = v^T S^-1 from the same
+// S^-1, also as it lands (block 0's bits), and the mean's OS_XG partial
+// chains a column; for every later unit all 16 warps take MG's items, then
+// the mean's partials.  The items are 32 rows x 8 columns, or x 4 where
+// that leaves an MG warp without one (at config 2: 8 columns, MP 128).
+// The partials are summed in order: xn = x + siv pht, heading wrapped.
+template <int RX>
+__device__ __forceinline__ void gain_phase(const Frame& f, float* smem) {
+    constexpr int MW = OS_MG_WARPS;
+    constexpr int XT = OS_THREADS - 32 * MW;               // siv's and the mean's threads
+    static_assert(XT >= OS_MAX_MP, "siv takes a thread a column");
+    const int tid = threadIdx.x, w = tid >> 5;
+    const int mp = f.mp, ldg = f.ldg, nbp = f.nbp, u = f.unit, pl = u + 4;
+    const csl_res::Units us = csl_res::block_units((ldg + u - 1) / u);
+    if (us.last < 0) return;
+    float* pht_s = smem;               // (mp, pl)
+    float* si_s = pht_s + mp * pl;     // (mp, mp) S^-1
+    float* part = si_s + mp * mp;      // (OS_XG, u) the mean's partial sums
+    float* v_s = part + OS_XG * u;     // (mp,) the innovation
+    float* siv_s = v_s + mp;           // (mp,)
+    unsigned long long* bar = reinterpret_cast<unsigned long long*>(siv_s + mp);   // (RX,)
+    if (tid == 0) csl_res::bulk_load_si<RX>(si_s, f.si, mp, bar);
+    for (int i = tid; i < mp; i += OS_THREADS) v_s[i] = __ldcg(f.rowc + 8 * i + 7);
+    // The mean's partial chains of columns e % u, i = e / u, e / u + OS_XG, ...
+    auto mean_partials = [&](int first_e, int stride) {
+        for (int e = first_e; e < OS_XG * u; e += stride) {
+            const int g = e / u, col = e - g * u;
+            float xs = 0.f;
+            for (int i = g; i < mp; i += OS_XG) xs = fmaf(siv_s[i], pht_s[i * pl + col], xs);
+            part[g * u + col] = xs;
+        }
+    };
+#pragma unroll 1
+    for (int unit = us.last; unit >= us.first; unit -= us.workers) {
+        const bool first = unit == us.last;   // its pht is in shared memory
+        const int c0 = unit * u;
+        if (!first) {                  // another unit's pht, from G
+            __syncthreads();           // the last unit's readers are done
+            for (int e = tid; e < mp * (u / 4); e += OS_THREADS) {
+                const int i = e / (u / 4), c = 4 * (e % (u / 4));
+                const bool in = c0 + c < ldg;   // ldg % 4 == 0: four columns all in or all out
+                csl_cp_async16(pht_s + i * pl + c, in ? f.g + (size_t)(nbp + i) * ldg + c0 + c : f.g,
+                               in);
+            }
+            csl_cp_async_commit();
+        }
+        // The mean's base: an input of the launch, read while the copies fly.
+        const float xv = tid < u && c0 + tid < f.d ? f.x[c0 + tid] : 0.f;
+        csl_cp_async_wait<0>();        // another unit's pht
+        __syncthreads();               // and v, and the mbarriers are initialised
+        const int mw = first ? MW : OS_THREADS / 32;
+        if (w < mw) {
+            if (RX * (u / 8) < mw) mg_items<RX, 4>(f, si_s, pht_s, c0, w, mw, first, bar);
+            else mg_items<RX, 8>(f, si_s, pht_s, c0, w, mw, first, bar);
+            if (first) stamp(f, 10, false);
+        } else {
+            // siv_j = sum_i v_i S^-1[i, j], one fmaf chain over i in order (as
+            // csl_res::siv_chain: block 0's bits), over each chunk as it lands.
+            const int j = tid - 32 * MW;
+            float acc = 0.f;
+#pragma unroll
+            for (int c = 0; c < RX; ++c) {
+                csl_res::bulk_wait(bar + c);
+                if (j < mp)
+#pragma unroll 8
+                    for (int i = 32 * c; i < 32 * c + 32; ++i) acc = fmaf(v_s[i], si_s[i * mp + j], acc);
+            }
+            if (j < mp) siv_s[j] = acc;
+            // siv is complete: a barrier of the XT threads past MG's.
+            asm volatile("bar.sync 1, %0;\n" ::"n"(XT) : "memory");
+            if (f.stamps != nullptr && tid == 32 * MW)
+                f.stamps[(size_t)blockIdx.x * OS_STAMPS + 11] = csl_res::globaltimer();
+            mean_partials(tid - 32 * MW, XT);
+        }
+        if (!first) mean_partials(tid, OS_THREADS);   // siv was formed with the first unit
         __syncthreads();
-        if (ty == 0 && n < f.d) {
+        if (tid < u && c0 + tid < f.d) {
+            const int n = c0 + tid;
             float s = 0.f;
-            for (int r = 0; r < OS_ROWG; ++r) s += part_s[r * OS_W + tx];
-            const float v = f.x[n] + s;
+            for (int r = 0; r < OS_XG; ++r) s += part[r * u + tid];
+            const float v = xv + s;
             f.xn[n] = n == 2 ? csl_wrap(v) : v;
         }
     }
 }
 
-// --- phase 4: out = P + G^T MG over the upper-triangle tiles, mirrored ---
-template <int T, bool VECP>
-__device__ __forceinline__ void p_pass(const Frame& f, float* smem) {
-    using C = csl_rank::Cfg<T>;
-    constexpr int GROUPS = OS_THREADS / C::NT;
-    const int group = threadIdx.x / C::NT, gtid = threadIdx.x % C::NT;
-    float* ring = smem + group * C::SMEM_FLOATS;
-    const int nt = (f.d + T - 1) / T, ntiles = nt * (nt + 1) / 2;
-    const csl_rank::GroupSync sync{1 + group, C::NT};
-    for (int t = blockIdx.x * GROUPS + group; t < ntiles; t += gridDim.x * GROUPS) {
-        int ti, tj;
-        csl_rank::tile_ij(t, nt, &ti, &tj);
-        csl_rank::tile<T, true, VECP>(f.p, f.g, f.mg, f.p_out, f.d, f.ldg, f.nbp + f.mp, ti * T,
-                                      tj * T, ring, gtid, sync);
-    }
-}
-
-template <int RX, int TILE>
+template <int RX>
 __global__ void __launch_bounds__(OS_THREADS, 1)
 obs_step_kernel(const __grid_constant__ Frame f) {
     extern __shared__ __align__(16) float smem[];
@@ -322,56 +362,99 @@ obs_step_kernel(const __grid_constant__ Frame f) {
     cg::grid_group grid = cg::this_grid();
     stamp(f, 0, false);
     for (int a = threadIdx.x; a < f.rp; a += OS_THREADS) rows[a] = gathered_row(f, a);
+    // Block 0 finds the sweep's nblk now, off its path past barrier 1.
+    const int nb = blockIdx.x == 0 ? csl_res::last_valid_slot<OS_THREADS>(f.mask, f.mask_st, f.nz, wmax)
+                                   : 0;
     __syncthreads();
 
-    // Every block reaches every grid barrier: no phase returns from the kernel.
+    // Every block reaches both grid barriers: no phase returns from the
+    // kernel before barrier 2.
     if ((int)blockIdx.x < f.mp / OS_BAND) chain_phase(f, smem, rows);
     stamp(f, 1, true);
     grid.sync();
     stamp(f, 2, false);
 
-    if (blockIdx.x == 0) sweep_phase<RX>(f, smem, wmax);
-    if (blockIdx.x > 0 || gridDim.x == 1)
-        pht_phase(f, smem, rows, gridDim.x > 1 ? blockIdx.x - 1 : 0,
-                  gridDim.x > 1 ? gridDim.x - 1 : 1);
+    // Phase 2: block 0 sweeps, and nothing else; every other block takes its
+    // units of pht.
+    bool bad = false;
+    if (blockIdx.x == 0) {
+        stamp_clock(f, 7);
+        bad = csl_sweep::inverse<RX, true>(f.s, nb, f.si, f.mp, smem);
+        stamp_clock(f, 8);
+    } else {
+        const csl_res::Units us = csl_res::block_units((f.ldg + f.unit - 1) / f.unit);
+        for (int unit = us.first; unit >= 0 && unit <= us.last; unit += us.workers)
+            pht_unit(f, smem, rows, unit, unit != us.first);
+    }
     stamp(f, 3, true);
     grid.sync();
-    stamp(f, 4, false);
+    // The P pass may launch now; it waits for this kernel's end to read G
+    // and MG (griddepcontrol.wait).
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    stamp(f, 5, false);
 
-    gain_phase(f, smem);
-    stamp(f, 5, true);
-    grid.sync();
-    stamp(f, 6, false);
-
-    if (f.vecp) p_pass<TILE, true>(f, smem);
-    else p_pass<TILE, false>(f, smem);
-    stamp(f, 7, true);
+    // Phase 3: the gains, and block 0's siv and NIS beside them (off the
+    // critical path: no block waits for it).
+    if (blockIdx.x == 0) {
+        float* v = smem + csl_sweep::smem_bytes(f.mp, 32 * RX) / sizeof(float);   // past the tile
+        csl_res::swept_siv_nis<RX, OS_THREADS>(smem, f.mp, f.rowc, v, v + f.mp, bad, f.siv, f.nis);
+        stamp(f, 4, true);
+    } else {
+        gain_phase<RX>(f, smem);
+    }
+    stamp(f, 6, true);
 }
 
-// Dynamic shared memory (floats): the largest of the phases' needs.
-inline size_t smem_floats(int mp, int rp, int nbp, int tile) {
-    const int w = 32 * ((mp + 31) / 32);
+// --- the second launch: the P pass on H4's tiles of T (csl_res::pass_tiles;
+//     obs_pass_kernel<32, *> in obs_step.cu, <128, *> in obs_step_big.cu) ---
+template <int T, bool VECP>
+__global__ void __launch_bounds__(csl_res::PassShape<T>::NT, csl_res::PassShape<T>::MIN_BLOCKS)
+obs_pass_kernel(const float* __restrict__ p, const float* __restrict__ g,
+                const float* __restrict__ mg, float* __restrict__ out, int d, int ldg, int r,
+                int nt, int ntiles, unsigned long long* stamps) {
+    csl_res::pass_tiles<T, VECP>(p, g, mg, out, d, ldg, r, nt, ntiles, stamps, OS_STAMPS);
+}
+
+// The frame kernel's dynamic shared memory (floats) at a unit of `unit`
+// columns: the largest of its phases' needs (the chain; the sweep with v
+// and siv; the pht units: the unit's pht, rowc, hvb, the gathered panel and
+// vtf's; the gains: the unit's pht, S^-1, the mean's partials, v, siv and
+// an mbarrier for each 32 rows of S^-1 (16 floats hold the 7 of MP 224)).
+inline size_t smem_floats(int mp, int rp, int nbp, int unit) {
+    const int pl = unit + 4;
     size_t fl = (size_t)csl_obs_smem_floats(mp, rp, nbp, OS_BAND);
-    fl = std::max(fl, csl_sweep::smem_bytes(mp, w) / sizeof(float));
-    fl = std::max(fl, (size_t)(8 * mp + mp * nbp + rp * OS_LD + nbp * OS_W));
-    fl = std::max(fl, (size_t)(mp * (mp + 4) + mp * OS_W + OS_THREADS + mp));
-    const size_t ring = tile == 128 ? (size_t)2 * csl_rank::Cfg<128>::SMEM_FLOATS
-                                    : (size_t)(OS_THREADS / 64) * csl_rank::Cfg<32>::SMEM_FLOATS;
-    return std::max(fl, ring);
+    fl = std::max(fl, csl_sweep::smem_bytes(mp, 32 * ((mp + 31) / 32)) / sizeof(float) + 2 * mp);
+    fl = std::max(fl, (size_t)(mp * pl + 8 * mp + mp * nbp + rp * pl + nbp * unit));
+    fl = std::max(fl, (size_t)(mp * pl + mp * mp + OS_XG * unit + 2 * mp + 16));
+    return fl;
+}
+
+// The unit (columns of D a block takes through phases 2 and 3) for a grid
+// of `workers` + 1 blocks: the fewest multiples of OS_COLS that cover ldg
+// in one round of the workers, at most OS_MAX_UNIT columns, and no more
+// than fit a block's shared memory (at MP 224, 24 columns).
+inline int unit_cols(int ldg, int workers, int mp, int rp, int nbp) {
+    const int groups = (ldg + OS_COLS - 1) / OS_COLS;
+    int unit = OS_COLS * std::min(OS_MAX_UNIT / OS_COLS, std::max(1, (groups + workers - 1) / workers));
+    while (unit > OS_COLS &&
+           smem_floats(mp, rp, nbp, unit) * sizeof(float) + OS_STATIC_BYTES > CSL_MAX_SMEM)
+        unit -= OS_COLS;
+    return unit;
 }
 
 constexpr int MAX_DEVICES = 64;
 constexpr int VARIANTS = OS_MAX_MP / 32;      // RX = 1 .. 7
 
-// Per device, cached on first use: the SM count, and each variant's static
-// shared memory (its dynamic cap raised once) and its last occupancy query;
-// variant (RX, TILE) at [RX][TILE == 128].
+// Per device, cached on first use: the SM count, each frame-kernel
+// variant's static shared memory (its dynamic cap raised once) and its last
+// occupancy query, and the P pass's record ([tile == 128][VECP]).
 struct DeviceInfo {
     int sms = 0;
-    int static_bytes[VARIANTS + 1][2] = {};
-    bool raised[VARIANTS + 1][2] = {};
-    size_t occ_smem[VARIANTS + 1][2] = {};
-    int occ[VARIANTS + 1][2] = {};
+    int static_bytes[VARIANTS + 1] = {};
+    bool raised[VARIANTS + 1] = {};
+    size_t occ_smem[VARIANTS + 1] = {};
+    int occ[VARIANTS + 1] = {};
+    csl_res::PassInfo pass[2][2];
 };
 inline DeviceInfo g_info[MAX_DEVICES];
 
@@ -401,66 +484,10 @@ inline cudaError_t device_info(DeviceInfo** out) {
     return cudaSuccess;
 }
 
-// The grid and shared memory of variant (RX, TILE) for (mp, rp, nbp): one
-// block an SM, after checking that a block of OS_THREADS with that shared
-// memory fits an SM at all (the cooperative launch needs every block
-// resident).
-template <int RX, int TILE>
-cudaError_t plan(int mp, int rp, int nbp, int* grid, size_t* smem) {
-    constexpr int V = TILE == 128 ? 1 : 0;
-    DeviceInfo* pinfo = nullptr;
-    cudaError_t err = device_info(&pinfo);
-    if (err != cudaSuccess) return err;
-    DeviceInfo& info = *pinfo;
-    const auto fn = obs_step_kernel<RX, TILE>;
-    if (!info.raised[RX][V]) {
-        cudaFuncAttributes attr;
-        err = cudaFuncGetAttributes(&attr, fn);
-        if (err != cudaSuccess) return err;
-        info.static_bytes[RX][V] = (int)attr.sharedSizeBytes;
-        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   CSL_MAX_SMEM - (int)attr.sharedSizeBytes);
-        if (err != cudaSuccess) return err;
-        info.raised[RX][V] = true;
-    }
-    *smem = smem_floats(mp, rp, nbp, TILE) * sizeof(float);
-    if (*smem + info.static_bytes[RX][V] > CSL_MAX_SMEM) return cudaErrorInvalidValue;
-    if (info.occ_smem[RX][V] != *smem) {
-        int occ = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, OS_THREADS, *smem);
-        if (err != cudaSuccess) return err;
-        info.occ[RX][V] = occ;
-        info.occ_smem[RX][V] = *smem;
-    }
-    if (info.occ[RX][V] < 1) return cudaErrorCooperativeLaunchTooLarge;
-    *grid = info.sms;
-    return cudaSuccess;
-}
-
-template <int RX, int TILE>
-cudaError_t launch_tile(const Frame& f, cudaStream_t stream) {
-    int grid = 0;
-    size_t smem = 0;
-    cudaError_t err = plan<RX, TILE>(f.mp, f.rp, f.nbp, &grid, &smem);
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(OS_THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, obs_step_kernel<RX, TILE>, f);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-}
-
-// The variants on tiles of 128 (obs_step_big.cu): plan and launch for the
-// run-time RX = mp / 32.
-cudaError_t plan_big(int rx, int mp, int rp, int nbp, int* grid, size_t* smem);
-cudaError_t launch_big(int rx, const Frame& f, cudaStream_t stream);
+// The P pass on tiles of 128 (obs_step_big.cu): its plan at D = d (16-byte
+// P rows or not) and its launch, and its registers and local bytes a thread.
+cudaError_t plan_pass_big(int d, bool vecp, csl_res::PassPlan* plan);
+cudaError_t launch_pass_big(const Frame& f, unsigned long long* stamps, cudaStream_t stream);
+cudaError_t pass_regs_big(int* regs, int* local);
 
 }  // namespace csl_h10

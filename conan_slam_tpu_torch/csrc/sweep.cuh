@@ -275,7 +275,7 @@ __device__ __forceinline__ bool inverse(const float* s, int nblk, float* out, in
 
 // Shared memory of the sweep: the padded tile, the scale and two buffers of
 // the pivots' g and h for a block of w columns.
-inline size_t smem_bytes(int mp, int w) {
+__host__ __device__ inline size_t smem_bytes(int mp, int w) {
     return (size_t)(mp * (mp + 1) + mp + 8 * w) * sizeof(float);
 }
 

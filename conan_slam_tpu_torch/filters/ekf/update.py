@@ -72,7 +72,7 @@ def fused_frame_update(state: EKFState, bmat, vtf, obs: CompactObs, slots, mask,
     correction vtf^T B vtf, given as the row strip ``vtf`` (r, D) and
     ``bmat`` (r, r) of ops.factor_kernel.  The update runs against the
     virtual covariance P' = P + vtf^T B vtf without materialising it
-    (ops.frame_kernel.frame_update_obs: H10, one launch, by default; the
+    (ops.frame_kernel.frame_update_obs: H10, one C entry, by default; the
     split schedule past MP 224; the reference's jnp route past the port's
     kernels where the reference has no TPU schedule either).  The frame's
     raw slots and the table's capacity go to ``frame_update_obs``, whose

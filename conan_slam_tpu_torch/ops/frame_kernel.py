@@ -53,11 +53,13 @@ pass at r = 2 (MP + 8) for both frames.
 
 The gated frame (``frame_update_obs``, the reference's ``_fullframe_kernel``)
 gets its factors P' = P + vtf^T B vtf from H5 (ops.factor_kernel).  Its
-default route is H10 ``obs_step`` (csrc/obs_step.cu), ONE cooperative
-launch: the chain in bands (the packing from the raw slots, the
-observe, compact Hc, the hvb coupling and S), the sweep beside the pht
-panels, the gains [B vtf; -S^-1 pht] and the mean, the P pass
-P + [vtf; pht]^T [B vtf; -S^-1 pht] (``obs_route``; its plain version
+default route is H10 ``obs_step`` (csrc/obs_step.cu), H9's design carried
+over to the gated frame: TWO launches from one C entry, a cooperative frame
+kernel (the chain in bands: the packing from the raw slots, the observe,
+compact Hc, the hvb coupling and S; the sweep beside the pht units, with
+[vtf; B vtf]; the gains -S^-1 pht and the mean), then the P pass
+P + [vtf; pht]^T [B vtf; -S^-1 pht] at H4's occupancy behind a
+programmatic launch (``obs_route``; its plain version
 ``_frame_update_obs_resident_reference``).  Its split schedule, under
 ``schedule="split"`` and past MP 224, runs
 
@@ -143,12 +145,19 @@ FS_PLAN = 13        # values csl_frame_step_plan reports
 # H9's static shared memory: rows, qc, ms, a max per warp.
 FS_STATIC_BYTES = 4 * (FS_MAX_RP + 4 + MS_LEN + FS_THREADS // 32)
 
-# H10 (csrc/obs_step.cuh): H9's block and panels; the most gathered rows
-# (MP = 224).
+# H10 (csrc/obs_step.cuh): H9's frame-kernel block; units of 8 to 32
+# columns a block through the pht units and the gains (``obs_step_unit``),
+# the mean's partial sums a column, MG's warps; the most gathered rows (MP
+# = 224).
 OS_THREADS = 512
-OS_W = 16
-OS_LD = 24
+OS_COLS = 8
+OS_MAX_UNIT = 32
+OS_XG = 32
+OS_MG_WARPS = 8
 OS_MAX_RP = 232
+OS_STAMPS = 12      # H10's phase stamps a block (csrc/obs_step.cuh stamp())
+OS_LAUNCHES = 2     # kernels a call launches: the frame kernel, the P pass
+OS_PLAN = 14        # values csl_obs_step_plan reports
 # H10's static shared memory: rows, a max per warp.
 OS_STATIC_BYTES = 4 * (OS_MAX_RP + OS_THREADS // 32)
 # The gated chain's rows a band, in H7 and H10 alike: one measurement.
@@ -196,6 +205,7 @@ OBS_STEP = cuda.CudaKernel(
     source="conan_slam_tpu_torch/csrc/obs_step.cu",
     replaces="conan_slam_tpu/ops/frame_kernel.py:535 (frame_update_obs -> pallas_call :607, "
              "_fullframe_kernel :381)",
+    launches_per_call=OS_LAUNCHES,
 )
 
 
@@ -1099,18 +1109,31 @@ def obs_inputs(p, x, rows, zr, zb, mask, r_cov, vtf) -> ObsInputs:
 # ------------------------------------------------ H10: the gated frame
 
 
-def _obs_step_smem_bytes(mp: int, rp: int, nbp: int, tile: int = 128) -> int:
-    """H10's dynamic shared memory with the P pass on tiles of ``tile``
-    (the larger of the two by default): the largest of its phases' needs
-    (csrc/obs_step.cu smem_floats)."""
-    ring = 2 * 128 * 129 if tile == 128 else (OS_THREADS // 64) * 4 * 2 * 16 * 32
+def _obs_step_smem_bytes(mp: int, rp: int, nbp: int, unit: int = OS_COLS) -> int:
+    """The dynamic shared memory of H10's frame kernel at a unit of ``unit``
+    columns (by default the narrowest, which every resident frame takes at
+    least): the largest of its phases' needs (csrc/obs_step.cuh
+    smem_floats).  The P pass, its second launch, takes H4's ring."""
+    pl = unit + 4
     return max(
-        _obs_smem_bytes(mp, rp, nbp, OBS_BAND),
-        _sweep_smem_bytes(mp),
-        4 * (8 * mp + mp * nbp + rp * OS_LD + nbp * OS_W),                # pht panels
-        4 * (mp * (mp + 4) + mp * OS_W + OS_THREADS + mp),                # gains
-        4 * ring,                                                         # P pass rings
+        _obs_smem_bytes(mp, rp, nbp, OBS_BAND),                           # chain
+        _sweep_smem_bytes(mp) + 4 * 2 * mp,                               # sweep, v, siv
+        4 * (mp * pl + 8 * mp + mp * nbp + rp * pl + nbp * unit),         # pht units
+        4 * (mp * pl + mp * mp + OS_XG * unit + 2 * mp + 16),             # gains, 7 mbarriers
     )
+
+
+def obs_step_unit(d: int, mp: int, rp: int, nbp: int, sms: int = N_SM) -> int:
+    """H10's unit at D = ``d`` on a card of ``sms`` SMs (csrc/obs_step.cuh
+    unit_cols): the fewest multiples of OS_COLS columns that cover D in one
+    round of the sms - 1 blocks beside the sweep's, at most OS_MAX_UNIT, and
+    no more than fit a block's shared memory."""
+    groups = -(-_round_up(d, 4) // OS_COLS)
+    unit = OS_COLS * min(OS_MAX_UNIT // OS_COLS, max(1, -(-groups // (sms - 1))))
+    while (unit > OS_COLS
+           and _obs_step_smem_bytes(mp, rp, nbp, unit) + OS_STATIC_BYTES > cuda.MAX_SMEM_BYTES):
+        unit -= OS_COLS
+    return unit
 
 
 def _obs_split_fits(mp: int, rp: int, nbp: int, limit: int) -> bool:
@@ -1125,8 +1148,9 @@ def obs_route(d: int, nz: int, nbp: int, device, schedule: str = "auto") -> str:
     measurement slots and ``nbp`` factor rows on ``device``: a function of
     the shapes alone, chosen before any launch:
 
-      "resident"  H10, one cooperative launch, where its phases fit a block
-                  (MP <= 224, H1's register limit);
+      "resident"  H10 (a cooperative frame kernel and the P pass), where its
+                  phases fit a block (MP <= 224, H1's register limit, and
+                  its narrowest unit's shared memory);
       "split"     H7 -> H1 -> H8 -> H4, under ``schedule="split"``, or where
                   only the split fits: MP 226 to 2048 (H7 in bands of one
                   measurement, H1's cooperative sweep, H8's panels), for
@@ -1155,36 +1179,48 @@ def obs_route(d: int, nz: int, nbp: int, device, schedule: str = "auto") -> str:
 
 
 class ObsStepPlan(NamedTuple):
-    """H10's launch and the work of each of its phases."""
+    """H10's two launches and the work of each of its phases."""
 
-    grid: int      # blocks: one an SM (a cooperative launch)
-    block: int     # threads a block, in every phase
-    smem: int      # dynamic shared memory a block, the largest phase's
-    tile: int      # phase 4's tile edge (32 or 128, H4's rule)
-    bands: int     # phase 1: blocks that form rows of S (one measurement each)
-    panels: int    # phases 2 and 3: 16-column panels of D
-    tiles: int     # phase 4: upper-triangle tiles of P
+    grid: int        # frame kernel blocks: one an SM (a cooperative launch)
+    block: int       # its threads a block, in every phase
+    smem: int        # its dynamic shared memory a block, the largest phase's
+    regs: int        # its registers a thread (cudaFuncGetAttributes)
+    local: int       # its local-memory bytes a thread: spills and stack
+    bands: int       # phase 1: blocks that form rows of S (one measurement each)
+    unit: int        # phases 2 and 3: columns of D a block takes at a time
+    units: int       # phases 2 and 3: units of D
+    pass_grid: int   # the P pass: blocks, one a tile
+    pass_block: int  # its threads a block: one H4 tile (Cfg<tile>)
+    pass_smem: int   # its shared memory a block: H4's ring
+    pass_regs: int   # its registers a thread
+    pass_local: int  # its local-memory bytes a thread
+    pass_occ: int    # its blocks an SM (the occupancy query)
+    tile: int        # the P pass's tile edge (32 or 128, H4's rule)
+    tiles: int       # the P pass: upper-triangle tiles of P
 
 
 def obs_step_plan(d: int, mp: int, nbp: int, device) -> ObsStepPlan:
-    """The grid, block, shared memory and P-pass tile H10 takes at D = ``d``,
-    MP = ``mp`` (RP the largest for that MP) and NBP = ``nbp`` on the CUDA
-    ``device``, and each phase's work; launches nothing."""
+    """The grids, blocks and shared memory of H10's two launches at D =
+    ``d``, MP = ``mp`` (RP the largest for that MP) and NBP = ``nbp`` on the
+    CUDA ``device``, their registers, and each phase's work; launches
+    nothing."""
     rp = _round_up(3 + mp, 8)
     lib = cuda.library()
     fn = lib.csl_obs_step_plan
-    out = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [cuda.I, cuda.I, cuda.I, cuda.I, out, out, out, out]
+    fn.argtypes = [cuda.I] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    grid, block, smem, tile = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    out = (ctypes.c_int * OS_PLAN)()
     with torch.cuda.device(device):
-        err = fn(d, mp, rp, nbp, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(smem),
-                 ctypes.byref(tile))
+        err = fn(d, mp, rp, nbp, out)
     if err != 0:
         raise RuntimeError(f"obs_step plan failed: {lib.csl_error_string(err).decode()} ({err})")
-    nt = -(-d // tile.value)
-    return ObsStepPlan(grid=grid.value, block=block.value, smem=smem.value, tile=tile.value,
-                       bands=mp // OBS_BAND, panels=-(-d // OS_W), tiles=nt * (nt + 1) // 2)
+    (grid, block, smem, regs, local, unit, pass_grid, pass_block, pass_smem, pass_regs, pass_local,
+     pass_occ, tile, tiles) = out
+    return ObsStepPlan(grid=grid, block=block, smem=smem, regs=regs, local=local,
+                       bands=mp // OBS_BAND, unit=unit, units=-(-_round_up(d, 4) // unit),
+                       pass_grid=pass_grid, pass_block=pass_block, pass_smem=pass_smem,
+                       pass_regs=pass_regs, pass_local=pass_local, pass_occ=pass_occ, tile=tile,
+                       tiles=tiles)
 
 
 def _obs_step_scratch_floats(mp: int, nbp: int, ldg: int) -> int:
@@ -1207,11 +1243,17 @@ def _frame_update_obs_resident_reference(p, x, oi: ObsInputs, bmat, vtf) -> Fram
 
 def _obs_step_h10(p, x, slots, capacity: int, zr, zb, mask, r_cov, bmat, vtf,
                   stamps=None) -> FrameUpdateObs:
-    """Launch H10 on CUDA tensors (``frame_update_obs``'s resident route).
-    ``stamps``, a (grid, 8) int64 CUDA tensor, takes each block's
-    %globaltimer (ns) at its phase boundaries: the start, the chain done,
-    past barrier 1, the sweep or the pht panels done, past barrier 2, the
-    gains done, past barrier 3, the P pass done; None records nothing."""
+    """Launch H10 on CUDA tensors (``frame_update_obs``'s resident route):
+    the frame kernel, then the P pass.  ``stamps``, a (grid + pass_grid,
+    OS_STAMPS) int64 CUDA tensor (``obs_step_plan``), takes the frame
+    kernel's blocks' %globaltimer (ns) at their phase boundaries in rows
+    0 .. grid - 1: the start, the chain done, past barrier 1, block 0's
+    sweep or another block's pht units done, block 0's siv and NIS done
+    (beside the gains), past barrier 2, the gains done, block 0's SM
+    clock64 at the sweep's start and end, then the first unit's S^-1
+    staged, its MG stored and its siv formed; and each P-pass block's start
+    (past its wait for the frame kernel) and end in the rows after them.
+    None records nothing."""
     d, nz, nbp = p.shape[0], slots.shape[0], bmat.shape[0]
     mp, rp = frame_shapes(nz)
     cuda.check(p, "p", (d, d))
@@ -1232,7 +1274,8 @@ def _obs_step_h10(p, x, slots, capacity: int, zr, zb, mask, r_cov, bmat, vtf,
     nis = torch.empty((1,), dtype=f32, device=dev)
     scratch = torch.empty((_obs_step_scratch_floats(mp, nbp, ldg),), dtype=f32, device=dev)
     if stamps is not None:
-        cuda.check(stamps, "stamps", (obs_step_plan(d, mp, nbp, dev).grid, 8), torch.int64)
+        plan = obs_step_plan(d, mp, nbp, dev)
+        cuda.check(stamps, "stamps", (plan.grid + plan.pass_grid, OS_STAMPS), torch.int64)
     OBS_STEP(
         dev, *(cuda.ptr(t) for t in (p, x, slots, zr, zb, mask, r_cov, bmat, vtf, p_out, xn, nis,
                                      scratch)),

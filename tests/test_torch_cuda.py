@@ -568,7 +568,7 @@ def test_gated_frame_kernels_match_plain_versions(dev, d):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
     # The default route (H10, one launch) and the split schedule (H7, H1,
     # H8, H4 once each), each against its plain version.
-    for schedule, want in (("auto", {"obs_step": 1}),
+    for schedule, want in (("auto", {"obs_step": fk.OS_LAUNCHES}),
                            ("split", {"obs_chain": 1, "sweep_inverse": 1, "obs_panels": 1,
                                       "rank_update": 1})):
         cuda.reset_launch_counts()
@@ -598,7 +598,7 @@ def test_gated_run_matches_plain(dev):
         if plain:
             assert not any(counts.values())
         else:
-            want = dict.fromkeys(("factor_strip", "gating_scores", "obs_step"), 100)
+            want = {"factor_strip": 100, "gating_scores": 100, "obs_step": 100 * fk.OS_LAUNCHES}
             assert counts == {**dict.fromkeys(counts, 0), **want}
     (sk, ok), (sp, op) = out[False], out[True]
     assert bool(torch.isfinite(sk.p).all()) and int(sk.n_active) > 0
@@ -654,7 +654,8 @@ def test_obs_step_kernel_matches_plain(dev, d, nz, s_steps, use_heading):
     got, again = fk.frame_update_obs(*args), fk.frame_update_obs(*args)
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in cuda.KERNELS.values()}
-    assert counts == {**dict.fromkeys(counts, 0), "obs_step": 2}
+    # Two launches a call (the frame kernel, then the P pass), two calls.
+    assert counts == {**dict.fromkeys(counts, 0), "obs_step": 2 * fk.OS_LAUNCHES}
     # Against the split schedule's kernels (H7, H1, H8, H4): the same device
     # code up to the order of M G's and the mean's sums (_obs_ulp_bounds).
     split = fk.frame_update_obs(*args, schedule="split")
@@ -668,6 +669,59 @@ def test_obs_step_kernel_matches_plain(dev, d, nz, s_steps, use_heading):
     torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
     # No atomics: two calls bit-identical; the mirrored P pass keeps an
     # exactly symmetric P exactly symmetric.
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(got.p, got.p.T)
+
+
+def _obs_witness(args):
+    """The gated frame in float64 through the port's independent oracle
+    (dense products and a Cholesky inverse, neither H10 nor the split)."""
+    import torch.nn.functional as F
+
+    p, x, slots, cap, zr, zb, mask, r, bmat, vtf = args
+    rows = fk.frame_rows(slots, cap)
+    f64 = torch.float64
+    mp, rp = fk.frame_shapes(zr.shape[0])
+    zin, rsc, _ = fk._pack_meas(zr.to(f64), zb.to(f64), mask, r.to(f64), mp // 2)
+    pad = rp - rows.shape[0]
+    return fk._frame_update_obs_reference(p.to(f64), x.to(f64), F.pad(rows, (0, pad), value=-1),
+                                          F.pad(p[rows].to(f64), (0, 0, 0, pad)), zin, rsc,
+                                          bmat.to(f64), vtf.to(f64), mp, rp)
+
+
+def test_obs_step_kernel_at_the_resident_edge(dev):
+    # MP 224 with NBP 216 (S 71 with the heading update): the largest NBP
+    # that stays resident there, its pht units 8 columns wide.  Against the
+    # split kernels within the fp32 bound of the sums they order
+    # differently; P and the NIS against the plain version at the
+    # reference's megakernel tolerances.  This frame's S is ill-conditioned
+    # (NIS ~2.7e6): the fp32 routes' means lie 1.5e-4 (plain) to 4.5e-4
+    # (H10 and the split, which share the chain's and the sweep's device
+    # code) from a float64 witness, so the mean is held to the witness
+    # within twice the farther of the plain version and the split kernels
+    # plus the megakernel tolerance, as the known frame's F1-conditioned
+    # cases are (test_frame_step_kernel_matches_plain).
+    args = _obs_args(dev, 1024, 112, 71, True)
+    nbp = args[8].shape[0]
+    assert nbp == 216 and fk.obs_route(1024, 112, nbp, dev) == "resident"
+    assert fk.obs_route(1024, 112, nbp + 8, dev) == "split"
+    assert fk.obs_step_plan(1024, 224, nbp, dev).unit == 8
+    cuda.reset_launch_counts()
+    got, again = fk.frame_update_obs(*args), fk.frame_update_obs(*args)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "obs_step": 2 * fk.OS_LAUNCHES}
+    split = fk.frame_update_obs(*args, schedule="split")
+    for key, tol in _obs_ulp_bounds(args, got).items():
+        err = (getattr(got, key) - getattr(split, key)).abs()
+        assert bool((err <= tol).all()), (key, float(err.max()), float((err - tol).max()))
+    ref = fk.frame_update_obs(*args, plain=True)
+    wit = _obs_witness(args)
+    far = max(float((r.x.double() - wit.x).abs().max()) for r in (ref, split))
+    assert float((got.x.double() - wit.x).abs().max()) <= 2.0 * far + 1e-4
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     assert torch.equal(got.p, got.p.T)
@@ -699,12 +753,17 @@ def test_obs_step_kernel_takes_strided_inputs(dev):
 
 
 def test_obs_step_kernel_replays_in_a_cuda_graph(dev):
+    # H10's two launches captured in a CUDA graph and replayed give the
+    # eager launches' bits, the P pass's programmatic dependence on the
+    # frame kernel captured as a programmatic edge.
     args = _obs_args(dev, 1024, 64)
     eager = fk.frame_update_obs(*args)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         captured = fk.frame_update_obs(*args)
+    assert cuda.programmatic_edges(graph.raw_cuda_graph()) == 1
+    graph.instantiate()
     graph.replay()
     torch.cuda.synchronize()
     for a, b in zip(captured, eager):
@@ -712,14 +771,40 @@ def test_obs_step_kernel_replays_in_a_cuda_graph(dev):
 
 
 def test_obs_step_plan(dev):
+    # The frame kernel: one block an SM, units of 8 columns at config 2's
+    # D (128 units on the 131 blocks beside the sweep's: one round), up to
+    # 32 at the 10k shape; the P pass: H4's 32-tile blocks, one a tile,
+    # without spills.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = fk.obs_step_plan(1024, 128, 24, dev)
     mp, rp = fk.frame_shapes(64)
     assert plan.grid == sms and plan.block == fk.OS_THREADS and plan.tile == 32
-    assert plan.smem == fk._obs_step_smem_bytes(mp, rp, 24, plan.tile)
-    assert (plan.bands, plan.panels, plan.tiles) == (64, 64, 32 * 33 // 2)
+    assert plan.unit == fk.obs_step_unit(1024, mp, rp, 24, sms) == 8
+    assert plan.units == 128 <= sms - 1
+    assert plan.smem == fk._obs_step_smem_bytes(mp, rp, 24, plan.unit)
+    assert (plan.bands, plan.tiles) == (64, 32 * 33 // 2)
+    # 528 tiles, 4 an SM: each pass block asks for an SM's shared memory
+    # over 4 (H4's ring needs 16 KB), so that no SM takes more than 4 and
+    # the tiles spread over every SM.
+    assert plan.pass_block == 64 and plan.pass_grid == plan.tiles and plan.pass_local == 0
+    assert plan.pass_occ == -(-plan.tiles // sms) == 4
+    assert 4 * 4 * 2 * 16 * 32 < plan.pass_smem <= 233_472 // 4 - 1024
+    # At the 10k shape: 128-tiles, two at a time in a persistent 512-thread
+    # block, one an SM, without spills.
     big = fk.obs_step_plan(20_224, 128, 24, dev)
     assert big.tile == 128 and big.tiles == 158 * 159 // 2
+    assert big.pass_block == 512 and big.pass_occ == 1 and big.pass_grid == sms
+    assert big.pass_smem == 2 * 4 * 128 * 129 and big.pass_local == 0
+    assert big.unit == fk.obs_step_unit(20_224, mp, rp, 24, sms) == 32
+    for rx in range(1, 8):
+        m = 32 * rx
+        r = fk._round_up(3 + m, 8)
+        p = fk.obs_step_plan(1024, m, 24, dev)
+        assert p.grid == sms and p.unit == fk.obs_step_unit(1024, m, r, 24, sms)
+        assert p.smem == fk._obs_step_smem_bytes(m, r, 24, p.unit)
+    # MP 224 at the largest NBP that stays resident: a unit of 8 columns.
+    p = fk.obs_step_plan(20_224, 224, 216, dev)
+    assert p.unit == 8 and p.smem == fk._obs_step_smem_bytes(224, 232, 216, 8)
 
 
 @pytest.mark.parametrize("mp", [160, 224, 240, 480])
@@ -746,7 +831,7 @@ def test_banded_obs_chain_matches_plain(dev, mp):
     ref = fk.frame_update_obs(*args, plain=True)
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in cuda.KERNELS.values()}
-    want = ({"obs_step": 1} if route == "resident" else
+    want = ({"obs_step": fk.OS_LAUNCHES} if route == "resident" else
             {"obs_chain": 1, "sweep_inverse": 1, "obs_panels": 1, "rank_update": 1})
     assert counts == {**dict.fromkeys(counts, 0), **want}
     torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)

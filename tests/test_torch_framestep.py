@@ -320,11 +320,14 @@ def test_frame_step_constants_match_the_kernel_source():
     assert consts["FS_MAX_RP"] == tfk.FS_MAX_RP == tfk.frame_shapes(112)[1]
     assert consts["FS_MAX_MP"] == tfk.MAX_MP
     # Two launches a call: the frame kernel, then the P pass on H4's tiles
-    # of FS_TILE (rank_tile.cuh's Cfg<32>), with the programmatic launch.
+    # of FS_TILE (rank_tile.cuh's Cfg<32>), with the programmatic launch
+    # (the pass's body, plan and launch shared with H10 in resident.cuh).
+    shared = (cuda.CSRC / "resident.cuh").read_text()
     assert tfk.FS_LAUNCHES == 2 == tfk.FRAME_STEP.launches_per_call
     assert "frame_pass_kernel<VECP>" in src and "csl_rank::Cfg<FS_TILE>" in src
-    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in src
-    assert "griddepcontrol.wait" in src
+    assert "csl_res::pass_tiles<FS_TILE, VECP>" in src
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in shared
+    assert "griddepcontrol.wait" in shared
     # The largest frame H9 holds fits a block with its static shared memory.
     mp, rp = tfk.frame_shapes(112)
     assert (tfk._frame_step_smem_bytes(mp, rp, tfk.frame_chain_plan(mp).band)

@@ -183,15 +183,34 @@ def test_obs_route_follows_the_reference(d):
             assert route != "unported" or not has
 
 
-def test_obs_step_constants_match_the_kernel_source():
+def _obs_step_consts():
     src = (cuda.CSRC / "obs_step.cuh").read_text()
-    consts = {k: int(v) for k, v in re.findall(r"#define (OS_\w+) +(\d+)", src)}
+    return src, {k: int(v) for k, v in re.findall(r"#define (OS_\w+) +(\d+)", src)}
+
+
+def test_obs_step_constants_match_the_kernel_source():
+    src, consts = _obs_step_consts()
     assert consts["OS_THREADS"] == tfk.OS_THREADS
-    assert consts["OS_W"] == tfk.OS_W
-    assert consts["OS_LD"] == tfk.OS_LD
+    assert consts["OS_COLS"] == tfk.OS_COLS
+    assert consts["OS_MAX_UNIT"] == tfk.OS_MAX_UNIT
+    assert consts["OS_XG"] == tfk.OS_XG
+    assert consts["OS_MG_WARPS"] == tfk.OS_MG_WARPS
+    assert consts["OS_STAMPS"] == tfk.OS_STAMPS
+    assert consts["OS_PLAN"] == tfk.OS_PLAN
     assert consts["OS_BAND"] == tfk.OBS_BAND
     assert consts["OS_MAX_RP"] == tfk.OS_MAX_RP == tfk.frame_shapes(112)[1]
     assert consts["OS_MAX_MP"] == tfk.MAX_MP
+    assert ("constexpr int OS_STATIC_BYTES = 4 * (OS_MAX_RP + OS_THREADS / 32);" in src
+            and tfk.OS_STATIC_BYTES == 4 * (tfk.OS_MAX_RP + tfk.OS_THREADS // 32))
+    # Two launches a call: the frame kernel, then the P pass on H4's tiles,
+    # behind a programmatic launch (resident.cuh, shared with H9).
+    assert tfk.OS_LAUNCHES == 2 == tfk.OBS_STEP.launches_per_call
+    shared = (cuda.CSRC / "resident.cuh").read_text()
+    entry = (cuda.CSRC / "obs_step.cu").read_text()
+    assert "obs_pass_kernel" in src and "csl_res::pass_tiles<T, VECP>" in src
+    assert "csl_res::launch_pass<32>(obs_pass_kernel<32, true>" in entry
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in shared
+    assert "griddepcontrol.wait" in shared and "griddepcontrol.launch_dependents" in src
     # The largest frame H10 holds at config 2's NBP fits a block with its
     # static shared memory, and H7's band of one measurement at MP 2048.
     mp, rp = tfk.frame_shapes(112)
@@ -199,6 +218,44 @@ def test_obs_step_constants_match_the_kernel_source():
     assert tfk._obs_smem_bytes(2048, tfk.frame_shapes(1024)[1], 776) <= cuda.MAX_SMEM_BYTES
     plan = tfk.obs_chain_plan(128)
     assert [i for b in range(plan.grid) for i in plan.rows(b)] == list(range(128))
+
+
+@pytest.mark.parametrize("rx", range(1, 8))
+def test_obs_step_smem_mirrors_the_kernel_source(rx):
+    # H10's frame kernel at every RX: the Python mirror of its shared memory
+    # reads the source's phases (the chain; the sweep with v and siv; the
+    # pht units: the unit's pht, rowc, hvb, the gathered panel and vtf's;
+    # the gains: the unit's pht, S^-1, the mean's partials, v, siv and the
+    # mbarriers of its bulk copies), and the unit as the source chooses it:
+    # 8 columns at config 2's D (128 units on the 131 blocks beside the
+    # sweep's, one round), 32 at the 10k shape, narrower where 32 does not
+    # fit (MP 224), within the card's shared memory beside the static.
+    src, consts = _obs_step_consts()
+    assert ("fl = std::max(fl, (size_t)(mp * pl + 8 * mp + mp * nbp + rp * pl + nbp * unit));"
+            in src)
+    assert ("fl = std::max(fl, (size_t)(mp * pl + mp * mp + OS_XG * unit + 2 * mp + 16));"
+            in src)
+    assert ("fl = std::max(fl, csl_sweep::smem_bytes(mp, 32 * ((mp + 31) / 32)) / sizeof(float)"
+            " + 2 * mp);" in src)
+    assert "size_t fl = (size_t)csl_obs_smem_floats(mp, rp, nbp, OS_BAND);" in src
+    assert "const int pl = unit + 4;" in src
+    mp = 32 * rx
+    rp = tfk.frame_shapes(mp // 2)[1]
+    for nbp in (16, 24, 56, 200):
+        for unit in (8, 16, 24, 32):
+            pl = unit + 4
+            phases = (tfk._obs_smem_bytes(mp, rp, nbp), tfk._sweep_smem_bytes(mp) + 8 * mp,
+                      4 * (mp * pl + 8 * mp + mp * nbp + rp * pl + nbp * unit),
+                      4 * (mp * pl + mp * mp + consts["OS_XG"] * unit + 2 * mp + 16))
+            assert tfk._obs_step_smem_bytes(mp, rp, nbp, unit) == max(phases)
+    for d, sms, want in ((1024, 132, 8), (1003, 132, 8), (2304, 132, 24), (20_224, 132, 32),
+                         (13, 132, 8), (1024, 64, 24)):
+        unit = tfk.obs_step_unit(d, mp, rp, 24, sms)
+        fits = tfk._obs_step_smem_bytes(mp, rp, 24, unit) + tfk.OS_STATIC_BYTES
+        assert fits <= cuda.MAX_SMEM_BYTES and unit % tfk.OS_COLS == 0
+        assert unit == want or (mp == 224 and want == 32 and unit == 24), (d, sms, mp, unit)
+        if unit == want:
+            assert -(-tfk._round_up(d, 4) // unit) <= sms - 1 or unit == tfk.OS_MAX_UNIT
 
 
 def test_recursion_bound_matches_the_kernel_source():
