@@ -33,12 +33,20 @@ Phases:
           the split), the plain route with no launch where neither package
           has a kernel, and a raise with no launch where only the
           reference has one;
-       b. the gated frame (H5-H8, H1, H4, H10 and the whole
+       b. the gated frame (H5-H8, H15, H1, H4, H10 and the whole
           frame_update_obs on both routes) at BASELINE config 2's shape
           (D = 1024, NZ = 64, K = 510) on a mid-run frame, at a ragged D
           (1003) and at the 10k-landmark shape (D = 20,224), with a
           cross-check against the known-association frame on the same rows
-          and the frame's mean against a float64 witness.  H10 (the default
+          and the frame's mean against a float64 witness.  H15 (the factors
+          and the association in one launch) against its plain version (H5's,
+          the host fold, H6's and the mask rule): its factors bit for bit
+          H5's entry, its scores within the NIS tolerance, found, new and the
+          best slot equal except near a gate or a tie, two launches in a row
+          bit-equal; its device time, phases (%globaltimer) beside H5's
+          entry's, registers beside H5's and H6's entries', and the parent's
+          two-launch route (H5, the fold, H6, the mask rule) in turns, at
+          config 2 and at the 10k shape.  H10 (the default
           route: a cooperative frame kernel, then the P pass launched
           behind it) against its plain version and against the split
           kernels (within the fp32 rounding of the sums they order
@@ -94,9 +102,9 @@ Phases:
           augmentation; 25,002 steps = 4,167 frames) through H10 in turns
           with the split schedule (H10, split, split, H10): asserts the
           reference's gated_full gate (ATE < 0.5 m, 270 <= mapped <= 340)
-          on each run, and that H5 and H6 launched once per frame, H10's
-          two kernels once each, and no other kernel (H5, H6, H7, H8, H1
-          and H4 on the split runs);
+          on each run, and that H15 launched once per frame, H10's two
+          kernels once each, and no other kernel (H15, H7, H8, H1 and H4 on
+          the split runs; H5's and H6's own entries never);
           the two routes' largest |dx_est| and the steps whose map sizes
           differ.  600 steps with the plain versions (the reference's gated
           gate: finite, mapped > 0, ATE < 1 m), against the kernels' first
@@ -115,7 +123,9 @@ Phases:
      H10) and through the split schedule, 100 pairs of the pair path, 20 frames of
      the 10k-landmark shape on both routes) gives each kernel's device
      time per frame, the PyTorch ops dispatched per frame and the device's
-     busy share.
+     busy share; the gated traces also split the ops and the PyTorch
+     kernels' device time by the frame loop's steps (its pre-update, the
+     update, augmentation).
   5. The kernel table and the card as JSON lines, then the last line
      {"ok": true, "device": {...}}.
 
@@ -158,12 +168,13 @@ DEVICE_KERNELS = {"frame_step": ("frame_step_kernel", "frame_pass_kernel"),
 H9_KERNELS = "|".join(DEVICE_KERNELS["frame_step"])
 H10_KERNELS = "|".join(DEVICE_KERNELS["obs_step"])
 SPLIT_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
-GATED_KERNELS = ("factor_strip", "gating_scores", "obs_step")   # H10: the gated default
-GATED_SPLIT_KERNELS = ("factor_strip", "gating_scores", "obs_chain", "sweep_inverse",
-                       "obs_panels", "rank_update")
+# The gated frame: H15 (the factors and the association in one launch), then
+# H10 by default or the split schedule.
+GATED_KERNELS = ("factor_gate", "obs_step")
+GATED_SPLIT_KERNELS = ("factor_gate", "obs_chain", "sweep_inverse", "obs_panels", "rank_update")
 ORDER = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update", "factor_strip",
-         "gating_scores", "obs_chain", "obs_panels", "frame_step", "obs_step", "sweep_probe",
-         "stream_copy", "probe_dots", "probe_observe", "rank_update_tile")
+         "gating_scores", "factor_gate", "obs_chain", "obs_panels", "frame_step", "obs_step",
+         "sweep_probe", "stream_copy", "probe_dots", "probe_observe", "rank_update_tile")
 # The kernels of the T9 probes (phase 3d): H11-H14 and H4's probe entry.
 PROBE_KERNELS = ("sweep_probe", "stream_copy", "probe_dots", "probe_observe", "rank_update_tile")
 # The kernels the probe path drives besides them (bench_framestep's modes).
@@ -1534,18 +1545,228 @@ def h10_cold_sweep(device, p_big, g_big, mg_big) -> dict:
     return out
 
 
+def gate_margins(st1, obs, noise, cfg, vtf, bmat, min_nis) -> dict:
+    """The measurements whose association may rightly differ between two
+    fp32 routes of the gating, from the dense scores of the frame's virtual
+    covariance (``min_nis`` the plain version's): ``tie``, a runner-up nd
+    within the NIS tolerance of the best; ``near_reject``, a slot's nis
+    that close to gate_reject; ``near_augment``, a min nis that close to
+    gate_augment."""
+    import torch
+
+    from conan_slam_tpu_torch.filters.ekf.associate import gated_scores_dense
+
+    nis_tol = lambda v: 1e-3 + 1e-4 * v.abs()  # noqa: E731
+    nis_d, nd_d = gated_scores_dense(st1, obs.z, noise.re, vtf.T, bmat)
+    nd_g = torch.where(nis_d < cfg.gate_reject, nd_d, torch.inf)
+    two = nd_g.topk(2, dim=1, largest=False).values
+    gate_r, gate_a = torch.tensor(cfg.gate_reject), torch.tensor(cfg.gate_augment)
+    return dict(tie=(two[:, 1] - two[:, 0]) <= nis_tol(two[:, 0]),
+                near_reject=((nis_d - cfg.gate_reject).abs() <= nis_tol(gate_r)).any(dim=1),
+                near_augment=(min_nis - cfg.gate_augment).abs() <= nis_tol(gate_a))
+
+
+def gate_checks(name: str, got, ref, obs, cfg, near: dict) -> float:
+    """A gating's ``(best_nd, best_j, min_nis)`` against its plain
+    version's: the scores within the NIS tolerance; found, new and the best
+    slot equal except where ``near`` (gate_margins) exempts a measurement.
+    Returns the best nd's max abs error."""
+    nd_k, j_k, mn_k = got
+    nd_p, j_p, mn_p = ref
+    found_k, found_p = nd_k < 1e38, nd_p < 1e38
+    both = found_k & found_p
+    err = check(f"{name} best nd", nd_k[both], nd_p[both], 1e-4, 1e-3,
+                "same algebra; atan2f/remainder wrap and FMA contraction: ulps of "
+                "km-scale predictions, ~1e-4 of a NIS")
+    check(f"{name} min nis", mn_k, mn_p, 1e-4, 1e-3, "as best nd")
+    valid, near_reject = obs.mask, near["near_reject"]
+    require(bool(((found_k == found_p) | near_reject | ~valid).all()), f"{name} found",
+            f"equal except within tolerance of gate_reject ({int((near_reject & valid).sum())} "
+            "valid measurements that close)")
+    new_k = valid & ~found_k & (mn_k > cfg.gate_augment)
+    new_p = valid & ~found_p & (mn_p > cfg.gate_augment)
+    require(bool(((new_k == new_p) | near["near_augment"] | near_reject | ~valid).all()),
+            f"{name} new", f"equal except within tolerance of gate_augment "
+            f"({int((near['near_augment'] & valid).sum())} valid measurements that close)")
+    exact = both & ~near["tie"]
+    require(bool((j_k[exact] == j_p[exact]).all()), f"{name} best slot",
+            f"equal on {int(exact.sum())} measurements whose runner-up is further than "
+            f"the tolerance ({int((both & near['tie']).sum())} near-ties left out)")
+    return err
+
+
+def h15_checks(label: str, fgargs, h5_out, obs, cfg, near: dict) -> float:
+    """H15 at factor_gate's ``fgargs`` against its plain version: the
+    factors bit for bit H5's entry (``h5_out``: the same strip blocks) and
+    within H5's tolerances of the plain version; the scores and the
+    association as gate_checks holds H6's; the association result its own
+    scores' mask rule; two launches in a row bit-equal (the reduction's
+    scratch resets itself)."""
+    import torch
+
+    from conan_slam_tpu_torch.ops.factor_kernel import _factor_gate_reference, factor_gate
+
+    got, again = factor_gate(*fgargs), factor_gate(*fgargs)
+    ref = _factor_gate_reference(*fgargs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((got.x, got.pose_trace, got.vtf, got.bmat),
+                                                  (h5_out[0].x, *h5_out[1:])))
+    require(same, f"H15 {label} factors", "bit for bit H5's entry (the same strip blocks)")
+    check(f"H15 {label} pose trace", got.pose_trace, ref.pose_trace, 1e-6, 1e-4,
+          "~5 km positions: a few fp32 ulps (4.9e-4 m), sinf/cosf vs torch")
+    check(f"H15 {label} post-frame mean", got.x, ref.x, 1e-6, 1e-3, "~5 km means: fp32 ulps")
+    err = gate_checks(f"H15 {label}", got[4:7], ref[4:7], obs, cfg, near)
+    found = got.best_nd < 1e38
+    rule = (torch.equal(got.known_mask, obs.mask & found)
+            and torch.equal(got.slots, torch.where(found, got.best_j.to(torch.int64), 0))
+            and torch.equal(got.new_mask, obs.mask & ~found & (got.min_nis > cfg.gate_augment)))
+    require(rule, f"H15 {label} association result", "associate_gated's mask rule on its own "
+            "scores (known, slots, new)")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"H15 {label} two launches",
+            "bit for bit (the reduction's scratch resets itself)")
+    return err
+
+
+def h5_phase_times(t) -> dict:
+    """H5's entry's phases from one launch's stamps ``t`` (strip blocks,
+    FG_STAMPS) in us: the recursion, the strip write, the launch's span."""
+    return {"recursion (slowest block)": (t[:, 1] - t[:, 0]).max(),
+            "strip write (slowest block)": (t[:, 2] - t[:, 1]).max(),
+            "start skew": t[:, 0].max() - t[:, 0].min(),
+            "launch span": t[:, 2].max() - t[:, 0].min()}
+
+
+def h15_phase_times(t, n_strip: int) -> dict:
+    """H15's phases from one launch's stamps ``t`` (strip blocks, then
+    gating blocks; FG_STAMPS each; csrc/factor_gate.cu fg_stamp) in us: the
+    recursion (its slowest block, the controls' packing and the fold
+    included), the strip write, the gating blocks' slot table and scores,
+    the last gating block's result, the blocks' start skew and the span."""
+    s, g = t[:n_strip], t[n_strip:]
+    r = int(g[:, 4].argmax())
+    return {"recursion (slowest block)": (t[:, 1] - t[:, 0]).max(),
+            "strip write (slowest strip block)": (s[:, 2] - s[:, 1]).max(),
+            "slot table (slowest gating block)": (g[:, 2] - g[:, 1]).max(),
+            "scores (slowest gating block)": (g[:, 3] - g[:, 2]).max(),
+            "result (last gating block)": g[r, 4] - g[r, 3],
+            "start skew": t[:, 0].max() - t[:, 0].min(),
+            "launch span": max(s[:, 2].max(), g[r, 4]) - t[:, 0].min()}
+
+
+def h15_phases(fgargs, launches: int = 20) -> tuple[dict, dict]:
+    """H15's phases and H5's entry's on the same frame (stamp_phases)."""
+    from conan_slam_tpu_torch.ops.factor_kernel import (
+        FG_STAMPS,
+        factor_gate,
+        factor_gate_grid,
+        frame_factors_fused,
+    )
+
+    state = fgargs[0]
+    dev, d = state.x.device, state.x.shape[0]
+    n_strip, n_gate, _ = factor_gate_grid(d, state.capacity, dev)
+    h15 = stamp_phases("H15", lambda st: factor_gate(*fgargs, stamps=st),
+                       (n_strip + n_gate, FG_STAMPS), dev, lambda t: h15_phase_times(t, n_strip),
+                       launches)
+    h5 = stamp_phases("H5's entry", lambda st: frame_factors_fused(*fgargs[:10], stamps=st),
+                      (n_strip, FG_STAMPS), dev, h5_phase_times, launches)
+    return h15, h5
+
+
+def h15_turns(label: str, fgargs, obs, iters: int = 20) -> dict:
+    """H15 against the two-launch route it replaced on one frame (H5's
+    entry, the host fold, H6's entry and the mask rule: the frame loop's
+    factors_then_associate), in turns (H15, two, two, H15): the device time of a
+    call (every kernel and copy it launches) and its CUDA-event time."""
+    from conan_slam_tpu_torch.filters.ekf.associate import factors_then_associate
+    from conan_slam_tpu_torch.ops.factor_kernel import factor_gate
+
+    two = lambda: factors_then_associate(*fgargs[:10], obs, *fgargs[12:])   # noqa: E731
+    h15 = lambda: factor_gate(*fgargs)   # noqa: E731
+    order = (h15, two, two, h15)
+    dev = [device_ms(fn, iters=iters) for fn in order]
+    ms = [time_ms(fn, 50) for fn in order]
+    log(f"  H15 vs H5 + fold + H6 + mask rule at {label}, in turns: device "
+        + ", ".join(f"{n} {t * 1e3:.2f} us" for n, t in zip(("H15", "two", "two", "H15"), dev))
+        + "; wrapper " + ", ".join(f"{n} {t:.4f} ms" for n, t in
+                                   zip(("H15", "two", "two", "H15"), ms)))
+    return {"device_ms": dev, "wrapper_ms": ms}
+
+
+def h15_measure(device, label: str, fgargs, obs, err: float, nb: int, n_act: int) -> dict:
+    """H15 at config 2's check frame: CUDA-event time of the wrapper,
+    device time (profiler), the plain version's time, its grid, bound and
+    phases beside H5's entry's, registers and local bytes of H15 and of H5's
+    and H6's entries, and the parent's two-launch route in turns."""
+    from conan_slam_tpu_torch.ops.factor_kernel import (
+        _factor_gate_reference,
+        factor_gate,
+        factor_gate_attributes,
+        factor_gate_grid,
+    )
+
+    state, nz = fgargs[0], fgargs[10].shape[0]
+    d, k = state.x.shape[0], state.capacity
+    n_strip, n_gate, tile = factor_gate_grid(d, k, device)
+    out = factor_gate(*fgargs)
+    h15 = lambda: factor_gate(*fgargs)   # noqa: E731
+    # Read once: the controls, Q, R, z, the mask, x0 and P0's row 2, and at
+    # each active slot P0's pose rows and diagonal block (10 floats); written
+    # once: every output.  Operations: one product a vtf entry (the map rows
+    # are p2[n] c[0]) and an add in its three pose rows, one FMA a mean
+    # entry, ~70 an active slot's S_j, ~15 an active pair.
+    ins = nbytes(*fgargs[1:6], *fgargs[10:13]) + 4 * (2 * d + 10 * n_act)
+    phases, h5_phases = h15_phases(fgargs)
+    st = dict(max_abs_err=err, library_ms=None, ms=time_ms(h15, 50),
+              device_ms=device_ms(h15, kernel="factor_gate_kernel"),
+              plain_ms=time_ms(lambda: _factor_gate_reference(*fgargs), 10),
+              plan=f"{n_strip} strip blocks and {n_gate} gating blocks of {tile} slots, "
+                   "256 threads each",
+              phases_us=phases, h5_phases_us=h5_phases,
+              regs_local=factor_gate_attributes(device),
+              turns=h15_turns(label, fgargs, obs),
+              **bound(ins + nbytes(*out), 1.0 * nb * d + 3.0 * nb + 2.0 * d + 70.0 * n_act
+                      + 15.0 * nz * n_act))
+    log(f"  H15 at {label}: {st['device_ms'] * 1e3:.2f} us device ({st['plan']}); registers, "
+        "local bytes a thread: " + ", ".join(f"{n} {r}, {b}" for n, (r, b) in
+                                             st["regs_local"].items()))
+    return st
+
+
+def h15_measure_10k(label: str, fgargs, obs, st: dict, gargs) -> None:
+    """H15 at the 10k shape into ``st`` (h15_measure's): its device time,
+    phases and turns against the two-launch route, H6's entry alone."""
+    from conan_slam_tpu_torch.ops.factor_kernel import factor_gate, factor_gate_grid
+    from conan_slam_tpu_torch.ops.gating_kernel import gating_scores
+
+    state = fgargs[0]
+    n_strip, n_gate, tile = factor_gate_grid(state.x.shape[0], state.capacity, state.x.device)
+    phases, h5_phases = h15_phases(fgargs, launches=10)
+    st.update(device_ms_10k=device_ms(lambda: factor_gate(*fgargs), kernel="factor_gate_kernel"),
+              phases_us_10k=phases, h5_phases_us_10k=h5_phases,
+              h6_device_ms_10k=device_ms(lambda: gating_scores(*gargs),
+                                         kernel="gating_scores_kernel"),
+              turns_10k=h15_turns(label, fgargs, obs, iters=10),
+              plan_10k=f"{n_strip} strip blocks and {n_gate} gating blocks of {tile} slots")
+    log(f"  H15 at {label}: {st['device_ms_10k'] * 1e3:.2f} us device ({st['plan_10k']}), H6's "
+        f"entry alone {st['h6_device_ms_10k'] * 1e3:.2f} us")
+
+
 def gated_kernel_checks(device) -> dict:
     """Phase 3b: the gated frame's kernels against their plain versions.
     Each kernel is fed its plain upstream's outputs."""
     import torch
 
-    from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks, gated_scores_dense
     from conan_slam_tpu_torch.ops import frame_kernel as fk
     from conan_slam_tpu_torch.ops.factor_kernel import (
         _frame_factors_reference,
         frame_factors_fused,
     )
-    from conan_slam_tpu_torch.ops.gating_kernel import _gating_scores_reference, gating_scores
+    from conan_slam_tpu_torch.ops.gating_kernel import (
+        _gating_scores_reference,
+        _innovation_blocks,
+        gating_scores,
+    )
     from conan_slam_tpu_torch.ops.rank_update import (
         rank_update_t,
         rank_update_t_reference,
@@ -1571,41 +1792,20 @@ def gated_kernel_checks(device) -> dict:
                    "(r ~ 3e-8), as H2's K4")
         check(f"H5 {label} B", fk_k[3], bmat, 1e-6, 1e-7, "constants and a copy of P[2, 2]")
 
-        # H6 on the virtual covariance P + vtf^T B vtf, as the frame loop runs it.
+        # H6's entry on the virtual covariance P + vtf^T B vtf, folded on
+        # the host as H6's route folds it (_innovation_blocks).
         blocks = [b.contiguous() for b in _innovation_blocks(st1, vtf.T, bmat)]
         gargs = (obs.z.contiguous(), st1.pose, st1.features, st1.active_mask, *blocks,
                  noise.re, cfg.gate_reject)
         nd_k, j_k, mn_k = gating_scores(*gargs)
         nd_p, j_p, mn_p = _gating_scores_reference(*gargs)
-        found_k, found_p = nd_k < 1e38, nd_p < 1e38
-        nis_tol = lambda v: 1e-3 + 1e-4 * v.abs()  # noqa: E731
-        # The runner-up's nd and every slot's nis, from the dense scores.
-        nis_d, nd_d = gated_scores_dense(st1, obs.z, noise.re, vtf.T, bmat)
-        nd_g = torch.where(nis_d < cfg.gate_reject, nd_d, torch.inf)
-        two = nd_g.topk(2, dim=1, largest=False).values
-        tie = (two[:, 1] - two[:, 0]) <= nis_tol(two[:, 0])
-        gate_r, gate_a = torch.tensor(cfg.gate_reject), torch.tensor(cfg.gate_augment)
-        near_reject = ((nis_d - cfg.gate_reject).abs() <= nis_tol(gate_r)).any(dim=1)
-        near_augment = (mn_p - cfg.gate_augment).abs() <= nis_tol(gate_a)
-        both = found_k & found_p
-        e6 = check(f"H6 {label} best nd", nd_k[both], nd_p[both], 1e-4, 1e-3,
-                   "same algebra; atan2f/remainder wrap and FMA contraction: ulps of "
-                   "km-scale predictions, ~1e-4 of a NIS")
-        check(f"H6 {label} min nis", mn_k, mn_p, 1e-4, 1e-3, "as best nd")
-        valid = obs.mask
-        require(bool(((found_k == found_p) | near_reject | ~valid).all()), f"H6 {label} found",
-                f"equal except within tolerance of gate_reject ({int((near_reject & valid).sum())} "
-                "valid measurements that close)")
-        new_k = valid & ~found_k & (mn_k > cfg.gate_augment)
-        new_p = valid & ~found_p & (mn_p > cfg.gate_augment)
-        require(bool(((new_k == new_p) | near_augment | near_reject | ~valid).all()),
-                f"H6 {label} new", f"equal except within tolerance of gate_augment "
-                f"({int((near_augment & valid).sum())} valid measurements that close)")
-        exact = both & ~tie
-        require(bool((j_k[exact] == j_p[exact]).all()), f"H6 {label} best slot",
-                f"equal on {int(exact.sum())} measurements whose runner-up is further than "
-                f"the tolerance ({int((both & tie).sum())} near-ties left out)")
-
+        found_p = nd_p < 1e38
+        gate_near = gate_margins(st1, obs, noise, cfg, vtf, bmat, mn_p)
+        e6 = gate_checks(f"H6 {label}", (nd_k, j_k, mn_k), (nd_p, j_p, mn_p), obs, cfg, gate_near)
+        # H15: the factors and the association in one launch, against its
+        # plain version (H5's, the fold, H6's and the mask rule).
+        fgargs = (*fargs, obs.z, obs.mask, noise.re, cfg.gate_reject, cfg.gate_augment)
+        e15 = h15_checks(label, fgargs, fk_k, obs, cfg, gate_near)
         slots = torch.where(found_p, j_p.to(torch.int64), 0)
         mask = obs.mask & found_p
         rows = fk.frame_rows(slots, k)
@@ -1697,13 +1897,17 @@ def gated_kernel_checks(device) -> dict:
                 plain_ms=time_ms(lambda: _frame_factors_reference(*fargs), 10), library_ms=None,
                 **bound(nbytes(*ctrl, noise.qe, state.x, state.p[2], fk_k[0].x, *fk_k[1:]),
                         8.0 * nb * d + 2.0 * d))
-            # H6: each slot's 2x2 innovation covariance and its geometry
-            # (~70 operations), then ~15 a measurement-slot pair.
+            # H6: each active slot's 2x2 innovation covariance and its
+            # geometry (~70 operations), then ~15 an active measurement-slot
+            # pair (inactive slots are skipped).
+            n_act = int(st1.n_active)
             stats["gating_scores"] = dict(
                 max_abs_err=e6, ms=time_ms(lambda: gating_scores(*gargs), 50),
+                device_ms=device_ms(lambda: gating_scores(*gargs), kernel="gating_scores_kernel"),
                 plain_ms=time_ms(lambda: _gating_scores_reference(*gargs), 10), library_ms=None,
                 **bound(nbytes(*(a for a in gargs if torch.is_tensor(a)), nd_k, j_k, mn_k),
-                        70.0 * k + 15.0 * nz * k))
+                        70.0 * n_act + 15.0 * nz * n_act))
+            stats["factor_gate"] = h15_measure(device, label, fgargs, obs, e15, nb, n_act)
             # H7: hvb = (Hc vrows^T) B, psub = Hc prc + hvb vrows (five Hc
             # nonzeros a row), S = psub Hc^T.
             stats["obs_chain"] = dict(
@@ -1734,6 +1938,7 @@ def gated_kernel_checks(device) -> dict:
                      "H4": stats["gated rank_update"]["device_ms"]}
             stats["obs_step"] = h10_measure(device, uargs, e10, int(oi.nblk), alone)
         if label.startswith("10k"):
+            h15_measure_10k(label, fgargs, obs, stats["factor_gate"], gargs)
             # H10 against the split at the 10k-landmark shape, where the P
             # pass dominates: each call's device time in turns.
             h10 = lambda: fk.frame_update_obs(*uargs)                     # noqa: E731
@@ -2384,9 +2589,9 @@ def chunked_path(device) -> dict:
 
 @contextlib.contextmanager
 def gated_schedule(schedule: str):
-    """The frame loop's gated frames on ``schedule`` ("auto": H10, "split"):
-    frame_update_obs's own test hook, bound where fused_frame_update looks
-    frame_update_obs up."""
+    """The frame loop's gated frames on ``schedule``: "auto" H15 then H10,
+    "split" H15 then the split.  frame_update_obs's own test hook, bound
+    where fused_frame_update looks frame_update_obs up."""
     from conan_slam_tpu_torch.filters.ekf import update
     from conan_slam_tpu_torch.ops import frame_kernel as fk
 
@@ -2443,20 +2648,21 @@ def gated_path(device) -> tuple[dict, dict, dict]:
                    mapped=int(state.n_active),
                    finite=bool(torch.isfinite(state.p).all() and torch.isfinite(state.x).all()
                                and torch.isfinite(outs.x_est).all()))
-        label = "plain" if plain else "H10" if schedule == "auto" else "split schedule"
+        label = "plain" if plain else {"auto": "H15 + H10", "split": "split schedule"}[schedule]
         log(f"  {label}: {steps} steps in {secs:.3f} s = "
             f"{steps / secs:,.1f} steps/s, ATE={res['ate']:.4f} m, mapped={res['mapped']}, "
             f"finite={res['finite']}, launches={counts}")
         return res
 
+    # H10 in turns with the split schedule.
     order = ("auto", "split", "split", "auto")
     runs = [drive(False, n_steps, schedule) for schedule in order]
     for schedule, res in zip(order, runs):
-        kernels = GATED_KERNELS if schedule == "auto" else GATED_SPLIT_KERNELS
+        kernels, names = {"auto": (GATED_KERNELS, "H15, H10's two kernels"),
+                          "split": (GATED_SPLIT_KERNELS, "H15, H7, H8, H1, H4")}[schedule]
         want = {**dict.fromkeys(res["counts"], 0), **per_frame(kernels, n_frames)}
         require(res["counts"] == want, f"gated path launches ({schedule})",
-                ("H5, H6, H10" if schedule == "auto" else "H5, H6, H7, H8, H1, H4")
-                + f" once per frame ({n_frames}), no other kernel")
+                f"{names} once per frame ({n_frames}), no other kernel")
         require(res["finite"] and res["ate"] < 0.5 and 270 <= res["mapped"] <= 340,
                 f"gated_full gate ({schedule})",
                 f"finite, ATE {res['ate']:.4f} < 0.5 m, 270 <= mapped {res['mapped']} <= 340")
@@ -2466,8 +2672,9 @@ def gated_path(device) -> tuple[dict, dict, dict]:
     log(f"  H10 vs split over {n_steps} steps: max |dx_est| = {dx_split:.3e} m, mapped "
         f"{k['mapped']} vs {sp['mapped']}, steps with a different map size: "
         f"{int((dmap_split > 0).sum())} (max |d mapped| {int(dmap_split.max())})")
+    label = {"auto": "H15 + H10", "split": "H15 + split"}
     log("  steps/s in turns: " + ", ".join(
-        f"{'H10' if o == 'auto' else 'split'} {r['steps_per_s']:,.1f}" for o, r in zip(order, runs)))
+        f"{label[o]} {r['steps_per_s']:,.1f}" for o, r in zip(order, runs)))
     p = drive(True, GATED_PLAIN_STEPS)
     require(not any(p["counts"].values()), "gated path plain launches",
             "the plain run launched no kernel")
@@ -2519,11 +2726,43 @@ def gated_path(device) -> tuple[dict, dict, dict]:
             k["counts"], sp["counts"])
 
 
+@contextlib.contextmanager
+def traced_ranges(ranges):
+    """Each ``(module, attribute)`` of ``ranges`` wrapped in a
+    torch.profiler record_function range named by the attribute."""
+    from torch.profiler import record_function
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in ranges]
+    for mod, attr, fn in saved:
+        def wrapped(*a, _fn=fn, _name=attr, **kw):
+            with record_function(_name):
+                return _fn(*a, **kw)
+        setattr(mod, attr, wrapped)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def range_totals(event) -> tuple[float, int, int]:
+    """The device us, kernels and outermost PyTorch ops under a profiler
+    event (the kernels its PyTorch ops launch; the ctypes launches of the
+    port's kernels are not attributed to a range)."""
+    us, kernels, ops = sum(k.duration for k in event.kernels), len(event.kernels), 0
+    for child in event.cpu_children:
+        u, k, o = range_totals(child)
+        us, kernels = us + u, kernels + k
+        ops += 1 if child.name.startswith("aten::") else o
+    return us, kernels, ops
+
+
 def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
-                   schedule: str = "auto") -> None:
+                   schedule: str = "auto", ranges=()) -> dict:
     """A torch.profiler trace of ``n_frames`` frames of a main path: device
     time per kernel per frame, the PyTorch ops dispatched per frame and the
-    device's busy share."""
+    device's busy share; with ``ranges`` (traced_ranges), each range's
+    device us, kernels and ops a frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2533,7 +2772,7 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
     n_steps = n_frames * cfg.observe_interval
     roll = precompute_rollout(world, cfg, n_steps)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    with known_schedule(schedule), gated_schedule(schedule):
+    with known_schedule(schedule), gated_schedule(schedule), traced_ranges(ranges):
         run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2541,34 +2780,57 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
             run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+    names = {attr for _, attr in ranges}
     rows = []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        if getattr(e, "device_type", None) != DeviceType.CUDA or e.key in names:
             continue
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
         rows.append((us, e.count, e.key))
     # Busy: the union of the device's kernel and copy intervals (H9's P pass
     # is resident, waiting, before its frame kernel ends: their sum would
     # count the overlap twice).
+    # A range's own device-side annotation is no device work.
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA):
+                       if e.device_type == DeviceType.CUDA and e.name not in names):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
+
+    def outermost(e) -> bool:
+        q = e.cpu_parent
+        while q is not None:
+            if q.name.startswith("aten::"):
+                return False
+            q = q.cpu_parent
+        return True
+
     # Host work: the PyTorch ops the frame loop dispatches (outermost only).
     ops: dict[str, int] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.cpu_parent is None and e.name.startswith("aten::"):
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::") and outermost(e):
             ops[e.name] = ops.get(e.name, 0) + 1
+    in_ranges = {}
+    for name in sorted(names):
+        tot = [range_totals(e) for e in prof.events()
+               if e.device_type == DeviceType.CPU and e.name == name]
+        in_ranges[name] = {"device_us": sum(t[0] for t in tot) / n_frames,
+                           "kernels": sum(t[1] for t in tot) / n_frames,
+                           "ops": sum(t[2] for t in tot) / n_frames}
     log(f"profile, {label}, {n_frames} frames: wall {wall_us / n_frames:.1f} us/frame under the "
         f"profiler, device busy {busy / n_frames:.1f} us/frame "
         f"({100.0 * busy / wall_us:.1f}% of wall); {sum(ops.values()) / n_frames:.1f} PyTorch "
         "ops dispatched per frame, most frequent: " + ", ".join(
             f"{k} {v / n_frames:.1f}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:8]))
+    for name, r in in_ranges.items():
+        log(f"  range {name}: {r['device_us']:.2f} device us/frame in {r['kernels']:.2f} PyTorch "
+            f"kernels/frame, {r['ops']:.2f} ops/frame")
     rows.sort(reverse=True)
     ours = tuple(f"{name}_kernel" for name in ORDER) + sum(DEVICE_KERNELS.values(), ())
     for us, count, key in rows[:15] + [r for r in rows[15:] if r[2].startswith(ours)]:
         log(f"  {us / n_frames:9.2f} us/frame  {count / n_frames:5.2f} launches/frame  {key[:90]}")
+    return dict(wall_us=wall_us / n_frames, busy_us=busy / n_frames,
+                ops=sum(ops.values()) / n_frames, ranges=in_ranges)
 
 
 def main() -> int:
@@ -2640,9 +2902,16 @@ def main() -> int:
     profile_frames(device, PROFILE_FRAMES, "known association (H9)", world, known_cfg, state0)
     profile_frames(device, PROFILE_FRAMES, "known association, split schedule", world, known_cfg,
                    state0, schedule="split")
-    for schedule, label in (("auto", "H10"), ("split", "split schedule")):
-        profile_frames(device, PROFILE_FRAMES, f"gated, config 2 ({label})", config2_world(device),
-                       gated_cfg(500), init_state(500, 500, device=device), schedule=schedule)
+    from conan_slam_tpu_torch.runner import loop
+
+    gated_ranges = ((loop, "factor_and_associate_gated"), (loop, "fused_frame_update"),
+                    (loop, "augment"))
+    gprof = {}
+    for schedule, label in (("auto", "H15 + H10"), ("split", "H15 + split schedule")):
+        gprof[schedule] = profile_frames(
+            device, PROFILE_FRAMES, f"gated, config 2 ({label})", config2_world(device),
+            gated_cfg(500), init_state(500, 500, device=device), schedule=schedule,
+            ranges=gated_ranges)
     profile_frames(device, 2 * PROFILE_FRAMES, "known association, frame pairs", world,
                    known_cfg.replace(frame_pair=True), state0)
     for schedule, label in (("auto", "H10"), ("split", "split schedule")):
@@ -2660,7 +2929,9 @@ def main() -> int:
               "library_tb_per_s", "tb_per_s_past_l2", "library_tb_per_s_past_l2",
               "known_device_ms", "device_ms_by_tile", "no_p_device_ms_by_tile", "no_p_plain_ms",
               "no_p_library_ms", "no_p_library_device_ms", "stack3", "alone_us", "regs_local",
-              "kernels_device_ms", "alone_us_10k", "kernels_device_ms_10k", "cold_sweep_us")
+              "kernels_device_ms", "alone_us_10k", "kernels_device_ms_10k", "cold_sweep_us",
+              "h5_phases_us", "turns", "h5_phases_us_10k", "h6_device_ms_10k", "turns_10k",
+              "plan_10k")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
@@ -2697,6 +2968,10 @@ def main() -> int:
         "gated_frame_plain_ms": gstats["obs_step"]["plain_ms"],
         "gated_split_frame_ms": gstats["frame_update_obs"]["ms"],
         "gated_split_frame_plain_ms": gstats["frame_update_obs"]["plain_ms"],
+        "gated_ops_per_frame": gprof["auto"]["ops"],
+        "gated_busy_us_per_frame": gprof["auto"]["busy_us"],
+        "gated_split_ops_per_frame": gprof["split"]["ops"],
+        "gated_split_busy_us_per_frame": gprof["split"]["busy_us"],
         "big_steps_per_s": gated["big_steps_per_s"],
         "big_split_steps_per_s": gated["big_split_steps_per_s"],
         "pair_vs_frame_steps_per_s": dict(zip(("frame_1", "pair_1", "pair_2", "frame_2"),

@@ -4,6 +4,7 @@ from conan_slam_tpu_torch.filters.ekf.associate import (
     AssociationResult,
     associate_gated,
     associate_known,
+    factor_and_associate_gated,
 )
 from conan_slam_tpu_torch.filters.ekf.augment import augment
 from conan_slam_tpu_torch.filters.ekf.state import (
@@ -25,6 +26,7 @@ __all__ = [
     "associate_gated",
     "associate_known",
     "augment",
+    "factor_and_associate_gated",
     "fused_frame_pair_step",
     "fused_frame_step",
     "fused_frame_update",

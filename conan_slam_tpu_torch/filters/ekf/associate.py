@@ -15,10 +15,8 @@ from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
 from conan_slam_tpu_torch.models import sensor
 from conan_slam_tpu_torch.ops import cuda
-from conan_slam_tpu_torch.ops.gating_kernel import (
-    _gating_scores_reference,
-    gating_scores,
-)
+from conan_slam_tpu_torch.ops.factor_kernel import MAX_STEPS, factor_gate, frame_factors_fused
+from conan_slam_tpu_torch.ops.gating_kernel import _innovation_blocks, gate_state
 
 
 class AssociationResult(NamedTuple):
@@ -35,34 +33,6 @@ def associate_known(state: EKFState, obs: CompactObs) -> AssociationResult:
     return AssociationResult(
         known_mask=known, slots=torch.clamp(slots, min=0), new_mask=new
     )
-
-
-def _innovation_blocks(state: EKFState, vmat=None, bmat=None):
-    """The blocks of P the per-slot innovation covariance reads: the pose
-    block pvv (3, 3), the pose-feature strips pvm (K, 3, 2) and the
-    diagonal feature blocks pjj (K, 2, 2), with the virtual correction
-    P + V B V^T folded in when ``vmat`` (D, r) / ``bmat`` (r, r) are given
-    (only those blocks of V B V^T are formed: O(K r) work, not O(D^2)).
-
-    pjj indexes exactly the 4K entries of the diagonal blocks (the
-    reference gathers a band of P for the same reason: a reshape of the
-    (2K, 2K) map block is quadratic in K)."""
-    k = state.capacity
-    p = state.p
-    pvv = p[:3, :3]
-    pvm = p[:3, 3 : 3 + 2 * k].reshape(3, k, 2).permute(1, 0, 2)
-    two = torch.arange(2, device=p.device)[:, None]
-    rows = 3 + 2 * torch.arange(k, device=p.device)[:, None, None] + two   # (K, 2, 1)
-    pjj = p[rows, rows.transpose(1, 2)]          # pjj[j, a, b] = P[3 + 2j + a, 3 + 2j + b]
-    if vmat is not None:
-        v3 = vmat[:3]                                           # (3, r)
-        vm = vmat[3 : 3 + 2 * k].reshape(k, 2, -1)              # (K, 2, r)
-        v3b = v3 @ bmat
-        pvv = pvv + v3b @ v3.T
-        pvm = pvm + torch.einsum("ir,kjr->kij", v3b, vm)
-        vmb = torch.einsum("kir,rs->kis", vm, bmat)
-        pjj = pjj + torch.einsum("kir,kjr->kij", vmb, vm)
-    return pvv, pvm, pjj
 
 
 def _innovation_stats(state: EKFState, r_cov, vmat=None, bmat=None):
@@ -88,22 +58,16 @@ def associate_gated(state: EKFState, obs: CompactObs, r_cov, gate_reject: float,
     (EKF.cpp:292-295).  ``vmat``/``bmat`` gate against the virtual
     covariance P + V B V^T of the pending frame factors.
 
-    On CUDA tensors the scoring and the masked argmin run as kernel H6
-    (ops.gating_kernel; ``plain=True`` runs its plain version instead); on
-    the CPU this takes the dense route below, as the reference does off the
-    TPU.
+    On CUDA tensors the scoring and the masked argmin run as H6's entry of
+    kernel H15 (ops.gating_kernel; ``plain=True`` runs its plain version
+    instead); on the CPU this takes the dense route below, as the reference
+    does off the TPU.  The frame loop runs the factors and this association
+    as one launch (``factor_and_associate_gated``).
     """
     if not cuda.on_cpu(state.x, obs.z):
-        pvv, pvm, pjj = _innovation_blocks(state, vmat, bmat)
-        score = _gating_scores_reference if plain else gating_scores
-        best_nd, best_j, min_nis = score(
-            obs.z.contiguous(), state.pose, state.features, state.active_mask,
-            pvv.contiguous(), pvm.contiguous(), pjj.contiguous(), r_cov, gate_reject,
-        )
-        found = best_nd < 1.0e38
-        new = obs.mask & ~found & (min_nis > gate_augment)
-        slots = torch.where(found, best_j.to(torch.int64), 0)
-        return AssociationResult(known_mask=obs.mask & found, slots=slots, new_mask=new)
+        known, slots, new = gate_state(state, obs.z, obs.mask, r_cov, gate_reject, gate_augment,
+                                       vmat, bmat, plain=plain)[3:]
+        return AssociationResult(known_mask=known, slots=slots, new_mask=new)
 
     nis_act, nd = gated_scores_dense(state, obs.z, r_cov, vmat, bmat)
     gated = nis_act < gate_reject
@@ -111,6 +75,45 @@ def associate_gated(state: EKFState, obs: CompactObs, r_cov, gate_reject: float,
     found = gated.any(dim=1)
     new = obs.mask & ~found & (nis_act.min(dim=1).values > gate_augment)
     return AssociationResult(known_mask=obs.mask & found, slots=jbest, new_mask=new)
+
+
+def factors_then_associate(state: EKFState, vns, swans, phi_meas, active, q_cov, wheel_base,
+                           dt, sigma_heading, use_heading: bool, obs: CompactObs, r_cov,
+                           gate_reject: float, gate_augment: float, *, plain: bool = False):
+    """The gated frame's pre-update as two steps: ``frame_factors_fused``,
+    then ``associate_gated`` against its virtual covariance.  Returns what
+    ``factor_and_associate_gated`` returns."""
+    st1, pose_trace, vtf, bmat = frame_factors_fused(
+        state, vns, swans, phi_meas, active, q_cov, wheel_base, dt, sigma_heading,
+        use_heading, plain=plain)
+    return st1, pose_trace, vtf, bmat, associate_gated(
+        st1, obs, r_cov, gate_reject, gate_augment, vtf.T, bmat, plain=plain)
+
+
+def factor_and_associate_gated(state: EKFState, vns, swans, phi_meas, active, q_cov,
+                               wheel_base, dt, sigma_heading, use_heading: bool,
+                               obs: CompactObs, r_cov, gate_reject: float, gate_augment: float,
+                               *, plain: bool = False):
+    """The gated frame's pre-update: its factors (``frame_factors_fused``)
+    and its association against the virtual covariance P + vtf^T B vtf
+    (``associate_gated``).  Returns ``(state with the post-frame mean and
+    the frame-start P, pose_trace (S, 3), vtf (NBP, D), bmat (NBP, NBP),
+    AssociationResult)``.
+
+    On CUDA tensors one launch of kernel H15 (ops.factor_kernel.factor_gate)
+    from the frame-start state to the association result.  On the CPU,
+    with ``plain=True`` and past H15's 256 sub-steps, the two steps run as
+    they are (``factors_then_associate``): H5's plain version (or its route
+    past the kernels), then associate_gated's route (the dense scores on
+    the CPU, H6 or its plain version on the card).
+    """
+    args = (state, vns, swans, phi_meas, active, q_cov, wheel_base, dt, sigma_heading,
+            use_heading)
+    if plain or cuda.on_cpu(state.x, obs.z) or vns.shape[0] > MAX_STEPS:
+        return factors_then_associate(*args, obs, r_cov, gate_reject, gate_augment, plain=plain)
+    fg = factor_gate(*args, obs.z, obs.mask, r_cov, gate_reject, gate_augment)
+    return (state._replace(x=fg.x), fg.pose_trace, fg.vtf, fg.bmat,
+            AssociationResult(known_mask=fg.known_mask, slots=fg.slots, new_mask=fg.new_mask))
 
 
 def gated_scores_dense(state: EKFState, z, r_cov, vmat=None, bmat=None):

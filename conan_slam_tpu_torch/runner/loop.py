@@ -25,16 +25,15 @@ from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.device import default_device
 from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.ekf import (
-    associate_gated,
     associate_known,
     augment,
+    factor_and_associate_gated,
     fused_frame_pair_step,
     fused_frame_step,
     fused_frame_update,
 )
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
 from conan_slam_tpu_torch.filters.ekf.state import init_state as empty_state
-from conan_slam_tpu_torch.ops.factor_kernel import frame_factors_fused
 from conan_slam_tpu_torch.sim.precompute import rollout_observations, rollout_truth
 from conan_slam_tpu_torch.sim.world import World
 from conan_slam_tpu_torch.utils import checkpoint
@@ -113,13 +112,12 @@ def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
             cfg.switch_heading_known, plain=plain,
         )
     else:
-        state, pose_trace, vtf, bmat = frame_factors_fused(
+        state, pose_trace, vtf, bmat, assoc = factor_and_associate_gated(
             state, vns, swans, x_true_f[:, 2], active_f, noise.qe,
             cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
-            cfg.switch_heading_known, plain=plain,
+            cfg.switch_heading_known, obs, noise.re, cfg.gate_reject, cfg.gate_augment,
+            plain=plain,
         )
-        assoc = associate_gated(state, obs, noise.re, cfg.gate_reject, cfg.gate_augment,
-                                vtf.T, bmat, plain=plain)
         state, frame_nis = fused_frame_update(
             state, bmat, vtf, obs, assoc.slots, assoc.known_mask & live, noise.re,
             return_nis=True, plain=plain,

@@ -19,7 +19,12 @@ from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.filters.ekf import init_state_with_map
 from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks
 from conan_slam_tpu_torch.ops import cuda, frame_kernel as fk
-from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference, frame_factors_fused
+from conan_slam_tpu_torch.ops.factor_kernel import (
+    _factor_gate_reference,
+    _frame_factors_reference,
+    factor_gate,
+    frame_factors_fused,
+)
 from conan_slam_tpu_torch.ops.gating_kernel import _gating_scores_reference, gating_scores
 from conan_slam_tpu_torch.ops.rank_update import (
     rank_update_plan,
@@ -548,6 +553,206 @@ def test_gating_scores_kernel_matches_plain(dev, k):
     assert torch.equal(j[found], rj[found]) and int(j[-1]) == -1
 
 
+def _gate_case(dev, d, seed, use_heading=True, tie=None, nz=64, s_steps=6):
+    """H15's arguments at D = d: a frame-start state with its slots mapped
+    (five inactive) and an exactly symmetric P, a frame's ``s_steps``
+    controls, and ``nz`` measurements of active landmarks from the
+    post-frame pose (one masked, the last far from every slot).  ``tie`` =
+    (j1, j2) makes slot j2 a copy of slot j1 and measurement 0 an exact
+    measurement of it."""
+    rng = np.random.default_rng(seed)
+    cap = (d - 3) // 2
+    lm = rng.uniform(-60, 60, size=(cap, 2)).astype(np.float32)
+    if tie is not None:
+        lm[tie[1]] = lm[tie[0]]
+    st = init_state_with_map(torch.as_tensor(lm, device=dev), sigma0=0.4,
+                             pad_multiple=128 if d % 128 == 0 else 0)
+    assert st.x.shape[0] == d
+    a = torch.as_tensor(rng.normal(size=(d, 6)).astype(np.float32) * 0.03, device=dev)
+    p = st.p + a @ a.T
+    if tie is not None:
+        r1, r2 = (3 + 2 * j + torch.arange(2, device=dev) for j in tie)
+        p[r2, :] = p[r1, :]
+        p[:, r2] = p[:, r1]
+    st = st._replace(p=0.5 * (p + p.T), n_active=torch.tensor(cap - 5, device=dev))
+    t = lambda v: torch.as_tensor(np.asarray(v)).to(dev)  # noqa: E731
+    fargs = (t((83.33 + rng.normal(size=s_steps) * 0.3).astype(np.float32)),
+             t((rng.normal(size=s_steps) * 0.2).astype(np.float32)),
+             t((rng.normal(size=s_steps) * 0.5).astype(np.float32)),
+             t(np.arange(s_steps) < max(1, s_steps - 1)),
+             t(np.diag([0.3**2, (np.pi / 180) ** 2]).astype(np.float32)),
+             73.0, 0.01, 0.01 * np.pi / 180, use_heading)
+    pose = _frame_factors_reference(st, *fargs)[0].x[:3].cpu().numpy()
+    ids = rng.choice(cap - 5, size=nz, replace=False)
+    if tie is not None:
+        ids[0] = tie[0]
+    dl = lm[ids] - pose[:2]
+    z = np.stack([np.hypot(dl[:, 0], dl[:, 1]) + rng.normal(size=nz) * 0.05,
+                  np.arctan2(dl[:, 1], dl[:, 0]) - pose[2] + rng.normal(size=nz) * 0.005], -1)
+    if tie is not None:
+        z[0] = [np.hypot(*dl[0]), np.arctan2(dl[0, 1], dl[0, 0]) - pose[2]]
+    z[-1] = [500.0, 1.0]
+    mask = np.ones(nz, bool)
+    mask[-2] = False
+    r = t(np.diag([0.1**2, (np.pi / 180) ** 2]).astype(np.float32))
+    return (st, *fargs, t(z.astype(np.float32)), t(mask), r, 50.0, 1000.0)
+
+
+def _assert_gating_close(got, ref, margins_of):
+    """A gating's (best_nd, best_j, min_nis) against its plain version's:
+    nd and min NIS rtol 1e-4 / atol 1e-3 (same algebra; atan2f, the
+    remainder wrap and FMA contraction move a NIS by ~1e-4); found and the
+    best slot equal except a measurement with a slot's nis within that
+    tolerance of gate_reject, or with a runner-up nd within it of the best
+    (``margins_of()``: (near_reject, tie) from the dense scores)."""
+    (nd, j, mn), (rnd, rj, rmn) = got, ref
+    found, rfound = nd < 1e38, rnd < 1e38
+    both = found & rfound
+    torch.testing.assert_close(nd[both], rnd[both], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(mn, rmn, rtol=1e-4, atol=1e-3)
+    near_reject, tie = margins_of()
+    assert bool(((found == rfound) | near_reject).all())
+    exact = both & ~tie
+    assert torch.equal(j[exact], rj[exact]) and bool(exact.sum() >= 32)
+    assert not bool(found[-1]) and int(j[-1]) == -1          # the far measurement
+
+
+def _margins(st1, z, r, vtf, bmat, gate_reject):
+    from conan_slam_tpu_torch.filters.ekf.associate import gated_scores_dense
+
+    def margins():
+        nis, nd = gated_scores_dense(st1, z, r, vtf.T, bmat)
+        nd_g = torch.where(nis < gate_reject, nd, torch.inf)
+        two = nd_g.topk(2, dim=1, largest=False).values
+        tol = lambda v: 1e-3 + 1e-4 * v.abs()  # noqa: E731
+        near = ((nis - gate_reject).abs() <= tol(torch.tensor(gate_reject))).any(dim=1)
+        return near, (two[:, 1] - two[:, 0]) <= tol(two[:, 0])
+    return margins
+
+
+# config 2's unpadded D, a D below one strip block's 256 columns past it,
+# and the 10k shape's K (10,110 slots: 158 gating blocks of 64 slots); at
+# config 2's D, 33 sub-steps (the recursion's terms past one warp's lanes,
+# 101 factor columns in the fold) and NZ 100 and 300 (two thread groups a
+# tile; one, striding past the block's 256 threads).
+@pytest.mark.parametrize("d,use_heading,nz,s_steps", [
+    (256, True, 64, 6), (203, True, 64, 6), (256, False, 64, 6), (1003, True, 64, 6),
+    (20_224, True, 64, 6), (1024, True, 64, 33), (1024, True, 100, 6), (1024, False, 300, 6),
+])
+def test_factor_gate_kernel_matches_plain(dev, d, use_heading, nz, s_steps):
+    args = _gate_case(dev, d, 101 + d, use_heading, nz=nz, s_steps=s_steps)
+    cuda.reset_launch_counts()
+    got = factor_gate(*args)
+    ref = _factor_gate_reference(*args)
+    h5 = frame_factors_fused(*args[:10])
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "factor_gate": 1, "factor_strip": 1}
+    # The factors: H5's entry's device code, bit for bit; against the plain
+    # version at the reference's factor-kernel tolerances.
+    for a, b in zip(got[:4], (h5[0].x, *h5[1:])):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.pose_trace, ref.pose_trace, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.vtf, ref.vtf, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got.bmat, ref.bmat, rtol=1e-5, atol=1e-6)
+    st1 = args[0]._replace(x=ref.x)
+    _assert_gating_close(got[4:7], ref[4:7],
+                         _margins(st1, args[10], args[12], ref.vtf, ref.bmat, args[13]))
+    # The association result is associate_gated's mask rule on its scores.
+    found = got.best_nd < 1e38
+    mask = args[11]
+    assert torch.equal(got.known_mask, mask & found)
+    assert torch.equal(got.slots, torch.where(found, got.best_j.to(torch.int64), 0))
+    assert torch.equal(got.new_mask, mask & ~found & (got.min_nis > args[14]))
+    assert bool(got.new_mask[-1]) and not bool(got.known_mask[-2])
+
+
+def test_factor_gate_kernel_breaks_an_exact_tie_to_the_lower_slot(dev):
+    # Slot 150 copies slot 7, and measurement 0 measures it: the two score
+    # the same nd exactly, in different gating blocks (32 slots a block),
+    # and the packed (nd, j) minimum keeps the lower slot, as the plain
+    # version's argmin does.
+    args = _gate_case(dev, 1024, 7, tie=(7, 150))
+    got = factor_gate(*args)
+    ref = _factor_gate_reference(*args)
+    torch.cuda.synchronize()
+    assert int(ref.best_j[0]) == 7 and int(got.best_j[0]) == 7
+    assert bool(got.known_mask[0]) and int(got.slots[0]) == 7
+
+
+def test_factor_gate_kernel_resets_its_scratch(dev):
+    # Two frames in a row equal two fresh launches: the last gating block
+    # leaves the reduction's scratch as it found it.
+    a1 = _gate_case(dev, 1024, 11)
+    a2 = _gate_case(dev, 1024, 12)
+    first = [factor_gate(*a1), factor_gate(*a2)]
+    torch.cuda.synchronize()
+    from conan_slam_tpu_torch.ops import gating_kernel
+
+    gating_kernel._scratch.clear()          # fresh scratch for each launch
+    fresh = []
+    for a in (a1, a2):
+        fresh.append(factor_gate(*a))
+        torch.cuda.synchronize()
+        gating_kernel._scratch.clear()
+    for got, want in zip(first, fresh):
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert not torch.equal(first[0].best_nd, first[1].best_nd)
+
+
+def test_factor_gate_kernel_on_two_streams(dev):
+    # Launches on two streams at once each use their stream's scratch, so
+    # each equals its frame launched alone.
+    from conan_slam_tpu_torch.ops import gating_kernel
+
+    a1 = _gate_case(dev, 1024, 14)
+    a2 = _gate_case(dev, 1024, 15)
+    want = [factor_gate(*a1), factor_gate(*a2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(10):
+        for s, a, out in zip(streams, (a1, a2), got):
+            with torch.cuda.stream(s):
+                out.append(factor_gate(*a))
+    torch.cuda.synchronize()
+    for outs, w in zip(got, want):
+        for o in outs:
+            assert all(torch.equal(x, y) for x, y in zip(o, w))
+    keys = {(torch.device(dev), s.cuda_stream, 64) for s in streams}
+    assert keys <= set(gating_kernel._scratch)
+
+
+def test_factor_gate_kernel_replays_in_a_cuda_graph(dev):
+    # One captured H15 launch replays the eager launch's bits, and replays
+    # again (the scratch resets inside the graph too).  The capture uses
+    # its stream's scratch, which an eager launch on that stream makes
+    # first; a first launch during the capture raises instead of taking a
+    # buffer from the graph's pool.
+    args = _gate_case(dev, 1024, 13)
+    eager = factor_gate(*args)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+            factor_gate(*args)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        factor_gate(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = factor_gate(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("d", [256, 203])
 def test_gated_frame_kernels_match_plain_versions(dev, d):
     st, fargs, (slots, cap, zr, zb, mask, r) = _gated_frame(dev, d)
@@ -583,9 +788,10 @@ def test_gated_frame_kernels_match_plain_versions(dev, d):
 
 
 def test_gated_run_matches_plain(dev):
-    # 600 steps of BASELINE config 2 from an empty map: every gated-path
-    # kernel launches once a frame, H2/H3 never, and the run maps
-    # landmarks as the plain versions do.
+    # 600 steps of BASELINE config 2 from an empty map: H15 (the factors
+    # and the association) once a frame and H10's two kernels, H5's and
+    # H6's own entries never, H2/H3 never, and the run maps landmarks as
+    # the plain versions do.
     world = config2_world(device=dev)
     cfg = SlamConfig(max_landmarks=500, max_obs=64, switch_association_known=False)
     out = {}
@@ -598,7 +804,7 @@ def test_gated_run_matches_plain(dev):
         if plain:
             assert not any(counts.values())
         else:
-            want = {"factor_strip": 100, "gating_scores": 100, "obs_step": 100 * fk.OS_LAUNCHES}
+            want = {"factor_gate": 100, "obs_step": 100 * fk.OS_LAUNCHES}
             assert counts == {**dict.fromkeys(counts, 0), **want}
     (sk, ok), (sp, op) = out[False], out[True]
     assert bool(torch.isfinite(sk.p).all()) and int(sk.n_active) > 0

@@ -47,11 +47,11 @@ from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.core.linalg import det2, inv2
 from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.ekf import associate_gated, augment, fused_frame_update
-from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks
+from conan_slam_tpu_torch.filters.ekf.associate import _innovation_blocks, gated_scores_dense
 from conan_slam_tpu_torch.filters.ekf.state import state_from_numpy
 from conan_slam_tpu_torch.models.sensor import init_feature
-from conan_slam_tpu_torch.ops import frame_kernel as tfk
-from conan_slam_tpu_torch.ops.factor_kernel import frame_factors_fused
+from conan_slam_tpu_torch.ops import cuda, frame_kernel as tfk
+from conan_slam_tpu_torch.ops.factor_kernel import factor_gate, frame_factors_fused
 from conan_slam_tpu_torch.ops.gating_kernel import gating_scores
 from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
 from conan_slam_tpu_torch.sim.world import _CONFIG2_LANDMARKS, config2_world, default_world
@@ -212,6 +212,205 @@ def test_associate_gated_empty_map_founds_every_measurement():
     assert not g.known_mask.any()
     np.testing.assert_array_equal(g.new_mask.numpy(), np.asarray(r.new_mask))
     np.testing.assert_array_equal(g.new_mask.numpy(), mask)
+
+
+# -------------------- H15: the factors and the association in one launch
+
+
+def _gate_frame(seed, k, use_heading, tie=None):
+    """A frame-start state with ``k`` slots (five inactive), a frame's
+    controls and, from the post-frame pose, range/bearing measurements of
+    active landmarks, the last far from every slot (it passes no gate).
+    ``tie`` = (j1, j2) makes slot j2 a copy of slot j1 (its mean, its rows
+    and columns of P) and measurement 0 a measurement of it: an exact nd
+    tie between the two slots."""
+    x, p, _, table, *_ = _map_problem(seed, k=k, nz=12, n_active=k - 5)
+    x, p = x.copy(), p.copy()
+    if tie is not None:
+        j1, j2 = tie
+        r1, r2 = 3 + 2 * j1 + np.arange(2), 3 + 2 * j2 + np.arange(2)
+        x[r2] = x[r1]
+        p[r2, :] = p[r1, :]
+        p[:, r2] = p[:, r1]
+    rng = np.random.default_rng(seed + 1)
+    ctrl = [(83.33 + rng.normal(size=6) * 0.3).astype(np.float32),
+            (rng.normal(size=6) * 0.2).astype(np.float32),
+            (rng.normal(size=6) * 0.5).astype(np.float32),
+            np.array([1, 1, 1, 1, 1, 0], bool),
+            np.diag([0.3**2, (np.pi / 180) ** 2]).astype(np.float32)]
+    tail = (73.0, 0.01, 0.01 * np.pi / 180, use_heading)
+    tstate = _pair(x, p, k - 5, table)[1]
+    pose = frame_factors_fused(tstate, *map(_t, ctrl), *tail)[0].x[:3].numpy()
+    lm = x[3:3 + 2 * k].reshape(k, 2)
+    ids = rng.choice(k - 5, size=12, replace=False)
+    if tie is not None:
+        ids[0] = tie[0]
+    d = lm[ids] - pose[:2]
+    z = np.stack([np.hypot(d[:, 0], d[:, 1]) + rng.normal(size=12) * 0.05,
+                  np.arctan2(d[:, 1], d[:, 0]) - pose[2] + rng.normal(size=12) * 0.005],
+                 -1).astype(np.float32)
+    if tie is not None:
+        z[0] = [np.hypot(*d[0]), np.arctan2(d[0, 1], d[0, 0]) - pose[2]]
+    z[-1] = [500.0, 1.0]
+    mask = np.ones(12, bool)
+    mask[-2] = False
+    return x, p, table, ctrl, tail, z, mask
+
+
+# K 87 (one reference panel) and 203 (two), neither a multiple of any tile
+# of either package; the tie's slots in one panel and across two.
+@pytest.mark.parametrize("use_heading", [True, False])
+@pytest.mark.parametrize("k,tie", [(87, None), (87, (7, 40)), (203, (7, 150))])
+def test_factor_gate_plain_route_matches_reference(k, tie, use_heading):
+    # H15's plain route (factor_gate on CPU tensors) against the JAX
+    # package: its factor kernel and gating kernel in interpret mode with
+    # the host fold between them, and associate_gated's mask rule.  The
+    # tolerances are the factor kernel's and the gating kernel's above.
+    x, p, table, ctrl, tail, z, mask = _gate_frame(71 + k, k, use_heading, tie)
+    jstate, tstate = _pair(x, p, k - 5, table)
+    gate_reject, gate_augment = 50.0, 1000.0
+    jst1, jpt, jvtf, jbm = j_frame_factors_fused(jstate, *map(_j, ctrl), *tail, interpret=True)
+    jb = jassociate._innovation_blocks(jst1, jvtf.T, jbm)
+    rnd, rj, rmn = (np.asarray(a) for a in j_gating_scores(
+        _j(z), _j(mask), jst1.pose, jst1.features, jst1.active_mask, *jb, _j(R_COV),
+        gate_reject, interpret=True))
+    cuda.reset_launch_counts()
+    got = factor_gate(tstate, *map(_t, ctrl), *tail, _t(z), _t(mask), _t(R_COV), gate_reject,
+                      gate_augment)
+    assert not any(kk.launches for kk in cuda.KERNELS.values())
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(jst1.x), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.pose_trace.numpy(), np.asarray(jpt), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.vtf.numpy(), np.asarray(jvtf), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got.bmat.numpy(), np.asarray(jbm), rtol=1e-5, atol=1e-6)
+    found = rnd < 1e38
+    assert found[:-2].all() and not found[-1]          # the far measurement passes no gate
+    np.testing.assert_array_equal(got.best_nd.numpy() < 1e38, found)
+    np.testing.assert_allclose(got.best_nd.numpy()[found], rnd[found], rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(got.best_j.numpy()[found], rj[found])
+    assert int(got.best_j[-1]) == -1
+    np.testing.assert_allclose(got.min_nis.numpy(), rmn, rtol=1e-4, atol=1e-3)
+    # associate_gated's mask rule (the reference's, on its kernel's scores).
+    np.testing.assert_array_equal(got.known_mask.numpy(), mask & found)
+    np.testing.assert_array_equal(got.slots.numpy(), np.where(found, rj, 0))
+    np.testing.assert_array_equal(got.new_mask.numpy(), mask & ~found & (rmn > gate_augment))
+    if tie is not None:
+        # The two slots score the same nd exactly; the lower one wins.
+        nis, nd = gated_scores_dense(got_state := tstate._replace(x=got.x), _t(z), _t(R_COV),
+                                     got.vtf.T, got.bmat)
+        assert float(nd[0, tie[0]]) == float(nd[0, tie[1]]) and bool(nis[0, tie[0]] < 50.0)
+        assert int(got.best_j[0]) == int(rj[0]) == tie[0]
+        assert got_state.x.shape == tstate.x.shape
+
+
+def test_factor_gate_constants_match_the_kernel_source():
+    # H15's block, tile and stamp constants as the wrappers read them, and
+    # the gating tile a wrapper picks: a multiple of 32 to FG_MAX_TILE,
+    # about two gating blocks an SM (32 slots at config 2's K, 64 at the
+    # 10k shape's on 132 SMs, the most at a K past them).
+    import re
+
+    from conan_slam_tpu_torch.ops import factor_kernel, gating_kernel
+
+    src = (cuda.CSRC / "factor_gate.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"#define (FG_\w+) +(\d+)", src)}
+    assert consts["FG_THREADS"] == factor_kernel.FG_THREADS
+    assert consts["FG_STAMPS"] == factor_kernel.FG_STAMPS
+    assert consts["FG_MAX_TILE"] == gating_kernel.MAX_TILE
+    assert "fg_launch(factor_gate_kernel, a, a.n_strip + fg_gate_blocks(k, tile), true" in src
+    props = type("Props", (), {"multi_processor_count": 132})
+    get = torch.cuda.get_device_properties
+    torch.cuda.get_device_properties = lambda device: props
+    try:
+        tiles = {k: gating_kernel.gate_tile(k, "cuda") for k in (87, 510, 10_110, 60_000, 10**6)}
+        grid = factor_kernel.factor_gate_grid(20_224, 10_110, "cuda")
+    finally:
+        torch.cuda.get_device_properties = get
+    assert tiles == {87: 32, 510: 32, 10_110: 64, 60_000: 224, 10**6: 224}
+    assert grid == (79, 158, 64)
+
+
+def _fold(st, vns, swans, phis, act, q, tail):
+    """The virtual covariance's innovation blocks by H15's algebra: u = V3
+    B c0, s = c0^T B c0 and the pose block P + V3 B V3^T from the frame's
+    coefficient columns; then pvm = P + u p2_j^T, pjj = P + s p2_j p2_j^T."""
+    from conan_slam_tpu_torch.core.linalg import chol2
+    from conan_slam_tpu_torch.filters.ekf.fastframe import coeff_frame_core
+
+    p2 = st.p[:, 2]
+    *_, cmat, bmat = coeff_frame_core(st.pose, p2[:3], p2[2], vns, swans, phis, act, chol2(q),
+                                      *tail)
+    v3 = p2[:3, None] * cmat[0][None, :] + cmat[1:]             # the strip's pose rows
+    bc0 = bmat @ cmat[0]
+    u, s = v3 @ bc0, cmat[0] @ bc0
+    k = st.capacity
+    p2m = p2[3:3 + 2 * k].reshape(k, 2)
+    pvm = st.p[:3, 3:3 + 2 * k].reshape(3, k, 2).permute(1, 0, 2) + u[None, :, None] * p2m[:, None]
+    rows = 3 + 2 * torch.arange(k)[:, None, None] + torch.arange(2)[:, None]
+    pjj = st.p[rows, rows.transpose(1, 2)] + s * p2m[:, :, None] * p2m[:, None, :]
+    return st.p[:3, :3] + v3 @ bmat @ v3.T, pvm, pjj
+
+
+@pytest.mark.parametrize("use_heading", [True, False])
+def test_factor_gate_fold_equals_innovation_blocks(use_heading):
+    # The rank-one fold H15 runs in place of the host's (K, 3, 2) products:
+    # in float64 it equals _innovation_blocks(st, vtf^T, B) of the padded
+    # strip to 1e-12.
+    from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference
+
+    x, p, table, ctrl, tail, *_ = _gate_frame(93, 87, use_heading)
+    st = _pair(x, p, 82, table)[1]
+    st = st._replace(x=st.x.double(), p=st.p.double())
+    c64 = [_t(c).double() if c.dtype == np.float32 else _t(c) for c in ctrl]
+    st1, _, vtf, bmat = _frame_factors_reference(st, *c64, *tail)
+    assert vtf.dtype == torch.float64
+    for got, ref in zip(_fold(st, *c64, tail), _innovation_blocks(st1, vtf.T, bmat)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-12)
+
+
+def test_gated_frame_step_on_the_cpu_is_the_parent_route():
+    # One gated frame of the frame loop on the CPU (factor_and_associate_gated's
+    # CPU route): bit for bit H5's plain version, then associate_gated's
+    # dense route, the update and augmentation, as the loop ran them before
+    # H15 (a frame of the 30-landmark world after 60 frames from an empty map).
+    from conan_slam_tpu_torch.runner.loop import (
+        _noisy_controls,
+        _noisy_obs,
+        ekf_precomp_frame_step,
+        make_noise,
+    )
+
+    cfg = SlamConfig(max_landmarks=30, max_obs=16, switch_association_known=False)
+    world = default_world(device="cpu")
+    s = cfg.observe_interval
+    roll = precompute_rollout(world, cfg, 61 * s)
+    rng = np.random.default_rng(5)
+    ctrl = _t(rng.normal(size=(61, s, 2)).astype(np.float32))
+    obsn = _t(rng.normal(size=(61, roll[1][0].shape[1], 2)).astype(np.float32))
+    part = (tuple(a[:60 * s] for a in roll[0]), tuple(a[:60] for a in roll[1]))
+    state, _ = run_ekf_slam_precomputed(world, cfg, None, 60 * s, None, part,
+                                        ctrl_noise=ctrl[:60], obs_noise=obsn[:60])
+    assert int(state.n_active) > 0
+    (x_true, swa, active, done), (z_true, ids, zmask) = roll
+    frame = (x_true[60 * s:], swa[60 * s:], active[60 * s:], done[60 * s:], ctrl[60],
+             z_true[60], ids[60], zmask[60], obsn[60])
+    noise = make_noise(cfg, device="cpu")
+    got = ekf_precomp_frame_step(state, frame, cfg=cfg, noise=noise)
+
+    vns, swans = _noisy_controls(cfg, frame[1], frame[4])
+    obs = _noisy_obs(cfg, frame[5], frame[6], frame[7], frame[8])
+    live = torch.logical_not(frame[3][-1])
+    st, pose_trace, vtf, bmat = frame_factors_fused(
+        state, vns, swans, frame[0][:, 2], frame[2], noise.qe, cfg.wheel_base, cfg.dt_controls,
+        cfg.sigma_heading, cfg.switch_heading_known)
+    assoc = associate_gated(st, obs, noise.re, cfg.gate_reject, cfg.gate_augment, vtf.T, bmat)
+    assert bool(assoc.known_mask.any())
+    st, nis = fused_frame_update(st, bmat, vtf, obs, assoc.slots, assoc.known_mask & live,
+                                 noise.re, return_nis=True)
+    st = augment(st, obs, assoc.new_mask & live, noise.re)
+    want = (st, torch.cat([pose_trace[:-1], st.x[None, :3]]), nis)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 # ---------------------------------- H7 + H1 + H8 + H4: the frame update (T6)

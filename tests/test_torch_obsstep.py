@@ -306,6 +306,125 @@ def test_frame_step_past_16_sub_steps_matches_reference_kernel(nz, use_heading, 
     np.testing.assert_allclose(got.p.numpy(), split.p.numpy(), rtol=1e-3, atol=1e-4)
 
 
+def _witness_distances(routes, wit) -> dict:
+    """Each route's largest distance from the float64 witness in x and P."""
+    return {name: (np.abs(np.asarray(r.x, np.float64) - wit.x.numpy()).max(),
+                   np.abs(np.asarray(r.p, np.float64) - wit.p.numpy()).max())
+            for name, r in routes.items()}
+
+
+@pytest.mark.parametrize("nz,s", [(64, 33), (10, 64)])
+def test_frame_step_without_heading_past_16_sub_steps_against_witness(nz, s):
+    # F4b: the known frame with the heading update off past 16 sub-steps,
+    # on the heading-on cases' frames above.  Without the heading update S
+    # is ill-conditioned, and the fp32 routes of the sweep inverse scatter
+    # around a float64 witness (the port's oracle: fastframe factors, dense
+    # products, a Cholesky inverse).  Two bounds, each with its reason:
+    #  * x: every fp32 route (the port's plain version, H9's on the CPU; the
+    #    reference's resident kernel in interpret mode and its jnp route)
+    #    within 8 kappa u |dx| of the witness, kappa the condition number
+    #    of the Jacobi-scaled S the sweep inverts, u = 2^-24 and |dx| the
+    #    frame's largest mean correction: the first-order forward error of
+    #    an fp32 solve, with a small constant.  A route that missed or
+    #    doubled a term of the correction would lie orders of magnitude
+    #    outside it.
+    #  * x, the port against the reference: on the S 64 frame the port's
+    #    plain version lies nearer the witness than either reference route
+    #    (1.9e-4 against 5.4e-4 and 9.0e-4), and must stay no further than
+    #    the nearer of them, so that a drift of ~3x fails.  The S 33 frame
+    #    is F5 (ROADMAP): there the reference's kernel lies ~4x nearer in x
+    #    (the port's plain version ~2.7 kappa u |dx| from the witness, the
+    #    reference's kernel ~0.65) and the port ~30x nearer in P, so only
+    #    the conditioning bound holds x.  F5 closes when a bound over
+    #    several frames of that conditioning holds every route, the port
+    #    no further from the witness than the reference's kernel.
+    #  * P: the port no further than twice the farther of the reference's
+    #    two routes, plus 1e-4, the card tests' rule for H9 on these frames.
+    # The pose trace is the reference kernel's to a few fp32 ulps of ~55 m.
+    prob = _problem(73 + s, nz, s)
+    d = prob["p"].shape[0]
+    assert tfk.frame_route(d, nz, "cpu", s) == "resident" and jfk.can_fuse_frame_step(d, nz)
+    jargs = _jax_args(prob)
+    routes = {
+        "reference kernel": jfk.frame_step(*jargs, *TAIL, False, interpret=True),
+        "reference jnp route": jax.jit(jfk.frame_step, static_argnums=(12, 13, 14, 15))(
+            *jargs, *TAIL, False),
+        "port": tfk.frame_step(*_frame_step_args(prob), *TAIL, False),
+    }
+    t = {k: torch.as_tensor(prob[k]) for k in KEYS}
+    t = {k: v.double() if v.dtype == torch.float32 else v for k, v in t.items()}
+    mp, rp = tfk.frame_shapes(nz)
+    zin, rsc, _ = tfk._pack_meas(t["zr"], t["zb"], t["mask"], t["r"], mp // 2)
+    wit = tfk._frame_step_reference(*(t[k] for k in KEYS[:8]), zin, rsc, mp, rp, *TAIL, False)
+    fi = tfk.frame_inputs(*(t[k] for k in KEYS))
+    sm = tfk._frame_chain_reference(fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp,
+                                    *TAIL, False).s[:2 * int(fi.nblk), :2 * int(fi.nblk)]
+    scale = torch.rsqrt(torch.diagonal(sm))
+    kappa = float(torch.linalg.cond(sm * scale[:, None] * scale[None, :]))
+    dx = float((wit.x - t["x"]).abs().max())
+    e = _witness_distances(routes, wit)
+    bound = 8.0 * kappa * 2.0**-24 * dx
+    assert all(ex <= bound for ex, _ in e.values()), (bound, e)
+    if s != 33:        # S 33 is F5's frame (above)
+        assert e["port"][0] <= min(e["reference kernel"][0], e["reference jnp route"][0]), e
+    far = max(e["reference kernel"][1], e["reference jnp route"][1])
+    assert e["port"][1] <= 2.0 * far + 1e-4, e
+    np.testing.assert_allclose(routes["port"].pose_trace.numpy(),
+                               np.asarray(routes["reference kernel"].pose_trace), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_gated_frame_at_the_resident_edge_against_witness():
+    # F4a: the gated frame at MP 224 with NBP 216 (S 71 with the heading
+    # update), tests/test_torch_cuda.py's resident-edge frame, at D 256
+    # where the reference's one-dispatch gated frame holds it.  The same
+    # factors (H5's plain version) go to both packages.  S is
+    # ill-conditioned (NIS ~9e6): the port's plain version (H10's) is held
+    # to a float64 witness (the port's Cholesky-route oracle) no further
+    # than twice the reference's _fullframe_kernel in interpret mode, plus
+    # 1e-5 in x (fp32 ulps of |x| < 64 m) and 1e-6 in P, as F1 holds the
+    # known frame; and the reference's jnp route is no nearer than a tenth
+    # of the port's distance (a route that far nearer would point at a
+    # fault of the port's sweep or chain).
+    import torch.nn.functional as F
+
+    from conan_slam_tpu_torch.ops.factor_kernel import _frame_factors_reference
+
+    prob = _problem(224, 112, 71)
+    state = EKFState(x=torch.as_tensor(prob["x"]), p=torch.as_tensor(prob["p"]),
+                     n_active=torch.tensor(126), table=torch.zeros(1, dtype=torch.int64))
+    t = {k: torch.as_tensor(prob[k]) for k in KEYS}
+    st1, _, vtf, bmat = _frame_factors_reference(state, t["vns"], t["swans"], t["phis"],
+                                                 t["act"], t["q"], *TAIL, True)
+    d, nbp = prob["p"].shape[0], bmat.shape[0]
+    assert nbp == 216 and tfk.frame_shapes(112)[0] == 224
+    assert jfk.can_fuse_frame(d, 112, nbp) and tfk.obs_route(d, 112, nbp, "cpu") == "resident"
+    port_args = (state.p, st1.x, torch.as_tensor(prob["slots"]), prob["capacity"], t["zr"],
+                 t["zb"], t["mask"], t["r"], bmat, vtf)
+    ref_args = (*(jnp.asarray(a.numpy()) for a in (state.p, st1.x)), _jax_args(prob)[2],
+                *(jnp.asarray(a.numpy()) for a in (t["zr"], t["zb"], t["mask"], t["r"], bmat,
+                                                   vtf)))
+    routes = {"reference kernel": jfk.frame_update_obs(*ref_args, interpret=True),
+              "reference jnp route": jax.jit(jfk.frame_update_obs)(*ref_args),
+              "port": tfk.frame_update_obs(*port_args)}
+    f64 = torch.float64
+    rows = tfk.frame_rows(port_args[2], prob["capacity"])
+    mp, rp = tfk.frame_shapes(112)
+    zin, rsc, _ = tfk._pack_meas(t["zr"].to(f64), t["zb"].to(f64), t["mask"], t["r"].to(f64),
+                                 mp // 2)
+    pad = rp - rows.shape[0]
+    wit = tfk._frame_update_obs_reference(state.p.to(f64), st1.x.to(f64),
+                                          F.pad(rows, (0, pad), value=-1),
+                                          F.pad(state.p[rows].to(f64), (0, 0, 0, pad)), zin, rsc,
+                                          bmat.to(f64), vtf.to(f64), mp, rp)
+    assert float(wit.nis) > 1e6
+    e = _witness_distances(routes, wit)
+    assert e["port"][0] <= 2.0 * e["reference kernel"][0] + 1e-5, e
+    assert e["port"][1] <= 2.0 * e["reference kernel"][1] + 1e-6, e
+    assert e["reference jnp route"][0] >= 0.1 * e["port"][0], e
+    np.testing.assert_allclose(float(routes["port"].nis), float(wit.nis), rtol=1e-3)
+
+
 @pytest.mark.parametrize("use_heading", [True, False])
 def test_factors_past_16_sub_steps_match_reference_kernel(use_heading):
     # H5's plain version at S = 33 against the reference's factor kernel in
