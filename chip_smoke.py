@@ -118,11 +118,35 @@ Phases:
           path in chunks of 4,800 steps with checkpoints: a run killed in
           its third chunk and resumed must equal an uninterrupted run bit
           for bit; the seconds and bytes of one checkpoint.
+       e. the on-device simulation loop, runner.loop.run_ekf_slam (steering,
+          truth, the sensor and its compaction on the card beside the
+          filter): (a) the valet course (30 landmarks, K 32: D 67, NZ 30;
+          known association with augmentation; 25,002 steps) on the JAX
+          run's own seed-42 draws (conan_slam_tpu_torch/sim/data/
+          valet_seed42.npz), held to its end at step 19,555, 25 mapped and
+          an ATE within 5e-3 m of its 0.38967 m, with the largest
+          |x_est - reference| and the first step where x_true drifts past
+          1e-3 m; (b) the same gated; H9, H15 and H10 at frame 200 of that
+          course (D 67, NZ 30) against their plain versions and float64
+          witnesses; (c) BASELINE config 2 through run_ekf_slam in turns
+          with run_ekf_slam_precomputed (precomputed, sim, sim,
+          precomputed): the first sim run on the JAX run's own PRNGKey(0)
+          draws (config2_key0.npz) and the precomputed runs held to
+          gated_full, the second sim run on a torch.Generator's draws
+          (seed 0) reported; (d) every route (fused; fast_frame=False;
+          fused_obs=False; and with switch_batch_update=False), known and
+          gated, 1,200 steps each with the filter at the true noise,
+          against their plain versions on the card and the NIS band
+          1.2 < mean < 3.0; frames of (a) and (c)
+          under torch.cuda.set_sync_debug_mode("error"). Asserts H9 (known),
+          H15 and H10 (gated) once per frame on the fused runs and H6's
+          entry once per frame on the gated non-fused routes.
      Then a torch.profiler trace of 100 frames of each path (the known
      path and the gated path each through its one-launch frame (H9,
      H10) and through the split schedule, 100 pairs of the pair path, 20 frames of
-     the 10k-landmark shape on both routes) gives each kernel's device
-     time per frame, the PyTorch ops dispatched per frame and the device's
+     the 10k-landmark shape on both routes, and 100 frames of
+     run_ekf_slam on the valet course and on config 2) gives each kernel's
+     device time per frame, the PyTorch ops dispatched per frame and the device's
      busy share; the gated traces also split the ops and the PyTorch
      kernels' device time by the frame loop's steps (its pre-update, the
      update, augmentation).
@@ -137,6 +161,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import importlib
 import json
 import os
 import re
@@ -183,6 +208,33 @@ PROBE_PATH_KERNELS = PROBE_KERNELS + ("sweep_inverse", "rank_update", "frame_ste
 PROBE_FS_MODES = ("sweeponly", "sweep", "chol", "noop", "ppass", "stepkernel", "stepkernel_big",
                   "fullkernel", "factkernel")
 CHUNK_STEPS = 4800      # the chunked driver's chunk: 800 frames = 400 pairs
+# Phase 4e, the on-device simulation loop (runner.loop.run_ekf_slam).
+SIM_STEPS = 25_000      # the valet course and config 2: 4,167 frames = 25,002 steps
+SIM_ROUTE_STEPS = 1200  # each non-fused route, kernels and plain versions
+SIM_SYNC_STEPS = 60     # frames of (a) and (c) run under the sync debug mode
+VALET_FRAME = 200       # the valet frame the kernels are held at on their own (phase 4e)
+# The JAX package's run_ekf_slam(default_world(), SlamConfig(), PRNGKey(42),
+# 25_000): its draws and trajectories (tests/valet_reference.py).
+VALET_DATA = os.path.join("conan_slam_tpu_torch", "sim", "data", "valet_seed42.npz")
+VALET_DONE_AT, VALET_MAPPED = 19_555, 25
+# BASELINE config 2's gated run of the JAX run_ekf_slam from PRNGKey(0): its
+# control draws and each frame's draws of the returns near the field of
+# view (tests/valet_reference.py).  Phase 4e's gated_full run takes these:
+# gated_full is a gate on one realization (of the JAX run_ekf_slam's own
+# PRNGKey(0) to (11), 3 ends at ATE 1.057 m and 9 at 1.452 m:
+# tests/config2_seeds.py), and on these draws the reference passes it
+# (ATE 0.185 m, 304 mapped).
+CONFIG2_DATA = os.path.join("conan_slam_tpu_torch", "sim", "data", "config2_key0.npz")
+# |ATE - the reference's| on the valet run: the port's plain version on the
+# CPU against the same draws lands 4.4e-4 m (known) and 1.8e-4 m (gated)
+# from it (tests run on an x86 CPU); the bound is ~10x that, half the
+# 0.01 m the acceptance allows.
+VALET_ATE_BOUND = 5e-3
+ROUTE_DX_BOUND = 2e-3   # every route, kernels vs plain: the slice's pose bound
+SIM_ROUTES = (("fused", {}), ("fast_frame=False", dict(fast_frame=False)),
+              ("fused_obs=False", dict(fused_obs=False)),
+              ("fused_obs=False, switch_batch_update=False",
+               dict(fused_obs=False, switch_batch_update=False)))
 # The card's published peaks (H100 SXM data sheet, at 700 W): fp32 outside
 # the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -282,8 +334,10 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None,
     and template arguments).
     The profiler can drop a trace's device events, which lowers its
     reading or leaves it empty, and one trace can read high (a clock dip),
-    so up to 3 ``traces`` traces are taken until ``traces`` of them hold
-    events, and the median of those is kept."""
+    so up to 10 ``traces`` traces are taken until ``traces`` of them hold
+    events (on the card up to half the traces of a call come back empty),
+    and the median of those is kept; the empty ones are logged.  No
+    reading at all fails the run."""
     import statistics
 
     import torch
@@ -294,7 +348,8 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None,
         fn()
     torch.cuda.synchronize()
     readings = []
-    for _ in range(3 * traces):
+    empty = 0
+    for _ in range(10 * traces):
         if len(readings) == traces:
             break
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -318,8 +373,14 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None,
                           and (kernel is None or re.search(rf"\b(?:{kernel})\b", name)))
         if reading > 0.0:
             readings.append(reading)
+        else:
+            empty += 1
+    if empty:
+        log(f"  device time: {empty} of {empty + len(readings)} profiler traces of {iters} calls "
+            f"held no reading" + (f" of {kernel}" if kernel else ""))
     if not readings:
-        require(False, "device time", f"no profiler trace of {iters} calls held device events")
+        require(False, "device time", f"no profiler trace of {iters} calls held device events"
+                + (f" of {kernel}" if kernel else ""))
         return 0.0
     return statistics.median(readings) / 1e3
 
@@ -2372,8 +2433,9 @@ def known_schedule(schedule: str):
     """The driver's known frames on ``schedule`` ("auto": H9, "split"):
     frame_step's own test hook, bound where fused_frame_step looks
     frame_step up."""
-    from conan_slam_tpu_torch.filters.ekf import update
     from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    update = importlib.import_module("conan_slam_tpu_torch.filters.ekf.update")
 
     update.frame_step = functools.partial(fk.frame_step, schedule=schedule)
     try:
@@ -2587,13 +2649,404 @@ def chunked_path(device) -> dict:
                 save_s=save_s, restore_s=restore_s, bit_identical=all(same), ate=ate)
 
 
+def valet_reference(device):
+    """The committed reference run: its draws on ``device`` and, on the
+    host, its trajectories and ATE."""
+    import torch
+
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+
+    data = np.load(VALET_DATA)
+    ref = {k: torch.as_tensor(data[k]) for k in data.files}
+    ref["ate"] = float(ate_rmse(ref["x_true"], ref["x_est_known"], ~ref["done_known"]))
+    return ref, ref["ctrl"].to(device), ref["obs"].to(device)
+
+
+def config2_reference(device):
+    """The committed config 2 draws as run_ekf_slam takes them, on
+    ``device``: ``(ctrl (4167, 6, 2), obs (4167, 500, 2), the reference's
+    ATE, its map size)``, each frame's returns outside the kept ids zero
+    (they never reach the filter)."""
+    import torch
+
+    data = np.load(CONFIG2_DATA)
+    ids = data["obs_ids"].astype(np.int64)
+    obs = np.zeros((ids.shape[0], 500, 2), np.float32)
+    rows, cols = np.nonzero(ids >= 0)
+    obs[rows, ids[rows, cols]] = data["obs_vals"][rows, cols]
+    return (torch.as_tensor(data["ctrl"]).to(device), torch.as_tensor(obs).to(device),
+            float(data["ate"]), int(data["mapped"]))
+
+
+def drive_sim(world, cfg, steps: int, ctrl, obs, plain: bool = False) -> dict:
+    """One timed run_ekf_slam run of ``steps`` steps on the draws
+    ``ctrl``/``obs``, after an untimed 60-step run, with the launch counts
+    of the timed run alone."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import cuda
+    from conan_slam_tpu_torch.runner.loop import run_ekf_slam
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+
+    def go(n):
+        f = -(-n // cfg.observe_interval)
+        return run_ekf_slam(world, cfg, None, n, plain=plain, ctrl_noise=ctrl[:f],
+                            obs_noise=obs[:f])
+
+    go(60)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    carry, outs = go(steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = outs.x_est.shape[0]
+    done = outs.done.cpu()
+    return dict(steps_per_s=n / secs, seconds=secs, counts=launches(), outs=outs, carry=carry,
+                ate=float(ate_rmse(outs.x_true, outs.x_est, ~outs.done)),
+                mapped=int(carry.state.n_active),
+                done_at=int(done.to(torch.int8).argmax()) if bool(done.any()) else -1,
+                finite=bool(torch.isfinite(carry.state.p).all()
+                            and torch.isfinite(outs.x_est).all()))
+
+
+def sync_free(label: str, world, cfg, ctrl, obs) -> None:
+    """``SIM_SYNC_STEPS`` steps of run_ekf_slam on the draws ``ctrl``/``obs``
+    under the sync debug mode, which raises at any operation that makes the
+    host wait for the card."""
+    import torch
+
+    from conan_slam_tpu_torch.runner.loop import run_ekf_slam
+
+    f = SIM_SYNC_STEPS // cfg.observe_interval
+    torch.cuda.synchronize()
+    err = ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_ekf_slam(world, cfg, None, SIM_SYNC_STEPS, ctrl_noise=ctrl[:f], obs_noise=obs[:f])
+    except RuntimeError as e:
+        err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(not err, f"no host sync ({label})",
+            f"{SIM_SYNC_STEPS} steps of run_ekf_slam under set_sync_debug_mode('error')"
+            + (f": {err}" if err else ""))
+
+
+def as_double(a):
+    """``a`` (a tensor, a NamedTuple of tensors or a number) with its
+    floating-point tensors in float64."""
+    import torch
+
+    if isinstance(a, tuple):
+        items = (as_double(t) for t in a)
+        return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
+    return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+
+
+def valet_frame(device, world, cfg, ctrl, obs):
+    """Frame VALET_FRAME of the valet course on the reference's draws
+    ``ctrl``/``obs``, at its own shape (D 67, NZ 30): the carry after the
+    frames before it through run_ekf_slam with the plain versions, then the
+    frame's sub-steps and measurement buffer as ekf_frame_step forms them.
+    Returns ``(state, (vns, swans, phis, actives), buffer, noise)``; the
+    plain versions leave P asymmetric by fp32 rounding."""
+    import torch
+
+    from conan_slam_tpu_torch.runner import loop
+
+    f = VALET_FRAME
+    carry, _ = loop.run_ekf_slam(world, cfg, None, f * cfg.observe_interval, plain=True,
+                                 ctrl_noise=ctrl[:f], obs_noise=obs[:f])
+    st, x_true, subs = carry.steer, carry.x_true, []
+    for k in range(cfg.observe_interval):
+        was_done = st.done
+        st, x_true, vn, swan = loop._advance_truth(st, x_true, world, cfg, ctrl[f, k])
+        subs.append((vn, swan, x_true[2], ~was_done))
+    return (carry.state, tuple(torch.stack(a) for a in zip(*subs)),
+            loop._sense(x_true, world, cfg, obs[f]), loop.make_noise(cfg, device=device))
+
+
+def valet_kernel_checks(device, world, ctrl, obs) -> dict:
+    """H9, H15 and H10 at a frame of the valet course (valet_frame, heading
+    on) against their plain versions at phase 3's tolerances and H15's
+    strip at the card tests' (rtol 1e-4, atol 1e-5), each beside its
+    float64 witness, on the frame's P made symmetric, as the kernels' own
+    runs keep it.  First, on the plain run's own asymmetric P, H15's strip
+    against the plain version on P and on P with row 2 as its column 2
+    (H15 reads the row, the plain version the column), and the float64
+    witnesses of both.  Returns the witness distances."""
+    import torch
+
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.filters.ekf import associate_known
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.factor_kernel import (
+        _factor_gate_reference,
+        _frame_factors_reference,
+        factor_gate,
+        frame_factors_fused,
+    )
+
+    label = f"valet frame {VALET_FRAME}, D=67"
+    dist = lambda a, b: float((a.double() - b.double()).abs().max())  # noqa: E731
+    out = {}
+
+    # Known association: H9.
+    cfg = SlamConfig()
+    state, sub, buf, noise = valet_frame(device, world, cfg, ctrl, obs)
+    d, nz = state.x.shape[0], buf.z.shape[0]
+    log(f"valet frame kernels at {label} (NZ={nz}, mapped={int(state.n_active)}, "
+        f"{int(buf.mask.sum())} returns; P from the plain run, asymmetric by "
+        f"{float((state.p - state.p.T).abs().max()):.2e}, symmetrized):")
+    require(fk.frame_route(d, nz, device, cfg.observe_interval) == "resident",
+            f"H9 route at {label}", "resident (H9)")
+    assoc = associate_known(state, buf)
+    args = (0.5 * (state.p + state.p.T), state.x, assoc.slots, state.capacity, *sub, noise.qe,
+            buf.z[:, 0], buf.z[:, 1], assoc.known_mask, noise.re)
+    tail = (cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, cfg.switch_heading_known)
+    split = fk.frame_step(*args, *tail, schedule="split")
+    oracle = fk._plain_frame(args[0], args[1], fk.frame_rows(args[2], args[3]), *args[4:], tail)
+    h9_checks(label, args, tail, split, oracle)
+    wit = known_witness((*args, *tail))
+    got, plain = fk.frame_step(*args, *tail), fk.frame_step(*args, *tail, plain=True)
+    out["h9"] = dict(x_kernel=dist(got.x, wit.x), x_plain=dist(plain.x, wit.x),
+                     p_kernel=dist(got.p, wit.p), p_plain=dist(plain.p, wit.p))
+    log("  float64 witness at {}: |x - x64| plain {x_plain:.3e}, H9 {x_kernel:.3e}; "
+        "|P - P64| plain {p_plain:.3e}, H9 {p_kernel:.3e}".format(label, **out["h9"]))
+
+    # Gated association: H15, then H10.
+    cfg = SlamConfig(switch_association_known=False)
+    state, sub, buf, noise = valet_frame(device, world, cfg, ctrl, obs)
+    ftail = (noise.qe, cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
+             cfg.switch_heading_known)
+    gtail = (buf.z, buf.mask, noise.re, cfg.gate_reject, cfg.gate_augment)
+    p_row = state.p.clone()
+    p_row[:, 2] = state.p[2]
+    on_row = state._replace(p=p_row)
+    strip = factor_gate(state, *sub, *ftail, *gtail).vtf
+    col, row = (_frame_factors_reference(st, *sub, *ftail)[2] for st in (state, on_row))
+    w_col, w_row = (_frame_factors_reference(as_double(st), *as_double(sub), *as_double(ftail))[2]
+                    for st in (state, on_row))
+    out["h15_asym"] = dict(
+        asym=float((state.p - state.p.T).abs().max()), kernel_plain=dist(strip, col),
+        kernel_plain_row=dist(strip, row), witness_row_col=dist(w_row, w_col),
+        kernel_witness_row=dist(strip, w_row), plain_witness_col=dist(col, w_col),
+        scale=float(w_col.abs().max()))
+    log("  H15's strip on the plain run's P (asymmetric by {asym:.2e}; |vtf| up to {scale:.2f}): "
+        "|H15 - plain| {kernel_plain:.3e}, |H15 - plain on P with row 2 as column 2| "
+        "{kernel_plain_row:.3e}; float64 witnesses: |w(row 2) - w(column 2)| "
+        "{witness_row_col:.3e}, |H15 - w(row 2)| {kernel_witness_row:.3e}, "
+        "|plain - w(column 2)| {plain_witness_col:.3e}".format(**out["h15_asym"]))
+    check(f"H15 {label} vtf on the plain run's P vs the plain version on its row 2", strip, row,
+          1e-4, 1e-5, "H15 reads P's row 2 (contiguous), the plain version its column 2")
+    state = state._replace(p=0.5 * (state.p + state.p.T))
+    fargs = (state, *sub, *ftail)
+    fgargs = (*fargs, *gtail)
+    got, ref = factor_gate(*fgargs), _factor_gate_reference(*fgargs)
+    w64 = _frame_factors_reference(*as_double(fargs))[2]
+    near = gate_margins(state._replace(x=ref.x), buf, noise, cfg, ref.vtf, ref.bmat, ref.min_nis)
+    h15_checks(label, fgargs, frame_factors_fused(*fargs), buf, cfg, near)
+    check(f"H15 {label} vtf", got.vtf, ref.vtf, 1e-4, 1e-5, "the card tests' strip tolerance")
+    check(f"H15 {label} B", got.bmat, ref.bmat, 1e-5, 1e-6, "constants and a copy of P[2, 2]")
+    for name, f in (("H15", got), ("plain", ref)):
+        check(f"{name} {label} vtf vs float64 witness", f.vtf, w64, 1e-4, 1e-5,
+              "the card tests' strip tolerance")
+    out["h15"] = dict(kernel=dist(got.vtf, w64), plain=dist(ref.vtf, w64))
+    uargs = (state.p, got.x, got.slots, state.capacity, buf.z[:, 0], buf.z[:, 1],
+             got.known_mask, noise.re, got.bmat, got.vtf)
+    require(fk.obs_route(d, nz, got.bmat.shape[0], device) == "resident",
+            f"H10 route at {label}", "resident (H10)")
+    split = fk.frame_update_obs(*uargs, schedule="split")
+    plain = fk.frame_update_obs(*uargs, plain=True)
+    wit = gated_witness(*uargs)
+    e_plain = dist(plain.x, wit.x)
+    h10_checks(label, uargs, split, plain, 2e-3 + 2.0 * e_plain)
+    got = fk.frame_update_obs(*uargs)
+    out["h10"] = dict(x_kernel=dist(got.x, wit.x), x_plain=e_plain,
+                      p_kernel=dist(got.p, wit.p), p_plain=dist(plain.p, wit.p))
+    log("  float64 witnesses at {}: |vtf - vtf64| plain {:.3e}, H15 {:.3e}; |x - x64| plain "
+        "{x_plain:.3e}, H10 {x_kernel:.3e}; |P - P64| plain {p_plain:.3e}, H10 "
+        "{p_kernel:.3e}".format(label, out["h15"]["plain"], out["h15"]["kernel"],
+                                **out["h10"]))
+    return out
+
+
+def sim_path(device) -> tuple[dict, dict]:
+    """Phase 4e: the on-device simulation loop (runner.loop.run_ekf_slam):
+    (a) the valet course, known association with augmentation, on the
+    reference's own seed-42 draws, against its committed run; (b) the same
+    gated; H9, H15 and H10 at a frame of that course against their plain
+    versions (valet_kernel_checks); (c) BASELINE config 2 through
+    run_ekf_slam in turns with the precomputed driver, and once on a
+    torch.Generator's draws; (d) every route against its plain versions;
+    the sync debug mode over frames of (a) and (c).  Returns the results
+    and the launch counts summed over the timed kernel runs."""
+    import torch
+
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+    from conan_slam_tpu_torch.sim.world import config2_world, default_world
+
+    t_phase = time.perf_counter()
+    ref, ctrl, obs = valet_reference(device)
+    world = default_world(device)
+    n_frames = ctrl.shape[0]
+    total: dict[str, int] = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    log(f"sim path (run_ekf_slam): the valet course at K 32 (D 67, NZ 30), {n_frames * 6} steps "
+        f"= {n_frames} frames on the reference's seed-42 draws; reference ATE {ref['ate']:.5f} m, "
+        f"done at step {VALET_DONE_AT}, {VALET_MAPPED} mapped")
+    res: dict = {}
+    for name, known in (("known", True), ("gated", False)):
+        r = drive_sim(world, SlamConfig(switch_association_known=known), SIM_STEPS, ctrl, obs)
+        add(r["counts"])
+        outs = r["outs"]
+        n = outs.x_est.shape[0]
+        valid = ~ref[f"done_{name}"][:n]
+        dx_est = float((outs.x_est.cpu() - ref[f"x_est_{name}"][:n])[valid].abs().max())
+        dx_true = (outs.x_true.cpu() - ref["x_true"][:n]).abs().amax(dim=1)
+        over = (dx_true > 1e-3).nonzero()
+        first = int(over[0, 0]) if over.numel() else None
+        nf = n // 6
+        want = ({"frame_step": 2 * nf} if known else {"factor_gate": nf, "obs_step": 2 * nf})
+        log(f"  valet, {name} association: {r['seconds']:.3f} s = {r['steps_per_s']:,.1f} steps/s, "
+            f"ATE {r['ate']:.5f} m (reference {ref['ate']:.5f} m), done at step {r['done_at']}, "
+            f"mapped {r['mapped']}, max |x_est - reference| over ~done {dx_est:.3e} m, "
+            f"max |x_true - reference| {float(dx_true.max()):.3e} m, first step with "
+            f"|x_true - reference| > 1e-3 m: {first}, launches {r['counts']}")
+        require(r["finite"] and r["done_at"] == VALET_DONE_AT and r["mapped"] == VALET_MAPPED,
+                f"valet course ({name})", f"finite, done at step {r['done_at']} "
+                f"(reference {VALET_DONE_AT}), mapped {r['mapped']} (reference {VALET_MAPPED})")
+        require(abs(r["ate"] - ref["ate"]) <= VALET_ATE_BOUND, f"valet ATE ({name})",
+                f"|{r['ate']:.5f} - {ref['ate']:.5f}| = {abs(r['ate'] - ref['ate']):.2e} m "
+                f"<= {VALET_ATE_BOUND} m")
+        require(r["counts"] == {**dict.fromkeys(r["counts"], 0), **want},
+                f"valet launches ({name})", f"{want}, no other kernel")
+        res[name] = dict(steps_per_s=r["steps_per_s"], ate=r["ate"], done_at=r["done_at"],
+                         mapped=r["mapped"], dx_est=dx_est, dx_true=float(dx_true.max()),
+                         first_dx_true_over_1mm=first)
+    res["reference_ate"] = ref["ate"]
+    sync_free("valet, known", world, SlamConfig(), ctrl, obs)
+    res["valet_frame"] = valet_kernel_checks(device, world, ctrl, obs)
+
+    # (c) Config 2 through run_ekf_slam (on the reference's PRNGKey(0) draws)
+    # in turns with the precomputed driver (on phase 4b's generator draws).
+    c2, c2cfg = config2_world(device), gated_cfg(500)
+    c2ctrl, c2obs, c2ate, c2mapped = config2_reference(device)
+    t0 = time.perf_counter()
+    roll = precompute_rollout(c2, c2cfg, SIM_STEPS)
+    rollout_s = time.perf_counter() - t0
+    steps = roll[0][0].shape[0]
+
+    def precomputed():
+        run_ekf_slam_precomputed(c2, c2cfg, torch.Generator(device=device).manual_seed(0), 60,
+                                 None, tuple(tuple(a[:k] for a in part) for part, k in
+                                             zip(roll, (60, 10))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, outs = run_ekf_slam_precomputed(
+            c2, c2cfg, torch.Generator(device=device).manual_seed(0), steps, None, roll)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return dict(steps_per_s=steps / secs, ate=float(ate_rmse(outs.x_true, outs.x_est,
+                                                                 ~outs.done)),
+                    mapped=int(state.n_active), finite=bool(torch.isfinite(state.p).all()))
+
+    # The second sim turn runs on the port's own draws, from a torch.Generator
+    # seeded 0 as run_ekf_slam draws them: reported, not held to gated_full
+    # (one realization's gate).
+    gen = torch.Generator(device=device).manual_seed(0)
+    n_frames_c2 = c2ctrl.shape[0]
+    gen_draws = (torch.randn((n_frames_c2, 6, 2), generator=gen, device=device),
+                 torch.randn((n_frames_c2, 500, 2), generator=gen, device=device))
+    turns = []
+    for kind in ("precomputed", "sim", "sim, torch.Generator(0) draws", "precomputed"):
+        if kind.startswith("sim"):
+            r = drive_sim(c2, c2cfg, SIM_STEPS, *((c2ctrl, c2obs) if kind == "sim" else gen_draws))
+            add(r["counts"])
+            nf = r["outs"].x_est.shape[0] // 6
+            want = {"factor_gate": nf, "obs_step": 2 * nf}
+            require(r["counts"] == {**dict.fromkeys(r["counts"], 0), **want},
+                    f"config 2 launches ({kind})", f"{want}, no other kernel")
+        else:
+            r = precomputed()
+        log(f"  config 2 ({kind}): {r['steps_per_s']:,.1f} steps/s, ATE {r['ate']:.4f} m, "
+            f"mapped {r['mapped']}" + (f" (the reference's run_ekf_slam on these draws: ATE "
+                                       f"{c2ate:.4f} m, mapped {c2mapped})"
+                                       if kind == "sim" else ""))
+        if kind.startswith("sim, "):
+            require(r["finite"], f"config 2 ({kind})", "finite; reported, not held to gated_full")
+            res["config2_generator"] = dict(ate=r["ate"], mapped=r["mapped"],
+                                            steps_per_s=r["steps_per_s"])
+        else:
+            require(r["finite"] and r["ate"] < 0.5 and 270 <= r["mapped"] <= 340,
+                    f"config 2 gated_full ({kind})",
+                    f"finite, ATE {r['ate']:.4f} < 0.5 m, 270 <= mapped {r['mapped']} <= 340")
+        turns.append(r["steps_per_s"])
+        if kind == "sim":
+            res["config2"] = dict(ate=r["ate"], mapped=r["mapped"], reference_ate=c2ate,
+                                  reference_mapped=c2mapped)
+    log(f"  config 2 steps/s in turns: precomputed {turns[0]:,.1f}, sim {turns[1]:,.1f}, "
+        f"sim (generator draws) {turns[2]:,.1f}, precomputed {turns[3]:,.1f} (the host rollout "
+        f"the precomputed runs take as given: {rollout_s:.3f} s)")
+    res["config2"].update(turns=turns, rollout_s=rollout_s)
+    sync_free("config 2", c2, c2cfg, c2ctrl, c2obs)
+
+    # (d) Every route at the valet shape, true noise in the filter, against
+    # the same run of its plain versions.  A known non-fused route launches
+    # no kernel (its association is the table), so its run is its own plain
+    # version.
+    f = SIM_ROUTE_STEPS // 6
+    routes = {}
+    for known in (True, False):
+        for label, kw in SIM_ROUTES:
+            cfg = SlamConfig(switch_inflate_noise=False, switch_association_known=known, **kw)
+            if not kw:
+                want = ({"frame_step": 2 * f} if known else {"factor_gate": f, "obs_step": 2 * f})
+            else:
+                want = {} if known else {"gating_scores": f}
+            k = drive_sim(world, cfg, SIM_ROUTE_STEPS, ctrl, obs)
+            p = drive_sim(world, cfg, SIM_ROUTE_STEPS, ctrl, obs, plain=True) if want else k
+            add(k["counts"])
+            name = f"{'known' if known else 'gated'}, {label}"
+            require(k["counts"] == {**dict.fromkeys(k["counts"], 0), **want}
+                    and not any(p["counts"].values()), f"route launches ({name})",
+                    f"kernels: {want or 'none'}; plain: none")
+            dx = float((k["outs"].x_est - p["outs"].x_est).abs().max())
+            same_map = bool(torch.equal(k["outs"].n_active, p["outs"].n_active))
+            nis = [float(o["outs"].consistency[o["outs"].consistency != 0].mean()) for o in (k, p)]
+            require(k["finite"] and same_map and dx <= ROUTE_DX_BOUND, f"route vs plain ({name})",
+                    f"max |dx_est| {dx:.3e} <= {ROUTE_DX_BOUND} m, map sizes equal: {same_map}")
+            require(all(1.2 < v < 3.0 for v in nis), f"route NIS band ({name})",
+                    f"mean NIS kernels {nis[0]:.3f}, plain {nis[1]:.3f} in (1.2, 3.0)")
+            log(f"  {name}: {k['steps_per_s']:,.1f} steps/s (plain {p['steps_per_s']:,.1f}), "
+                f"ATE {k['ate']:.4f} m, mapped {k['mapped']}, max |x_est - plain| {dx:.3e} m")
+            routes[name] = dict(steps_per_s=k["steps_per_s"], plain_steps_per_s=p["steps_per_s"],
+                                dx_plain=dx, nis=nis[0], ate=k["ate"])
+    res["routes"] = routes
+    for kname in ("frame_step", "factor_gate", "obs_step", "gating_scores"):
+        require(total.get(kname, 0) > 1, f"sim path launches {kname}",
+                f"{total.get(kname, 0)} launches")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"sim path: {res['seconds']:.1f} s")
+    return res, total
+
+
 @contextlib.contextmanager
 def gated_schedule(schedule: str):
     """The frame loop's gated frames on ``schedule``: "auto" H15 then H10,
     "split" H15 then the split.  frame_update_obs's own test hook, bound
     where fused_frame_update looks frame_update_obs up."""
-    from conan_slam_tpu_torch.filters.ekf import update
     from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    update = importlib.import_module("conan_slam_tpu_torch.filters.ekf.update")
 
     update.frame_update_obs = functools.partial(fk.frame_update_obs, schedule=schedule)
     try:
@@ -2758,26 +3211,38 @@ def range_totals(event) -> tuple[float, int, int]:
 
 
 def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
-                   schedule: str = "auto", ranges=()) -> dict:
-    """A torch.profiler trace of ``n_frames`` frames of a main path: device
-    time per kernel per frame, the PyTorch ops dispatched per frame and the
-    device's busy share; with ``ranges`` (traced_ranges), each range's
-    device us, kernels and ops a frame."""
+                   schedule: str = "auto", ranges=(), sim: bool = False) -> dict:
+    """A torch.profiler trace of ``n_frames`` frames of a main path (the
+    precomputed driver; ``sim=True``: the on-device loop, run_ekf_slam):
+    device time per kernel per frame, the PyTorch ops dispatched per frame
+    and the device's busy share; with ``ranges`` (traced_ranges), each
+    range's device us, kernels and ops a frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
+    from conan_slam_tpu_torch.runner.loop import (
+        precompute_rollout,
+        run_ekf_slam,
+        run_ekf_slam_precomputed,
+    )
 
     n_steps = n_frames * cfg.observe_interval
-    roll = precompute_rollout(world, cfg, n_steps)
     gen = torch.Generator(device=device).manual_seed(SEED)
+    if sim:
+        def drive():
+            run_ekf_slam(world, cfg, gen, n_steps, state0)
+    else:
+        roll = precompute_rollout(world, cfg, n_steps)
+
+        def drive():
+            run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
     with known_schedule(schedule), gated_schedule(schedule), traced_ranges(ranges):
-        run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
+        drive()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_ekf_slam_precomputed(world, cfg, gen, n_steps, state0, roll)
+            drive()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     names = {attr for _, attr in ranges}
@@ -2893,6 +3358,7 @@ def main() -> int:
     gated, gcounts, gscounts = gated_path(device)
     paired, pcounts = pair_path(device)
     chunked = chunked_path(device)
+    sim, simcounts = sim_path(device)
     log(f"main paths: {time.perf_counter() - t0:.1f} s")
 
     from conan_slam_tpu_torch.config import SlamConfig
@@ -2917,6 +3383,14 @@ def main() -> int:
     for schedule, label in (("auto", "H10"), ("split", "split schedule")):
         profile_frames(device, BIG_PROFILE_FRAMES, f"gated, 10k landmarks ({label})",
                        big_world(device), gated_cfg(BIG_LANDMARKS), None, schedule=schedule)
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    sprof = {
+        "valet": profile_frames(device, PROFILE_FRAMES, "sim loop, valet, known (H9)",
+                                default_world(device), SlamConfig(), None, sim=True),
+        "config2": profile_frames(device, PROFILE_FRAMES, "sim loop, config 2 (H15 + H10)",
+                                  config2_world(device), gated_cfg(500), None, sim=True),
+    }
 
     # --- phase 5: report ---
     allstats = {**stats, **gstats, **prstats}
@@ -2935,11 +3409,12 @@ def main() -> int:
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
-                      + pcounts[k.name] + pbcounts[k.name]),
+                      + pcounts[k.name] + pbcounts[k.name] + simcounts.get(k.name, 0)),
          "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
                               "gated": gcounts[k.name], "gated_split": gscounts[k.name],
                               "pair": pcounts[k.name], "probes": pbcounts[k.name],
-                              "probes_replayed": pbreplayed.get(k.name, 0)},
+                              "probes_replayed": pbreplayed.get(k.name, 0),
+                              "sim": simcounts.get(k.name, 0)},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items()
@@ -2984,6 +3459,9 @@ def main() -> int:
         "chunked_steps_per_s": chunked["steps_per_s"], "chunked_ate_m": chunked["ate"],
         "checkpoint_bytes": chunked["checkpoint_bytes"], "checkpoint_save_s": chunked["save_s"],
         "checkpoint_restore_s": chunked["restore_s"],
+        "sim": {**sim, "ops_per_frame": {k: v["ops"] for k, v in sprof.items()},
+                "busy_us_per_frame": {k: v["busy_us"] for k, v in sprof.items()},
+                "wall_us_per_frame_profiled": {k: v["wall_us"] for k, v in sprof.items()}},
         "probes_us": {
             "sweep": {k: {"graph": v["us"], "eager": v["eager_us"]}
                       for k, v in probes.get("probe_sweep", {}).get("variants", {}).items()},

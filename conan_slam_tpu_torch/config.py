@@ -90,9 +90,11 @@ class SlamConfig:
     # Measurement-buffer size (simultaneously visible returns). 0 = size the
     # buffer to the world's landmark count.
     max_obs: int = 0
-    # The reference's schedule switches.  The port always runs the rank-
-    # compounded frame fused into the measurement update (the reference's
-    # defaults); ``scan_unroll`` has no counterpart in a Python frame loop.
+    # The reference's schedule switches.  runner.loop.run_ekf_slam honours
+    # them (the fused frame only with all three of fast_frame, fused_obs
+    # and switch_batch_update); the precomputed driver always runs the
+    # fused frame, as the reference's does.  ``scan_unroll`` has no
+    # counterpart in a Python frame loop.
     fast_frame: bool = True
     fused_obs: bool = True
     scan_unroll: int = 1

@@ -82,7 +82,7 @@ def coeff_frame_core(pose0, p2_head, p22_0, vns, swans, phi_meas, active,
     dtype, device = pose0.dtype, pose0.device
     r_head = sigma_heading**2
     zero = torch.zeros((), dtype=dtype, device=device)
-    e_p2 = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    e_p2 = torch.eye(4, dtype=dtype, device=device)[0]   # made on the device: no host copy
 
     def val2(c):
         """Index-2 component of the represented vector."""

@@ -1,19 +1,71 @@
-"""Whole-frame EKF updates (port of conan_slam_tpu.filters.ekf.update:
-``fused_frame_step`` and ``fused_frame_pair_step`` for known association,
-``fused_frame_update`` for the gated path, fp32 tier only)."""
+"""EKF measurement updates (port of conan_slam_tpu.filters.ekf.update):
+the per-frame forms ``batch_update``, ``sequential_update`` and ``update``
+(reference EKF::batchUpdate, EKF.cpp:93-129, EKF::singleUpdate,
+EKF.cpp:457-479, EKF::update, EKF.cpp:481-496), plain PyTorch as the
+reference's are plain jnp; and the whole-frame kernels' entries,
+``fused_frame_step`` and ``fused_frame_pair_step`` for known association
+and ``fused_frame_update`` for the gated path (fp32 tier only)."""
 
 from __future__ import annotations
 
 import torch
 
+from conan_slam_tpu_torch.core.geometry import wrap_angle
 from conan_slam_tpu_torch.filters.common import CompactObs
+from conan_slam_tpu_torch.filters.ekf.observe import build_batch_operator, wrap_heading
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
+from conan_slam_tpu_torch.models import sensor
+from conan_slam_tpu_torch.ops.cholesky_update import cholesky_update
 from conan_slam_tpu_torch.ops.frame_kernel import (
     frame_rows,
     frame_step,
     frame_step_pair,
     frame_update_obs,
 )
+
+
+def batch_update(state: EKFState, obs: CompactObs, slots, mask, r_cov,
+                 *, return_nis: bool = False):
+    """One joint Cholesky update over every associated measurement."""
+    v, h, rr = build_batch_operator(state, obs, slots, mask, r_cov)
+    out = cholesky_update(state.x, state.p, v, rr, h, return_nis=return_nis)
+    new_state = state._replace(x=wrap_heading(out[0]), p=out[1])
+    return (new_state, out[2]) if return_nis else new_state
+
+
+def sequential_update(state: EKFState, obs: CompactObs, slots, mask, r_cov,
+                      *, return_nis: bool = False):
+    """One update a measurement slot, in buffer order (the reference's
+    order-dependent semantics; its ``lax.scan`` is a loop over the NZ
+    slots here).  A masked slot runs as the reference's does, with zero H,
+    zero innovation and identity R, and so adds nothing.  With
+    ``return_nis`` also the sum of the slots' NIS."""
+    d = state.x.shape[0]
+    safe = torch.clamp(slots, 0, state.capacity - 1)
+    eye2 = torch.eye(2, dtype=state.p.dtype, device=state.p.device)
+    two = torch.arange(2, device=state.x.device)
+    x, p = state.x, state.p
+    nis = []
+    for i in range(obs.z.shape[0]):
+        cols = 3 + 2 * safe[i] + two                          # (2,) the slot's columns
+        zp, hv, hf = sensor.observe(x[:3], x[cols])
+        z_i, m_i = obs.z[i], mask[i]
+        v = torch.stack([z_i[0] - zp[0], wrap_angle(z_i[1] - zp[1])])
+        h = torch.zeros((2, d), dtype=p.dtype, device=p.device)
+        h[:, :3] = hv
+        h.scatter_(1, cols[None, :].expand(2, 2), hf)
+        x, p, nis_i = cholesky_update(x, p, torch.where(m_i, v, 0.0), torch.where(m_i, r_cov, eye2),
+                                      torch.where(m_i, h, 0.0), return_nis=True)
+        nis.append(nis_i)
+    new_state = state._replace(x=wrap_heading(x), p=p)
+    return (new_state, torch.stack(nis).sum()) if return_nis else new_state
+
+
+def update(state: EKFState, obs: CompactObs, slots, mask, r_cov, batch: bool,
+           *, return_nis: bool = False):
+    """``batch_update`` or ``sequential_update`` as the batch switch says."""
+    fn = batch_update if batch else sequential_update
+    return fn(state, obs, slots, mask, r_cov, return_nis=return_nis)
 
 
 def fused_frame_step(state: EKFState, vns, swans, phis, actives, q_cov,

@@ -1,14 +1,23 @@
-"""The precomputed-rollout EKF driver (port of
-conan_slam_tpu.runner.loop.run_ekf_slam_precomputed: known or gated
-association, with or without map augmentation, one frame or a frame pair
-per P pass; and of run_ekf_slam_precomputed_chunked, the same run in
-chunks with checkpoints to resume from).
+"""The EKF drivers (port of conan_slam_tpu.runner.loop):
 
-The truth trajectory and the visibility schedule are rolled out once on the
-host (sim.precompute, numpy); the device loop holds filter work only.  The reference scans the frames with ``lax.scan``; here it is a
+* ``run_ekf_slam``, the on-device simulation loop (reference
+  test/main.cpp:89-201): steering, truth motion, odometry noise, the
+  sensor and its compaction run on the device beside the filter, one
+  observation frame of ``observe_interval`` control steps at a time
+  (``ekf_frame_step``; ``ekf_sim_step`` is one control step);
+* ``run_ekf_slam_precomputed``, the precomputed-rollout driver: known or
+  gated association, with or without map augmentation, one frame or a
+  frame pair per P pass; and ``run_ekf_slam_precomputed_chunked``, the
+  same run in chunks with checkpoints to resume from.  The truth
+  trajectory and the visibility schedule are rolled out once on the host
+  (sim.precompute, numpy); the device loop holds filter work only.
+
+The reference scans the frames with ``lax.scan``; here each driver is a
 Python loop over frames that never waits for the device (no ``.item()``,
-no host copies inside it), so the host runs ahead and enqueues frames
-while the card works.
+no host copies, no branch on a device value inside it; the reference's
+``lax.cond``s are ``torch.where``s or run where the skipped branch is an
+exact no-op), so the host runs ahead and enqueues frames while the card
+works.
 """
 
 from __future__ import annotations
@@ -23,18 +32,26 @@ import torch
 
 from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.device import default_device
-from conan_slam_tpu_torch.filters.common import CompactObs
+from conan_slam_tpu_torch.filters.common import CompactObs, compact
 from conan_slam_tpu_torch.filters.ekf import (
     associate_known,
     augment,
     factor_and_associate_gated,
+    frame_predict_heading,
     fused_frame_pair_step,
     fused_frame_step,
     fused_frame_update,
+    observation_step,
+    observe_heading,
+    predict,
 )
 from conan_slam_tpu_torch.filters.ekf.state import EKFState
 from conan_slam_tpu_torch.filters.ekf.state import init_state as empty_state
+from conan_slam_tpu_torch.filters.ekf.state import state_from_numpy, state_to_numpy
+from conan_slam_tpu_torch.models import motion
+from conan_slam_tpu_torch.sim import sensor_sim
 from conan_slam_tpu_torch.sim.precompute import rollout_observations, rollout_truth
+from conan_slam_tpu_torch.sim.steering import SteerState, init_steer_state, steer
 from conan_slam_tpu_torch.sim.world import World
 from conan_slam_tpu_torch.utils import checkpoint
 
@@ -52,8 +69,15 @@ class NoiseCovs(NamedTuple):
 def make_noise(cfg: SlamConfig, estimator: str = "ekf", device=None) -> NoiseCovs:
     """The covariances on ``device`` (default: the card)."""
     device = default_device() if device is None else device
-    q = torch.diag(torch.tensor([cfg.sigma_v**2, cfg.sigma_swa**2], dtype=torch.float32, device=device))
-    r = torch.diag(torch.tensor([cfg.sigma_r**2, cfg.sigma_b**2], dtype=torch.float32, device=device))
+
+    def diag2(a: float, b: float) -> torch.Tensor:
+        # Filled on the device: a tensor made from a list, or an element
+        # set from a Python float, copies from the host and waits for it.
+        return torch.diag(torch.stack([torch.full((), v, dtype=torch.float32, device=device)
+                                       for v in (a, b)]))
+
+    q = diag2(cfg.sigma_v**2, cfg.sigma_swa**2)
+    r = diag2(cfg.sigma_r**2, cfg.sigma_b**2)
     if cfg.switch_inflate_noise:
         r_mult = cfg.r_inflate_ekf if estimator == "ekf" else cfg.r_inflate_pf
         return NoiseCovs(q=q, r=r, qe=cfg.q_inflate * q, re=r_mult * r)
@@ -69,23 +93,51 @@ class SimOutputs(NamedTuple):
     consistency: torch.Tensor  # (T,) float32
 
 
-def _noisy_controls(cfg: SlamConfig, swa, ctrl_noise):
-    """The measured speed and steering angle of each sub-step (any leading
-    shape): truth plus the scaled draws where ``cfg.switch_control_noise``."""
-    if not cfg.switch_control_noise:
-        return torch.full_like(swa, cfg.velocity), swa
-    return (cfg.velocity + ctrl_noise[..., 0] * cfg.sigma_v,
-            swa + ctrl_noise[..., 1] * cfg.sigma_swa)
-
-
 def _noisy_obs(cfg: SlamConfig, z_true, ids, zmask, obs_noise) -> CompactObs:
     """The measurement buffer (any leading shape): truth plus the scaled
     draws where ``cfg.switch_sensor_noise``, zero in empty slots."""
-    z = z_true
-    if cfg.switch_sensor_noise:
-        scale = torch.tensor([cfg.sigma_r, cfg.sigma_b], dtype=z.dtype, device=z.device)
-        z = z + obs_noise * scale
+    z = sensor_sim.add_observation_noise(obs_noise, sensor_sim.Observation(z_true, zmask),
+                                         cfg.sigma_r, cfg.sigma_b, cfg.switch_sensor_noise).z
     return CompactObs(z=torch.where(zmask[..., None], z, 0.0), ids=ids, mask=zmask)
+
+
+def fused_frame(state: EKFState, vns, swans, phis, actives, obs: CompactObs, live, *,
+                cfg: SlamConfig, noise: NoiseCovs, plain: bool = False):
+    """The fused update of one frame, as both drivers run it: the S
+    predict + heading sub-steps of controls ``vns``/``swans`` (S,), heading
+    measurements ``phis`` (S,) and ``actives`` (S,), then the measurement
+    update on ``obs`` and, where ``cfg.enable_augment``, the augmentation;
+    ``live`` () is False once the course is done (nothing associates or
+    augments then).
+
+    Known association: one launch of H9 (``fused_frame_step``); gated: H15
+    (the factors and the association) then H10 (``fused_frame_update``).
+    Returns ``(state, pose_trace (S, 3), frame NIS per associated
+    measurement)``.
+    """
+    if cfg.switch_association_known:
+        assoc = associate_known(state, obs)
+        state, pose_trace, frame_nis = fused_frame_step(
+            state, vns, swans, phis, actives, noise.qe, obs,
+            assoc.slots, assoc.known_mask & live, noise.re,
+            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
+            cfg.switch_heading_known, plain=plain,
+        )
+    else:
+        state, pose_trace, vtf, bmat, assoc = factor_and_associate_gated(
+            state, vns, swans, phis, actives, noise.qe,
+            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
+            cfg.switch_heading_known, obs, noise.re, cfg.gate_reject, cfg.gate_augment,
+            plain=plain,
+        )
+        state, frame_nis = fused_frame_update(
+            state, bmat, vtf, obs, assoc.slots, assoc.known_mask & live, noise.re,
+            return_nis=True, plain=plain,
+        )
+    if cfg.enable_augment:
+        # Unconditional (no host sync): a frame with nothing new writes nothing new.
+        state = augment(state, obs, assoc.new_mask & live, noise.re)
+    return state, pose_trace, frame_nis
 
 
 def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
@@ -99,32 +151,13 @@ def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
     """
     (x_true_f, swa_f, active_f, done_f, ctrl_noise_f,
      z_true_f, ids_f, zmask_f, obs_noise_f) = frame
-    vns, swans = _noisy_controls(cfg, swa_f, ctrl_noise_f)
+    vns, swans = sensor_sim.add_control_noise(ctrl_noise_f, cfg.velocity, swa_f, cfg.sigma_v,
+                                             cfg.sigma_swa, cfg.switch_control_noise)
     obs = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
 
     live = torch.logical_not(done_f[-1])
-    if cfg.switch_association_known:
-        assoc = associate_known(state, obs)
-        state, pose_trace, frame_nis = fused_frame_step(
-            state, vns, swans, x_true_f[:, 2], active_f, noise.qe, obs,
-            assoc.slots, assoc.known_mask & live, noise.re,
-            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
-            cfg.switch_heading_known, plain=plain,
-        )
-    else:
-        state, pose_trace, vtf, bmat, assoc = factor_and_associate_gated(
-            state, vns, swans, x_true_f[:, 2], active_f, noise.qe,
-            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
-            cfg.switch_heading_known, obs, noise.re, cfg.gate_reject, cfg.gate_augment,
-            plain=plain,
-        )
-        state, frame_nis = fused_frame_update(
-            state, bmat, vtf, obs, assoc.slots, assoc.known_mask & live, noise.re,
-            return_nis=True, plain=plain,
-        )
-    if cfg.enable_augment:
-        # Unconditional (no host sync): a frame with nothing new writes nothing new.
-        state = augment(state, obs, assoc.new_mask & live, noise.re)
+    state, pose_trace, frame_nis = fused_frame(state, vns, swans, x_true_f[:, 2], active_f, obs,
+                                               live, cfg=cfg, noise=noise, plain=plain)
     x_est = torch.cat([pose_trace[:-1], state.x[None, :3]])
     return state, x_est, frame_nis
 
@@ -143,7 +176,8 @@ def ekf_precomp_pair_step(state: EKFState, pair, *, cfg: SlamConfig,
     """
     (x_true_f, swa_f, active_f, done_f, ctrl_noise_f,
      z_true_f, ids_f, zmask_f, obs_noise_f) = pair
-    vns2, swans2 = _noisy_controls(cfg, swa_f, ctrl_noise_f)
+    vns2, swans2 = sensor_sim.add_control_noise(ctrl_noise_f, cfg.velocity, swa_f, cfg.sigma_v,
+                                               cfg.sigma_swa, cfg.switch_control_noise)
     obs2 = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
     obs_a, obs_b = (CompactObs(*(t[k] for t in obs2)) for k in (0, 1))
     assoc_a, assoc_b = associate_known(state, obs_a), associate_known(state, obs_b)
@@ -381,3 +415,224 @@ def run_ekf_slam_precomputed_chunked(
                 json.dump(meta, f)
             os.replace(path(c, "meta.json.tmp"), path(c, "meta.json"))
     return state, SimOutputs(*(torch.cat(fields) for fields in zip(*outs_list)))
+
+
+# ------------------------------------------------- the on-device simulation loop
+
+
+class EKFSimCarry(NamedTuple):
+    """What the on-device loop carries from step to step (the reference's
+    carry less its key: the port's draws come in as tensors)."""
+
+    steer: SteerState
+    x_true: torch.Tensor         # (3,) ground-truth pose
+    state: EKFState
+    step_in_frame: torch.Tensor  # () int64 control steps since the last observation
+
+
+def carry_from_numpy(steer_state, x_true, state, step_in_frame, device=None) -> EKFSimCarry:
+    """A carry from numpy arrays: ``steer_state`` (swa, iwp, loops_left,
+    done), ``state`` (x, p, n_active, table), as the fields of a JAX
+    ``EKFSimCarry`` give them (``carry_from_numpy(*jax_carry[:4])``), on
+    ``device`` (default: the card)."""
+    device = default_device() if device is None else device
+    swa, iwp, loops_left, done = (np.asarray(a) for a in steer_state)
+    return EKFSimCarry(
+        steer=SteerState(
+            swa=torch.tensor(swa.astype(np.float32), device=device),
+            iwp=torch.tensor(iwp.astype(np.int64), device=device),
+            loops_left=torch.tensor(loops_left.astype(np.int64), device=device),
+            done=torch.tensor(done.astype(bool), device=device),
+        ),
+        x_true=torch.tensor(np.asarray(x_true, np.float32), device=device),
+        state=state_from_numpy(*state, device=device),
+        step_in_frame=torch.tensor(np.asarray(step_in_frame).astype(np.int64), device=device),
+    )
+
+
+def carry_to_numpy(carry: EKFSimCarry):
+    """``(steer (swa, iwp, loops_left, done), x_true, state (x, p,
+    n_active, table), step_in_frame)`` as numpy arrays in the JAX
+    package's dtypes."""
+    st = carry.steer
+    return (
+        (st.swa.cpu().numpy(), np.int32(st.iwp.item()), np.int32(st.loops_left.item()),
+         np.bool_(st.done.item())),
+        carry.x_true.cpu().numpy(),
+        state_to_numpy(carry.state),
+        np.int32(carry.step_in_frame.item()),
+    )
+
+
+def _freeze(hold, old: EKFState, new: EKFState) -> EKFState:
+    """``old`` where ``hold`` (a () bool tensor), else ``new``."""
+    return EKFState(*(torch.where(hold, o, n) for o, n in zip(old, new)))
+
+
+def _advance_truth(steer_state: SteerState, x_true, world: World, cfg: SlamConfig, ctrl_draw):
+    """Steering, ground-truth motion and noisy odometry of one control step
+    (reference test/main.cpp:140-162); ``ctrl_draw`` (2,) standard normal.
+    Returns ``(steer, x_true, v measured, swa measured)``."""
+    st = steer(steer_state, x_true, world.waypoints, at_waypoint=cfg.at_waypoint,
+               rate_swa=cfg.rate_swa, max_swa=cfg.max_swa, dt=cfg.dt_controls)
+    x_new = motion.step(x_true, cfg.velocity, st.swa, cfg.wheel_base, cfg.dt_controls)
+    x_new = torch.where(st.done, x_true, x_new)
+    vn, swan = sensor_sim.add_control_noise(ctrl_draw, cfg.velocity, st.swa, cfg.sigma_v,
+                                            cfg.sigma_swa, cfg.switch_control_noise)
+    return st, x_new, vn, swan
+
+
+def _sense(x_true, world: World, cfg: SlamConfig, obs_draws) -> CompactObs:
+    """The frame's measurement buffer: every landmark's return from
+    ``x_true``, noise from ``obs_draws`` (num_landmarks, 2) where
+    ``cfg.switch_sensor_noise`` (before compaction, as the reference adds
+    it), compacted to min(num_landmarks, cfg.max_observations()) slots."""
+    obs = sensor_sim.get_observations(x_true, world.landmarks, cfg.max_range)
+    obs = sensor_sim.add_observation_noise(obs_draws, obs, cfg.sigma_r, cfg.sigma_b,
+                                           cfg.switch_sensor_noise)
+    return compact(obs, min(world.num_landmarks, cfg.max_observations()))
+
+
+def ekf_sim_step(carry: EKFSimCarry, draws, *, cfg: SlamConfig, world: World,
+                 noise: NoiseCovs, plain: bool = False):
+    """One control step (reference test/main.cpp:140-199): truth and
+    odometry, predict, the heading observation where
+    ``cfg.switch_heading_known``, and on every ``observe_interval``-th step
+    the observation update (``observation_step``); the filter freezes once
+    the course is done.  ``draws`` is ``(ctrl (2,), obs (num_landmarks,
+    2))`` standard normal.  Returns ``(carry, SimOutputs of this step)``.
+    """
+    ctrl_draw, obs_draws = draws
+    was_done = carry.steer.done
+    st, x_true, vn, swan = _advance_truth(carry.steer, carry.x_true, world, cfg, ctrl_draw)
+    state = predict(carry.state, vn, swan, noise.qe, cfg.wheel_base, cfg.dt_controls)
+    if cfg.switch_heading_known:
+        state = observe_heading(state, x_true[2], cfg.sigma_heading)
+    step_in_frame = carry.step_in_frame + 1
+    do_obs = (step_in_frame >= cfg.observe_interval) & ~st.done
+    step_in_frame = torch.where(do_obs, 0, step_in_frame)
+    observed, nis = observation_step(
+        state, _sense(x_true, world, cfg, obs_draws), noise.re,
+        association_known=cfg.switch_association_known, batch=cfg.switch_batch_update,
+        gate_reject=cfg.gate_reject, gate_augment=cfg.gate_augment, return_nis=True, plain=plain)
+    state = _freeze(~do_obs, state, observed)
+    state = _freeze(was_done, carry.state, state)
+    out = SimOutputs(x_true=x_true, x_est=state.x[:3], done=st.done, n_active=state.n_active,
+                     consistency=torch.where(do_obs, nis, 0.0))
+    return EKFSimCarry(steer=st, x_true=x_true, state=state, step_in_frame=step_in_frame), out
+
+
+def ekf_frame_step(carry: EKFSimCarry, draws, *, cfg: SlamConfig, world: World,
+                   noise: NoiseCovs, plain: bool = False):
+    """One observation frame: ``observe_interval`` control sub-steps, then
+    one observation update (reference test/main.cpp:171-174: every 6th
+    step).  ``draws`` is ``(ctrl (S, 2), obs (num_landmarks, 2))`` standard
+    normal.  Returns ``(carry, SimOutputs of the frame's S steps)``.
+
+    Routes, as the reference's (runner/loop.py:733-888):
+      * ``cfg.fast_frame``, ``fused_obs`` and ``switch_batch_update``: the
+        fused frame (``fused_frame``: H9, or H15 then H10);
+      * ``fast_frame`` otherwise: the sub-steps as one materialised rank
+        update (``frame_predict_heading``), then ``observation_step``;
+      * no ``fast_frame``: ``predict`` and ``observe_heading`` each
+        sub-step, then ``observation_step``.
+    On the inner sub-steps ``x_est`` is the pose trace and ``n_active``
+    the map before the update; the last sub-step carries the
+    post-update pose, map size and the frame's NIS.
+    """
+    ctrl_draws, obs_draws = draws
+    s_steps = cfg.observe_interval
+    st, x_true, state = carry.steer, carry.x_true, carry.state
+    x_trues, dones, poses, subs = [], [], [], []
+    for k in range(s_steps):
+        was_done = st.done
+        st, x_true, vn, swan = _advance_truth(st, x_true, world, cfg, ctrl_draws[k])
+        x_trues.append(x_true)
+        dones.append(st.done)
+        if cfg.fast_frame:
+            subs.append((vn, swan, x_true[2], ~was_done))
+        else:
+            new = predict(state, vn, swan, noise.qe, cfg.wheel_base, cfg.dt_controls)
+            if cfg.switch_heading_known:
+                new = observe_heading(new, x_true[2], cfg.sigma_heading)
+            state = _freeze(was_done, state, new)
+            poses.append(state.x[:3])
+    n_active = state.n_active
+    obs = _sense(x_true, world, cfg, obs_draws)
+    live = ~st.done
+    if cfg.fast_frame:
+        vns, swans, phis, actives = (torch.stack(a) for a in zip(*subs))
+    if cfg.fast_frame and cfg.fused_obs and cfg.switch_batch_update:
+        state, pose_trace, frame_nis = fused_frame(state, vns, swans, phis, actives, obs, live,
+                                                   cfg=cfg, noise=noise, plain=plain)
+    else:
+        if cfg.fast_frame:
+            state, pose_trace = frame_predict_heading(
+                state, vns, swans, phis, actives, noise.qe, cfg.wheel_base, cfg.dt_controls,
+                cfg.sigma_heading, cfg.switch_heading_known, return_pose_trace=True)
+        else:
+            pose_trace = torch.stack(poses)
+        observed, nis = observation_step(
+            state, obs, noise.re, association_known=cfg.switch_association_known,
+            batch=cfg.switch_batch_update, gate_reject=cfg.gate_reject,
+            gate_augment=cfg.gate_augment, return_nis=True, plain=plain)
+        state = _freeze(~live, state, observed)
+        frame_nis = torch.where(live, nis, 0.0)
+    zeros = torch.zeros((s_steps - 1,), dtype=torch.float32, device=x_true.device)
+    outs = SimOutputs(
+        x_true=torch.stack(x_trues),
+        x_est=torch.cat([pose_trace[:-1], state.x[None, :3]]),
+        done=torch.stack(dones),
+        n_active=torch.cat([n_active.expand(s_steps - 1), state.n_active[None]]),
+        consistency=torch.cat([zeros, frame_nis[None]]),
+    )
+    return EKFSimCarry(steer=st, x_true=x_true, state=state,
+                       step_in_frame=torch.zeros_like(carry.step_in_frame)), outs
+
+
+def run_ekf_slam(
+    world: World,
+    cfg: SlamConfig,
+    generator: torch.Generator | None = None,
+    n_steps: int = 25_000,
+    init_state: EKFState | None = None,
+    *,
+    ctrl_noise: torch.Tensor | None = None,
+    obs_noise: torch.Tensor | None = None,
+    plain: bool = False,
+):
+    """The full EKF-SLAM valet-loop simulation on the world's device
+    (reference test/main.cpp:89-201): ``ekf_frame_step`` over the frames,
+    ``n_steps`` rounded up to whole frames.  ``init_state`` replaces the
+    empty map of ``cfg.max_landmarks`` slots.
+
+    The noise is ``ctrl_noise`` (n_frames, S, 2) and ``obs_noise``
+    (n_frames, num_landmarks, 2) standard-normal draws where given (a
+    parity test passes the reference's own), else drawn from ``generator``
+    on the world's device.  ``plain=True`` runs every kernel's plain
+    PyTorch version.  Returns ``(final EKFSimCarry, SimOutputs)``.
+    """
+    device = world.landmarks.device
+    interval = cfg.observe_interval
+    n_frames = (n_steps + interval - 1) // interval
+    if ctrl_noise is None:
+        ctrl_noise = torch.randn((n_frames, interval, 2), generator=generator, device=device)
+    if obs_noise is None:
+        obs_noise = torch.randn((n_frames, world.num_landmarks, 2), generator=generator,
+                                device=device)
+    noise = make_noise(cfg, "ekf", device)
+    carry = EKFSimCarry(
+        steer=init_steer_state(cfg.number_loops, device),
+        x_true=torch.zeros((3,), dtype=torch.float32, device=device),
+        state=(init_state if init_state is not None
+               else empty_state(cfg.max_landmarks, world.num_landmarks, device=device)),
+        step_in_frame=torch.zeros((), dtype=torch.int64, device=device),
+    )
+    outs = _outs_like(n_frames * interval, device)
+    frames = SimOutputs(*(o.view(n_frames, interval, *o.shape[1:]) for o in outs))
+    for f in range(n_frames):
+        carry, out = ekf_frame_step(carry, (ctrl_noise[f], obs_noise[f]), cfg=cfg, world=world,
+                                    noise=noise, plain=plain)
+        for dst, src in zip(frames, out):
+            dst[f] = src
+    return carry, outs

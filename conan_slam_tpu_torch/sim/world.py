@@ -61,6 +61,26 @@ def world_from_numpy(landmarks, waypoints, device=None) -> World:
     )
 
 
+def random_world(generator: torch.Generator, num_landmarks: int, num_waypoints: int = 5,
+                 extent: float = 5000.0, device=None) -> World:
+    """A random world (the reference's, for the scaled benchmark configs):
+    landmarks and a waypoint tour uniform over the square of half-side
+    ``extent``, waypoint 0 at the origin.  The draws come from
+    ``generator`` on its own device; the world goes to ``device``
+    (default: the card)."""
+    device = default_device() if device is None else device
+
+    def uniform(n):
+        u = torch.rand((n, 2), generator=generator, dtype=torch.float32,
+                       device=generator.device)
+        return ((2.0 * u - 1.0) * extent).to(device)
+
+    lm = uniform(num_landmarks)
+    wp = uniform(num_waypoints)
+    wp[0] = 0.0
+    return World(landmarks=lm, waypoints=wp)
+
+
 def default_world(device=None) -> World:
     """The reference's 30-landmark, 5-waypoint valet loop, on ``device``
     (default: the card)."""

@@ -212,8 +212,13 @@ def test_checkpoints_of_another_run_are_not_resumed(case, tmp_path, monkeypatch)
     lambda: init_state_with_map(np.zeros((4, 2), np.float32)),
     lambda: state_from_numpy(np.zeros(5), np.zeros((5, 5)), 1, np.zeros(1)),
     lambda: loop.make_noise(SlamConfig()),
+    lambda: world_mod.random_world(torch.Generator().manual_seed(0), 4),
+    lambda: loop.init_steer_state(1),
+    lambda: loop.carry_from_numpy((0.0, 0, 1, False), np.zeros(3), (np.zeros(5), np.zeros((5, 5)),
+                                                                   1, np.zeros(1)), 0),
 ], ids=["default_world", "config2_world", "world_from_numpy", "init_state",
-        "init_state_with_map", "state_from_numpy", "make_noise"])
+        "init_state_with_map", "state_from_numpy", "make_noise", "random_world",
+        "init_steer_state", "carry_from_numpy"])
 def test_constructors_default_to_the_card(make, monkeypatch):
     # With no device named, a constructor puts its tensors on the card; on
     # a machine without one it raises and returns no CPU tensors.

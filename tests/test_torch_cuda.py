@@ -40,7 +40,7 @@ from conan_slam_tpu_torch.ops.spd_inverse import (
     sweep_si_reference,
 )
 from conan_slam_tpu_torch.runner.loop import run_ekf_slam_precomputed
-from conan_slam_tpu_torch.sim.world import config2_world
+from conan_slam_tpu_torch.sim.world import config2_world, default_world
 
 pytestmark = pytest.mark.cuda
 
@@ -151,9 +151,12 @@ _VARIANT_CASES = [(2304, nz, s, h) for nz in (30, 45, 70, 90) for s in (1, 6, 16
                   for h in (True, False)]
 _VARIANT_CASES += [(2304, nz, 256, h) for nz in (10, 30, 45, 64, 70, 90, 112)
                    for h in (True, False)]
+# The valet loop's shape (K 32: D 67, unpadded; NZ 30), which run_ekf_slam
+# runs at its defaults.
+_VALET_CASES = [(67, 30, 6, h) for h in (True, False)]
 
 
-@pytest.mark.parametrize("d,nz,s_steps,use_heading", _RESIDENT_CASES + _VARIANT_CASES)
+@pytest.mark.parametrize("d,nz,s_steps,use_heading", _RESIDENT_CASES + _VARIANT_CASES + _VALET_CASES)
 def test_frame_step_kernel_matches_plain(dev, d, nz, s_steps, use_heading):
     args = list(_frame_args(dev, d, nz=nz, s_steps=s_steps, use_heading=use_heading))
     args[0] = 0.5 * (args[0] + args[0].T)          # exactly symmetric P
@@ -849,6 +852,7 @@ def _obs_ulp_bounds(args, got):
 _OBS_CASES = [(d, nz, s, h) for d in (1024, 1003) for nz in (10, 64, 112)
               for s, h in ((6, False), (6, True), (18, True))]
 _OBS_CASES += [(13, 5, s, h) for s, h in ((6, False), (6, True), (18, True))]
+_OBS_CASES += [(67, 30, 6, h) for h in (False, True)]     # the valet loop's shape
 
 
 @pytest.mark.parametrize("d,nz,s_steps,use_heading", _OBS_CASES)
@@ -1314,3 +1318,193 @@ def test_bench_framestep_graph_replays_the_eager_frames(mode, dev, monkeypatch):
     got = res["modes"][mode]
     assert got["frames"] == 40 and got["us"] > 0
     assert got["launches"] or mode in ("chol", "noop")
+
+
+# ----------------------------------------------- the on-device simulation loop
+
+_ROUTES = {"fused": {}, "fused_obs=False": dict(fused_obs=False),
+           "fast_frame=False": dict(fast_frame=False),
+           "switch_batch_update=False": dict(switch_batch_update=False)}
+
+
+def _valet_frame(dev, known: bool, use_heading: bool = True, n_steps: int = 1200):
+    """A frame of the valet loop at its own shape (D 67, K 32, NZ 30): the
+    carry after ``n_steps`` steps of run_ekf_slam with the plain versions
+    on the card, then the next frame's controls and measurement buffer as
+    ekf_frame_step forms them.  The plain versions leave P asymmetric by
+    fp32 rounding (~4e-4 at this frame, on entries up to ~20)."""
+    from conan_slam_tpu_torch.runner import loop
+
+    world = default_world(device=dev)
+    cfg = SlamConfig(switch_association_known=known, switch_heading_known=use_heading)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    carry, _ = loop.run_ekf_slam(world, cfg, gen, n_steps, plain=True)
+    st, x_true = carry.steer, carry.x_true
+    subs = []
+    for k in range(cfg.observe_interval):
+        was_done = st.done
+        st, x_true, vn, swan = loop._advance_truth(st, x_true, world, cfg,
+                                                   torch.randn(2, generator=gen, device=dev))
+        subs.append((vn, swan, x_true[2], ~was_done))
+    obs = loop._sense(x_true, world, cfg, torch.randn((30, 2), generator=gen, device=dev))
+    noise = loop.make_noise(cfg, device=dev)
+    ctrl = tuple(torch.stack(a) for a in zip(*subs))
+    return carry.state, ctrl, obs, noise, cfg
+
+
+def _double(a):
+    """``a`` (a tensor, a NamedTuple of tensors or a number) with its
+    floating-point tensors in float64."""
+    if isinstance(a, tuple):
+        return type(a)(*(_double(t) for t in a))
+    return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+
+
+@pytest.mark.parametrize("use_heading", [True, False])
+def test_valet_frame_kernels_match_plain(dev, use_heading):
+    # H9, and H15 then H10, on a frame of the valet run at its shape,
+    # against their plain versions at the reference's frame-test
+    # tolerances; the gated frame's association equal to the plain one's.
+    from conan_slam_tpu_torch.filters.ekf import associate_known
+
+    state, ctrl, obs, noise, cfg = _valet_frame(dev, True, use_heading)
+    assert state.x.shape[0] == 67 and obs.z.shape[0] == 30 and int(obs.mask.sum()) > 0
+    assoc = associate_known(state, obs)
+    fargs = (state.p, state.x, assoc.slots, state.capacity, *ctrl, noise.qe, obs.z[:, 0],
+             obs.z[:, 1], assoc.known_mask, noise.re, cfg.wheel_base, cfg.dt_controls,
+             cfg.sigma_heading, use_heading)
+    assert fk.frame_route(67, 30, dev, 6) == "resident"
+    cuda.reset_launch_counts()
+    got = fk.frame_step(*fargs)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["frame_step"].launches == fk.FS_LAUNCHES
+    _assert_frame_close(got, fk.frame_step(*fargs, plain=True))
+
+    state, ctrl, obs, noise, cfg = _valet_frame(dev, False, use_heading)
+    # H15 reads P's row 2 (contiguous) where the plain version reads its
+    # column 2: on this P they differ by its asymmetry, and the strip
+    # follows (the heading gains scale P's heading column by ~1/P[2, 2]).
+    # So the kernel on P is the plain version on P with row 2 as its
+    # column 2, and on the symmetrized P, which the kernels' own runs keep
+    # exactly, the plain version itself.
+    tail = (noise.qe, cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, use_heading, obs.z,
+            obs.mask, noise.re, cfg.gate_reject, cfg.gate_augment)
+    p_row = state.p.clone()
+    p_row[:, 2] = state.p[2]
+    got = factor_gate(state, *ctrl, *tail)
+    ref = _factor_gate_reference(state._replace(p=p_row), *ctrl, *tail)
+    torch.testing.assert_close(got.vtf, ref.vtf, rtol=1e-4, atol=1e-5)
+    state = state._replace(p=0.5 * (state.p + state.p.T))
+    gargs = (state, *ctrl, *tail)
+    cuda.reset_launch_counts()
+    got = factor_gate(*gargs)
+    ref = _factor_gate_reference(*gargs)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["factor_gate"].launches == 1
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.pose_trace, ref.pose_trace, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.vtf, ref.vtf, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got.bmat, ref.bmat, rtol=1e-5, atol=1e-6)
+    # Both strips within that tolerance of the plain version in float64.
+    w64 = _frame_factors_reference(*(_double(a) for a in gargs[:6]), *gargs[6:10])[2]
+    for f in (got, ref):
+        torch.testing.assert_close(f.vtf.double(), w64, rtol=1e-4, atol=1e-5)
+    # The scores within the NIS tolerance of test_factor_gate_kernel_matches_plain;
+    # found and the best slot equal except near a gate or a tie.
+    found, rfound = got.best_nd < 1e38, ref.best_nd < 1e38
+    both = found & rfound
+    torch.testing.assert_close(got.best_nd[both], ref.best_nd[both], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got.min_nis, ref.min_nis, rtol=1e-4, atol=1e-3)
+    near_reject, tie = _margins(state._replace(x=ref.x), obs.z, noise.re, ref.vtf, ref.bmat,
+                                cfg.gate_reject)()
+    assert bool(((found == rfound) | near_reject).all())
+    exact = both & ~tie
+    assert torch.equal(got.best_j[exact], ref.best_j[exact])
+    assert bool((got.known_mask & exact).any())
+    uargs = (state.p, got.x, got.slots, state.capacity, obs.z[:, 0], obs.z[:, 1], got.known_mask,
+             noise.re, got.bmat, got.vtf)
+    assert fk.obs_route(67, 30, got.bmat.shape[0], dev) == "resident"
+    cuda.reset_launch_counts()
+    fu = fk.frame_update_obs(*uargs)
+    torch.cuda.synchronize()
+    assert cuda.KERNELS["obs_step"].launches == fk.OS_LAUNCHES
+    ref = fk.frame_update_obs(*uargs, plain=True)
+    torch.testing.assert_close(fu.x, ref.x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fu.p, ref.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(fu.nis, ref.nis, rtol=1e-3, atol=1e-5)
+
+
+def test_compact_on_the_card_matches_the_cpu(dev):
+    # Ids, masks and the buffer bit for bit, with and without overflow.
+    from conan_slam_tpu_torch.filters.common import compact
+    from conan_slam_tpu_torch.sim.sensor_sim import Observation
+
+    rng = np.random.default_rng(4)
+    for n, size in ((30, 30), (500, 64), (40, 8), (10_000, 64)):
+        vis = rng.random(n) < (0.3 if n < 1000 else 0.005)
+        obs = Observation(z=torch.as_tensor(rng.normal(size=(n, 2)).astype(np.float32)),
+                          visible=torch.as_tensor(vis))
+        cpu = compact(obs, size)
+        card = compact(Observation(*(t.to(dev) for t in obs)), size)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+        assert int(cpu.mask.sum()) == min(int(vis.sum()), size)
+
+
+@pytest.mark.parametrize("known", [True, False])
+@pytest.mark.parametrize("route", list(_ROUTES))
+def test_run_ekf_slam_matches_plain(dev, known, route):
+    # 600 steps of run_ekf_slam on the card against its plain versions on
+    # the card, same draws: the same map and course; the trajectories
+    # within the slice's 2e-3 m (float32 rounding of ~5 km positions); the
+    # route's kernels once a frame: H9 (known) or H15 + H10 (gated) on the
+    # fused frame, H6's entry on the gated non-fused routes, none on the
+    # known non-fused routes.
+    from conan_slam_tpu_torch.runner.loop import run_ekf_slam
+
+    world = default_world(device=dev)
+    cfg = SlamConfig(switch_association_known=known, **_ROUTES[route])
+    out = {}
+    for plain in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        cuda.reset_launch_counts()
+        out[plain] = run_ekf_slam(world, cfg, gen, 600, plain=plain)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+        if plain or (known and route != "fused"):
+            want = {}
+        elif route == "fused":
+            want = ({"frame_step": 100 * fk.FS_LAUNCHES} if known
+                    else {"factor_gate": 100, "obs_step": 100 * fk.OS_LAUNCHES})
+        else:
+            want = {"gating_scores": 100}
+        assert counts == {**dict.fromkeys(counts, 0), **want}
+    (ck, ok), (cp, op) = out[False], out[True]
+    assert bool(torch.isfinite(ck.state.p).all()) and int(ck.state.n_active) > 0
+    assert torch.equal(ok.n_active, op.n_active) and torch.equal(ok.done, op.done)
+    assert torch.equal(ok.x_true, op.x_true)
+    torch.testing.assert_close(ok.x_est, op.x_est, rtol=0, atol=2e-3)
+    torch.testing.assert_close(ok.consistency, op.consistency, rtol=2e-2, atol=1e-3)
+
+
+def test_run_ekf_slam_never_waits_for_the_card(dev):
+    # Frames of the valet loop (known and gated) and of BASELINE config 2
+    # through run_ekf_slam under the sync debug mode, which raises at any
+    # operation that makes the host wait for the card.
+    from conan_slam_tpu_torch.runner.loop import run_ekf_slam
+    from conan_slam_tpu_torch.sim.world import default_world as valet
+
+    cases = ((valet(device=dev), SlamConfig()),
+             (valet(device=dev), SlamConfig(switch_association_known=False)),
+             (config2_world(device=dev),
+              SlamConfig(max_landmarks=500, max_obs=64, switch_association_known=False)))
+    for world, cfg in cases:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        run_ekf_slam(world, cfg, gen, 12)            # first launches: scratch, bindings
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry, outs = run_ekf_slam(world, cfg, gen, 60)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert bool(torch.isfinite(outs.x_est).all()) and int(carry.state.n_active) > 0

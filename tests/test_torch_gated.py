@@ -372,12 +372,8 @@ def test_gated_frame_step_on_the_cpu_is_the_parent_route():
     # CPU route): bit for bit H5's plain version, then associate_gated's
     # dense route, the update and augmentation, as the loop ran them before
     # H15 (a frame of the 30-landmark world after 60 frames from an empty map).
-    from conan_slam_tpu_torch.runner.loop import (
-        _noisy_controls,
-        _noisy_obs,
-        ekf_precomp_frame_step,
-        make_noise,
-    )
+    from conan_slam_tpu_torch.runner.loop import _noisy_obs, ekf_precomp_frame_step, make_noise
+    from conan_slam_tpu_torch.sim.sensor_sim import add_control_noise
 
     cfg = SlamConfig(max_landmarks=30, max_obs=16, switch_association_known=False)
     world = default_world(device="cpu")
@@ -396,7 +392,8 @@ def test_gated_frame_step_on_the_cpu_is_the_parent_route():
     noise = make_noise(cfg, device="cpu")
     got = ekf_precomp_frame_step(state, frame, cfg=cfg, noise=noise)
 
-    vns, swans = _noisy_controls(cfg, frame[1], frame[4])
+    vns, swans = add_control_noise(frame[4], cfg.velocity, frame[1], cfg.sigma_v, cfg.sigma_swa,
+                                   cfg.switch_control_noise)
     obs = _noisy_obs(cfg, frame[5], frame[6], frame[7], frame[8])
     live = torch.logical_not(frame[3][-1])
     st, pose_trace, vtf, bmat = frame_factors_fused(

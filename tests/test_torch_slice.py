@@ -19,6 +19,7 @@ Tolerances, each with its reason:
 """
 
 import functools
+import importlib
 import os
 import subprocess
 import sys
@@ -38,13 +39,15 @@ from conan_slam_tpu.sim import precompute as jprecompute
 from conan_slam_tpu.sim.world import World as JWorld, default_world as j_default_world
 from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.filters.ekf import init_state_with_map
-from conan_slam_tpu_torch.filters.ekf import update as ekf_update
 from conan_slam_tpu_torch.ops import frame_kernel as tfk
 from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
 from conan_slam_tpu_torch.runner.metrics import ate_rmse
 from conan_slam_tpu_torch.sim.world import _WP_X, _WP_Y, world_from_numpy
 
 torch.set_num_threads(2)
+
+# The module (filters.ekf exports the function ``update`` under its name).
+ekf_update = importlib.import_module("conan_slam_tpu_torch.filters.ekf.update")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -175,8 +178,9 @@ def test_rollout_matches_reference():
 
 def test_port_runs_without_jax():
     # Every module of the port imports, and a known-association frame, a
-    # frame pair, a chunked run that checkpoints and a few gated frames run
-    # on the CPU, in a process where importing jax or the JAX package fails.
+    # frame pair, a chunked run that checkpoints, a few gated frames, the
+    # on-device loop on each route and the example run on the CPU, in a
+    # process where importing jax or the JAX package fails.
     code = textwrap.dedent("""
         import importlib, os, pkgutil, sys, tempfile
         sys.modules["jax"] = None
@@ -209,6 +213,16 @@ def test_port_runs_without_jax():
             state, outs = run_ekf_slam_precomputed(w, cfg, gen, 36)
             assert torch.isfinite(state.p).all() and int(state.n_active) > 0
             assert outs.n_active.shape == (36,)
+        # The on-device simulation loop, every route of its frame, and the example.
+        from conan_slam_tpu_torch.runner.loop import run_ekf_slam
+        for kw in ({}, dict(fused_obs=False), dict(fast_frame=False),
+                   dict(switch_batch_update=False)):
+            for known in (True, False):
+                cfg = SlamConfig(switch_association_known=known, **kw)
+                carry, outs = run_ekf_slam(world, cfg, gen, 24)
+                assert outs.x_est.shape == (24, 3) and torch.isfinite(outs.x_est).all()
+        from conan_slam_tpu_torch.examples import valet_loop
+        assert valet_loop.main(["--steps", "12", "--device", "cpu"])["done_at"] == 12
         assert not any(k.split(".")[0] in ("jax", "conan_slam_tpu")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
