@@ -141,6 +141,27 @@ Phases:
           under torch.cuda.set_sync_debug_mode("error"). Asserts H9 (known),
           H15 and H10 (gated) once per frame on the fused runs and H6's
           entry once per frame on the gated non-fused routes.
+       f. FastSLAM 2.0, runner.loop.run_pf_slam (plain PyTorch: the JAX PF
+          has no Pallas kernel): (a) the JAX runs' own draws at N = 16 and
+          100 (conan_slam_tpu_torch/sim/data/pf_key1.npz, 1,200 steps),
+          held to their truth within 1e-3 m and their map size at every
+          step, the largest |x_est - reference| and the first step past
+          1e-3 m reported; the first 100 frames of each against the plain
+          version on the CPU from the card's own carry (x_est 2e-3 m, Neff
+          rtol 5e-2, a resampling flip explained by the two weights'
+          difference and the frame held on the card's ancestors; past a
+          bound, a float64 witness decides: the card no further from it
+          than twice the plain version, and never past twice the bound);
+          (b) tests/test_pf.py's noise-free
+          gate (N = 20, 2,000 steps: ATE < 1 m, mapped > 0) and the whole
+          valet course at N = 100 on a torch.Generator's draws, held to its
+          end at step 19,555 with 25 mapped, finite, Neff in (0, N]; (c)
+          bench_pf.py's sizes, N = 100 to 100,000 (the smallest and the
+          largest twice, in turns): steps/s, particle-steps/s, ATE, peak
+          allocated bytes, and a
+          torch.profiler trace at N = 10,000 split by the filter's steps;
+          (d) frames under the sync debug mode; (e) no hand-written kernel
+          launched (launches_by_path["pf"]).
      Then a torch.profiler trace of 100 frames of each path (the known
      path and the gated path each through its one-launch frame (H9,
      H10) and through the split schedule, 100 pairs of the pair path, 20 frames of
@@ -235,6 +256,33 @@ SIM_ROUTES = (("fused", {}), ("fast_frame=False", dict(fast_frame=False)),
               ("fused_obs=False", dict(fused_obs=False)),
               ("fused_obs=False, switch_batch_update=False",
                dict(fused_obs=False, switch_batch_update=False)))
+# Phase 4f, FastSLAM 2.0 (runner.loop.run_pf_slam).  The JAX package's
+# run_pf_slam(default_world(), SlamConfig(num_particles=N), PRNGKey(1), 1_200)
+# at N = 16 and 100: its draws and outputs (tests/pf_reference.py).
+PF_DATA = os.path.join("conan_slam_tpu_torch", "sim", "data", "pf_key1.npz")
+PF_PARITY_N = (16, 100)
+PF_STEPS = 1200         # bench_pf.py's run, and the parity runs
+PF_SIZES = (100, 1_000, 10_000, 100_000)   # bench_pf.py's sweep (bench.py's N = 10,000 in it)
+PF_COURSE_N = 100       # the whole course at the reference config (smoke_compile.py stage_pf)
+PF_GATE_N, PF_GATE_STEPS = 20, 2000        # tests/test_pf.py's noise-free gate
+PF_PROFILE_N, PF_PROFILE_FRAMES = 10_000, 50
+PF_SYNC_FRAMES = 10
+PF_CHECK_FRAMES = 100   # frames of each parity run held against the plain version (600 steps)
+# tests/test_torch_run_pf.py's bounds, each frame from the same carry.  A
+# frame past the x_est or Neff bound is decided by a float64 witness (the H10
+# checks' rule: the card no further from it than twice the plain version), and
+# never passes beyond PF_WITNESS_CEILING times the bound.
+PF_X_TRUE_ATOL, PF_X_EST_ATOL, PF_NEFF_RTOL = 1e-4, 2e-3, 5e-2
+PF_WITNESS_CEILING = 2.0
+# The truth chain over a whole run: the PF's is the EKF's (_advance_truth),
+# whose CUDA sinf/cosf round apart from XLA's and compound along the course;
+# phase 4e's valet run drifts 2.44e-4 m from the reference over its 25,002
+# steps on an H100 and draws its line at 1e-3 m, ~4x that.  The PF's runs
+# are held at the same line.
+PF_RUN_X_TRUE_ATOL = 1e-3
+# The reference's ATE over 36 seeds of the whole course at N = 100 (PARITY.md,
+# "PF robustness study"): median 3.37 m, p90 5.76 m.
+PF_REFERENCE_ATE = (3.37, 5.76)
 # The card's published peaks (H100 SXM data sheet, at 700 W): fp32 outside
 # the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -3039,6 +3087,295 @@ def sim_path(device) -> tuple[dict, dict]:
     return res, total
 
 
+def moved(a, device):
+    """``a`` (a tensor or a NamedTuple of them) on ``device``."""
+    import torch
+
+    if isinstance(a, tuple):
+        return type(a)(*(moved(t, device) for t in a))
+    return a.to(device) if torch.is_tensor(a) else a
+
+
+def pf_file_draws(data, n: int, device):
+    """``draws(i)`` for run_pf_slam from the committed N = ``n`` run's draws,
+    on ``device``."""
+    import torch
+
+    from conan_slam_tpu_torch.filters.pf import ObservationDraws
+    from conan_slam_tpu_torch.runner.loop import PFDraws
+
+    t = {k: torch.as_tensor(data[k]).to(device) for k in ("ctrl", "obs")}
+    t.update({k: torch.as_tensor(data[f"{k}_{n}"]).to(device) for k in ("prop", "res_u", "samp")})
+
+    def draws(i: int) -> PFDraws:
+        return PFDraws(ctrl=t["ctrl"][i], obs=t["obs"][i], step=ObservationDraws(
+            prop=t["prop"][i], res_u=t["res_u"][i], samp=t["samp"][i], rough=None))
+
+    return draws
+
+
+def pf_frame_checks(device, label: str, cfg, draws, n_frames: int) -> dict:
+    """Each of ``n_frames`` frames of run_pf_slam's course on the card against
+    the plain version on the CPU from the same carry (the card's own) with
+    the same draws, at tests/test_torch_run_pf.py's bounds: x_true 1e-4 m,
+    x_est 2e-3 m, Neff after the frame rtol 5e-2, the map size and the
+    course's end equal.  Where the two resample on other ancestors (or one
+    does not), the flip is reported with its margin, which must lie within
+    the two weights' difference, and the CPU frame is held again on the
+    card's ancestors.  Where x_est or Neff misses its bound, the frame's
+    float64 witness (the plain version in float64 on the card's ancestors)
+    decides, by the H10 checks' rule: the card no further from it than twice the
+    plain version, and never beyond PF_WITNESS_CEILING times the bound."""
+    import torch
+
+    from conan_slam_tpu_torch.filters import pf
+    from conan_slam_tpu_torch.filters.pf.recording import recording, resampling_flip
+    from conan_slam_tpu_torch.runner import loop
+    from conan_slam_tpu_torch.sim.steering import init_steer_state
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    cpu = torch.device("cpu")
+    worlds = {d: default_world(device=d) for d in (device, cpu)}
+    noises = {d: loop.make_noise(cfg, "pf", d) for d in (device, cpu)}
+    carry = loop.PFSimCarry(
+        steer=init_steer_state(cfg.number_loops, device),
+        x_true=torch.zeros((3,), dtype=torch.float32, device=device),
+        ens=pf.init_ensemble(cfg.num_particles, cfg.max_landmarks, worlds[device].num_landmarks,
+                             device=device),
+        step_in_frame=torch.zeros((), dtype=torch.int64, device=device))
+    thr = cfg.num_effective
+    worst, flips, fires, witnessed = dict(x_true=0.0, x_est=0.0, neff=0.0), [], 0, []
+    on_cpu = dict(cfg=cfg, world=worlds[cpu], noise=noises[cpu])
+    on_cpu64 = dict(cfg=cfg, world=as_double(worlds[cpu]), noise=as_double(noises[cpu]))
+
+    def distances(a, b):
+        return dict(x_est=float((a.x_est.double() - b.x_est.double()).abs().max()),
+                    neff=float((a.consistency[-1].double() - b.consistency[-1].double()).abs()
+                               / b.consistency[-1].double().abs()))
+
+    for f in range(n_frames):
+        d = draws(f)
+        seen, seen_cpu = {}, {}
+        host = moved(carry, cpu)
+        carry, out = loop.pf_frame_step(carry, d, cfg=cfg, world=worlds[device],
+                                        noise=noises[device], resample_fn=recording(seen))
+        _, ref = loop.pf_frame_step(host, moved(d, cpu), resample_fn=recording(seen_cpu),
+                                    **on_cpu)
+        fire = seen["gate"] and seen["neff"] < thr
+        fires += fire
+        flip = resampling_flip(seen, seen_cpu, thr)
+        force = (seen["idx"], fire)
+        if flip:
+            flips.append((f, flip))
+            _, ref = loop.pf_frame_step(host, moved(d, cpu), resample_fn=recording({}, force),
+                                        **on_cpu)
+        out = moved(out, cpu)
+        dd = dict(x_true=float((out.x_true - ref.x_true).abs().max()), **distances(out, ref))
+        worst = {k: max(v, dd[k]) for k, v in worst.items()}
+        same = bool(torch.equal(out.n_active, ref.n_active) and torch.equal(out.done, ref.done))
+        bounds = dict(x_est=PF_X_EST_ATOL, neff=PF_NEFF_RTOL)
+        missed = [k for k, bound in bounds.items() if dd[k] > bound]
+        ok = same and dd["x_true"] <= PF_X_TRUE_ATOL
+        if missed:
+            _, wit = loop.pf_frame_step(as_double(host), as_double(moved(d, cpu)),
+                                        resample_fn=recording({}, force), **on_cpu64)
+            card, plain = distances(out, wit), distances(ref, wit)
+            witnessed.append((f, {k: (card[k], plain[k]) for k in missed}))
+            ok = ok and all(card[k] <= 2.0 * plain[k]
+                            and dd[k] <= PF_WITNESS_CEILING * bounds[k] for k in missed)
+        if not ok:
+            require(False, f"PF frame vs plain ({label}, frame {f})",
+                    f"{dd}, map size and course end equal: {same}"
+                    + (f"; against the float64 witness (card, plain): {witnessed[-1][1]}"
+                       if missed else ""))
+            break
+    slack = sorted((dd - m, f, w, m, dd) for f, fl in flips for w, m, dd in fl)
+    log(f"  {label}: {n_frames} frames on the card against the plain version on the CPU from "
+        f"the same carry: worst |x_true| {worst['x_true']:.3e} m, |x_est| {worst['x_est']:.3e} m "
+        f"(<= {PF_X_EST_ATOL}), Neff rel {worst['neff']:.3e} (<= {PF_NEFF_RTOL}; past either, "
+        f"the witness decides, up to {PF_WITNESS_CEILING:g}x); {fires} "
+        f"resamples, {len(flips)} with a flip ({len(slack)} strata or decisions); the closest: "
+        + ", ".join(f"frame {f} {w} missed by {m:.2e} (weights differ by {dd:.2e})"
+                    for _, f, w, m, dd in slack[:3])
+        + "".join(f"; frame {f} past the bound, against the float64 witness: "
+                  + ", ".join(f"{k} card {c:.3e}, plain {p:.3e}" for k, (c, p) in w.items())
+                  for f, w in witnessed))
+    require(all(sl >= 0 for sl, *_ in slack), f"PF flips explained ({label})",
+            "each flip's margin within the two weights' difference")
+    return dict(worst=worst, flips=len(flips), resamples=fires, witnessed=witnessed)
+
+
+def pf_run(world, cfg, n_steps: int, generator=None, draws=None) -> dict:
+    """One timed run_pf_slam run with its launch counts, accuracy and peak
+    allocated bytes (above what was allocated before it)."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import cuda
+    from conan_slam_tpu_torch.runner.loop import run_pf_slam
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    carry, outs = run_pf_slam(world, cfg, generator, n_steps, draws=draws)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    done = outs.done.cpu()
+    neff = outs.consistency[outs.consistency != 0]
+    n = cfg.num_particles
+    return dict(steps_per_s=n_steps / secs, particle_steps_per_s=n * n_steps / secs,
+                seconds=secs, counts=counts, outs=outs, carry=carry,
+                peak_bytes=torch.cuda.max_memory_allocated() - held,
+                ate=float(ate_rmse(outs.x_true, outs.x_est, ~outs.done)),
+                mapped=int(carry.ens.n_active),
+                done_at=int(done.to(torch.int8).argmax()) if bool(done.any()) else -1,
+                finite=bool(torch.isfinite(outs.x_est).all()
+                            and torch.isfinite(carry.ens.log_w).all()
+                            and torch.isfinite(carry.ens.xf).all()),
+                neff_ok=bool(((neff > 0) & (neff <= n * (1 + 1e-6))).all()))
+
+
+def pf_path(device) -> tuple[dict, dict]:
+    """Phase 4f: FastSLAM 2.0 through runner.loop.run_pf_slam on the card.
+    (a) the committed JAX runs (pf_key1.npz, N = 16 and 100, 1,200 steps)
+    on their own draws, and each of their frames against the plain version
+    on the CPU from the card's carry; (b) tests/test_pf.py's noise-free
+    gate, and the whole valet course at N = 100 on a torch.Generator's
+    draws, held to its end at step 19,555 with 25 mapped; (c) bench_pf.py's
+    sizes, N = 100 to 100,000, in turns, with a torch.profiler trace at
+    N = 10,000; (d) frames under the sync debug mode; (e) no hand-written
+    kernel launched.  Returns the results and the launch counts summed over
+    the runs."""
+    import torch
+
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.filters import pf as pf_mod
+    from conan_slam_tpu_torch.runner import loop
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    t_phase = time.perf_counter()
+    world = default_world(device)
+    data = np.load(PF_DATA)
+    total: dict[str, int] = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    res: dict = {"parity": {}}
+    # (a) The reference's runs on their own draws.
+    x_true = torch.as_tensor(data["x_true"][:PF_STEPS])
+    for n in PF_PARITY_N:
+        cfg = SlamConfig(num_particles=n)
+        draws = pf_file_draws(data, n, device)
+        r = pf_run(world, cfg, PF_STEPS, draws=draws)
+        add(r["counts"])
+        outs = r["outs"]
+        x_ref = data[f"x_est_{n}"][:PF_STEPS]
+        dx = (outs.x_est.cpu() - torch.as_tensor(x_ref)).abs().amax(1)
+        dt = float((outs.x_true.cpu() - x_true).abs().max())
+        past = torch.nonzero(dx > 1e-3)
+        first = int(past[0, 0]) if past.numel() else None
+        same_map = bool(torch.equal(outs.n_active.cpu(),
+                                    torch.as_tensor(data[f"n_active_{n}"][:PF_STEPS]).long()))
+        ref_ate = float(np.sqrt((((x_ref - data["x_true"][:PF_STEPS])[:, :2]) ** 2)
+                                .sum(1).mean()))
+        log(f"PF parity, N = {n}: {r['steps_per_s']:,.1f} steps/s, ATE {r['ate']:.4f} m "
+            f"(reference {ref_ate:.4f} m), max |x_true - reference| {dt:.3e} m, map sizes equal "
+            f"at every step: {same_map}, max |x_est - reference| {float(dx.max()):.3e} m, first "
+            f"step past 1e-3 m: {first}")
+        require(dt <= PF_RUN_X_TRUE_ATOL and same_map and r["finite"] and r["neff_ok"],
+                f"PF parity (N = {n})", f"|x_true| {dt:.2e} <= {PF_RUN_X_TRUE_ATOL} m, map "
+                f"sizes equal {same_map}, finite, Neff in (0, N]")
+        frames = pf_frame_checks(device, f"N = {n}", cfg, draws, PF_CHECK_FRAMES)
+        res["parity"][n] = dict(dx_est_max=float(dx.max()), first_dx_est_over_1mm=first,
+                                dx_true=dt, ate=r["ate"], reference_ate=ref_ate, frames=frames)
+
+    # (b) The reference's noise-free gate, and the whole course.
+    cfg = SlamConfig(switch_control_noise=False, switch_sensor_noise=False,
+                     switch_inflate_noise=False, num_particles=PF_GATE_N)
+    r = pf_run(world, cfg, PF_GATE_STEPS, torch.Generator(device=device).manual_seed(0))
+    add(r["counts"])
+    log(f"PF noise-free gate, N = {PF_GATE_N}, {PF_GATE_STEPS} steps: ATE {r['ate']:.4f} m, "
+        f"mapped {r['mapped']}")
+    require(r["finite"] and r["ate"] < 1.0 and r["mapped"] > 0, "PF noise-free gate",
+            f"ATE {r['ate']:.4f} < 1.0 m, mapped {r['mapped']} > 0")
+    res["noise_free"] = dict(ate=r["ate"], mapped=r["mapped"])
+    cfg = SlamConfig(num_particles=PF_COURSE_N)
+    r = pf_run(world, cfg, SIM_STEPS, torch.Generator(device=device).manual_seed(0))
+    add(r["counts"])
+    log(f"PF valet course, N = {PF_COURSE_N}, {SIM_STEPS} steps on torch.Generator(0)'s draws: "
+        f"{r['seconds']:.2f} s = {r['steps_per_s']:,.1f} steps/s, done at step {r['done_at']}, "
+        f"mapped {r['mapped']}, ATE {r['ate']:.4f} m (the reference's over 36 seeds at N = 100: "
+        f"median {PF_REFERENCE_ATE[0]} m, p90 {PF_REFERENCE_ATE[1]} m), launches "
+        f"{({k: v for k, v in r['counts'].items() if v}) or 'none'}")
+    require(r["finite"] and r["neff_ok"] and r["done_at"] == VALET_DONE_AT
+            and r["mapped"] == VALET_MAPPED, "PF valet course",
+            f"finite, Neff in (0, N], done at step {r['done_at']} ({VALET_DONE_AT}), mapped "
+            f"{r['mapped']} ({VALET_MAPPED})")
+    res["course"] = dict(ate=r["ate"], done_at=r["done_at"], mapped=r["mapped"],
+                         steps_per_s=r["steps_per_s"], launches=r["counts"])
+
+    # (c) bench_pf.py's sizes after an untimed warm-up run of each; the
+    # smallest and the largest in turns (N = 100, 100,000, ..., 100,000, 100).
+    for n in PF_SIZES:
+        pf_run(world, SlamConfig(num_particles=n), 60, torch.Generator(device=device).manual_seed(0))
+    sizes: dict = {n: [] for n in PF_SIZES}
+    order = (PF_SIZES[0], PF_SIZES[-1]) + PF_SIZES[1:-1] + (PF_SIZES[-1], PF_SIZES[0])
+    for i, n in enumerate(order):
+        r = pf_run(world, SlamConfig(num_particles=n), PF_STEPS,
+                   torch.Generator(device=device).manual_seed(1 + i))
+        add(r["counts"])
+        require(r["finite"] and r["neff_ok"], f"PF bench size N = {n}", "finite, Neff in (0, N]")
+        sizes[n].append(r)
+    res["sizes"] = {}
+    for n, rs in sizes.items():
+        log(f"PF N = {n:,}: steps/s " + ", ".join(f"{r['steps_per_s']:,.1f}" for r in rs)
+            + "; particle-steps/s " + ", ".join(f"{r['particle_steps_per_s']:.4e}" for r in rs)
+            + "; ATE " + ", ".join(f"{r['ate']:.4f}" for r in rs)
+            + f" m; peak allocated by the run {max(r['peak_bytes'] for r in rs):,} bytes")
+        res["sizes"][n] = dict(steps_per_s=[r["steps_per_s"] for r in rs],
+                               particle_steps_per_s=[r["particle_steps_per_s"] for r in rs],
+                               ate=[r["ate"] for r in rs],
+                               peak_bytes=max(r["peak_bytes"] for r in rs))
+    cfg = SlamConfig(num_particles=PF_PROFILE_N)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ranges = tuple((pf_mod, a) for a in ("predict", "observe_heading", "sample_proposal",
+                                         "feature_update", "resample", "add_new_features"))
+    ranges += ((loop, "_advance_truth"), (loop, "_sense"))
+    res["profile"] = profile_frames(
+        device, PF_PROFILE_FRAMES, f"FastSLAM 2.0, N = {PF_PROFILE_N:,}", world, cfg, None,
+        ranges=ranges,
+        drive=lambda: loop.run_pf_slam(world, cfg, gen, PF_PROFILE_FRAMES * cfg.observe_interval))
+
+    # (d) No host sync in the loop.
+    for label, kw in (("default", {}), ("fast_frame=False", dict(fast_frame=False))):
+        cfg = SlamConfig(num_particles=PF_COURSE_N, **kw)
+        gen = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.synchronize()
+        err = ""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.run_pf_slam(world, cfg, gen, PF_SYNC_FRAMES * cfg.observe_interval)
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        require(not err, f"no host sync (PF, {label})",
+                f"{PF_SYNC_FRAMES} frames of run_pf_slam under set_sync_debug_mode('error')"
+                + (f": {err}" if err else ""))
+
+    # (e) The PF path runs no hand-written kernel.
+    require(not any(total.values()), "PF path launches", f"{total}: none")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"PF path (phase 4f): {res['seconds']:.1f} s")
+    return res, total
+
+
 @contextlib.contextmanager
 def gated_schedule(schedule: str):
     """The frame loop's gated frames on ``schedule``: "auto" H15 then H10,
@@ -3211,12 +3548,13 @@ def range_totals(event) -> tuple[float, int, int]:
 
 
 def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
-                   schedule: str = "auto", ranges=(), sim: bool = False) -> dict:
+                   schedule: str = "auto", ranges=(), sim: bool = False, drive=None) -> dict:
     """A torch.profiler trace of ``n_frames`` frames of a main path (the
-    precomputed driver; ``sim=True``: the on-device loop, run_ekf_slam):
-    device time per kernel per frame, the PyTorch ops dispatched per frame
-    and the device's busy share; with ``ranges`` (traced_ranges), each
-    range's device us, kernels and ops a frame."""
+    precomputed driver; ``sim=True``: the on-device loop, run_ekf_slam;
+    ``drive``: a call that runs the frames itself): device time per kernel
+    per frame, the PyTorch ops dispatched per frame and the device's busy
+    share; with ``ranges`` (traced_ranges), each range's device us, kernels
+    and ops a frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3229,10 +3567,10 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
 
     n_steps = n_frames * cfg.observe_interval
     gen = torch.Generator(device=device).manual_seed(SEED)
-    if sim:
+    if drive is None and sim:
         def drive():
             run_ekf_slam(world, cfg, gen, n_steps, state0)
-    else:
+    elif drive is None:
         roll = precompute_rollout(world, cfg, n_steps)
 
         def drive():
@@ -3359,6 +3697,7 @@ def main() -> int:
     paired, pcounts = pair_path(device)
     chunked = chunked_path(device)
     sim, simcounts = sim_path(device)
+    pfres, pfcounts = pf_path(device)
     log(f"main paths: {time.perf_counter() - t0:.1f} s")
 
     from conan_slam_tpu_torch.config import SlamConfig
@@ -3409,12 +3748,13 @@ def main() -> int:
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
-                      + pcounts[k.name] + pbcounts[k.name] + simcounts.get(k.name, 0)),
+                      + pcounts[k.name] + pbcounts[k.name] + simcounts.get(k.name, 0)
+                      + pfcounts.get(k.name, 0)),
          "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
                               "gated": gcounts[k.name], "gated_split": gscounts[k.name],
                               "pair": pcounts[k.name], "probes": pbcounts[k.name],
                               "probes_replayed": pbreplayed.get(k.name, 0),
-                              "sim": simcounts.get(k.name, 0)},
+                              "sim": simcounts.get(k.name, 0), "pf": pfcounts.get(k.name, 0)},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items()
@@ -3462,6 +3802,14 @@ def main() -> int:
         "sim": {**sim, "ops_per_frame": {k: v["ops"] for k, v in sprof.items()},
                 "busy_us_per_frame": {k: v["busy_us"] for k, v in sprof.items()},
                 "wall_us_per_frame_profiled": {k: v["wall_us"] for k, v in sprof.items()}},
+        "pf": {"parity": {n: {k: v for k, v in p.items() if k != "frames"}
+                          for n, p in pfres["parity"].items()},
+               "parity_frames": {n: p["frames"] for n, p in pfres["parity"].items()},
+               "noise_free": pfres["noise_free"], "course": pfres["course"],
+               "sizes": pfres["sizes"], "ops_per_frame": pfres["profile"]["ops"],
+               "busy_us_per_frame": pfres["profile"]["busy_us"],
+               "wall_us_per_frame_profiled": pfres["profile"]["wall_us"],
+               "ranges": pfres["profile"]["ranges"], "seconds": pfres["seconds"]},
         "probes_us": {
             "sweep": {k: {"graph": v["us"], "eager": v["eager_us"]}
                       for k, v in probes.get("probe_sweep", {}).get("variants", {}).items()},

@@ -110,6 +110,11 @@ class SlamConfig:
     dist_gain_wire: str = "f32"
 
     @property
+    def num_effective(self) -> float:
+        """The particle filter's resampling threshold on Neff."""
+        return self.effective_fraction * self.num_particles
+
+    @property
     def observe_interval(self) -> int:
         """Number of control steps between observation updates.
 

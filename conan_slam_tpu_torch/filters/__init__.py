@@ -1,1 +1,1 @@
-"""Estimation engines (the EKF's known-association frame so far)."""
+"""Estimation engines: the EKF (``filters.ekf``) and FastSLAM 2.0 (``filters.pf``)."""

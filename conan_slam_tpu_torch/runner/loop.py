@@ -1,4 +1,4 @@
-"""The EKF drivers (port of conan_slam_tpu.runner.loop):
+"""The drivers (port of conan_slam_tpu.runner.loop):
 
 * ``run_ekf_slam``, the on-device simulation loop (reference
   test/main.cpp:89-201): steering, truth motion, odometry noise, the
@@ -10,7 +10,10 @@
   frame pair per P pass; and ``run_ekf_slam_precomputed_chunked``, the
   same run in chunks with checkpoints to resume from.  The truth
   trajectory and the visibility schedule are rolled out once on the host
-  (sim.precompute, numpy); the device loop holds filter work only.
+  (sim.precompute, numpy); the device loop holds filter work only;
+* ``run_pf_slam``, FastSLAM 2.0 on the same on-device simulation (reference
+  test/main.cpp:204-335): ``pf_frame_step`` over the frames, or
+  ``pf_sim_step`` over the control steps.
 
 The reference scans the frames with ``lax.scan``; here each driver is a
 Python loop over frames that never waits for the device (no ``.item()``,
@@ -32,6 +35,7 @@ import torch
 
 from conan_slam_tpu_torch.config import SlamConfig
 from conan_slam_tpu_torch.device import default_device
+from conan_slam_tpu_torch.filters import pf as pf_mod
 from conan_slam_tpu_torch.filters.common import CompactObs, compact
 from conan_slam_tpu_torch.filters.ekf import (
     associate_known,
@@ -636,3 +640,167 @@ def run_ekf_slam(
         for dst, src in zip(frames, out):
             dst[f] = src
     return carry, outs
+
+
+class PFSimCarry(NamedTuple):
+    steer: SteerState
+    x_true: torch.Tensor               # (3,) ground-truth pose
+    ens: pf_mod.ParticleEnsemble
+    step_in_frame: torch.Tensor        # () int64 control steps since the last observation
+
+
+class PFDraws(NamedTuple):
+    """The draws of one PF frame (``pf_frame_step``) or one control step
+    (``pf_sim_step``), standard normal but the resampling's uniforms; the
+    reference draws them from one key (runner/loop.py:562, :638)."""
+
+    ctrl: torch.Tensor      # (S, 2) the frame's odometry noise; (2,) one step's
+    obs: torch.Tensor       # (num_landmarks, 2) the returns' noise
+    step: pf_mod.ObservationDraws
+
+
+def draw_pf(generator, cfg: SlamConfig, n_landmarks: int, device, per_step: bool = False) -> PFDraws:
+    """One frame's draws (one control step's with ``per_step``) from
+    ``generator`` on ``device``."""
+    n = cfg.num_particles
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    stratified = cfg.pf_resample_kind != "systematic"
+    return PFDraws(
+        ctrl=normal(2) if per_step else normal(cfg.observe_interval, 2),
+        obs=normal(n_landmarks, 2),
+        step=pf_mod.ObservationDraws(
+            prop=normal(n, 3), samp=normal(n, 3),
+            res_u=torch.rand((n,) if stratified else (), generator=generator, device=device),
+            rough=normal(n, 3) if cfg.pf_roughening > 0.0 else None),
+    )
+
+
+def _pf_observe(ens, obs: CompactObs, cfg: SlamConfig, noise: NoiseCovs, draws, resample_fn):
+    return pf_mod.observation_step(
+        ens, obs, noise.re, draws, num_effective=cfg.num_effective,
+        sample_proposal_on=cfg.switch_sample_proposal, resample_on=cfg.switch_resample,
+        proposal_relinearize=cfg.proposal_relinearize, resample_kind=cfg.pf_resample_kind,
+        roughening=cfg.pf_roughening, resample_fn=resample_fn)
+
+
+def pf_sim_step(carry: PFSimCarry, draws: PFDraws, *, cfg: SlamConfig, world: World,
+                noise: NoiseCovs, resample_fn=None):
+    """One control step of FastSLAM 2.0 (reference test/main.cpp:255-333):
+    truth and odometry, each particle's predict and heading update, and
+    on every ``observe_interval``-th step the observation step; the
+    ensemble freezes once the course is done.  Outputs the weighted mean
+    pose and Neff every step.  Returns ``(carry, SimOutputs of this
+    step)``."""
+    was_done = carry.steer.done
+    st, x_true, vn, swan = _advance_truth(carry.steer, carry.x_true, world, cfg, draws.ctrl)
+    ens = pf_mod.predict(carry.ens, vn, swan, noise.qe, cfg.wheel_base, cfg.dt_controls)
+    if cfg.switch_heading_known:
+        ens = pf_mod.observe_heading(ens, x_true[2], cfg.sigma_heading)
+    step_in_frame = carry.step_in_frame + 1
+    do_obs = (step_in_frame >= cfg.observe_interval) & ~st.done
+    step_in_frame = torch.where(do_obs, 0, step_in_frame)
+    # A step without an observation masks every return: the observation
+    # step then leaves the ensemble as it is, bit for bit.
+    obs = _sense(x_true, world, cfg, draws.obs)
+    ens = _pf_observe(ens, obs._replace(mask=obs.mask & do_obs), cfg, noise, draws.step,
+                      resample_fn)
+    ens = pf_mod.ParticleEnsemble(*(torch.where(was_done, o, n) for o, n in zip(carry.ens, ens)))
+    w = pf_mod.normalized_weights(ens)
+    out = SimOutputs(x_true=x_true, x_est=pf_mod.weighted_mean_pose(w, ens.pose), done=st.done,
+                     n_active=ens.n_active, consistency=pf_mod.effective_count(w))
+    return PFSimCarry(steer=st, x_true=x_true, ens=ens, step_in_frame=step_in_frame), out
+
+
+def pf_frame_step(carry: PFSimCarry, draws: PFDraws, *, cfg: SlamConfig, world: World,
+                  noise: NoiseCovs, resample_fn=None):
+    """One observation frame of FastSLAM 2.0: ``observe_interval`` predict
+    and heading sub-steps (only the poses and their covariances change;
+    they freeze once the course is done), then one observation step
+    unless the course is done.  On the inner sub-steps ``x_est`` is the
+    weighted mean pose and ``n_active`` the map before the observation;
+    the last sub-step carries the mean pose, map size and Neff after it
+    (``consistency``, 0 on the inner sub-steps).  Returns ``(carry,
+    SimOutputs of the frame's S steps)``."""
+    s_steps = cfg.observe_interval
+    st, x_true, ens = carry.steer, carry.x_true, carry.ens
+    x_trues, dones, poses = [], [], []
+    for k in range(s_steps):
+        was_done = st.done
+        st, x_true, vn, swan = _advance_truth(st, x_true, world, cfg, draws.ctrl[k])
+        new = pf_mod.predict(ens, vn, swan, noise.qe, cfg.wheel_base, cfg.dt_controls)
+        if cfg.switch_heading_known:
+            new = pf_mod.observe_heading(new, x_true[2], cfg.sigma_heading)
+        ens = ens._replace(pose=torch.where(was_done, ens.pose, new.pose),
+                           pose_cov=torch.where(was_done, ens.pose_cov, new.pose_cov))
+        x_trues.append(x_true)
+        dones.append(st.done)
+        poses.append(ens.pose)
+    n_active = ens.n_active
+    w = pf_mod.normalized_weights(ens)
+    # The course's end masks every return: the observation step then
+    # leaves the ensemble as it is, bit for bit.
+    obs = _sense(x_true, world, cfg, draws.obs)
+    ens = _pf_observe(ens, obs._replace(mask=obs.mask & ~st.done), cfg, noise, draws.step,
+                      resample_fn)
+    w_obs = pf_mod.normalized_weights(ens)
+    zeros = torch.zeros((s_steps - 1,), dtype=torch.float32, device=x_true.device)
+    outs = SimOutputs(
+        x_true=torch.stack(x_trues),
+        x_est=torch.cat([pf_mod.weighted_mean_pose(w, torch.stack(poses[:-1])),
+                         pf_mod.weighted_mean_pose(w_obs, ens.pose)[None]]),
+        done=torch.stack(dones),
+        n_active=torch.cat([n_active.expand(s_steps - 1), ens.n_active[None]]),
+        consistency=torch.cat([zeros, pf_mod.effective_count(w_obs)[None]]),
+    )
+    return PFSimCarry(steer=st, x_true=x_true, ens=ens,
+                      step_in_frame=torch.zeros_like(carry.step_in_frame)), outs
+
+
+def run_pf_slam(world: World, cfg: SlamConfig, generator: torch.Generator | None = None,
+                n_steps: int = 25_000, *, draws=None, resample_fn=None):
+    """The full FastSLAM 2.0 valet-loop simulation on the world's device
+    (reference test/main.cpp:204-335), ``cfg.num_particles`` particles of
+    ``cfg.max_landmarks`` map slots.
+
+    With ``cfg.fast_frame`` (the default) ``pf_frame_step`` runs over the
+    frames, ``n_steps`` rounded up to whole frames: the carry has advanced
+    to the frame boundary, the outputs are trimmed to ``n_steps`` rows;
+    else ``pf_sim_step`` over the control steps.  ``draws(i)`` gives
+    frame (or step) ``i``'s ``PFDraws`` where given (a parity test passes
+    the reference's own); otherwise each frame's are drawn from
+    ``generator`` on the world's device as it runs (``draw_pf``).
+    ``resample_fn`` is ``observation_step``'s hook.  Returns
+    ``(final PFSimCarry, SimOutputs)``."""
+    device = world.landmarks.device
+    noise = make_noise(cfg, "pf", device)
+    carry = PFSimCarry(
+        steer=init_steer_state(cfg.number_loops, device),
+        x_true=torch.zeros((3,), dtype=torch.float32, device=device),
+        ens=pf_mod.init_ensemble(cfg.num_particles, cfg.max_landmarks, world.num_landmarks,
+                                 device=device),
+        step_in_frame=torch.zeros((), dtype=torch.int64, device=device),
+    )
+    if draws is None:
+        def draws(_):
+            return draw_pf(generator, cfg, world.num_landmarks, device,
+                           per_step=not cfg.fast_frame)
+    kw = dict(cfg=cfg, world=world, noise=noise, resample_fn=resample_fn)
+    if not cfg.fast_frame:
+        outs = _outs_like(n_steps, device)
+        for t in range(n_steps):
+            carry, out = pf_sim_step(carry, draws(t), **kw)
+            for dst, src in zip(outs, out):
+                dst[t] = src
+        return carry, outs
+    interval = cfg.observe_interval
+    n_frames = (n_steps + interval - 1) // interval
+    outs = _outs_like(n_frames * interval, device)
+    frames = SimOutputs(*(o.view(n_frames, interval, *o.shape[1:]) for o in outs))
+    for f in range(n_frames):
+        carry, out = pf_frame_step(carry, draws(f), **kw)
+        for dst, src in zip(frames, out):
+            dst[f] = src
+    return carry, SimOutputs(*(o[:n_steps] for o in outs))
