@@ -135,7 +135,8 @@ Phases:
           gated_full, the second sim run on a torch.Generator's draws
           (seed 0) reported; (d) every route (fused; fast_frame=False;
           fused_obs=False; and with switch_batch_update=False), known and
-          gated, 1,200 steps each with the filter at the true noise,
+          gated, 600 steps each (1,200 until phase 4g was added) with the
+          filter at the true noise,
           against their plain versions on the card and the NIS band
           1.2 < mean < 3.0; frames of (a) and (c)
           under torch.cuda.set_sync_debug_mode("error"). Asserts H9 (known),
@@ -162,11 +163,40 @@ Phases:
           torch.profiler trace at N = 10,000 split by the filter's steps;
           (d) frames under the sync debug mode; (e) no hand-written kernel
           launched (launches_by_path["pf"]).
-     Then a torch.profiler trace of 100 frames of each path (the known
+       g. BASELINE config 4, the long loop (5,000 landmarks of the
+          reference's random_world(PRNGKey(11), 5000), committed; D 10,003,
+          padded 10,240, max_obs 64, mapping from scratch with known
+          association): (a) smoke_compile.py's longloop stage, 24 steps on
+          the default tour: H9 (frame_route "resident"), its two kernels
+          once a frame, a finite state; (b) bench_longloop's stage 1 at full
+          width, the star tour's 56,004 steps in three parts with the carry
+          passed on, H9 held to its plain version, the fastframe oracle and
+          the split kernels at frames 200 and 8,000 from the run's own
+          carry (h9_checks' tolerances); steps/s, mapped, the filter's ATE,
+          finiteness (no ATE gate: the reference has none for this tour),
+          H9's two kernels once a frame and nothing else
+          (launches_by_path["longloop"]), a profiler window of 50 frames
+          after frame 8,000, the rollout's seconds and peak host bytes;
+          (c) stage 2, the pose graph (graph/pose_graph, graph/frontend:
+          plain PyTorch, no kernel) on the committed JAX draws
+          (longloop_key2.npz): the closures equal to the JAX run's as a
+          set, 50 Gauss-Newton iterations of 4 T CG steps held to the
+          committed float64 witness (every node distance within twice the
+          JAX float32 run's; chi^2 and the aligned ATE within the larger of
+          that and the JAX run's own spread), a chordal pass and a
+          Gauss-Newton iteration under the sync debug mode, its wall time,
+          a profiled
+          step of 400 CG steps, and two solves of one iteration (after the
+          chordal passes) bit-equal;
+          (d) the valet example's --loop-closure on the JAX seed-42 run's
+          draws and closure draw, chi^2 before and after beside the JAX
+          example's.
+     Then a torch.profiler trace of 50 frames of each path (the known
      path and the gated path each through its one-launch frame (H9,
-     H10) and through the split schedule, 100 pairs of the pair path, 20 frames of
-     the 10k-landmark shape on both routes, and 100 frames of
-     run_ekf_slam on the valet course and on config 2) gives each kernel's
+     H10) and through the split schedule, 50 pairs of the pair path, 20 frames of
+     the 10k-landmark shape on both routes, and 50 frames of
+     run_ekf_slam on the valet course and on config 2; 100 frames each
+     until phase 4g was added) gives each kernel's
      device time per frame, the PyTorch ops dispatched per frame and the device's
      busy share; the gated traces also split the ops and the PyTorch
      kernels' device time by the frame loop's steps (its pre-update, the
@@ -197,7 +227,8 @@ N_LANDMARKS = 1024      # all pre-registered: D = 3 + 2 * 1024 = 2051, padded 23
 BENCH_STEPS = 19200
 PLAIN_STEPS = 600       # the known path's plain-version run (its kernels run all 19,200)
 SEED = 42
-PROFILE_FRAMES = 100    # frames of each main path traced with torch.profiler
+PROFILE_FRAMES = 50     # frames of each main path traced with torch.profiler (100 until
+                        # phase 4g was added)
 GATED_STEPS = 25_002    # BASELINE config 2: 25,000 steps rounded up to whole frames
 GATED_PLAIN_STEPS = 600 # the gated path's plain run (its kernels run all 25,002)
 PAIR_PLAIN_STEPS = 300  # the pair path's plain run (its kernels run all 19,200)
@@ -231,7 +262,8 @@ PROBE_FS_MODES = ("sweeponly", "sweep", "chol", "noop", "ppass", "stepkernel", "
 CHUNK_STEPS = 4800      # the chunked driver's chunk: 800 frames = 400 pairs
 # Phase 4e, the on-device simulation loop (runner.loop.run_ekf_slam).
 SIM_STEPS = 25_000      # the valet course and config 2: 4,167 frames = 25,002 steps
-SIM_ROUTE_STEPS = 1200  # each non-fused route, kernels and plain versions
+SIM_ROUTE_STEPS = 600   # each non-fused route, kernels and plain versions (cut from
+                        # 1,200 to make room for phase 4g)
 SIM_SYNC_STEPS = 60     # frames of (a) and (c) run under the sync debug mode
 VALET_FRAME = 200       # the valet frame the kernels are held at on their own (phase 4e)
 # The JAX package's run_ekf_slam(default_world(), SlamConfig(), PRNGKey(42),
@@ -286,6 +318,18 @@ PF_REFERENCE_ATE = (3.37, 5.76)
 # The card's published peaks (H100 SXM data sheet, at 700 W): fp32 outside
 # the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
+LONGLOOP_DATA = os.path.join("conan_slam_tpu_torch", "sim", "data", "longloop_key2.npz")
+LONGLOOP_LANDMARKS = 5000   # BASELINE config 4: D = 10,003, padded 10,240
+LONGLOOP_STEPS = 56_004     # bench_longloop's 56,000 steps, rounded up to whole frames
+LONGLOOP_SMOKE_STEPS = 24   # smoke_compile.py's longloop stage
+LONGLOOP_EARLY_FRAME = 200  # the two frames H9 is held at from the run's own carry
+LONGLOOP_LATE_FRAME = 8_000
+LONGLOOP_PROFILE_FRAMES = 50
+LONGLOOP_CG_PROFILE = 400   # CG steps of the stage-2 step traced with torch.profiler
+LONGLOOP_REPEAT_GN = 1      # Gauss-Newton iterations (4 T CG steps each, after the
+                            # chordal passes) of the solves that must be bit-identical
+WITNESS_FACTOR = 2.0        # the port no further from the float64 witness than this
+                            # times the JAX package's float32 run
 PEAK_BYTES_PER_S = 3.35e12
 
 FAILURES: list[str] = []
@@ -3376,6 +3420,301 @@ def pf_path(device) -> tuple[dict, dict]:
     return res, total
 
 
+def node_distances(a, b) -> dict:
+    """The largest and median distance of two (T, 3) node sets, in x/y (m)
+    and heading (rad, wrapped)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    dxy = np.linalg.norm(a[:, :2] - b[:, :2], axis=1)
+    dth = np.abs((a[:, 2] - b[:, 2] + np.pi) % (2 * np.pi) - np.pi)
+    return {"xy_max": float(dxy.max()), "xy_median": float(np.median(dxy)),
+            "th_max": float(dth.max()), "th_median": float(np.median(dth))}
+
+
+def longloop_frame_checks(device, label: str, world, cfg, state, frame) -> float:
+    """H9 at one frame of the long loop from the run's own carry ``state``
+    (``frame``: ekf_precomp_frame_step's inputs) against its plain version,
+    the fastframe oracle and the split kernels (h9_checks, its
+    tolerances), after frame_route has chosen H9."""
+    from conan_slam_tpu_torch.filters.ekf import associate_known
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.runner import loop
+    from conan_slam_tpu_torch.sim import sensor_sim
+
+    x_true, swa, active, _, ctrl, z_true, ids, zmask, obsn = frame
+    vns, swans = sensor_sim.add_control_noise(ctrl, cfg.velocity, swa, cfg.sigma_v,
+                                             cfg.sigma_swa, cfg.switch_control_noise)
+    obs = loop._noisy_obs(cfg, z_true, ids, zmask, obsn)
+    noise = loop.make_noise(cfg, "ekf", device)
+    d, nz = state.x.shape[0], obs.z.shape[0]
+    require(fk.frame_route(d, nz, device, cfg.observe_interval) == "resident",
+            f"H9 route at {label}", "resident (H9)")
+    assoc = associate_known(state, obs)
+    args = (state.p, state.x, assoc.slots, state.capacity, vns, swans, x_true[:, 2], active,
+            noise.qe, obs.z[:, 0], obs.z[:, 1], assoc.known_mask, noise.re)
+    tail = (cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, cfg.switch_heading_known)
+    log(f"  H9 at {label} (D={d}, NZ={nz}, mapped {int(state.n_active)}, "
+        f"{int(assoc.known_mask.sum())} known returns, asym(P) "
+        f"{float((state.p - state.p.T).abs().max()):.1e}):")
+    split = fk.frame_step(*args, *tail, schedule="split")
+    oracle = fk._plain_frame(args[0], args[1], fk.frame_rows(args[2], args[3]), *args[4:], tail)
+    return h9_checks(label, args, tail, split, oracle)
+
+
+def longloop_path(device) -> tuple[dict, dict]:
+    """Phase 4g: BASELINE config 4, the long loop, and the pose graph.
+    (a) smoke_compile.py's longloop stage: 24 steps of the 5,000-landmark
+    world (D 10,240) on the default tour, H9 twice a frame, a finite state;
+    (b) stage 1 of bench_longloop at full width: the star tour, 56,004
+    steps through run_ekf_slam_precomputed in three parts (the carry
+    passed on), H9 held to its plain version at frames 200 and 8,000 from
+    the run's own carry between them; steps/s, mapped, the filter's ATE,
+    launches (H9's two kernels a frame, nothing else), a torch.profiler
+    window of 50 frames after frame 8,000; the rollout's time and its
+    observation arrays' peak host bytes (tracemalloc); (c) stage 2: the
+    bench's graph on the committed JAX draws (longloop_key2.npz), its
+    closures equal to the JAX run's as a set, the relaxation (50
+    Gauss-Newton iterations of 4 T CG steps) held to the committed float64
+    witness by the witness rule, its wall time, a profiled step of 400 CG
+    steps (ops a CG step), and two solves of one iteration bit-identical;
+    (d) the valet example's --loop-closure on the JAX seed-42 run's draws
+    and closure draw, chi^2 beside the JAX example's.  Returns the results
+    and the launch counts of (a) and (b)."""
+    import tracemalloc
+
+    import torch
+
+    from conan_slam_tpu_torch.benchmarks.bench_longloop import (
+        CLOSURE,
+        keyframe_ate,
+        relax_bench_graph,
+    )
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.examples import valet_loop
+    from conan_slam_tpu_torch.graph import pose_graph as pg
+    from conan_slam_tpu_torch.graph.frontend import (
+        ClosureConfig,
+        GraphDraws,
+        simulate_odometry_graph,
+    )
+    from conan_slam_tpu_torch.ops import cuda
+    from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+    from conan_slam_tpu_torch.sim.precompute import OBS_CHUNK, rollout_observations
+    from conan_slam_tpu_torch.sim.world import _WP_X, _WP_Y, longloop_world
+
+    t_phase = time.perf_counter()
+    cfg = SlamConfig(max_landmarks=LONGLOOP_LANDMARKS, max_obs=64)
+    s = cfg.observe_interval
+    total = {k: 0 for k in launches()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def expect_h9(label: str, counts: dict, frames: int) -> None:
+        want = {k: (2 * frames if k == "frame_step" else 0) for k in counts}
+        require(counts == want, f"long-loop launches ({label})",
+                f"{({k: v for k, v in counts.items() if v}) or 'none'}: H9's two kernels "
+                f"{frames} frames x 2, nothing else")
+
+    res: dict = {}
+    # (a) smoke_compile.py's longloop stage on the default tour.
+    world = longloop_world(LONGLOOP_LANDMARKS, device, np.stack([_WP_X, _WP_Y], axis=1))
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, outs = run_ekf_slam_precomputed(world, cfg, torch.Generator(device=device).manual_seed(0),
+                                           LONGLOOP_SMOKE_STEPS)
+    torch.cuda.synchronize()
+    counts = launches()
+    add(counts)
+    finite = bool(torch.isfinite(state.x).all() and torch.isfinite(state.p).all())
+    log(f"longloop stage ({LONGLOOP_SMOKE_STEPS} steps, D={state.x.shape[0]}): "
+        f"{time.perf_counter() - t0:.2f} s, finite {finite}, mapped {int(state.n_active)}")
+    require(state.x.shape[0] == 10_240 and finite, "longloop stage", "D 10,240, finite state")
+    expect_h9("longloop stage", counts, LONGLOOP_SMOKE_STEPS // s)
+
+    # (b) Stage 1 at full width on the star tour.
+    world = longloop_world(LONGLOOP_LANDMARKS, device)
+    t0 = time.perf_counter()
+    roll = precompute_rollout(world, cfg, LONGLOOP_STEPS)
+    rollout_s = time.perf_counter() - t0
+    x_np = roll[0][0].cpu().numpy()
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    rollout_observations(x_np, world.landmarks.cpu().numpy(), cfg.max_range, 64, s)
+    obs_s = time.perf_counter() - t0
+    _, peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    res["rollout"] = dict(seconds=rollout_s, observations_s=obs_s, observations_peak_bytes=peak)
+    log(f"long-loop rollout ({LONGLOOP_STEPS} steps, {LONGLOOP_LANDMARKS} landmarks): "
+        f"{rollout_s:.2f} s (truth and observations); the observations alone {obs_s:.2f} s "
+        f"under tracemalloc, peak {peak / 2**20:.1f} MiB of host arrays in chunks of "
+        f"{OBS_CHUNK} frames")
+    n_frames = LONGLOOP_STEPS // s
+    nz = roll[1][0].shape[1]
+    gen = torch.Generator(device=device).manual_seed(1)
+    ctrl = torch.randn((n_frames, s, 2), generator=gen, device=device)
+    obsn = torch.randn((n_frames, nz, 2), generator=gen, device=device)
+    frames = (roll[0][0].reshape(n_frames, s, 3), roll[0][1].reshape(n_frames, s),
+              roll[0][2].reshape(n_frames, s), roll[0][3].reshape(n_frames, s), ctrl,
+              roll[1][0], roll[1][1], roll[1][2], obsn)
+
+    def part(f0: int, f1: int):
+        return ((roll[0][0][f0 * s:f1 * s], roll[0][1][f0 * s:f1 * s],
+                 roll[0][2][f0 * s:f1 * s], roll[0][3][f0 * s:f1 * s]),
+                (roll[1][0][f0:f1], roll[1][1][f0:f1], roll[1][2][f0:f1]))
+
+    warm = part(0, 10)
+    run_ekf_slam_precomputed(world, cfg, None, 10 * s, None, warm, ctrl_noise=ctrl[:10],
+                             obs_noise=obsn[:10])
+    state, secs, x_est, errs = None, 0.0, [], {}
+    bounds = (0, LONGLOOP_EARLY_FRAME, LONGLOOP_LATE_FRAME, n_frames)
+    counts = {k: 0 for k in total}
+    for f0, f1 in zip(bounds[:-1], bounds[1:]):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, outs = run_ekf_slam_precomputed(world, cfg, None, (f1 - f0) * s, state,
+                                               part(f0, f1), ctrl_noise=ctrl[f0:f1],
+                                               obs_noise=obsn[f0:f1])
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        for k, v in launches().items():
+            counts[k] += v
+        x_est.append(outs.x_est)
+        if f1 < n_frames:
+            errs[f1] = longloop_frame_checks(device, f"long-loop frame {f1}", world, cfg, state,
+                                             tuple(a[f1] for a in frames))
+            if f1 == LONGLOOP_LATE_FRAME:
+                late_state = state
+    add(counts)
+    x_true, done = roll[0][0], roll[0][3]
+    x_est = torch.cat(x_est)
+    finite = bool(torch.isfinite(state.x).all() and torch.isfinite(state.p).all()
+                  and torch.isfinite(x_est).all())
+    ate = float(ate_rmse(x_true, x_est, ~done))
+    res["stage1"] = dict(steps_per_s=LONGLOOP_STEPS / secs, seconds=secs,
+                         mapped=int(state.n_active), ate=ate, finite=finite,
+                         asym=float((state.p - state.p.T).abs().max()), h9_p_err=errs,
+                         launches={k: v for k, v in counts.items() if v})
+    log(f"long loop, stage 1 ({LONGLOOP_STEPS} steps = {n_frames} frames, D "
+        f"{state.x.shape[0]}, star tour): {secs:.2f} s = {LONGLOOP_STEPS / secs:,.1f} steps/s "
+        f"(the H9 checks at frames {LONGLOOP_EARLY_FRAME} and {LONGLOOP_LATE_FRAME} between the "
+        f"parts excluded), mapped {int(state.n_active)}, filter ATE {ate:.4f} m, finite "
+        f"{finite}, asym(P) {res['stage1']['asym']:.1e}, launches {res['stage1']['launches']}")
+    require(finite, "long loop, stage 1", "finite state and trace (no ATE gate: the reference "
+            "reports this tour's filter ATE and finiteness only)")
+    expect_h9("stage 1", counts, n_frames)
+    lf = LONGLOOP_LATE_FRAME
+    window = part(lf, lf + LONGLOOP_PROFILE_FRAMES)
+    res["profile"] = profile_frames(
+        device, LONGLOOP_PROFILE_FRAMES, f"long loop, stage 1 after frame {lf} (H9, D 10,240)",
+        world, cfg, None,
+        drive=lambda: run_ekf_slam_precomputed(
+            world, cfg, None, LONGLOOP_PROFILE_FRAMES * s, late_state, window,
+            ctrl_noise=ctrl[lf:lf + LONGLOOP_PROFILE_FRAMES],
+            obs_noise=obsn[lf:lf + LONGLOOP_PROFILE_FRAMES]))
+
+    # (c) Stage 2 on the committed JAX draws, against the committed outputs.
+    data = np.load(LONGLOOP_DATA)
+    draws = GraphDraws(torch.as_tensor(data["odo"], device=device),
+                       torch.as_tensor(data["closure"], device=device))
+    valid = ~done
+    g, g_opt, relax_s = relax_bench_graph(x_true, valid, draws)
+    t = g.nodes.shape[0]
+    pairs = {tuple(p) for p, m in zip(g.edges[t - 1:].tolist(), g.edge_mask[t - 1:].tolist())
+             if m}
+    want = {tuple(p) for p, m in zip(data["pairs"].tolist(), data["pair_mask"]) if m}
+    require(pairs == want, "long loop, stage 2 closures",
+            f"{len(pairs)} valid pairs, equal to the JAX run's {len(want)} as a set")
+    nodes = g_opt.nodes.cpu().numpy()
+    chi2 = (float(pg.graph_error(g)), float(pg.graph_error(g_opt)))
+    ate2 = (keyframe_ate(x_true, valid, g.nodes), keyframe_ate(x_true, valid, g_opt.nodes))
+    got, lim = node_distances(nodes, data["nodes_f64"]), node_distances(data["nodes_f32"],
+                                                                         data["nodes_f64"])
+    ok = all(got[k] <= WITNESS_FACTOR * lim[k] for k in got)
+    bounds2 = {}
+    for name, v in (("chi2", chi2[1]), ("ate", ate2[1])):
+        w, r, pm = (float(data[f"{name}_{k}"]) for k in ("f64", "f32", "perm"))
+        bounds2[name] = (abs(v - w), max(WITNESS_FACTOR * abs(r - w), abs(pm - r)))
+        ok = ok and bounds2[name][0] <= bounds2[name][1]
+    res["stage2"] = dict(closures=len(pairs), chi2=chi2, aligned_ate=ate2, relax_s=relax_s,
+                         witness=got, jax_witness=lim, witness_scalars=bounds2,
+                         jax=dict(chi2=(float(data["chi2_dr"]), float(data["chi2_f32"])),
+                                  aligned_ate=(float(data["ate_dr"]), float(data["ate_f32"])),
+                                  witness_chi2=float(data["chi2_f64"]),
+                                  witness_ate=float(data["ate_f64"])))
+    log(f"long loop, stage 2 (T {t}, E {g.edges.shape[0]}, {len(pairs)} closures; 50 x {4 * t} "
+        f"CG steps after 3 chordal passes): {relax_s:.2f} s; aligned ATE {ate2[0]:.3f} -> "
+        f"{ate2[1]:.3f} m (JAX {float(data['ate_dr']):.3f} -> {float(data['ate_f32']):.3f}, "
+        f"float64 witness {float(data['ate_f64']):.3f}); chi2 {chi2[0]:.6g} -> {chi2[1]:.3f} (JAX "
+        f"{float(data['chi2_dr']):.6g} -> {float(data['chi2_f32']):.3f}, witness "
+        f"{float(data['chi2_f64']):.3f})")
+    log("  nodes from the float64 witness: card " + ", ".join(
+        f"{k} {v:.4g}" for k, v in got.items()) + "; JAX float32 " + ", ".join(
+        f"{k} {v:.4g}" for k, v in lim.items()) + "; |chi2 - witness| {:.4g} (bound {:.4g}), "
+        "|ATE - witness| {:.4g} m (bound {:.4g})".format(*bounds2["chi2"], *bounds2["ate"]))
+    require(ok, "long loop, stage 2 against the float64 witness",
+            f"every node distance within {WITNESS_FACTOR} x the JAX float32 run's; chi2 and ATE "
+            "within the larger of that and the JAX run's own spread (edges permuted)")
+    # No host sync: a chordal pass and a Gauss-Newton iteration (short CG
+    # loops) under the sync debug mode.
+    g_s = simulate_odometry_graph(x_true, valid, ClosureConfig(**CLOSURE), draws)
+    torch.cuda.synchronize()
+    err = ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pg.optimize(pg.chordal_initialize(g_s, cg_iterations=20), iterations=1,
+                    cg_iterations=20)
+    except RuntimeError as e:
+        err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(not err, "no host sync (pose graph)", "chordal_initialize and optimize (20 CG "
+            "steps each) under set_sync_debug_mode('error')"
+            + (f": {err}" if err else ""))
+    prof_g = g
+    res["cg_profile"] = profile_frames(
+        device, LONGLOOP_CG_PROFILE, f"pose graph: one Gauss-Newton step of "
+        f"{LONGLOOP_CG_PROFILE} CG steps (per CG step)", world, cfg, None,
+        drive=lambda: pg.optimize(prof_g, iterations=1, cg_iterations=LONGLOOP_CG_PROFILE))
+    # Two solves with the fixed-order node sums: bit for bit equal.
+    reps = [relax_bench_graph(x_true, valid, draws, iterations=LONGLOOP_REPEAT_GN)[1:]
+            for _ in range(2)]
+    same = torch.equal(reps[0][0].nodes, reps[1][0].nodes)
+    res["stage2"]["repeat"] = dict(bit_identical=same, iterations=LONGLOOP_REPEAT_GN,
+                                   seconds=[r[1] for r in reps])
+    log(f"  two solves of {LONGLOOP_REPEAT_GN} x {4 * t} CG steps after the chordal passes: "
+        f"{reps[0][1]:.2f} s, {reps[1][1]:.2f} s, bit-identical {same}")
+    require(same, "pose graph reproducible", "two solves on the card bit for bit equal")
+
+    # (d) The valet example's --loop-closure on the JAX seed-42 run's draws.
+    valet = np.load(VALET_DATA)
+    vres = valet_loop.main(["--loop-closure", "--device", "cuda"],
+                           ctrl_noise=torch.as_tensor(valet["ctrl"], device=device),
+                           obs_noise=torch.as_tensor(valet["obs"], device=device),
+                           closure_noise=torch.as_tensor(data["valet_closure"], device=device))
+    vg, vopt = vres.pop("graph"), vres.pop("relaxed")
+    dn = node_distances(vopt.nodes.cpu().numpy(), data["valet_nodes"])
+    res["example"] = dict(chi2=(vres["chi2_before"], vres["chi2_after"]),
+                          jax_chi2=tuple(float(c) for c in data["valet_chi2"]),
+                          closures=int(vg.edge_mask[vg.nodes.shape[0] - 1:].sum()),
+                          relax_s=vres["relax_s"], nodes_vs_jax=dn, done_at=vres["done_at"],
+                          ate=vres["ate"])
+    log(f"valet example --loop-closure (seed-42 draws): done at {vres['done_at']}, ATE "
+        f"{vres['ate']:.4f} m; {res['example']['closures']} closures; chi2 "
+        f"{vres['chi2_before']:.4g} -> {vres['chi2_after']:.4g} (JAX example on its own run: "
+        f"{float(data['valet_chi2'][0]):.4g} -> {float(data['valet_chi2'][1]):.4g}); relaxed "
+        f"nodes from the JAX example's: x/y max {dn['xy_max']:.3e} m; {vres['relax_s']:.2f} s")
+    require(np.isfinite(vres["chi2_after"]) and vres["chi2_after"] <= vres["chi2_before"] + 1e-6,
+            "valet example --loop-closure", "finite chi2, not raised by the relaxation")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"long loop (phase 4g): {res['seconds']:.1f} s")
+    return res, total
+
+
 @contextlib.contextmanager
 def gated_schedule(schedule: str):
     """The frame loop's gated frames on ``schedule``: "auto" H15 then H10,
@@ -3698,6 +4037,7 @@ def main() -> int:
     chunked = chunked_path(device)
     sim, simcounts = sim_path(device)
     pfres, pfcounts = pf_path(device)
+    llres, llcounts = longloop_path(device)
     log(f"main paths: {time.perf_counter() - t0:.1f} s")
 
     from conan_slam_tpu_torch.config import SlamConfig
@@ -3749,12 +4089,13 @@ def main() -> int:
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
                       + pcounts[k.name] + pbcounts[k.name] + simcounts.get(k.name, 0)
-                      + pfcounts.get(k.name, 0)),
+                      + pfcounts.get(k.name, 0) + llcounts.get(k.name, 0)),
          "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
                               "gated": gcounts[k.name], "gated_split": gscounts[k.name],
                               "pair": pcounts[k.name], "probes": pbcounts[k.name],
                               "probes_replayed": pbreplayed.get(k.name, 0),
-                              "sim": simcounts.get(k.name, 0), "pf": pfcounts.get(k.name, 0)},
+                              "sim": simcounts.get(k.name, 0), "pf": pfcounts.get(k.name, 0),
+                              "longloop": llcounts.get(k.name, 0)},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items()
@@ -3810,6 +4151,16 @@ def main() -> int:
                "busy_us_per_frame": pfres["profile"]["busy_us"],
                "wall_us_per_frame_profiled": pfres["profile"]["wall_us"],
                "ranges": pfres["profile"]["ranges"], "seconds": pfres["seconds"]},
+        "longloop": {"rollout": llres["rollout"],
+                     "stage1": {k: v for k, v in llres["stage1"].items()},
+                     "stage1_ops_per_frame": llres["profile"]["ops"],
+                     "stage1_busy_us_per_frame": llres["profile"]["busy_us"],
+                     "stage1_wall_us_per_frame_profiled": llres["profile"]["wall_us"],
+                     "stage2": llres["stage2"],
+                     "stage2_ops_per_cg_step": llres["cg_profile"]["ops"],
+                     "stage2_busy_us_per_cg_step": llres["cg_profile"]["busy_us"],
+                     "stage2_wall_us_per_cg_step_profiled": llres["cg_profile"]["wall_us"],
+                     "example": llres["example"], "seconds": llres["seconds"]},
         "probes_us": {
             "sweep": {k: {"graph": v["us"], "eager": v["eager_us"]}
                       for k, v in probes.get("probe_sweep", {}).get("variants", {}).items()},

@@ -2,12 +2,20 @@
 with ``--pf``, FastSLAM 2.0.
 
     python -m conan_slam_tpu_torch.examples.valet_loop [--pf] [--gated]
-        [--no-heading] [--steps N] [--seed S] [--device cuda|cpu]
+        [--no-heading] [--steps N] [--seed S] [--loop-closure]
+        [--device cuda|cpu]
 
 Runs ``runner.loop.run_ekf_slam`` (``run_pf_slam`` with ``--pf``) on the
 default world (the card unless ``--device cpu``), with noise drawn from a
 ``torch.Generator`` seeded with ``--seed``, and prints when the course
-ended, the ATE, the mapped landmarks and the wall time.
+ended, the ATE, the mapped landmarks and the wall time.  With
+``--loop-closure`` it then relaxes the estimated trajectory with the pose
+graph (``graph.frontend.relax_trajectory`` at the default ClosureConfig,
+closure draws from generator seed 1) and prints chi^2 before and after.
+
+``main(argv, ctrl_noise=, obs_noise=, closure_noise=)`` takes the EKF's
+draws (as ``run_ekf_slam`` does) and the closure draws (as
+``relax_trajectory`` does) in place of the generators'.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ import argparse
 import time
 
 
-def main(argv=None) -> dict:
+def main(argv=None, ctrl_noise=None, obs_noise=None, closure_noise=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--pf", action="store_true", help="run FastSLAM 2.0 instead of the EKF")
     ap.add_argument("--gated", action="store_true",
@@ -24,6 +32,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--no-heading", action="store_true", help="no heading observation")
     ap.add_argument("--steps", type=int, default=25_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--loop-closure", action="store_true",
+                    help="relax the trajectory with the pose-graph back end")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
@@ -42,7 +52,11 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     t0 = time.perf_counter()
-    carry, outs = (run_pf_slam if args.pf else run_ekf_slam)(world, cfg, gen, args.steps)
+    if args.pf:
+        carry, outs = run_pf_slam(world, cfg, gen, args.steps)
+    else:
+        carry, outs = run_ekf_slam(world, cfg, gen, args.steps, ctrl_noise=ctrl_noise,
+                                   obs_noise=obs_noise)
     done = outs.done.cpu()
     wall = time.perf_counter() - t0
 
@@ -55,6 +69,18 @@ def main(argv=None) -> dict:
     print(f"ATE RMSE       : {res['ate']:.3f} m")
     print(f"mapped features: {res['mapped']} / {world.num_landmarks}")
     print(f"wall           : {wall:.1f} s on {device}")
+
+    if args.loop_closure:
+        from conan_slam_tpu_torch.graph.frontend import ClosureConfig, relax_trajectory
+        from conan_slam_tpu_torch.graph.pose_graph import graph_error
+
+        noise = (closure_noise if closure_noise is not None
+                 else torch.Generator(device=device).manual_seed(1))
+        t0 = time.perf_counter()
+        g, g_opt = relax_trajectory(outs.x_est, outs.x_true, ~outs.done, ClosureConfig(), noise)
+        res.update(chi2_before=float(graph_error(g)), chi2_after=float(graph_error(g_opt)),
+                   relax_s=time.perf_counter() - t0, graph=g, relaxed=g_opt)
+        print(f"pose graph     : chi2 {res['chi2_before']:.1f} -> {res['chi2_after']:.1f}")
     return res
 
 

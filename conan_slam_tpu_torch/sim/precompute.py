@@ -98,6 +98,10 @@ def rollout_truth(waypoints: np.ndarray, cfg: SlamConfig, n_steps: int) -> Truth
     return TruthRollout(x_true=xs, swa=swas, active=actives, done=dones)
 
 
+# Frames of the (frames, landmarks) observation arrays formed at a time.
+OBS_CHUNK = 256
+
+
 class ObsRollout(NamedTuple):
     z_true: np.ndarray   # (n_frames, NZ, 2) noiseless (range, bearing)
     ids: np.ndarray      # (n_frames, NZ) int32 landmark ids (-1 = empty slot)
@@ -110,33 +114,41 @@ def rollout_observations(
 ) -> ObsRollout:
     """Noiseless sensor returns at each frame end, in float32: semicircular
     field of view (reference slam.h:644-648), ascending-id slot order,
-    fixed-size (z, ids, mask) buffers; the filter loop adds the noise."""
+    fixed-size (z, ids, mask) buffers; the filter loop adds the noise.
+
+    The (frames, landmarks) arrays are formed OBS_CHUNK frames at a time:
+    every value is a per-frame, per-landmark elementwise result, so the
+    output equals the whole-array form's bit for bit while the peak host
+    memory stays at OBS_CHUNK frames (the long loop's 9,334 frames at 5,000
+    landmarks are ~190 MB an array whole).
+    """
     lm = np.asarray(landmarks, np.float32)                # (L, 2)
     poses = np.asarray(x_true, np.float32)[interval - 1 :: interval]  # (F, 3)
     n_frames = poses.shape[0]
-
-    d = lm[None, :, :] - poses[:, None, :2]               # (F, L, 2)
-    dx, dy = d[..., 0], d[..., 1]
-    rng = np.sqrt(dx * dx + dy * dy, dtype=np.float32)
-    brg = (
-        np.arctan2(dy, dx).astype(np.float32)
-        - poses[:, None, 2]
-        + np.float32(np.pi)
-    ) % np.float32(2 * np.pi) - np.float32(np.pi)
-    in_box = np.logical_and(np.abs(dx) < max_range, np.abs(dy) < max_range)
-    ahead = dx * np.cos(poses[:, None, 2]) + dy * np.sin(poses[:, None, 2]) > 0.0
-    in_circle = dx * dx + dy * dy < np.float32(max_range) ** 2
-    visible = in_box & ahead & in_circle                  # (F, L)
-
     z = np.zeros((n_frames, nz, 2), np.float32)
     ids = np.full((n_frames, nz), -1, np.int32)
     mask = np.zeros((n_frames, nz), bool)
-    for f in range(n_frames):
-        (vis_idx,) = np.nonzero(visible[f])
-        vis_idx = vis_idx[:nz]
-        k = vis_idx.shape[0]
-        ids[f, :k] = vis_idx
-        mask[f, :k] = True
-        z[f, :k, 0] = rng[f, vis_idx]
-        z[f, :k, 1] = brg[f, vis_idx]
+    for f0 in range(0, n_frames, OBS_CHUNK):
+        pc = poses[f0:f0 + OBS_CHUNK]
+        d = lm[None, :, :] - pc[:, None, :2]              # (chunk, L, 2)
+        dx, dy = d[..., 0], d[..., 1]
+        rng = np.sqrt(dx * dx + dy * dy, dtype=np.float32)
+        brg = (
+            np.arctan2(dy, dx).astype(np.float32)
+            - pc[:, None, 2]
+            + np.float32(np.pi)
+        ) % np.float32(2 * np.pi) - np.float32(np.pi)
+        in_box = np.logical_and(np.abs(dx) < max_range, np.abs(dy) < max_range)
+        ahead = dx * np.cos(pc[:, None, 2]) + dy * np.sin(pc[:, None, 2]) > 0.0
+        in_circle = dx * dx + dy * dy < np.float32(max_range) ** 2
+        visible = in_box & ahead & in_circle              # (chunk, L)
+        for k in range(pc.shape[0]):
+            f = f0 + k
+            (vis_idx,) = np.nonzero(visible[k])
+            vis_idx = vis_idx[:nz]
+            n = vis_idx.shape[0]
+            ids[f, :n] = vis_idx
+            mask[f, :n] = True
+            z[f, :n, 0] = rng[k, vis_idx]
+            z[f, :n, 1] = brg[k, vis_idx]
     return ObsRollout(z_true=z, ids=ids, mask=mask)

@@ -101,3 +101,33 @@ def config2_world(device=None) -> World:
     return world_from_numpy(
         np.load(_CONFIG2_LANDMARKS), np.stack([_WP_X, _WP_Y], axis=1), device
     )
+
+
+# BASELINE config 4's worlds: the landmarks of conan_slam_tpu.sim.world.
+# random_world(jax.random.PRNGKey(11), n) at the sizes its scripts use
+# (benchmarks/bench_longloop.py: 5,000; probe_closure.py: 1,000), stored by
+# tests/longloop_reference.py.
+LONGLOOP_SIZES = (5000, 1000)
+
+
+def star_waypoints(radius: float = 4000.0) -> np.ndarray:
+    """The long loop's tour (benchmarks/bench_longloop.py): from the origin
+    around an 8-point star polygon and back to its first point, a path
+    that crosses itself many times (the geometry loop closure needs)."""
+    ang = np.arange(8) * 2 * np.pi / 8
+    pts = np.stack([radius * np.cos(ang), radius * np.sin(ang)], axis=1)
+    order = [(3 * i) % 8 for i in range(8)] + [0]
+    return np.concatenate([np.zeros((1, 2)), pts[order]]).astype(np.float32)
+
+
+def longloop_world(num_landmarks: int = 5000, device=None, waypoints=None) -> World:
+    """The reference's ``random_world(PRNGKey(11), num_landmarks)`` landmarks
+    (5,000 or 1,000; any other size raises: take ``random_world`` with a
+    generator, which draws another world) on ``waypoints`` (default: the
+    star tour), on ``device`` (default: the card)."""
+    if num_landmarks not in LONGLOOP_SIZES:
+        raise ValueError(f"no stored world of {num_landmarks} landmarks (stored: "
+                         f"{LONGLOOP_SIZES}); random_world(generator, n) draws another one")
+    path = Path(__file__).resolve().parent / "data" / f"random_world_key11_{num_landmarks}.npy"
+    return world_from_numpy(np.load(path), star_waypoints() if waypoints is None else waypoints,
+                            device)

@@ -6,7 +6,12 @@ measurements (tests/test_torch_obsstep.py ``_problem(seed, 64, 33)``), on
 the CPU: each route's largest distance from the float64 witness in x, as
 a multiple of kappa u |dx| (u = 2^-24, |dx| the frame's largest mean
 correction), and in P, for the reference's resident kernel in interpret
-mode, its jnp route and the port's plain version.
+mode, its jnp route and the port's plain version; and the two half swaps
+that find which half of the port's route carries its x error: the port's
+chain with the jnp route's S^-1 (its Jacobi-scaled Cholesky solve,
+``conan_slam_tpu.ops.spd_inverse.spd_inverse`` on the CPU) in place of
+the port's sweep, and the jnp route's chain (its S, pht and the rest) with
+the port's sweep (``sweep_si_reference``) in place of its S^-1.
 
     python tests/f5_frames.py 110 111 ... 117
 
@@ -25,7 +30,49 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NZ, S = 64, 33
-ROUTES = ("reference kernel", "reference jnp route", "port")
+ROUTES = ("reference kernel", "reference jnp route", "port", "port chain + jnp S^-1",
+          "jnp chain + port sweep")
+
+
+def swaps(prob) -> dict:
+    """The frame through the two half swaps (module docstring)."""
+    import contextlib
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from conan_slam_tpu.ops import frame_kernel as jfk
+    from conan_slam_tpu.ops import spd_inverse as jsi
+    from conan_slam_tpu_torch.ops import frame_kernel as tfk
+    from test_torch_obsstep import KEYS, TAIL, _jax_args
+
+    @contextlib.contextmanager
+    def patched(module, name, fn):
+        saved = getattr(module, name)
+        setattr(module, name, fn)
+        try:
+            yield
+        finally:
+            setattr(module, name, saved)
+
+    fi = tfk.frame_inputs(*(torch.as_tensor(prob[k]) for k in KEYS))
+    t = [torch.as_tensor(prob[k]) for k in KEYS]
+
+    def jnp_si(s, nblk):
+        return torch.as_tensor(np.asarray(jsi.spd_inverse(jnp.asarray(s.numpy()))))
+
+    with patched(tfk, "sweep_si_reference", jnp_si):
+        port_chain = tfk._frame_step_resident_reference(t[0], t[1], fi, *TAIL, False)
+
+    def port_si(s, *, interpret=False):
+        return jnp.asarray(tfk.sweep_si_reference(torch.as_tensor(np.asarray(s)),
+                                                  fi.nblk).numpy())
+
+    with jax.disable_jit(), patched(jsi, "spd_inverse", port_si):
+        jnp_chain = jfk.frame_step(*_jax_args(prob), *TAIL, False)
+    return {"port chain + jnp S^-1": port_chain, "jnp chain + port sweep": jnp_chain}
 
 
 def measure(seed: int) -> dict:
@@ -51,6 +98,7 @@ def measure(seed: int) -> dict:
         "reference jnp route": jax.jit(jfk.frame_step, static_argnums=(12, 13, 14, 15))(
             *jargs, *TAIL, False),
         "port": tfk.frame_step(*_frame_step_args(prob), *TAIL, False),
+        **swaps(prob),
     }
     t = {k: torch.as_tensor(prob[k]) for k in KEYS}
     t = {k: v.double() if v.dtype == torch.float32 else v for k, v in t.items()}

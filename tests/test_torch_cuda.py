@@ -1508,3 +1508,132 @@ def test_run_ekf_slam_never_waits_for_the_card(dev):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert bool(torch.isfinite(outs.x_est).all()) and int(carry.state.n_active) > 0
+
+
+def _longloop_frame(dev, n_frames: int = 50):
+    """The long loop (5,000 committed landmarks, the star tour, D 10,240)
+    after ``n_frames`` kernel frames, and frame ``n_frames``'s inputs as
+    frame_step takes them."""
+    from conan_slam_tpu_torch.filters.ekf import associate_known
+    from conan_slam_tpu_torch.runner import loop
+    from conan_slam_tpu_torch.runner.loop import precompute_rollout
+    from conan_slam_tpu_torch.sim import sensor_sim
+    from conan_slam_tpu_torch.sim.world import longloop_world
+
+    cfg = SlamConfig(max_landmarks=5000, max_obs=64)
+    world = longloop_world(5000, dev)
+    s = cfg.observe_interval
+    roll = precompute_rollout(world, cfg, (n_frames + 1) * s)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ctrl = torch.randn((n_frames + 1, s, 2), generator=gen, device=dev)
+    obsn = torch.randn((n_frames + 1, roll[1][0].shape[1], 2), generator=gen, device=dev)
+    part = (tuple(a[:n_frames * s] for a in roll[0]), tuple(a[:n_frames] for a in roll[1]))
+    state, _ = run_ekf_slam_precomputed(world, cfg, None, n_frames * s, None, part,
+                                        ctrl_noise=ctrl[:n_frames], obs_noise=obsn[:n_frames])
+    f = n_frames
+    sub = slice(f * s, (f + 1) * s)
+    vns, swans = sensor_sim.add_control_noise(ctrl[f], cfg.velocity, roll[0][1][sub],
+                                             cfg.sigma_v, cfg.sigma_swa, cfg.switch_control_noise)
+    obs = loop._noisy_obs(cfg, roll[1][0][f], roll[1][1][f], roll[1][2][f], obsn[f])
+    noise = loop.make_noise(cfg, "ekf", dev)
+    assoc = associate_known(state, obs)
+    return (state.p, state.x, assoc.slots, state.capacity, vns, swans, roll[0][0][sub, 2],
+            roll[0][2][sub], noise.qe, obs.z[:, 0], obs.z[:, 1], assoc.known_mask, noise.re,
+            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, cfg.switch_heading_known)
+
+
+def test_frame_step_kernel_at_the_long_loop_width(dev):
+    # H9 at D 10,240 (BASELINE config 4, mapping from scratch), a frame
+    # from the kernels' own carry: the resident route, two launches, two
+    # calls bit-equal, and against its plain version at chip_smoke's
+    # h9_checks tolerances (~5 km means: pose 1e-3, x 2e-3 m; P the
+    # reference test's rtol 1e-3 / atol 1e-4; NIS rtol 1e-3).  The carry's
+    # P is not symmetric (augmentation rounds its new blocks' two triangles
+    # apart, as the JAX package's does: test_torch_longloop's stage-1
+    # test), and H9 reads it as it is; from a symmetric P its output is
+    # exactly symmetric (its P pass mirrors the upper triangle).
+    args = _longloop_frame(dev)
+    d, nz = args[1].shape[0], args[9].shape[0]
+    assert d == 10_240 and fk.frame_route(d, nz, dev, 6) == "resident"
+    cuda.reset_launch_counts()
+    got, again = fk.frame_step(*args), fk.frame_step(*args)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in cuda.KERNELS.values()}
+    assert counts == {**dict.fromkeys(counts, 0), "frame_step": 2 * fk.FS_LAUNCHES}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = fk.frame_step(*args, plain=True)
+    torch.testing.assert_close(got.pose_trace, ref.pose_trace, rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-6, atol=2e-3)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+    p = args[0]
+    sym = fk.frame_step(0.5 * (p + p.T), *args[1:])
+    assert torch.equal(sym.p, sym.p.T)
+
+
+def _bench_graph(dev):
+    """The long loop's stage-2 graph on the committed JAX draws, on ``dev``."""
+    import os
+
+    from conan_slam_tpu_torch.graph.frontend import ClosureConfig, GraphDraws
+    from conan_slam_tpu_torch.graph.frontend import simulate_odometry_graph
+    from conan_slam_tpu_torch.sim.precompute import rollout_truth
+    from conan_slam_tpu_torch.sim.world import star_waypoints
+
+    data = np.load(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "conan_slam_tpu_torch", "sim", "data", "longloop_key2.npz"))
+    roll = rollout_truth(star_waypoints(), SlamConfig(max_landmarks=5000, max_obs=64), 56_004)
+    ccfg = ClosureConfig(odo_sigma_xy=0.5, odo_sigma_th=0.01, max_closures=256, min_index_gap=60)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    return simulate_odometry_graph(t(roll.x_true), t(~roll.done), ccfg,
+                                   GraphDraws(t(data["odo"]), t(data["closure"])))
+
+
+def test_pose_graph_on_the_card_is_bit_identical(dev):
+    # The fixed-order node sums (ScatterPlan) make a solve on the card
+    # reproducible bit for bit, where index_add_'s float atomics are not.
+    from conan_slam_tpu_torch.graph import pose_graph as pg
+
+    g = _bench_graph(dev)
+    t = g.nodes.shape[0]
+    a, b = (pg.optimize(g, iterations=2, cg_iterations=4 * t, chordal_init=True).nodes
+            for _ in range(2))
+    assert torch.equal(a, b)
+
+
+def test_optimize_on_the_card_against_the_cpu_and_a_witness(dev):
+    # The bench graph at 3 Gauss-Newton iterations of T CG steps on the
+    # card, the port's CPU run and a float64 witness (the port's functions
+    # in float64 on the CPU): the card no further from the witness than
+    # twice the CPU run in the largest and median node distance (x/y,
+    # heading), chi^2 within the larger of twice the CPU run's distance and
+    # the CPU's own float32 spread (its solve with the edges permuted).
+    from conan_slam_tpu_torch.graph import pose_graph as pg
+
+    g = _bench_graph(dev)
+    t = g.nodes.shape[0]
+    budget = dict(iterations=3, cg_iterations=t, chordal_init=True)
+    cpu = pg.PoseGraph(*(a.cpu() for a in g))
+    perm = torch.as_tensor(np.random.default_rng(0).permutation(g.edges.shape[0]))
+    cpu_perm = cpu._replace(edges=cpu.edges[perm], meas=cpu.meas[perm], info=cpu.info[perm],
+                            edge_mask=cpu.edge_mask[perm])
+    wit_g = pg.PoseGraph(*(a.double() if a.is_floating_point() else a for a in cpu))
+    card = pg.optimize(g, **budget).nodes.cpu().double()
+    host, host_perm = (pg.optimize(x, **budget).nodes.double() for x in (cpu, cpu_perm))
+    wit = pg.optimize(wit_g, **budget).nodes
+
+    def dist(a):
+        dxy = (a[:, :2] - wit[:, :2]).norm(dim=1)
+        dth = torch.remainder(a[:, 2] - wit[:, 2] + np.pi, 2 * np.pi) - np.pi
+        return [float(dxy.max()), float(dxy.median()), float(dth.abs().max()),
+                float(dth.abs().median())]
+
+    for got, lim in zip(dist(card), dist(host)):
+        assert got <= 2.0 * lim, (dist(card), dist(host))
+
+    def chi2(nodes):
+        return float(pg.graph_error(wit_g._replace(nodes=nodes)))
+
+    w = chi2(wit)
+    bound = max(2.0 * abs(chi2(host) - w), abs(chi2(host_perm) - chi2(host)))
+    assert abs(chi2(card) - w) <= bound, (chi2(card), chi2(host), w)
