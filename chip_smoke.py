@@ -121,7 +121,8 @@ Phases:
        e. the on-device simulation loop, runner.loop.run_ekf_slam (steering,
           truth, the sensor and its compaction on the card beside the
           filter): (a) the valet course (30 landmarks, K 32: D 67, NZ 30;
-          known association with augmentation; 25,002 steps) on the JAX
+          known association with augmentation; 19,800 steps, the course
+          and 245 frozen steps after its end, VALET_STEPS) on the JAX
           run's own seed-42 draws (conan_slam_tpu_torch/sim/data/
           valet_seed42.npz), held to its end at step 19,555, 25 mapped and
           an ATE within 5e-3 m of its 0.38967 m, with the largest
@@ -129,14 +130,16 @@ Phases:
           1e-3 m; (b) the same gated; H9, H15 and H10 at frame 200 of that
           course (D 67, NZ 30) against their plain versions and float64
           witnesses; (c) BASELINE config 2 through run_ekf_slam in turns
-          with run_ekf_slam_precomputed (precomputed, sim, sim,
-          precomputed): the first sim run on the JAX run's own PRNGKey(0)
-          draws (config2_key0.npz) and the precomputed runs held to
-          gated_full, the second sim run on a torch.Generator's draws
-          (seed 0) reported; (d) every route (fused; fast_frame=False;
-          fused_obs=False; and with switch_batch_update=False), known and
-          gated, 600 steps each (1,200 until phase 4g was added) with the
-          filter at the true noise,
+          with run_ekf_slam_precomputed (precomputed, sim, precomputed):
+          the sim run on the JAX run's own PRNGKey(0) draws
+          (config2_key0.npz) and the precomputed runs held to gated_full
+          (a second sim run on a torch.Generator's draws, reported only,
+          left out when phase 4h was added); (d) every route (fused;
+          fast_frame=False; fused_obs=False; and with
+          switch_batch_update=False), known and gated, 600 steps each (1,200
+          until phase 4g; run beside phase 4h's sharded course, so their
+          steps/s share the card and the host with its ranks)
+          with the filter at the true noise,
           against their plain versions on the card and the NIS band
           1.2 < mean < 3.0; frames of (a) and (c)
           under torch.cuda.set_sync_debug_mode("error"). Asserts H9 (known),
@@ -157,9 +160,10 @@ Phases:
           gate (N = 20, 2,000 steps: ATE < 1 m, mapped > 0) and the whole
           valet course at N = 100 on a torch.Generator's draws, held to its
           end at step 19,555 with 25 mapped, finite, Neff in (0, N]; (c)
-          bench_pf.py's sizes, N = 100 to 100,000 (the smallest and the
-          largest twice, in turns): steps/s, particle-steps/s, ATE, peak
-          allocated bytes, and a
+          bench_pf.py's sizes, N = 100 to 100,000, 600 steps once each
+          (1,200 steps, the smallest and the largest twice, in turns,
+          until phase 4h): steps/s, particle-steps/s, ATE, peak allocated
+          bytes, and a
           torch.profiler trace at N = 10,000 split by the filter's steps;
           (d) frames under the sync debug mode; (e) no hand-written kernel
           launched (launches_by_path["pf"]).
@@ -191,12 +195,32 @@ Phases:
           (d) the valet example's --loop-closure on the JAX seed-42 run's
           draws and closure draw, chi^2 before and after beside the JAX
           example's.
-     Then a torch.profiler trace of 50 frames of each path (the known
+     h. The sharded runtime (parallel/: gloo ranks, every one on the card,
+        started by parallel.launch.RankPool; BASELINE config 5's sizes):
+          (a) the sharded frame at 10,000 landmarks (D 20,003, padded to
+          20,032) on four ranks, f32 and i16 wires, against the
+          single-device frame (H9) on the same inputs and the plain CPU
+          version at tests/test_parallel.py's tolerances, H1 launched in
+          every rank, the replicated outputs the same bits on every rank;
+          the wall µs a frame of every rank, rank 0's device µs
+          (torch.profiler), the collectives' logical and moved bytes;
+          (b) run_ekf_slam_sharded over the whole valet course
+          (VALET_STEPS) on the reference's seed-42 draws on two ranks (f32: done at 19,555, 25
+          mapped, ATE within 5e-3 m of 0.38967, phase 4e's gates) and on
+          two more ranks at once with the i16 wire (finite, 25 mapped; its
+          ATE reported, as no reference bound exists);
+          (c) one resampling PF observation step of 100,000 particles on
+          four ranks against the single-device step on the same draws;
+          (d) the dry run on four ranks ({"state": 2, "particles": 2}) and
+          the DCN smoke's sharded frame at world size 1 on NCCL.
+        While (b)'s ranks run, this process runs phase 4e's (d), every
+        route against its plain versions (sim_routes).
+     Then a torch.profiler trace of 25 frames of each path (the known
      path and the gated path each through its one-launch frame (H9,
-     H10) and through the split schedule, 50 pairs of the pair path, 20 frames of
-     the 10k-landmark shape on both routes, and 50 frames of
+     H10) and through the split schedule, 25 pairs of the pair path, 20 frames of
+     the 10k-landmark shape on both routes, and 25 frames of
      run_ekf_slam on the valet course and on config 2; 100 frames each
-     until phase 4g was added) gives each kernel's
+     until phase 4g was added, 50 until phase 4h) gives each kernel's
      device time per frame, the PyTorch ops dispatched per frame and the device's
      busy share; the gated traces also split the ops and the PyTorch
      kernels' device time by the frame loop's steps (its pre-update, the
@@ -227,8 +251,8 @@ N_LANDMARKS = 1024      # all pre-registered: D = 3 + 2 * 1024 = 2051, padded 23
 BENCH_STEPS = 19200
 PLAIN_STEPS = 600       # the known path's plain-version run (its kernels run all 19,200)
 SEED = 42
-PROFILE_FRAMES = 50     # frames of each main path traced with torch.profiler (100 until
-                        # phase 4g was added)
+PROFILE_FRAMES = 25     # frames of each main path traced with torch.profiler (100 until
+                        # phase 4g was added, 50 until phase 4h)
 GATED_STEPS = 25_002    # BASELINE config 2: 25,000 steps rounded up to whole frames
 GATED_PLAIN_STEPS = 600 # the gated path's plain run (its kernels run all 25,002)
 PAIR_PLAIN_STEPS = 300  # the pair path's plain run (its kernels run all 19,200)
@@ -261,7 +285,12 @@ PROBE_FS_MODES = ("sweeponly", "sweep", "chol", "noop", "ppass", "stepkernel", "
                   "fullkernel", "factkernel")
 CHUNK_STEPS = 4800      # the chunked driver's chunk: 800 frames = 400 pairs
 # Phase 4e, the on-device simulation loop (runner.loop.run_ekf_slam).
-SIM_STEPS = 25_000      # the valet course and config 2: 4,167 frames = 25,002 steps
+SIM_STEPS = 25_000      # config 2: 4,167 frames = 25,002 steps
+# The valet course (phases 4e, 4f, 4h): it ends at step 19,555 on any draws
+# (the truth follows the waypoints); the frames after it are frozen and
+# change no gate (the ATE is over the steps before the end, the map is
+# full), so the runs stop at 3,300 frames (25,002 steps until phase 4h).
+VALET_STEPS = 19_800
 SIM_ROUTE_STEPS = 600   # each non-fused route, kernels and plain versions (cut from
                         # 1,200 to make room for phase 4g)
 SIM_SYNC_STEPS = 60     # frames of (a) and (c) run under the sync debug mode
@@ -294,6 +323,7 @@ SIM_ROUTES = (("fused", {}), ("fast_frame=False", dict(fast_frame=False)),
 PF_DATA = os.path.join("conan_slam_tpu_torch", "sim", "data", "pf_key1.npz")
 PF_PARITY_N = (16, 100)
 PF_STEPS = 1200         # bench_pf.py's run, and the parity runs
+PF_SIZE_STEPS = 600     # each size's timed run (PF_STEPS until phase 4h; no gate reads its depth)
 PF_SIZES = (100, 1_000, 10_000, 100_000)   # bench_pf.py's sweep (bench.py's N = 10,000 in it)
 PF_COURSE_N = 100       # the whole course at the reference config (smoke_compile.py stage_pf)
 PF_GATE_N, PF_GATE_STEPS = 20, 2000        # tests/test_pf.py's noise-free gate
@@ -328,6 +358,14 @@ LONGLOOP_PROFILE_FRAMES = 50
 LONGLOOP_CG_PROFILE = 400   # CG steps of the stage-2 step traced with torch.profiler
 LONGLOOP_REPEAT_GN = 1      # Gauss-Newton iterations (4 T CG steps each, after the
                             # chordal passes) of the solves that must be bit-identical
+# Phase 4h, the sharded runtime (parallel/), at BASELINE config 5's sizes.
+DIST_LANDMARKS = 10_000     # (a): D 20,003, padded to 20,032 over 4 ranks; P 1.6 GB
+DIST_RANKS = 4              # gloo ranks on the one card
+DIST_OBS = 64               # (a)'s measurements (MP 128)
+DIST_FRAME_SEED = 5
+DIST_FRAME_REPEATS = 5      # (a)'s timed frames, after the two checked
+DIST_COURSE_RANKS = 2       # (b): the valet course, f32 and i16 side by side
+DIST_PARTICLES = 100_000    # (c): one resampling observation step, K 32
 WITNESS_FACTOR = 2.0        # the port no further from the float64 witness than this
                             # times the JAX package's float32 run
 PEAK_BYTES_PER_S = 3.35e12
@@ -2971,10 +3009,11 @@ def sim_path(device) -> tuple[dict, dict]:
     reference's own seed-42 draws, against its committed run; (b) the same
     gated; H9, H15 and H10 at a frame of that course against their plain
     versions (valet_kernel_checks); (c) BASELINE config 2 through
-    run_ekf_slam in turns with the precomputed driver, and once on a
-    torch.Generator's draws; (d) every route against its plain versions;
-    the sync debug mode over frames of (a) and (c).  Returns the results
-    and the launch counts summed over the timed kernel runs."""
+    run_ekf_slam in turns with the precomputed driver; the sync debug
+    mode over frames of (a) and (c).  Its (d), every route against its
+    plain versions, is sim_routes, which phase 4h runs beside its sharded
+    course.  Returns the results and the launch counts summed over the
+    timed kernel runs."""
     import torch
 
     from conan_slam_tpu_torch.config import SlamConfig
@@ -2985,7 +3024,7 @@ def sim_path(device) -> tuple[dict, dict]:
     t_phase = time.perf_counter()
     ref, ctrl, obs = valet_reference(device)
     world = default_world(device)
-    n_frames = ctrl.shape[0]
+    n_frames = -(-VALET_STEPS // 6)
     total: dict[str, int] = {}
 
     def add(counts):
@@ -2997,7 +3036,7 @@ def sim_path(device) -> tuple[dict, dict]:
         f"done at step {VALET_DONE_AT}, {VALET_MAPPED} mapped")
     res: dict = {}
     for name, known in (("known", True), ("gated", False)):
-        r = drive_sim(world, SlamConfig(switch_association_known=known), SIM_STEPS, ctrl, obs)
+        r = drive_sim(world, SlamConfig(switch_association_known=known), VALET_STEPS, ctrl, obs)
         add(r["counts"])
         outs = r["outs"]
         n = outs.x_est.shape[0]
@@ -3051,17 +3090,12 @@ def sim_path(device) -> tuple[dict, dict]:
                                                                  ~outs.done)),
                     mapped=int(state.n_active), finite=bool(torch.isfinite(state.p).all()))
 
-    # The second sim turn runs on the port's own draws, from a torch.Generator
-    # seeded 0 as run_ekf_slam draws them: reported, not held to gated_full
-    # (one realization's gate).
-    gen = torch.Generator(device=device).manual_seed(0)
-    n_frames_c2 = c2ctrl.shape[0]
-    gen_draws = (torch.randn((n_frames_c2, 6, 2), generator=gen, device=device),
-                 torch.randn((n_frames_c2, 500, 2), generator=gen, device=device))
+    # (The run on a torch.Generator(0)'s draws, reported only and never
+    # gated, left out when phase 4h was added.)
     turns = []
-    for kind in ("precomputed", "sim", "sim, torch.Generator(0) draws", "precomputed"):
-        if kind.startswith("sim"):
-            r = drive_sim(c2, c2cfg, SIM_STEPS, *((c2ctrl, c2obs) if kind == "sim" else gen_draws))
+    for kind in ("precomputed", "sim", "precomputed"):
+        if kind == "sim":
+            r = drive_sim(c2, c2cfg, SIM_STEPS, c2ctrl, c2obs)
             add(r["counts"])
             nf = r["outs"].x_est.shape[0] // 6
             want = {"factor_gate": nf, "obs_step": 2 * nf}
@@ -3073,25 +3107,50 @@ def sim_path(device) -> tuple[dict, dict]:
             f"mapped {r['mapped']}" + (f" (the reference's run_ekf_slam on these draws: ATE "
                                        f"{c2ate:.4f} m, mapped {c2mapped})"
                                        if kind == "sim" else ""))
-        if kind.startswith("sim, "):
-            require(r["finite"], f"config 2 ({kind})", "finite; reported, not held to gated_full")
-            res["config2_generator"] = dict(ate=r["ate"], mapped=r["mapped"],
-                                            steps_per_s=r["steps_per_s"])
-        else:
-            require(r["finite"] and r["ate"] < 0.5 and 270 <= r["mapped"] <= 340,
-                    f"config 2 gated_full ({kind})",
-                    f"finite, ATE {r['ate']:.4f} < 0.5 m, 270 <= mapped {r['mapped']} <= 340")
+        require(r["finite"] and r["ate"] < 0.5 and 270 <= r["mapped"] <= 340,
+                f"config 2 gated_full ({kind})",
+                f"finite, ATE {r['ate']:.4f} < 0.5 m, 270 <= mapped {r['mapped']} <= 340")
         turns.append(r["steps_per_s"])
         if kind == "sim":
             res["config2"] = dict(ate=r["ate"], mapped=r["mapped"], reference_ate=c2ate,
                                   reference_mapped=c2mapped)
     log(f"  config 2 steps/s in turns: precomputed {turns[0]:,.1f}, sim {turns[1]:,.1f}, "
-        f"sim (generator draws) {turns[2]:,.1f}, precomputed {turns[3]:,.1f} (the host rollout "
-        f"the precomputed runs take as given: {rollout_s:.3f} s)")
+        f"precomputed {turns[2]:,.1f} (the host rollout the precomputed runs take as given: "
+        f"{rollout_s:.3f} s)")
     res["config2"].update(turns=turns, rollout_s=rollout_s)
     sync_free("config 2", c2, c2cfg, c2ctrl, c2obs)
 
-    # (d) Every route at the valet shape, true noise in the filter, against
+    for kname in ("frame_step", "factor_gate", "obs_step"):
+        require(total.get(kname, 0) > 1, f"sim path launches {kname}",
+                f"{total.get(kname, 0)} launches")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"sim path: {res['seconds']:.1f} s")
+    return res, total
+
+
+def sim_routes(device) -> tuple[dict, dict]:
+    """Phase 4e (d): every route of run_ekf_slam at the valet shape (fused;
+    fast_frame=False; fused_obs=False; and with switch_batch_update=False),
+    known and gated, SIM_ROUTE_STEPS steps each on the reference's seed-42
+    draws with the filter at the true noise, against the same run of its
+    plain versions and the NIS band.  Phase 4h runs it in this process
+    while its sharded course runs in its ranks.  Returns the results and
+    the launch counts of its kernel runs."""
+    import torch
+
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    t0 = time.perf_counter()
+    _, ctrl, obs = valet_reference(device)
+    world = default_world(device)
+    total: dict[str, int] = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    # Every route at the valet shape, true noise in the filter, against
     # the same run of its plain versions.  A known non-fused route launches
     # no kernel (its association is the table), so its run is its own plain
     # version.
@@ -3122,13 +3181,11 @@ def sim_path(device) -> tuple[dict, dict]:
                 f"ATE {k['ate']:.4f} m, mapped {k['mapped']}, max |x_est - plain| {dx:.3e} m")
             routes[name] = dict(steps_per_s=k["steps_per_s"], plain_steps_per_s=p["steps_per_s"],
                                 dx_plain=dx, nis=nis[0], ate=k["ate"])
-    res["routes"] = routes
-    for kname in ("frame_step", "factor_gate", "obs_step", "gating_scores"):
-        require(total.get(kname, 0) > 1, f"sim path launches {kname}",
-                f"{total.get(kname, 0)} launches")
-    res["seconds"] = time.perf_counter() - t_phase
-    log(f"sim path: {res['seconds']:.1f} s")
-    return res, total
+    require(total.get("gating_scores", 0) > 1, "sim path launches gating_scores",
+            f"{total.get('gating_scores', 0)} launches")
+    secs = time.perf_counter() - t0
+    log(f"sim path (d), every route against its plain versions: {secs:.1f} s")
+    return dict(routes=routes, seconds=secs), total
 
 
 def moved(a, device):
@@ -3349,9 +3406,9 @@ def pf_path(device) -> tuple[dict, dict]:
             f"ATE {r['ate']:.4f} < 1.0 m, mapped {r['mapped']} > 0")
     res["noise_free"] = dict(ate=r["ate"], mapped=r["mapped"])
     cfg = SlamConfig(num_particles=PF_COURSE_N)
-    r = pf_run(world, cfg, SIM_STEPS, torch.Generator(device=device).manual_seed(0))
+    r = pf_run(world, cfg, VALET_STEPS, torch.Generator(device=device).manual_seed(0))
     add(r["counts"])
-    log(f"PF valet course, N = {PF_COURSE_N}, {SIM_STEPS} steps on torch.Generator(0)'s draws: "
+    log(f"PF valet course, N = {PF_COURSE_N}, {VALET_STEPS} steps on torch.Generator(0)'s draws: "
         f"{r['seconds']:.2f} s = {r['steps_per_s']:,.1f} steps/s, done at step {r['done_at']}, "
         f"mapped {r['mapped']}, ATE {r['ate']:.4f} m (the reference's over 36 seeds at N = 100: "
         f"median {PF_REFERENCE_ATE[0]} m, p90 {PF_REFERENCE_ATE[1]} m), launches "
@@ -3363,14 +3420,14 @@ def pf_path(device) -> tuple[dict, dict]:
     res["course"] = dict(ate=r["ate"], done_at=r["done_at"], mapped=r["mapped"],
                          steps_per_s=r["steps_per_s"], launches=r["counts"])
 
-    # (c) bench_pf.py's sizes after an untimed warm-up run of each; the
-    # smallest and the largest in turns (N = 100, 100,000, ..., 100,000, 100).
+    # (c) bench_pf.py's sizes after an untimed warm-up run of each, once
+    # each (the smallest and the largest twice, in turns, and PF_STEPS
+    # steps each, until phase 4h was added).
     for n in PF_SIZES:
         pf_run(world, SlamConfig(num_particles=n), 60, torch.Generator(device=device).manual_seed(0))
     sizes: dict = {n: [] for n in PF_SIZES}
-    order = (PF_SIZES[0], PF_SIZES[-1]) + PF_SIZES[1:-1] + (PF_SIZES[-1], PF_SIZES[0])
-    for i, n in enumerate(order):
-        r = pf_run(world, SlamConfig(num_particles=n), PF_STEPS,
+    for i, n in enumerate(PF_SIZES):
+        r = pf_run(world, SlamConfig(num_particles=n), PF_SIZE_STEPS,
                    torch.Generator(device=device).manual_seed(1 + i))
         add(r["counts"])
         require(r["finite"] and r["neff_ok"], f"PF bench size N = {n}", "finite, Neff in (0, N]")
@@ -3975,6 +4032,333 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
                 ops=sum(ops.values()) / n_frames, ranges=in_ranges)
 
 
+def dist_big_frame(pool, device, total: dict) -> dict:
+    """Phase 4h (a): the sharded frame at 10,000 landmarks on DIST_RANKS
+    ranks, f32 and i16, against the single-device port frame (H9) on the
+    same inputs and the plain CPU version, at tests/test_parallel.py's
+    tolerances; H1 in every rank; the wall µs a frame of every rank, rank
+    0's device µs, the collectives' bytes."""
+    import torch
+
+    from conan_slam_tpu_torch.filters.common import CompactObs
+    from conan_slam_tpu_torch.filters.ekf import fused_frame_step
+    from conan_slam_tpu_torch.filters.ekf.state import EKFState
+    from conan_slam_tpu_torch.parallel import tasks
+
+    d = 3 + 2 * DIST_LANDMARKS
+    t0 = time.perf_counter()
+    ranks = pool.run(tasks.big_frame, {"state": DIST_RANKS}, d, DIST_OBS, 6, DIST_FRAME_SEED,
+                     DIST_FRAME_REPEATS)
+    secs = time.perf_counter() - t0
+    for r in ranks:
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    h1 = [r["launches_two_frames"]["sweep_inverse"] for r in ranks]
+    others = {k: n for r in ranks for k, n in r["launches"].items() if k != "sweep_inverse" and n}
+    require(h1 == [2] * DIST_RANKS and not others, "sharded frame launches (10k)",
+            f"H1 once a frame in every rank: {h1} over the two checked frames; no other "
+            f"kernel: {others or 'none'}")
+    x_sh = torch.as_tensor(np.concatenate([r["x"] for r in ranks]))[:d]
+    p_sh = torch.as_tensor(np.concatenate([r["p"] for r in ranks]))[:d, :d]
+    nis_sh, pt_sh = ranks[0]["nis"], ranks[0]["pose_trace"]
+    same = all(r["nis"].tobytes() == nis_sh.tobytes() and
+               r["pose_trace"].tobytes() == pt_sh.tobytes() for r in ranks)
+    require(same, "sharded frame replicated outputs (10k)",
+            "NIS and pose trace the same bits on every rank")
+    x, p_rows, frame = tasks.big_inputs(d, DIST_OBS, 6, DIST_FRAME_SEED, device)
+    vns, swans, phis, act, q, z, slots, mask, r_cov, wb, dt, sh, uh = frame
+    cap = (d - 3) // 2
+    state = EKFState(x=x, p=p_rows(slice(0, d)), n_active=torch.tensor(cap, device=device),
+                     table=torch.full((cap,), -1, dtype=torch.int64, device=device))
+    obs = CompactObs(z=z, ids=slots, mask=mask)
+    out = {"seconds": secs}
+    t0 = time.perf_counter()
+    for label, st, ob, plain in (
+            ("H9", state, obs, False),
+            ("plain CPU", EKFState(*(t.cpu() for t in state)), CompactObs(*(t.cpu() for t in obs)),
+             True)):
+        args = [t.cpu() if plain and torch.is_tensor(t) else t for t in frame]
+        new, pt, nis = fused_frame_step(st, args[0], args[1], args[2], args[3], args[4], ob,
+                                        args[6], args[7], args[8], wb, dt, sh, uh, plain=plain)
+        tag = label.split()[0].lower()
+        out[f"dx_{tag}"] = check(f"sharded frame x vs {label} (10k)", x_sh, new.x.cpu(), 1e-4,
+                                 1e-4, "test_parallel.py's frame tolerance")
+        out[f"dp_{tag}"] = check(f"sharded frame P vs {label} (10k)", p_sh, new.p.cpu(), 1e-3,
+                                 1e-4, "test_parallel.py's frame tolerance")
+        check(f"sharded frame NIS vs {label} (10k)", torch.as_tensor(nis_sh), nis.cpu(), 1e-4,
+              0.0, "test_parallel.py's frame tolerance")
+        check(f"sharded frame pose trace vs {label} (10k)", torch.as_tensor(pt_sh), pt.cpu(),
+              1e-5, 1e-5, "test_parallel.py's frame tolerance")
+        del new
+        out[f"{tag}_check_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    del state
+    torch.cuda.empty_cache()
+    i16 = ranks[0]["i16"]
+    worst = max(r["i16"]["p"] / r["i16"]["p_scale"] for r in ranks)
+    require(worst < 1e-3 and all(r["i16"]["x"] == 0.0 and r["i16"]["nis"] == 0.0 for r in ranks),
+            "sharded frame i16 wire (10k)",
+            f"max |P_i16 - P_f32| / max |P| {worst:.2e} < 1e-3 on every rank; x and NIS equal "
+            "to the f32 wire's (R3: the mean takes the exact strip)")
+    wall = [float(np.median(r["wall_us"])) for r in ranks]
+    logical = sum(c[4] for c in ranks[0]["collectives"])
+    transport = sum(c[5] for c in ranks[0]["collectives"])
+    logical_i16 = sum(c[4] for c in ranks[0]["collectives_i16"])
+    out.update(wall_us_per_rank=wall, device_us_rank0=ranks[0]["device_us"],
+               kernels_us_rank0=ranks[0]["kernels_us"], logical_bytes=logical,
+               transport_bytes=transport, logical_bytes_i16=logical_i16,
+               collectives=ranks[0]["collectives"], i16_p_rel=worst)
+    top = sorted(ranks[0]["kernels_us"].items(), key=lambda kv: -kv[1])[:6]
+    log(f"  sharded frame (10k, D {d}, {DIST_RANKS} gloo ranks on one card): {secs:.1f} s with "
+        f"the set-up (the single-device checks {out['h9_check_s']:.1f} s on the card, "
+        f"{out['plain_check_s']:.1f} s on the CPU); wall µs a frame by rank (median of {DIST_FRAME_REPEATS}) "
+        f"{', '.join(f'{w:,.1f}' for w in wall)}; rank 0 device µs a frame "
+        f"{ranks[0]['device_us']:,.1f} (top: "
+        + ", ".join(f"{k[:40]} {v:,.1f}" for k, v in top)
+        + f"); collectives a frame {logical:,} logical bytes ({transport:,} moved), i16 wire "
+        f"{logical_i16:,}")
+    return out
+
+
+def dist_course_check(name: str, ranks, ref: dict, gate: bool) -> dict:
+    """Phase 4h (b): one sharded valet run against the course's gates."""
+    import torch
+
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+
+    same = all(all(a.tobytes() == b.tobytes() for a, b in zip(r["outs"], ranks[0]["outs"]))
+               for r in ranks)
+    outs = type(ranks[0]["outs"])(*(torch.as_tensor(a) for a in ranks[0]["outs"]))
+    done = outs.done
+    done_at = int(done.to(torch.int8).argmax()) if bool(done.any()) else -1
+    ate = float(ate_rmse(outs.x_true, outs.x_est, ~outs.done))
+    mapped = int(ranks[0]["n_active"])
+    finite = bool(torch.isfinite(outs.x_est).all()) and all(
+        np.isfinite(r["p"]).all() for r in ranks)
+    steps = outs.x_est.shape[0]
+    secs = max(r["seconds"] for r in ranks)
+    log(f"  sharded valet course ({name}, {len(ranks)} gloo ranks): {steps} steps in {secs:.1f} s "
+        f"= {steps / secs:,.1f} steps/s, ATE {ate:.5f} m (reference {ref['ate']:.5f} m), done at "
+        f"step {done_at}, mapped {mapped}, launches a rank "
+        f"{[r['launches']['sweep_inverse'] for r in ranks]} (H1)")
+    require(same, f"sharded course outputs ({name})", "the same bits on every rank")
+    if gate:
+        require(finite and done_at == VALET_DONE_AT and mapped == VALET_MAPPED,
+                f"sharded valet course ({name})", f"finite, done at step {done_at} (reference "
+                f"{VALET_DONE_AT}), mapped {mapped} (reference {VALET_MAPPED})")
+        require(abs(ate - ref["ate"]) <= VALET_ATE_BOUND, f"sharded valet ATE ({name})",
+                f"|{ate:.5f} - {ref['ate']:.5f}| = {abs(ate - ref['ate']):.2e} m "
+                f"<= {VALET_ATE_BOUND} m")
+    else:
+        require(finite and mapped == VALET_MAPPED, f"sharded valet course ({name})",
+                f"finite, mapped {mapped} (reference {VALET_MAPPED}); ATE reported, no reference "
+                "bound exists for the i16 wire")
+    return dict(ate=ate, done_at=done_at, mapped=mapped, steps_per_s=steps / secs, seconds=secs)
+
+
+def dist_pf_step(pool, device, total: dict) -> dict:
+    """Phase 4h (c): the PF observation step of DIST_PARTICLES particles on
+    DIST_RANKS ranks against the single-device port step on the same draws:
+    without resampling within float32 rounding (each rank's block runs
+    the single-device per-particle code on a block of another size); the
+    sharded resample on the single-device step's ensemble equal to the
+    single-device resample up to the CDF's float32 rounding (its weights,
+    Neff and CDF are the single path's arithmetic on the gathered log
+    weights); the whole resampling step timed, its particles that left on
+    another ancestor than the single-device step's counted."""
+    import torch
+
+    from conan_slam_tpu_torch.filters import pf as pf_mod
+    from conan_slam_tpu_torch.filters.common import CompactObs
+    from conan_slam_tpu_torch.models import sensor
+    from conan_slam_tpu_torch.parallel import dist_pf, launch, tasks
+
+    rng = np.random.default_rng(11)
+    n, cap, nz = DIST_PARTICLES, 32, 6
+    feats = rng.uniform(-200, 200, size=(4, 2)).astype(np.float32)
+    xf = np.zeros((n, cap, 2), np.float32)
+    xf[:, :4] = feats + rng.normal(size=(n, 4, 2)).astype(np.float32) * 0.5
+    table = np.full((30,), -1, np.int64)
+    table[:4] = np.arange(4)
+    ens = pf_mod.ParticleEnsemble(
+        log_w=rng.normal(size=(n,)).astype(np.float32),
+        pose=(rng.normal(size=(n, 3)) * [2.0, 2.0, 0.2]).astype(np.float32),
+        pose_cov=np.broadcast_to(np.eye(3, dtype=np.float32) * 0.01, (n, 3, 3)).copy(),
+        xf=xf, pf=np.broadcast_to(np.eye(2, dtype=np.float32) * 0.4, (n, cap, 2, 2)).copy(),
+        n_active=np.asarray(4), table=table)
+    zp, _, _ = sensor.observe(torch.zeros(3), torch.as_tensor(feats))
+    z = np.zeros((nz, 2), np.float32)
+    z[:4] = zp.numpy() + (rng.normal(size=(4, 2)) * [0.1, 0.005]).astype(np.float32)
+    z[4] = [150.0, 0.7]
+    obs = CompactObs(z=z, ids=np.asarray([0, 1, 2, 3, 9, -1]), mask=np.asarray([True] * 5 + [False]))
+    r_cov = np.diag([0.02, 0.0012]).astype(np.float32)
+    draws = pf_mod.ObservationDraws(prop=rng.normal(size=(n, 3)).astype(np.float32),
+                                    res_u=rng.uniform(size=(n,)).astype(np.float32), rough=None,
+                                    samp=rng.normal(size=(n, 3)).astype(np.float32))
+    kw = dict(num_effective=0.75 * n, sample_proposal_on=True, resample_on=True)
+    axes = {"particles": DIST_RANKS}
+    split = ("log_w", "pose", "pose_cov", "xf", "pf")
+
+    def run(ensemble, steps):
+        ranks = pool.run(tasks.ensemble_steps, axes, ensemble, steps)
+        for r in ranks:
+            for k, c in r["launches"].items():
+                total[k] = total.get(k, 0) + c
+        return ranks, {k: torch.as_tensor(np.concatenate([getattr(r["ens"], k) for r in ranks]))
+                       for k in split}
+
+    def single(ensemble, **kwargs):
+        return pf_mod.observation_step(
+            launch.to_torch(ensemble, device), launch.to_torch(obs, device),
+            torch.as_tensor(r_cov, device=device), launch.to_torch(draws, device), **kwargs)
+
+    out = {}
+    # (c1) the step without resampling.
+    _, got = run(ens, [(dist_pf.sharded_observation_step, (obs, r_cov, draws),
+                        dict(kw, resample_on=False), True)])
+    pre = single(ens, **dict(kw, resample_on=False))
+    for k in split:
+        out[f"no_resample_{k}"] = check(f"sharded PF step without resampling, {k} (N {n})",
+                                        got[k], getattr(pre, k).cpu(), 1e-5, 1e-6,
+                                        "test_parallel.py's resample tolerance")
+    # (c2) the resample alone on the single-device step's ensemble: its
+    # ancestors are the single path's arithmetic on the same weights, but a
+    # float32 cumsum on the card sums in an order that can change from call
+    # to call, so a stratum within the CDF's rounding of a boundary may
+    # take another ancestor: the next one, or one past particles whose
+    # weights are below the rounding.  Each particle is the single-device
+    # resample's, or such a flip: both its ancestors found by their
+    # payload among the input's particles, every CDF boundary between them
+    # within tau of its stratum, tau four times the single-device CDF's
+    # measured float32 error against a float64 cumsum (two runs' errors
+    # at one index, the other run's own largest unseen).
+    pre_np = launch.to_numpy(pre)
+    u = torch.as_tensor(draws.res_u, device=device)
+    _, got = run(pre_np, [(dist_pf.sharded_resample, (draws.res_u, kw["num_effective"]), {},
+                           True)])
+    ref = pf_mod.resample(pre, u, None, kw["num_effective"], True)
+    w = pf_mod.normalized_weights(pre)
+    cum64 = torch.cumsum(w.double(), 0).cpu()
+    tau = 4.0 * float((torch.cumsum(w, 0).double().cpu() - cum64).abs().max())
+    strata = (torch.arange(n, dtype=torch.float64) + u.double().cpu()) / n
+    ref_cpu = {k: getattr(ref, k).cpu() for k in split}
+    differ = torch.zeros(n, dtype=torch.bool)
+    for k in split[1:]:
+        differ |= (got[k] != ref_cpu[k]).reshape(n, -1).any(1)
+    owner = {row.tobytes(): m for m, row in enumerate(pre_np.pose)}
+    flips = []
+    for i in torch.nonzero(differ)[:, 0].tolist():
+        a = owner.get(got["pose"][i].numpy().tobytes())
+        b = owner.get(ref_cpu["pose"][i].numpy().tobytes())
+        whole = a is not None and all(torch.equal(got[k][i], torch.as_tensor(getattr(pre_np, k)[a]))
+                                      for k in split[1:])
+        gap = (max(abs(float(strata[i] - cum64[min(a, b)])),
+                   abs(float(strata[i] - cum64[max(a, b) - 1])))
+               if whole and b is not None and a != b else float("inf"))
+        flips.append((i, a, b, gap <= tau, gap))
+    n_diff = len(flips)
+    explained = sum(f[3] for f in flips)
+    widest = max((f[4] for f in flips), default=0.0)
+    fired = bool((ref.log_w == ref.log_w[0]).all())
+    require(fired and torch.equal(got["log_w"], ref_cpu["log_w"]) and explained == n_diff,
+            f"sharded PF resample (N {n})",
+            f"resampled: {fired}; {n - n_diff} of {n} particles bit-equal to the single-device "
+            f"resample's; {explained} of the other {n_diff} a flip whose CDF boundaries lie "
+            f"within {tau:.2e} of the stratum (the widest {widest:.2e})"
+            + "".join(f"; unexplained: particle {i}, ancestors {a} and {b} ({g:.2e})"
+                      for i, a, b, ok, g in flips if not ok)[:400])
+    out.update(resample_flips=n_diff, cdf_tau=tau, widest_flip=widest)
+    # (c3) the whole resampling step, timed.
+    t0 = time.perf_counter()
+    ranks, got = run(ens, [(dist_pf.sharded_observation_step, (obs, r_cov, draws), kw, True)])
+    secs = time.perf_counter() - t0
+    full = single(ens, **kw)
+    moved = int((got["pose"] != full.pose.cpu()).any(1).sum())
+    resampled = bool((got["log_w"] == got["log_w"][0]).all())
+    require(resampled and all(r["ens"].table.tobytes() == ranks[0]["ens"].table.tobytes()
+                              for r in ranks),
+            f"sharded PF step (N {n})", f"resampled: {resampled}; the table the same on every "
+            f"rank; {moved} of {n} particles on another ancestor than the single-device step's")
+    logical = sum(c[4] for c in ranks[0]["collectives"])
+    log(f"  sharded PF observation step (N {n}, K {cap}, {DIST_RANKS} ranks): {secs:.2f} s with "
+        f"the transfers; collectives {logical:,} logical bytes "
+        f"({sum(c[5] for c in ranks[0]['collectives']):,} moved) on rank 0")
+    out.update(seconds=secs, other_ancestor=moved, logical_bytes=logical)
+    return out
+
+
+def dist_path(device, beside=None) -> tuple[dict, dict, object]:
+    """Phase 4h: the sharded runtime (parallel/) at BASELINE config 5's
+    sizes, its ranks processes on the one card over gloo: (a) the sharded
+    frame at 10,000 landmarks on four ranks (dist_big_frame); (b) the
+    whole valet course through run_ekf_slam_sharded on the reference's
+    seed-42 draws on two ranks, the f32 wire held to phase 4e's gates and
+    the i16 wire beside it on two more ranks; (c) one resampling PF
+    observation step of 100,000 particles on four ranks (dist_pf_step);
+    (d) the dry run on four ranks ({"state": 2, "particles": 2}) and the
+    DCN smoke at world size 1 on NCCL.  ``beside()``, where given, runs in
+    this process after (a), (c) and (d)'s dry run, while the course's
+    ranks run.  Returns the results, the launches summed over the ranks'
+    runs, and what ``beside`` returned."""
+    import torch
+
+    from conan_slam_tpu_torch.benchmarks import dcn_smoke
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.parallel import dryrun, launch, tasks
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total: dict[str, int] = {}
+    ref, ctrl, obs = valet_reference(device)
+    world = tuple(t.cpu().numpy() for t in default_world(device))
+    log(f"dist path (phase 4h): {DIST_RANKS} + {DIST_COURSE_RANKS} + {DIST_COURSE_RANKS} gloo "
+        "ranks and one NCCL rank on one card")
+    res: dict = {}
+    with launch.RankPool(DIST_RANKS, "cuda") as pool, \
+            launch.RankPool(DIST_COURSE_RANKS, "cuda") as pool_f32, \
+            launch.RankPool(DIST_COURSE_RANKS, "cuda") as pool_i16, \
+            launch.RankPool(1, "cuda", backend="nccl", init="env") as pool_nccl:
+        courses = {}
+        for wire, p in (("f32", pool_f32), ("i16", pool_i16)):
+            p.start(tasks.run_sharded, {"state": DIST_COURSE_RANKS}, world,
+                    SlamConfig(dist_gain_wire=wire), VALET_STEPS, None, ctrl.cpu().numpy(),
+                    obs.cpu().numpy())
+        t_nccl = time.perf_counter()
+        pool_nccl.start(dcn_smoke.dcn_rank)
+        res["frame_10k"] = dist_big_frame(pool, device, total)
+        res["pf_100k"] = dist_pf_step(pool, device, total)
+        t0 = time.perf_counter()
+        dry = dryrun.dryrun_multichip(DIST_RANKS, pool=pool)
+        res["dryrun"] = dict(dry, seconds=time.perf_counter() - t0)
+        require(dry["mesh"] == {"state": 2, "particles": 2}, "dry run",
+                f"mesh {dry['mesh']}, D_padded {dry['d_padded']}, particles {dry['particles']}, "
+                "every value finite")
+        t0 = time.perf_counter()
+        beside_out = beside() if beside is not None else None
+        res["beside_s"] = time.perf_counter() - t0
+        for wire, p in (("f32", pool_f32), ("i16", pool_i16)):
+            ranks = p.wait()
+            for r in ranks:
+                for k, n in r["launches"].items():
+                    total[k] = total.get(k, 0) + n
+            courses[wire] = dist_course_check(wire, ranks, ref, gate=wire == "f32")
+        res["course"] = courses
+        nccl = pool_nccl.wait()[0]
+    require(nccl["backend"] == "nccl" and nccl["f32"]["ok"] and nccl["i16"]["ok"],
+            "sharded frame on NCCL (world size 1)",
+            f"NIS {nccl['f32']['nis_rel_err']:.1e}, pose trace within 1e-4 against the "
+            "single-device frame, both wires")
+    res["nccl"] = dict(nccl, seconds=time.perf_counter() - t_nccl)
+    require(total.get("sweep_inverse", 0) > 0, "dist path launches H1",
+            f"{total.get('sweep_inverse', 0)} launches over the ranks")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"dist path (phase 4h): {res['seconds']:.1f} s (of them {res['beside_s']:.1f} s of "
+        f"phase 4e's routes beside the course), launches {total}")
+    return res, total, beside_out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=BENCH_STEPS,
@@ -4038,6 +4422,10 @@ def main() -> int:
     sim, simcounts = sim_path(device)
     pfres, pfcounts = pf_path(device)
     llres, llcounts = longloop_path(device)
+    dres, dcounts, (routes, rcounts) = dist_path(device, beside=lambda: sim_routes(device))
+    sim.update(routes=routes["routes"], routes_seconds=routes["seconds"])
+    for k, n in rcounts.items():
+        simcounts[k] = simcounts.get(k, 0) + n
     log(f"main paths: {time.perf_counter() - t0:.1f} s")
 
     from conan_slam_tpu_torch.config import SlamConfig
@@ -4089,13 +4477,15 @@ def main() -> int:
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
                       + pcounts[k.name] + pbcounts[k.name] + simcounts.get(k.name, 0)
-                      + pfcounts.get(k.name, 0) + llcounts.get(k.name, 0)),
+                      + pfcounts.get(k.name, 0) + llcounts.get(k.name, 0)
+                      + dcounts.get(k.name, 0)),
          "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
                               "gated": gcounts[k.name], "gated_split": gscounts[k.name],
                               "pair": pcounts[k.name], "probes": pbcounts[k.name],
                               "probes_replayed": pbreplayed.get(k.name, 0),
                               "sim": simcounts.get(k.name, 0), "pf": pfcounts.get(k.name, 0),
-                              "longloop": llcounts.get(k.name, 0)},
+                              "longloop": llcounts.get(k.name, 0),
+                              "dist": dcounts.get(k.name, 0)},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items()
@@ -4161,6 +4551,10 @@ def main() -> int:
                      "stage2_busy_us_per_cg_step": llres["cg_profile"]["busy_us"],
                      "stage2_wall_us_per_cg_step_profiled": llres["cg_profile"]["wall_us"],
                      "example": llres["example"], "seconds": llres["seconds"]},
+        "dist": {"frame_10k": {k: v for k, v in dres["frame_10k"].items() if k != "collectives"},
+                 "course": dres["course"], "pf_100k": dres["pf_100k"],
+                 "dryrun": dres["dryrun"], "nccl_seconds": dres["nccl"]["seconds"],
+                 "seconds": dres["seconds"]},
         "probes_us": {
             "sweep": {k: {"graph": v["us"], "eager": v["eager_us"]}
                       for k, v in probes.get("probe_sweep", {}).get("variants", {}).items()},

@@ -106,7 +106,8 @@ class SlamConfig:
     # frame_step_pair), where runner.loop can pair them: known association,
     # augment off and an even number of frames.
     frame_pair: bool = False
-    # Wire format of the reference's distributed frame (not ported).
+    # Wire format of the sharded frame's gain all-gather
+    # (parallel.dist_fastframe): "f32" exact, "i16" half the bytes.
     dist_gain_wire: str = "f32"
 
     @property

@@ -6,7 +6,9 @@ headers, so the build takes seconds.  Each source compiles in its own
 ``nvcc`` process, all started together, and one more links the objects.
 The build runs at first use, from the package's own sources, into
 ``build/`` beside them (listed in .gitignore), and again whenever a source
-is newer than the library.
+is newer than the library.  Processes that build at once (the ranks of
+the sharded runtime on one card) take turns on a file lock in the build
+directory, and whoever comes second finds the library current.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()`` after its launch; ``CudaKernel`` raises on
@@ -15,7 +17,9 @@ a non-zero return and counts the launches that succeeded.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -47,29 +51,50 @@ def _nvcc() -> str:
     return path
 
 
-def _stale() -> bool:
-    if not LIB_PATH.exists():
+def _stale(csrc: Path = CSRC, lib: Path = LIB_PATH) -> bool:
+    if not lib.exists():
         return True
-    built = LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in CSRC.iterdir())
+    built = lib.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in csrc.iterdir())
 
 
-def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, float, str]:
+@contextlib.contextmanager
+def _locked(path: Path):
+    """An exclusive ``flock`` on ``path`` for the block (released when the
+    process ends, whatever ends it)."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build(extra_flags: tuple[str, ...] = (), *, csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+          nvcc: str | None = None) -> tuple[Path, float, str]:
     """Compile ``csrc/*.cu`` if the library is missing or stale: one
-    ``nvcc -c`` per source, all in parallel, then one link.
+    ``nvcc -c`` per source, all in parallel, then one link, under the
+    build directory's lock (a process that waited on it checks again).
 
     Returns ``(library path, seconds spent building, compiler output)``;
     the seconds are 0.0 when the library was current.
     """
-    if not _stale():
-        return LIB_PATH, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    lib = build_dir / LIB_PATH.name
+    if not _stale(csrc, lib):
+        return lib, 0.0, ""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with _locked(build_dir / ".lock"):
+        if not _stale(csrc, lib):
+            return lib, 0.0, ""
+        return _build(extra_flags, csrc, build_dir, lib, nvcc or _nvcc())
+
+
+def _build(extra_flags, csrc: Path, build_dir: Path, lib: Path, nvcc: str) -> tuple[Path, float, str]:
     tag = f"{os.getpid()}"
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+    for src in sorted(csrc.glob("*.cu")):
+        obj = build_dir / f".{src.stem}.{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((cmd, obj, proc))
@@ -83,18 +108,18 @@ def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, float, str]:
     try:
         if failed:
             raise RuntimeError("\n".join(failed))
-        tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}.tmp"
+        tmp = build_dir / f".{lib.name}.{tag}.tmp"
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
                 f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
             )
-        os.replace(tmp, LIB_PATH)     # atomic: a concurrent loader sees old or new
+        os.replace(tmp, lib)     # atomic: a concurrent loader sees old or new
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    return LIB_PATH, time.perf_counter() - t0, "".join(outputs) + res.stdout + res.stderr
+    return lib, time.perf_counter() - t0, "".join(outputs) + res.stdout + res.stderr
 
 
 def library() -> ctypes.CDLL:

@@ -1637,3 +1637,31 @@ def test_optimize_on_the_card_against_the_cpu_and_a_witness(dev):
     w = chi2(wit)
     bound = max(2.0 * abs(chi2(host) - w), abs(chi2(host_perm) - chi2(host)))
     assert abs(chi2(card) - w) <= bound, (chi2(card), chi2(host), w)
+
+
+def test_sharded_frame_on_the_card_matches_the_cpu(dev):
+    # The sharded frame (parallel.dist_fastframe) on two gloo ranks that
+    # share the card, against the same two ranks on the CPU (the plain
+    # Cholesky route for S^-1): H1 inverts S once a frame in each rank, and
+    # the two runs differ by fp32 rounding alone (the frame test's
+    # tolerances: x 1e-4, P rtol 1e-3 / atol 1e-4, NIS rtol 1e-4, pose trace
+    # 1e-5); the replicated outputs are the same bits on both ranks.
+    from conan_slam_tpu_torch.parallel import dist_fastframe, launch, tasks
+
+    x, p_rows, frame = tasks.big_inputs(403, 16, 6, 3, "cpu")
+    d = x.shape[0]
+    args = tuple(a.numpy() if torch.is_tensor(a) else a for a in frame)
+    steps = [(dist_fastframe.sharded_frame_update, args, {})]
+    got, ref = (launch.run(tasks.state_steps, 2, {"state": 2}, x.numpy(),
+                           p_rows(slice(0, d)).numpy(), steps, device=kind, timeout=300.0)
+                for kind in ("cuda", "cpu"))
+    assert [r["launches"]["sweep_inverse"] for r in got] == [1, 1]
+    assert [r["launches"]["sweep_inverse"] for r in ref] == [0, 0]
+    for key, rtol, atol in (("x", 1e-4, 1e-4), ("p", 1e-3, 1e-4)):
+        np.testing.assert_allclose(np.concatenate([r[key] for r in got]),
+                                   np.concatenate([r[key] for r in ref]), rtol=rtol, atol=atol)
+    (nis, pt), (nis_ref, pt_ref) = got[0]["extras"][0], ref[0]["extras"][0]
+    np.testing.assert_allclose(nis, nis_ref, rtol=1e-4)
+    np.testing.assert_allclose(pt, pt_ref, rtol=1e-5, atol=1e-5)
+    for r in got[1:]:
+        assert all(a.tobytes() == b.tobytes() for a, b in zip(r["extras"][0], got[0]["extras"][0]))
