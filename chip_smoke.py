@@ -11,7 +11,8 @@ Phases:
      Exits non-zero at once when PyTorch sees no CUDA device.
   2. Build: compiles the CUDA kernels (conan_slam_tpu_torch/csrc) with nvcc,
      one process per source, all in parallel, and prints each kernel's
-     -Xptxas -v record (registers, shared memory, stack frame, spills).
+     -Xptxas -v record (registers, shared memory, stack frame, spills);
+     beside them g++ builds phase 4i's native libraries.
   3. Each kernel against its plain PyTorch version on the card, with each
      tolerance stated, and each kernel's time beside its plain version's
      (CUDA events):
@@ -91,16 +92,16 @@ Phases:
   4. The main paths through runner.loop.run_ekf_slam_precomputed:
        a. the bench workload (1024 landmarks from seed 42 over a 13 km
           square, all pre-registered; 64-slot measurement buffer;
-          19,200 control steps = 3,200 frames) through H9, in turns with
-          the split schedule (H9, split, split, H9), and 600 steps with
-          the plain versions.  Asserts H9's two kernels launched once per
+          19,200 control steps = 3,200 frames) through H9, then the split
+          schedule (in turns, H9, split, split, H9, until phase 4i), and
+          600 steps with the plain versions.  Asserts H9's two kernels launched once per
           frame each and H1-H4 never on the H9 runs (H1-H4 once per frame
           on the split runs), and the reference's accuracy gate on each:
           ATE < 0.05 m, asym(P) < 1e-4.
        b. BASELINE config 2 (500 landmarks of random_world(PRNGKey(7), 500)
           on the default tour, empty map, gated association and
-          augmentation; 25,002 steps = 4,167 frames) through H10 in turns
-          with the split schedule (H10, split, split, H10): asserts the
+          augmentation; 25,002 steps = 4,167 frames) through H10, then the
+          split schedule (in turns until phase 4i): asserts the
           reference's gated_full gate (ATE < 0.5 m, 270 <= mapped <= 340)
           on each run, and that H15 launched once per frame, H10's two
           kernels once each, and no other kernel (H15, H7, H8, H1 and H4 on
@@ -111,8 +112,8 @@ Phases:
           600 steps.  600 steps of a 10,000-landmark world on each route,
           after 60 untimed steps.
        c. the bench workload in frame pairs (cfg.frame_pair): 19,200 steps =
-          1,600 pairs with the kernels, timed in turns with the per-frame
-          path (H9; per-frame, pair, pair, per-frame); the ate gate, H2, H1
+          1,600 pairs with the kernels, timed after the per-frame path
+          (H9; in turns until phase 4i); the ate gate, H2, H1
           and H3 twice per pair and H4 once; 300 steps of the plain pair.
        d. the chunked driver (run_ekf_slam_precomputed_chunked) on the pair
           path in chunks of 4,800 steps with checkpoints: a run killed in
@@ -129,10 +130,11 @@ Phases:
           |x_est - reference| and the first step where x_true drifts past
           1e-3 m; (b) the same gated; H9, H15 and H10 at frame 200 of that
           course (D 67, NZ 30) against their plain versions and float64
-          witnesses; (c) BASELINE config 2 through run_ekf_slam in turns
-          with run_ekf_slam_precomputed (precomputed, sim, precomputed):
-          the sim run on the JAX run's own PRNGKey(0) draws
-          (config2_key0.npz) and the precomputed runs held to gated_full
+          witnesses; (c) BASELINE config 2 through run_ekf_slam_precomputed,
+          then run_ekf_slam (precomputed, sim; a second precomputed run
+          after it until phase 4i): the sim run on the JAX run's own
+          PRNGKey(0) draws (config2_key0.npz) and the precomputed run held
+          to gated_full
           (a second sim run on a torch.Generator's draws, reported only,
           left out when phase 4h was added); (d) every route (fused;
           fast_frame=False; fused_obs=False; and with
@@ -166,7 +168,10 @@ Phases:
           bytes, and a
           torch.profiler trace at N = 10,000 split by the filter's steps;
           (d) frames under the sync debug mode; (e) no hand-written kernel
-          launched (launches_by_path["pf"]).
+          launched (launches_by_path["pf"]); (f) the course at N = 100 once
+          more on the same generator's draws, its first 3,000 steps, beside
+          phase 4h's sharded course: x_est, the map size and Neff at every
+          step the same bits as (b)'s run.
        g. BASELINE config 4, the long loop (5,000 landmarks of the
           reference's random_world(PRNGKey(11), 5000), committed; D 10,003,
           padded 10,240, max_obs 64, mapping from scratch with known
@@ -210,22 +215,53 @@ Phases:
           two more ranks at once with the i16 wire (finite, 25 mapped; its
           ATE reported, as no reference bound exists);
           (c) one resampling PF observation step of 100,000 particles on
-          four ranks against the single-device step on the same draws;
+          four ranks against the single-device step on the same draws, the
+          sharded resample bit for bit the single-device one (0 flips);
+          beside it F6's record: torch.cumsum's float32 CDF of the same
+          weights over 20 calls (the calls and ancestors that differ from
+          its first), the fixed-order CDF (filters.pf.cumulative_weights)
+          and the single-device resample over 20 calls (none may differ;
+          the CDF the CPU's bits), and run_pf_slam at N = 1,000 for 600
+          steps twice on the committed pf_key1.npz draws (the same bits);
           (d) the dry run on four ranks ({"state": 2, "particles": 2}) and
           the DCN smoke's sharded frame at world size 1 on NCCL.
         While (b)'s ranks run, this process runs phase 4e's (d), every
-        route against its plain versions (sim_routes).
-     Then a torch.profiler trace of 25 frames of each path (the known
+        route against its plain versions (sim_routes), then phase 4f's (f).
+     i. The bench tail (conan_slam_tpu_torch.native and the port-side
+        bench scripts), with the launch counts set to 0 before it: (a) the
+        native libraries built by g++ from native/*.cpp into
+        conan_slam_tpu_torch/build/native/ (the build's seconds, the host's
+        CPU model), the native baseline on the bench world, scalar and
+        SIMD, 120 steps each (bench.py's NATIVE_STEPS is 2,400; ATE <
+        0.05 m), and gated at config 2, 3,000 steps (ATE finite), with the
+        ratio of 4a's H9 steps/s to the better native run, vs_baseline as
+        bench.py forms it, reported, not claimed; (b) the native rollouts
+        against numpy on the bench's 19,200 steps (done, active, ids and
+        mask equal; x_true, swa and z_true within tests/test_sim.py's
+        2e-3, 1e-4 and 2e-3) and both rollouts' seconds; (c) the scripts
+        once each at cut sizes: bench_gated (3,000 steps), bench_kernels
+        (every D, each chain within its bound of the plain version),
+        seed_sweep (2 seeds x 2,400 steps) and seed_sweep_gated (2 seeds x
+        3,000 steps), each seed's ATE finite and printed with the mapped
+        count, and study_pf (one seed x the first two configurations x
+        3,000 steps, ATE finite); H9, H15, H10 and H4 launched by them
+        (launches_by_path["bench"]).
+     Three long host-bound runs go in a process of their own beside the
+     rest of their phase, on the host's other cores and the same card
+     (their steps/s share both): 4e's valet courses (a) and (b), 4f's
+     course (b) and 4g's stage 2 (c).
+     Then a torch.profiler trace of 10 frames of each path (the known
      path and the gated path each through its one-launch frame (H9,
-     H10) and through the split schedule, 25 pairs of the pair path, 20 frames of
-     the 10k-landmark shape on both routes, and 25 frames of
+     H10) and through the split schedule, 10 pairs of the pair path, 10 frames of
+     the 10k-landmark shape on both routes, and 10 frames of
      run_ekf_slam on the valet course and on config 2; 100 frames each
-     until phase 4g was added, 50 until phase 4h) gives each kernel's
+     until phase 4g was added, 50 until phase 4h, 25 until 4i) gives each kernel's
      device time per frame, the PyTorch ops dispatched per frame and the device's
      busy share; the gated traces also split the ops and the PyTorch
      kernels' device time by the frame loop's steps (its pre-update, the
      update, augmentation).
-  5. The kernel table and the card as JSON lines, then the last line
+  5. The kernel table (each kernel's launches on every path, 4i's as
+     "bench") and the card as JSON lines, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed.
@@ -251,15 +287,18 @@ N_LANDMARKS = 1024      # all pre-registered: D = 3 + 2 * 1024 = 2051, padded 23
 BENCH_STEPS = 19200
 PLAIN_STEPS = 600       # the known path's plain-version run (its kernels run all 19,200)
 SEED = 42
-PROFILE_FRAMES = 25     # frames of each main path traced with torch.profiler (100 until
-                        # phase 4g was added, 50 until phase 4h)
+PROFILE_FRAMES = 10     # frames of each main path traced with torch.profiler (100 until
+                        # phase 4g was added, 50 until phase 4h, 25 until phase 4i)
+# The routes each main path runs, once each (in turns, the first route
+# again after the second, until phase 4i was added).
+TURNS = ("auto", "split")
 GATED_STEPS = 25_002    # BASELINE config 2: 25,000 steps rounded up to whole frames
 GATED_PLAIN_STEPS = 600 # the gated path's plain run (its kernels run all 25,002)
 PAIR_PLAIN_STEPS = 300  # the pair path's plain run (its kernels run all 19,200)
 BIG_LANDMARKS = 10_000  # the 10k-landmark shape: D = 20,224, K = 10,110
 BIG_STEPS = 600
 BIG_WARM_STEPS = 60     # untimed steps before the timed 10k run
-BIG_PROFILE_FRAMES = 20 # frames of the 10k shape traced with torch.profiler
+BIG_PROFILE_FRAMES = 10 # frames of the 10k shape traced with torch.profiler (20 until 4i)
 KNOWN_KERNELS = ("frame_step",)   # H9: the known frame's default route
 # The device kernels of each wrapper that launches more than one: H9's and
 # H10's frame kernel and their P pass.  A wrapper's ptxas records and device
@@ -326,8 +365,9 @@ PF_STEPS = 1200         # bench_pf.py's run, and the parity runs
 PF_SIZE_STEPS = 600     # each size's timed run (PF_STEPS until phase 4h; no gate reads its depth)
 PF_SIZES = (100, 1_000, 10_000, 100_000)   # bench_pf.py's sweep (bench.py's N = 10,000 in it)
 PF_COURSE_N = 100       # the whole course at the reference config (smoke_compile.py stage_pf)
+PF_AGAIN_STEPS = 3_000  # its first steps run again beside phase 4h (F6)
 PF_GATE_N, PF_GATE_STEPS = 20, 2000        # tests/test_pf.py's noise-free gate
-PF_PROFILE_N, PF_PROFILE_FRAMES = 10_000, 50
+PF_PROFILE_N, PF_PROFILE_FRAMES = 10_000, 20   # 50 frames until phase 4i
 PF_SYNC_FRAMES = 10
 PF_CHECK_FRAMES = 100   # frames of each parity run held against the plain version (600 steps)
 # tests/test_torch_run_pf.py's bounds, each frame from the same carry.  A
@@ -354,8 +394,9 @@ LONGLOOP_STEPS = 56_004     # bench_longloop's 56,000 steps, rounded up to whole
 LONGLOOP_SMOKE_STEPS = 24   # smoke_compile.py's longloop stage
 LONGLOOP_EARLY_FRAME = 200  # the two frames H9 is held at from the run's own carry
 LONGLOOP_LATE_FRAME = 8_000
-LONGLOOP_PROFILE_FRAMES = 50
-LONGLOOP_CG_PROFILE = 400   # CG steps of the stage-2 step traced with torch.profiler
+LONGLOOP_PROFILE_FRAMES = 20  # 50 until phase 4i
+LONGLOOP_CG_PROFILE = 200   # CG steps of the stage-2 step traced with torch.profiler (400
+                            # until phase 4i)
 LONGLOOP_REPEAT_GN = 1      # Gauss-Newton iterations (4 T CG steps each, after the
                             # chordal passes) of the solves that must be bit-identical
 # Phase 4h, the sharded runtime (parallel/), at BASELINE config 5's sizes.
@@ -429,6 +470,40 @@ def require(ok: bool, name: str, detail: str) -> None:
     log(f"  {'ok  ' if ok else 'FAIL'} {name}: {detail}")
     if not ok:
         FAILURES.append(name)
+
+
+def _in_child(name: str, *args):
+    """This script's ``name(*args)`` in a process of its own: its result and
+    the checks that failed there."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return globals()[name](*args), list(FAILURES)
+
+
+class Beside:
+    """This script's ``name(*args)`` in a spawned process (its own CUDA
+    context on the same card) while the caller goes on: a host-bound run
+    beside another on the host's other cores.  ``result()`` waits for it,
+    adds the checks that failed there to FAILURES and stops the process.
+    The function returns host data only (numbers, CPU tensors)."""
+
+    def __init__(self, name: str, *args):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self._pool = ProcessPoolExecutor(max_workers=1,
+                                         mp_context=multiprocessing.get_context("spawn"))
+        self._future = self._pool.submit(_in_child, name, *args)
+
+    def result(self):
+        try:
+            res, failures = self._future.result()
+        finally:
+            self._pool.shutdown()
+        FAILURES.extend(failures)
+        return res
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -607,12 +682,12 @@ def gated_cfg(n_landmarks: int):
 
 
 def big_world(device):
-    """A 10,000-landmark world from a numpy seed over the 10 km square of
-    the reference's random_world, on the default tour."""
-    from conan_slam_tpu_torch.sim.world import _WP_X, _WP_Y, world_from_numpy
+    """A 10,000-landmark world from numpy seed 53 over the 10 km square of
+    the reference's random_world, on the default tour (benchmarks.world's
+    gated_world, which bench_gated runs at GATED_LANDMARKS=10000)."""
+    from conan_slam_tpu_torch.benchmarks.world import gated_world
 
-    lm = np.random.default_rng(SEED + 11).uniform(-5000.0, 5000.0, size=(BIG_LANDMARKS, 2))
-    return world_from_numpy(lm.astype(np.float32), np.stack([_WP_X, _WP_Y], axis=1), device)
+    return gated_world(BIG_LANDMARKS, device)
 
 
 def warm_frame(device, world, cfg, state0, n_warm_frames: int, n_next: int = 1):
@@ -2618,18 +2693,17 @@ def drive_known(workload, steps: int, plain: bool = False, frame_pair: bool = Fa
 
 
 def main_path(device, n_steps: int) -> tuple[dict, dict, dict]:
-    """Phase 4a: the bench workload through the port's driver: H9 in turns
-    with the split schedule (H9, split, split, H9), then the plain
-    versions.  Returns the results, and the launch counts of an H9 run and
-    of a split run."""
+    """Phase 4a: the bench workload through the port's driver: H9, then the
+    split schedule (TURNS), then the plain versions.  Returns the results,
+    and the launch counts of an H9 run and of a split run."""
     workload = known_workload(device, n_steps)
     s = workload[0].observe_interval
     n_frames = n_steps // s
     plain_steps = min(PLAIN_STEPS, n_steps) // s * s
     log(f"main path (known association): D={workload[2].x.shape[0]}, "
-        f"NZ={workload[3][1][0].shape[1]}, {n_steps} steps = {n_frames} frames through H9 in "
-        f"turns with the split schedule, {plain_steps} steps with the plain versions")
-    order = ("auto", "split", "split", "auto")
+        f"NZ={workload[3][1][0].shape[1]}, {n_steps} steps = {n_frames} frames through H9, "
+        f"then the split schedule, {plain_steps} steps with the plain versions")
+    order = TURNS
     runs = [drive_known(workload, n_steps, schedule=schedule) for schedule in order]
     for schedule, res in zip(order, runs):
         kernels = KNOWN_KERNELS if schedule == "auto" else SPLIT_KERNELS
@@ -2652,24 +2726,23 @@ def main_path(device, n_steps: int) -> tuple[dict, dict, dict]:
     dsplit = float((k["x_est"] - runs[1]["x_est"]).abs().max())
     log(f"  kernels vs plain trajectory over {plain_steps} steps: max |dx_est| = {dev:.3e} m; "
         f"H9 vs split over {n_steps} steps: max |dx_est| = {dsplit:.3e} m")
-    log("  steps/s in turns: " + ", ".join(
+    log("  steps/s: " + ", ".join(
         f"{'H9' if o == 'auto' else 'split'} {r['steps_per_s']:,.1f}" for o, r in zip(order, runs)))
     results.update(turns=[r["steps_per_s"] for r in runs], dx_split=dsplit)
     return results, runs[0]["counts"], runs[1]["counts"]
 
 
 def pair_path(device) -> tuple[dict, dict]:
-    """Phase 4c: the bench workload in frame pairs, in turns with the
-    per-frame path (per-frame, pair, pair, per-frame), and 600 steps of
-    the plain pair."""
+    """Phase 4c: the bench workload per frame, then in frame pairs, and
+    PAIR_PLAIN_STEPS steps of the plain pair."""
     workload = known_workload(device, BENCH_STEPS)
     n_frames = BENCH_STEPS // workload[0].observe_interval
     log(f"main path (known association, frame pairs): {BENCH_STEPS} steps = {n_frames // 2} "
-        f"pairs, in turns with the per-frame path; {PAIR_PLAIN_STEPS} steps of the plain pair")
+        f"pairs, after the per-frame path; {PAIR_PLAIN_STEPS} steps of the plain pair")
     runs = [drive_known(workload, BENCH_STEPS, frame_pair=pair)
-            for pair in (False, True, True, False)]
+            for pair in (False, True)]
     k = runs[1]
-    for res in runs[1:3]:
+    for res in runs[1:]:
         want = {**dict.fromkeys(res["counts"], 0), **dict.fromkeys(SPLIT_KERNELS, n_frames),
                 "rank_update": n_frames // 2}
         require(res["counts"] == want, "pair path launches",
@@ -2685,8 +2758,8 @@ def pair_path(device) -> tuple[dict, dict]:
     log(f"  pair kernels vs plain pair over {PAIR_PLAIN_STEPS} steps: max |dx_est| = "
         f"{dx_plain:.3e} m; pair vs per-frame (kernels, {BENCH_STEPS} steps): max |dx_est| = "
         f"{dx_frames:.3e} m")
-    order = ("per-frame", "pair", "pair", "per-frame")
-    log("  steps/s in turns: " + ", ".join(f"{o} {r['steps_per_s']:,.1f}"
+    order = ("per-frame", "pair")
+    log("  steps/s: " + ", ".join(f"{o} {r['steps_per_s']:,.1f}"
                                           for o, r in zip(order, runs)))
     return dict(steps_per_s=[r["steps_per_s"] for r in runs], order=order, ate=k["ate"],
                 asym=k["asym"], plain_steps_per_s=p["steps_per_s"], dx_plain=dx_plain,
@@ -3003,41 +3076,26 @@ def valet_kernel_checks(device, world, ctrl, obs) -> dict:
     return out
 
 
-def sim_path(device) -> tuple[dict, dict]:
-    """Phase 4e: the on-device simulation loop (runner.loop.run_ekf_slam):
-    (a) the valet course, known association with augmentation, on the
-    reference's own seed-42 draws, against its committed run; (b) the same
-    gated; H9, H15 and H10 at a frame of that course against their plain
-    versions (valet_kernel_checks); (c) BASELINE config 2 through
-    run_ekf_slam in turns with the precomputed driver; the sync debug
-    mode over frames of (a) and (c).  Its (d), every route against its
-    plain versions, is sim_routes, which phase 4h runs beside its sharded
-    course.  Returns the results and the launch counts summed over the
-    timed kernel runs."""
+def valet_courses(device: str) -> dict:
+    """Phase 4e (a) and (b), in a process of its own beside the rest of the
+    phase: the valet course through run_ekf_slam on the reference's
+    seed-42 draws, known and gated, each held to the committed run (done
+    at VALET_DONE_AT, VALET_MAPPED mapped, ATE within VALET_ATE_BOUND) and
+    to its launches.  Returns each run's numbers and, under "counts", the
+    launches of both."""
     import torch
 
     from conan_slam_tpu_torch.config import SlamConfig
-    from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
-    from conan_slam_tpu_torch.runner.metrics import ate_rmse
-    from conan_slam_tpu_torch.sim.world import config2_world, default_world
+    from conan_slam_tpu_torch.sim.world import default_world
 
-    t_phase = time.perf_counter()
+    device = torch.device(device)
     ref, ctrl, obs = valet_reference(device)
     world = default_world(device)
-    n_frames = -(-VALET_STEPS // 6)
-    total: dict[str, int] = {}
-
-    def add(counts):
-        for k, n in counts.items():
-            total[k] = total.get(k, 0) + n
-
-    log(f"sim path (run_ekf_slam): the valet course at K 32 (D 67, NZ 30), {n_frames * 6} steps "
-        f"= {n_frames} frames on the reference's seed-42 draws; reference ATE {ref['ate']:.5f} m, "
-        f"done at step {VALET_DONE_AT}, {VALET_MAPPED} mapped")
-    res: dict = {}
+    res: dict = {"counts": {}}
     for name, known in (("known", True), ("gated", False)):
         r = drive_sim(world, SlamConfig(switch_association_known=known), VALET_STEPS, ctrl, obs)
-        add(r["counts"])
+        for k, v in r["counts"].items():
+            res["counts"][k] = res["counts"].get(k, 0) + v
         outs = r["outs"]
         n = outs.x_est.shape[0]
         valid = ~ref[f"done_{name}"][:n]
@@ -3063,12 +3121,49 @@ def sim_path(device) -> tuple[dict, dict]:
         res[name] = dict(steps_per_s=r["steps_per_s"], ate=r["ate"], done_at=r["done_at"],
                          mapped=r["mapped"], dx_est=dx_est, dx_true=float(dx_true.max()),
                          first_dx_true_over_1mm=first)
+    return res
+
+
+def sim_path(device) -> tuple[dict, dict]:
+    """Phase 4e: the on-device simulation loop (runner.loop.run_ekf_slam):
+    (a) the valet course, known association with augmentation, on the
+    reference's own seed-42 draws, against its committed run; (b) the same
+    gated (both valet_courses, in a process of its own from the phase's
+    start); H9, H15 and H10 at a frame of that course against their plain
+    versions (valet_kernel_checks); (c) BASELINE config 2 through the
+    precomputed driver, then run_ekf_slam; the sync debug
+    mode over frames of (a) and (c).  Its (d), every route against its
+    plain versions, is sim_routes, which phase 4h runs beside its sharded
+    course.  Returns the results and the launch counts summed over the
+    timed kernel runs."""
+    import torch
+
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
+    from conan_slam_tpu_torch.runner.metrics import ate_rmse
+    from conan_slam_tpu_torch.sim.world import config2_world, default_world
+
+    t_phase = time.perf_counter()
+    valet = Beside("valet_courses", str(device))
+    ref, ctrl, obs = valet_reference(device)
+    world = default_world(device)
+    n_frames = -(-VALET_STEPS // 6)
+    total: dict[str, int] = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    log(f"sim path (run_ekf_slam): the valet course at K 32 (D 67, NZ 30), {n_frames * 6} steps "
+        f"= {n_frames} frames on the reference's seed-42 draws; reference ATE {ref['ate']:.5f} m, "
+        f"done at step {VALET_DONE_AT}, {VALET_MAPPED} mapped")
+    res: dict = {}
     res["reference_ate"] = ref["ate"]
     sync_free("valet, known", world, SlamConfig(), ctrl, obs)
     res["valet_frame"] = valet_kernel_checks(device, world, ctrl, obs)
 
-    # (c) Config 2 through run_ekf_slam (on the reference's PRNGKey(0) draws)
-    # in turns with the precomputed driver (on phase 4b's generator draws).
+    # (c) Config 2 through the precomputed driver (on phase 4b's generator
+    # draws), then run_ekf_slam (on the reference's PRNGKey(0) draws).
     c2, c2cfg = config2_world(device), gated_cfg(500)
     c2ctrl, c2obs, c2ate, c2mapped = config2_reference(device)
     t0 = time.perf_counter()
@@ -3093,7 +3188,7 @@ def sim_path(device) -> tuple[dict, dict]:
     # (The run on a torch.Generator(0)'s draws, reported only and never
     # gated, left out when phase 4h was added.)
     turns = []
-    for kind in ("precomputed", "sim", "precomputed"):
+    for kind in ("precomputed", "sim"):
         if kind == "sim":
             r = drive_sim(c2, c2cfg, SIM_STEPS, c2ctrl, c2obs)
             add(r["counts"])
@@ -3114,12 +3209,15 @@ def sim_path(device) -> tuple[dict, dict]:
         if kind == "sim":
             res["config2"] = dict(ate=r["ate"], mapped=r["mapped"], reference_ate=c2ate,
                                   reference_mapped=c2mapped)
-    log(f"  config 2 steps/s in turns: precomputed {turns[0]:,.1f}, sim {turns[1]:,.1f}, "
-        f"precomputed {turns[2]:,.1f} (the host rollout the precomputed runs take as given: "
-        f"{rollout_s:.3f} s)")
+    log(f"  config 2 steps/s: precomputed {turns[0]:,.1f}, sim {turns[1]:,.1f} (the host "
+        f"rollout the precomputed run takes as given: {rollout_s:.3f} s)")
     res["config2"].update(turns=turns, rollout_s=rollout_s)
     sync_free("config 2", c2, c2cfg, c2ctrl, c2obs)
 
+    # (a), (b): the valet courses, run beside the rest of the phase.
+    courses = valet.result()
+    add(courses.pop("counts"))
+    res.update(courses)
     for kname in ("frame_step", "factor_gate", "obs_step"):
         require(total.get(kname, 0) > 1, f"sim path launches {kname}",
                 f"{total.get(kname, 0)} launches")
@@ -3339,13 +3437,58 @@ def pf_run(world, cfg, n_steps: int, generator=None, draws=None) -> dict:
                 neff_ok=bool(((neff > 0) & (neff <= n * (1 + 1e-6))).all()))
 
 
+def course_bits(r) -> tuple:
+    """A PF course run's x_est, map size and Neff at every step, on the CPU."""
+    return tuple(t.cpu() for t in (r["outs"].x_est, r["outs"].n_active, r["outs"].consistency))
+
+
+def pf_course(device: str, steps: int) -> dict:
+    """The valet course at N = PF_COURSE_N on torch.Generator(0)'s draws,
+    ``steps`` steps (phase 4f runs it beside its other runs, in a process
+    of its own): pf_run's numbers and the run's bits (course_bits)."""
+    import torch
+
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    dev = torch.device(device)
+    r = pf_run(default_world(dev), SlamConfig(num_particles=PF_COURSE_N), steps,
+               torch.Generator(device=dev).manual_seed(0))
+    keys = ("steps_per_s", "seconds", "counts", "ate", "mapped", "done_at", "finite", "neff_ok")
+    return dict({k: r[k] for k in keys}, bits=course_bits(r))
+
+
+def pf_course_again(device, first: tuple) -> dict:
+    """Phase 4f's valet course at N = PF_COURSE_N on the same
+    torch.Generator(0)'s draws once more, its first PF_AGAIN_STEPS steps
+    (phase 4h runs it in this process beside its sharded course): x_est,
+    the map size and Neff at every step the same bits as the first run's
+    (F6)."""
+    import torch
+
+    r = pf_course(str(device), PF_AGAIN_STEPS)
+    differ = torch.zeros(PF_AGAIN_STEPS, dtype=torch.bool)
+    for a, b in zip(r["bits"], first):
+        differ |= (a != b[:PF_AGAIN_STEPS]).reshape(PF_AGAIN_STEPS, -1).any(1)
+    steps = int(differ.sum())
+    log(f"PF valet course again (N = {PF_COURSE_N}, its first {PF_AGAIN_STEPS} steps on the same "
+        f"draws; beside the sharded course): {r['seconds']:.1f} s, {steps} steps' x_est, map size "
+        "or Neff differ from the first run's")
+    require(steps == 0, "PF valet course repeats its bits",
+            f"x_est, the map size and Neff at all {PF_AGAIN_STEPS} steps bit for bit the first "
+            "run's")
+    return dict(steps=PF_AGAIN_STEPS, steps_differing=steps, seconds=r["seconds"])
+
+
 def pf_path(device) -> tuple[dict, dict]:
     """Phase 4f: FastSLAM 2.0 through runner.loop.run_pf_slam on the card.
     (a) the committed JAX runs (pf_key1.npz, N = 16 and 100, 1,200 steps)
     on their own draws, and each of their frames against the plain version
     on the CPU from the card's carry; (b) tests/test_pf.py's noise-free
     gate, and the whole valet course at N = 100 on a torch.Generator's
-    draws, held to its end at step 19,555 with 25 mapped; (c) bench_pf.py's
+    draws, held to its end at step 19,555 with 25 mapped (pf_course, in a
+    process of its own from the phase's start, its bits kept in
+    "course_bits" for pf_course_again); (c) bench_pf.py's
     sizes, N = 100 to 100,000, in turns, with a torch.profiler trace at
     N = 10,000; (d) frames under the sync debug mode; (e) no hand-written
     kernel launched.  Returns the results and the launch counts summed over
@@ -3358,6 +3501,7 @@ def pf_path(device) -> tuple[dict, dict]:
     from conan_slam_tpu_torch.sim.world import default_world
 
     t_phase = time.perf_counter()
+    course = Beside("pf_course", str(device), VALET_STEPS)
     world = default_world(device)
     data = np.load(PF_DATA)
     total: dict[str, int] = {}
@@ -3395,7 +3539,7 @@ def pf_path(device) -> tuple[dict, dict]:
         res["parity"][n] = dict(dx_est_max=float(dx.max()), first_dx_est_over_1mm=first,
                                 dx_true=dt, ate=r["ate"], reference_ate=ref_ate, frames=frames)
 
-    # (b) The reference's noise-free gate, and the whole course.
+    # (b) The reference's noise-free gate (the whole course below).
     cfg = SlamConfig(switch_control_noise=False, switch_sensor_noise=False,
                      switch_inflate_noise=False, num_particles=PF_GATE_N)
     r = pf_run(world, cfg, PF_GATE_STEPS, torch.Generator(device=device).manual_seed(0))
@@ -3405,20 +3549,6 @@ def pf_path(device) -> tuple[dict, dict]:
     require(r["finite"] and r["ate"] < 1.0 and r["mapped"] > 0, "PF noise-free gate",
             f"ATE {r['ate']:.4f} < 1.0 m, mapped {r['mapped']} > 0")
     res["noise_free"] = dict(ate=r["ate"], mapped=r["mapped"])
-    cfg = SlamConfig(num_particles=PF_COURSE_N)
-    r = pf_run(world, cfg, VALET_STEPS, torch.Generator(device=device).manual_seed(0))
-    add(r["counts"])
-    log(f"PF valet course, N = {PF_COURSE_N}, {VALET_STEPS} steps on torch.Generator(0)'s draws: "
-        f"{r['seconds']:.2f} s = {r['steps_per_s']:,.1f} steps/s, done at step {r['done_at']}, "
-        f"mapped {r['mapped']}, ATE {r['ate']:.4f} m (the reference's over 36 seeds at N = 100: "
-        f"median {PF_REFERENCE_ATE[0]} m, p90 {PF_REFERENCE_ATE[1]} m), launches "
-        f"{({k: v for k, v in r['counts'].items() if v}) or 'none'}")
-    require(r["finite"] and r["neff_ok"] and r["done_at"] == VALET_DONE_AT
-            and r["mapped"] == VALET_MAPPED, "PF valet course",
-            f"finite, Neff in (0, N], done at step {r['done_at']} ({VALET_DONE_AT}), mapped "
-            f"{r['mapped']} ({VALET_MAPPED})")
-    res["course"] = dict(ate=r["ate"], done_at=r["done_at"], mapped=r["mapped"],
-                         steps_per_s=r["steps_per_s"], launches=r["counts"])
 
     # (c) bench_pf.py's sizes after an untimed warm-up run of each, once
     # each (the smallest and the largest twice, in turns, and PF_STEPS
@@ -3470,6 +3600,23 @@ def pf_path(device) -> tuple[dict, dict]:
                 f"{PF_SYNC_FRAMES} frames of run_pf_slam under set_sync_debug_mode('error')"
                 + (f": {err}" if err else ""))
 
+    # (b) The whole course, run beside the rest of the phase.
+    r = course.result()
+    add(r["counts"])
+    log(f"PF valet course, N = {PF_COURSE_N}, {VALET_STEPS} steps on torch.Generator(0)'s draws "
+        "(in a process of its own, beside the phase's other runs): "
+        f"{r['seconds']:.2f} s = {r['steps_per_s']:,.1f} steps/s, done at step {r['done_at']}, "
+        f"mapped {r['mapped']}, ATE {r['ate']:.4f} m (the reference's over 36 seeds at N = 100: "
+        f"median {PF_REFERENCE_ATE[0]} m, p90 {PF_REFERENCE_ATE[1]} m), launches "
+        f"{({k: v for k, v in r['counts'].items() if v}) or 'none'}")
+    require(r["finite"] and r["neff_ok"] and r["done_at"] == VALET_DONE_AT
+            and r["mapped"] == VALET_MAPPED, "PF valet course",
+            f"finite, Neff in (0, N], done at step {r['done_at']} ({VALET_DONE_AT}), mapped "
+            f"{r['mapped']} ({VALET_MAPPED})")
+    res["course"] = dict(ate=r["ate"], done_at=r["done_at"], mapped=r["mapped"],
+                         steps_per_s=r["steps_per_s"], launches=r["counts"])
+    res["course_bits"] = r["bits"]
+
     # (e) The PF path runs no hand-written kernel.
     require(not any(total.values()), "PF path launches", f"{total}: none")
     res["seconds"] = time.perf_counter() - t_phase
@@ -3517,6 +3664,114 @@ def longloop_frame_checks(device, label: str, world, cfg, state, frame) -> float
     return h9_checks(label, args, tail, split, oracle)
 
 
+def longloop_stage2(device: str) -> dict:
+    """Phase 4g (c), in a process of its own beside (a), (b) and (d): the
+    bench's graph on the star tour's truth (the rollout stage 1 runs on)
+    and the committed JAX draws (longloop_key2.npz), its closures equal to
+    the JAX run's as a set, the relaxation held to the committed float64
+    witness, a chordal pass and a Gauss-Newton iteration under the sync
+    debug mode, a profiled step of LONGLOOP_CG_PROFILE CG steps, and two
+    solves of one iteration bit-identical.  Returns ``{"stage2": ...,
+    "cg_profile": ...}``."""
+    import torch
+
+    from conan_slam_tpu_torch.benchmarks.bench_longloop import (
+        CLOSURE,
+        keyframe_ate,
+        relax_bench_graph,
+    )
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.graph import pose_graph as pg
+    from conan_slam_tpu_torch.graph.frontend import (
+        ClosureConfig,
+        GraphDraws,
+        simulate_odometry_graph,
+    )
+    from conan_slam_tpu_torch.sim.precompute import rollout_truth
+    from conan_slam_tpu_torch.sim.world import longloop_world
+
+    device = torch.device(device)
+    cfg = SlamConfig(max_landmarks=LONGLOOP_LANDMARKS, max_obs=64)
+    roll = rollout_truth(longloop_world(LONGLOOP_LANDMARKS, "cpu").waypoints.numpy(), cfg,
+                         LONGLOOP_STEPS)
+    x_true = torch.as_tensor(roll.x_true, device=device)
+    done = torch.as_tensor(roll.done, device=device)
+    res: dict = {}
+    data = np.load(LONGLOOP_DATA)
+    draws = GraphDraws(torch.as_tensor(data["odo"], device=device),
+                       torch.as_tensor(data["closure"], device=device))
+    valid = ~done
+    g, g_opt, relax_s = relax_bench_graph(x_true, valid, draws)
+    t = g.nodes.shape[0]
+    pairs = {tuple(p) for p, m in zip(g.edges[t - 1:].tolist(), g.edge_mask[t - 1:].tolist())
+             if m}
+    want = {tuple(p) for p, m in zip(data["pairs"].tolist(), data["pair_mask"]) if m}
+    require(pairs == want, "long loop, stage 2 closures",
+            f"{len(pairs)} valid pairs, equal to the JAX run's {len(want)} as a set")
+    nodes = g_opt.nodes.cpu().numpy()
+    chi2 = (float(pg.graph_error(g)), float(pg.graph_error(g_opt)))
+    ate2 = (keyframe_ate(x_true, valid, g.nodes), keyframe_ate(x_true, valid, g_opt.nodes))
+    got, lim = node_distances(nodes, data["nodes_f64"]), node_distances(data["nodes_f32"],
+                                                                         data["nodes_f64"])
+    ok = all(got[k] <= WITNESS_FACTOR * lim[k] for k in got)
+    bounds2 = {}
+    for name, v in (("chi2", chi2[1]), ("ate", ate2[1])):
+        w, r, pm = (float(data[f"{name}_{k}"]) for k in ("f64", "f32", "perm"))
+        bounds2[name] = (abs(v - w), max(WITNESS_FACTOR * abs(r - w), abs(pm - r)))
+        ok = ok and bounds2[name][0] <= bounds2[name][1]
+    res["stage2"] = dict(closures=len(pairs), chi2=chi2, aligned_ate=ate2, relax_s=relax_s,
+                         witness=got, jax_witness=lim, witness_scalars=bounds2,
+                         jax=dict(chi2=(float(data["chi2_dr"]), float(data["chi2_f32"])),
+                                  aligned_ate=(float(data["ate_dr"]), float(data["ate_f32"])),
+                                  witness_chi2=float(data["chi2_f64"]),
+                                  witness_ate=float(data["ate_f64"])))
+    log(f"long loop, stage 2 (T {t}, E {g.edges.shape[0]}, {len(pairs)} closures; 50 x {4 * t} "
+        f"CG steps after 3 chordal passes): {relax_s:.2f} s; aligned ATE {ate2[0]:.3f} -> "
+        f"{ate2[1]:.3f} m (JAX {float(data['ate_dr']):.3f} -> {float(data['ate_f32']):.3f}, "
+        f"float64 witness {float(data['ate_f64']):.3f}); chi2 {chi2[0]:.6g} -> {chi2[1]:.3f} (JAX "
+        f"{float(data['chi2_dr']):.6g} -> {float(data['chi2_f32']):.3f}, witness "
+        f"{float(data['chi2_f64']):.3f})")
+    log("  nodes from the float64 witness: card " + ", ".join(
+        f"{k} {v:.4g}" for k, v in got.items()) + "; JAX float32 " + ", ".join(
+        f"{k} {v:.4g}" for k, v in lim.items()) + "; |chi2 - witness| {:.4g} (bound {:.4g}), "
+        "|ATE - witness| {:.4g} m (bound {:.4g})".format(*bounds2["chi2"], *bounds2["ate"]))
+    require(ok, "long loop, stage 2 against the float64 witness",
+            f"every node distance within {WITNESS_FACTOR} x the JAX float32 run's; chi2 and ATE "
+            "within the larger of that and the JAX run's own spread (edges permuted)")
+    # No host sync: a chordal pass and a Gauss-Newton iteration (short CG
+    # loops) under the sync debug mode.
+    g_s = simulate_odometry_graph(x_true, valid, ClosureConfig(**CLOSURE), draws)
+    torch.cuda.synchronize()
+    err = ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pg.optimize(pg.chordal_initialize(g_s, cg_iterations=20), iterations=1,
+                    cg_iterations=20)
+    except RuntimeError as e:
+        err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(not err, "no host sync (pose graph)", "chordal_initialize and optimize (20 CG "
+            "steps each) under set_sync_debug_mode('error')"
+            + (f": {err}" if err else ""))
+    prof_g = g
+    res["cg_profile"] = profile_frames(
+        device, LONGLOOP_CG_PROFILE, f"pose graph: one Gauss-Newton step of "
+        f"{LONGLOOP_CG_PROFILE} CG steps (per CG step)", None, cfg, None,
+        drive=lambda: pg.optimize(prof_g, iterations=1, cg_iterations=LONGLOOP_CG_PROFILE))
+    # Two solves with the fixed-order node sums: bit for bit equal.
+    reps = [relax_bench_graph(x_true, valid, draws, iterations=LONGLOOP_REPEAT_GN)[1:]
+            for _ in range(2)]
+    same = torch.equal(reps[0][0].nodes, reps[1][0].nodes)
+    res["stage2"]["repeat"] = dict(bit_identical=same, iterations=LONGLOOP_REPEAT_GN,
+                                   seconds=[r[1] for r in reps])
+    log(f"  two solves of {LONGLOOP_REPEAT_GN} x {4 * t} CG steps after the chordal passes: "
+        f"{reps[0][1]:.2f} s, {reps[1][1]:.2f} s, bit-identical {same}")
+    require(same, "pose graph reproducible", "two solves on the card bit for bit equal")
+    return res
+
+
 def longloop_path(device) -> tuple[dict, dict]:
     """Phase 4g: BASELINE config 4, the long loop, and the pose graph.
     (a) smoke_compile.py's longloop stage: 24 steps of the 5,000-landmark
@@ -3540,19 +3795,8 @@ def longloop_path(device) -> tuple[dict, dict]:
 
     import torch
 
-    from conan_slam_tpu_torch.benchmarks.bench_longloop import (
-        CLOSURE,
-        keyframe_ate,
-        relax_bench_graph,
-    )
     from conan_slam_tpu_torch.config import SlamConfig
     from conan_slam_tpu_torch.examples import valet_loop
-    from conan_slam_tpu_torch.graph import pose_graph as pg
-    from conan_slam_tpu_torch.graph.frontend import (
-        ClosureConfig,
-        GraphDraws,
-        simulate_odometry_graph,
-    )
     from conan_slam_tpu_torch.ops import cuda
     from conan_slam_tpu_torch.runner.loop import precompute_rollout, run_ekf_slam_precomputed
     from conan_slam_tpu_torch.runner.metrics import ate_rmse
@@ -3560,6 +3804,7 @@ def longloop_path(device) -> tuple[dict, dict]:
     from conan_slam_tpu_torch.sim.world import _WP_X, _WP_Y, longloop_world
 
     t_phase = time.perf_counter()
+    stage2 = Beside("longloop_stage2", str(device))
     cfg = SlamConfig(max_landmarks=LONGLOOP_LANDMARKS, max_obs=64)
     s = cfg.observe_interval
     total = {k: 0 for k in launches()}
@@ -3673,81 +3918,8 @@ def longloop_path(device) -> tuple[dict, dict]:
             ctrl_noise=ctrl[lf:lf + LONGLOOP_PROFILE_FRAMES],
             obs_noise=obsn[lf:lf + LONGLOOP_PROFILE_FRAMES]))
 
-    # (c) Stage 2 on the committed JAX draws, against the committed outputs.
-    data = np.load(LONGLOOP_DATA)
-    draws = GraphDraws(torch.as_tensor(data["odo"], device=device),
-                       torch.as_tensor(data["closure"], device=device))
-    valid = ~done
-    g, g_opt, relax_s = relax_bench_graph(x_true, valid, draws)
-    t = g.nodes.shape[0]
-    pairs = {tuple(p) for p, m in zip(g.edges[t - 1:].tolist(), g.edge_mask[t - 1:].tolist())
-             if m}
-    want = {tuple(p) for p, m in zip(data["pairs"].tolist(), data["pair_mask"]) if m}
-    require(pairs == want, "long loop, stage 2 closures",
-            f"{len(pairs)} valid pairs, equal to the JAX run's {len(want)} as a set")
-    nodes = g_opt.nodes.cpu().numpy()
-    chi2 = (float(pg.graph_error(g)), float(pg.graph_error(g_opt)))
-    ate2 = (keyframe_ate(x_true, valid, g.nodes), keyframe_ate(x_true, valid, g_opt.nodes))
-    got, lim = node_distances(nodes, data["nodes_f64"]), node_distances(data["nodes_f32"],
-                                                                         data["nodes_f64"])
-    ok = all(got[k] <= WITNESS_FACTOR * lim[k] for k in got)
-    bounds2 = {}
-    for name, v in (("chi2", chi2[1]), ("ate", ate2[1])):
-        w, r, pm = (float(data[f"{name}_{k}"]) for k in ("f64", "f32", "perm"))
-        bounds2[name] = (abs(v - w), max(WITNESS_FACTOR * abs(r - w), abs(pm - r)))
-        ok = ok and bounds2[name][0] <= bounds2[name][1]
-    res["stage2"] = dict(closures=len(pairs), chi2=chi2, aligned_ate=ate2, relax_s=relax_s,
-                         witness=got, jax_witness=lim, witness_scalars=bounds2,
-                         jax=dict(chi2=(float(data["chi2_dr"]), float(data["chi2_f32"])),
-                                  aligned_ate=(float(data["ate_dr"]), float(data["ate_f32"])),
-                                  witness_chi2=float(data["chi2_f64"]),
-                                  witness_ate=float(data["ate_f64"])))
-    log(f"long loop, stage 2 (T {t}, E {g.edges.shape[0]}, {len(pairs)} closures; 50 x {4 * t} "
-        f"CG steps after 3 chordal passes): {relax_s:.2f} s; aligned ATE {ate2[0]:.3f} -> "
-        f"{ate2[1]:.3f} m (JAX {float(data['ate_dr']):.3f} -> {float(data['ate_f32']):.3f}, "
-        f"float64 witness {float(data['ate_f64']):.3f}); chi2 {chi2[0]:.6g} -> {chi2[1]:.3f} (JAX "
-        f"{float(data['chi2_dr']):.6g} -> {float(data['chi2_f32']):.3f}, witness "
-        f"{float(data['chi2_f64']):.3f})")
-    log("  nodes from the float64 witness: card " + ", ".join(
-        f"{k} {v:.4g}" for k, v in got.items()) + "; JAX float32 " + ", ".join(
-        f"{k} {v:.4g}" for k, v in lim.items()) + "; |chi2 - witness| {:.4g} (bound {:.4g}), "
-        "|ATE - witness| {:.4g} m (bound {:.4g})".format(*bounds2["chi2"], *bounds2["ate"]))
-    require(ok, "long loop, stage 2 against the float64 witness",
-            f"every node distance within {WITNESS_FACTOR} x the JAX float32 run's; chi2 and ATE "
-            "within the larger of that and the JAX run's own spread (edges permuted)")
-    # No host sync: a chordal pass and a Gauss-Newton iteration (short CG
-    # loops) under the sync debug mode.
-    g_s = simulate_odometry_graph(x_true, valid, ClosureConfig(**CLOSURE), draws)
-    torch.cuda.synchronize()
-    err = ""
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        pg.optimize(pg.chordal_initialize(g_s, cg_iterations=20), iterations=1,
-                    cg_iterations=20)
-    except RuntimeError as e:
-        err = str(e).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    require(not err, "no host sync (pose graph)", "chordal_initialize and optimize (20 CG "
-            "steps each) under set_sync_debug_mode('error')"
-            + (f": {err}" if err else ""))
-    prof_g = g
-    res["cg_profile"] = profile_frames(
-        device, LONGLOOP_CG_PROFILE, f"pose graph: one Gauss-Newton step of "
-        f"{LONGLOOP_CG_PROFILE} CG steps (per CG step)", world, cfg, None,
-        drive=lambda: pg.optimize(prof_g, iterations=1, cg_iterations=LONGLOOP_CG_PROFILE))
-    # Two solves with the fixed-order node sums: bit for bit equal.
-    reps = [relax_bench_graph(x_true, valid, draws, iterations=LONGLOOP_REPEAT_GN)[1:]
-            for _ in range(2)]
-    same = torch.equal(reps[0][0].nodes, reps[1][0].nodes)
-    res["stage2"]["repeat"] = dict(bit_identical=same, iterations=LONGLOOP_REPEAT_GN,
-                                   seconds=[r[1] for r in reps])
-    log(f"  two solves of {LONGLOOP_REPEAT_GN} x {4 * t} CG steps after the chordal passes: "
-        f"{reps[0][1]:.2f} s, {reps[1][1]:.2f} s, bit-identical {same}")
-    require(same, "pose graph reproducible", "two solves on the card bit for bit equal")
-
     # (d) The valet example's --loop-closure on the JAX seed-42 run's draws.
+    data = np.load(LONGLOOP_DATA)
     valet = np.load(VALET_DATA)
     vres = valet_loop.main(["--loop-closure", "--device", "cuda"],
                            ctrl_noise=torch.as_tensor(valet["ctrl"], device=device),
@@ -3767,6 +3939,7 @@ def longloop_path(device) -> tuple[dict, dict]:
         f"nodes from the JAX example's: x/y max {dn['xy_max']:.3e} m; {vres['relax_s']:.2f} s")
     require(np.isfinite(vres["chi2_after"]) and vres["chi2_after"] <= vres["chi2_before"] + 1e-6,
             "valet example --loop-closure", "finite chi2, not raised by the relaxation")
+    res.update(stage2.result())
     res["seconds"] = time.perf_counter() - t_phase
     log(f"long loop (phase 4g): {res['seconds']:.1f} s")
     return res, total
@@ -3789,10 +3962,10 @@ def gated_schedule(schedule: str):
 
 
 def gated_path(device) -> tuple[dict, dict, dict]:
-    """Phase 4b: BASELINE config 2 through the port's frame loop: H10 in turns
-    with the split schedule (H10, split, split, H10), then the plain
-    versions; and the 10k-landmark shape on both routes.  Returns the
-    results and the launch counts of an H10 run and of a split run."""
+    """Phase 4b: BASELINE config 2 through the port's frame loop: H10, then
+    the split schedule (TURNS), then the plain versions; and the
+    10k-landmark shape on both routes.  Returns the results and the launch
+    counts of an H10 run and of a split run."""
     import torch
 
     from conan_slam_tpu_torch.ops import cuda
@@ -3810,7 +3983,7 @@ def gated_path(device) -> tuple[dict, dict, dict]:
     ctrl = torch.randn((n_frames, s, 2), generator=gen, device=device)
     obsn = torch.randn((n_frames, nz, 2), generator=gen, device=device)
     log(f"main path (gated, BASELINE config 2): 500 landmarks, empty map, K=500 in D=1024, "
-        f"NZ={nz}, {n_steps} steps = {n_frames} frames through H10 in turns with the split "
+        f"NZ={nz}, {n_steps} steps = {n_frames} frames through H10, then the split "
         f"schedule, {GATED_PLAIN_STEPS} steps with the plain versions")
 
     def drive(plain: bool, steps: int, schedule: str = "auto"):
@@ -3840,8 +4013,8 @@ def gated_path(device) -> tuple[dict, dict, dict]:
             f"finite={res['finite']}, launches={counts}")
         return res
 
-    # H10 in turns with the split schedule.
-    order = ("auto", "split", "split", "auto")
+    # H10, then the split schedule.
+    order = TURNS
     runs = [drive(False, n_steps, schedule) for schedule in order]
     for schedule, res in zip(order, runs):
         kernels, names = {"auto": (GATED_KERNELS, "H15, H10's two kernels"),
@@ -3859,7 +4032,7 @@ def gated_path(device) -> tuple[dict, dict, dict]:
         f"{k['mapped']} vs {sp['mapped']}, steps with a different map size: "
         f"{int((dmap_split > 0).sum())} (max |d mapped| {int(dmap_split.max())})")
     label = {"auto": "H15 + H10", "split": "H15 + split"}
-    log("  steps/s in turns: " + ", ".join(
+    log("  steps/s: " + ", ".join(
         f"{label[o]} {r['steps_per_s']:,.1f}" for o, r in zip(order, runs)))
     p = drive(True, GATED_PLAIN_STEPS)
     require(not any(p["counts"].values()), "gated path plain launches",
@@ -4156,16 +4329,119 @@ def dist_course_check(name: str, ranks, ref: dict, gate: bool) -> dict:
     return dict(ate=ate, done_at=done_at, mapped=mapped, steps_per_s=steps / secs, seconds=secs)
 
 
+# Phase 4i, the bench tail, at cut sizes (bench.py's NATIVE_STEPS is 2,400).
+TAIL_NATIVE_STEPS = 120       # the native baseline on the bench world, scalar and SIMD
+TAIL_GATED_STEPS = 3_000      # native gated config 2, bench_gated, seed_sweep_gated, study_pf
+TAIL_SWEEP_STEPS = 2_400      # seed_sweep's runs
+TAIL_SEEDS = 2                # each seed sweep's seeds (the reference's 20 and 12)
+TAIL_PF_CONFIGS = 2           # study_pf's first two configurations, one seed
+TAIL_KNOWN_ATE = 0.05         # the native known runs' ATE bound (its own record: 0.020 m at 2,400)
+TAIL_KERNELS = ("frame_step", "factor_gate", "obs_step", "rank_update")
+
+
+CDF_CALLS = 20              # (c2): calls of each CDF and of the resample on one ensemble
+PF_TWICE_N, PF_TWICE_STEPS = 1000, 600   # (c2): run_pf_slam twice on one set of draws
+
+
+def cdf_repeats(ens, u, num_effective: float) -> dict:
+    """F6 on the card: on ``ens``'s normalised weights, CDF_CALLS calls of
+    torch.cumsum (float32; the CDF before the fix), of the fixed-order CDF
+    (filters.pf.cumulative_weights), and of the single-device resample on
+    ``u``: for each, the calls that differ from the first and by how many
+    elements (ancestors for the CDFs' inverses, particles for the
+    resample); the fixed-order CDF and the resample must never differ, and
+    the fixed-order CDF must equal the CPU's bit for bit (the same
+    arithmetic)."""
+    import torch
+
+    from conan_slam_tpu_torch.filters import pf as pf_mod
+
+    n = ens.num_particles
+    w = pf_mod.normalized_weights(ens)
+    strata = (torch.arange(n, dtype=w.dtype, device=w.device) + u) / torch.full(
+        (), n, dtype=w.dtype, device=w.device)      # stratified_indices' strata
+
+    def invert(cdf):
+        return torch.clamp(torch.searchsorted(cdf, strata), 0, n - 1)
+
+    def calls(make, compare):
+        first = make()
+        counts = [compare(first, make()) for _ in range(CDF_CALLS - 1)]
+        return first, dict(calls=CDF_CALLS, differing_calls=sum(c > 0 for c in counts),
+                           most=max(counts))
+
+    def elements(a, b):
+        return int((a != b).sum())
+    cum0, cumsum = calls(lambda: torch.cumsum(w, 0), elements)
+    anc0, cumsum_anc = calls(lambda: invert(torch.cumsum(w, 0)), elements)
+    fix0, fixed = calls(lambda: pf_mod.cumulative_weights(w), elements)
+    _, fixed_anc = calls(lambda: invert(pf_mod.cumulative_weights(w)), elements)
+
+    def particles(a, b):
+        d = torch.zeros(n, dtype=torch.bool, device=w.device)
+        for x, y in zip((a.log_w, a.pose, a.pose_cov, a.xf, a.pf),
+                        (b.log_w, b.pose, b.pose_cov, b.xf, b.pf)):
+            d |= (x != y).reshape(n, -1).any(1)
+        return int(d.sum())
+    _, resample = calls(lambda: pf_mod.resample(ens, u, None, num_effective, True), particles)
+    same_cpu = bool(torch.equal(fix0.cpu(), pf_mod.cumulative_weights(w.cpu())))
+    vs_fixed = int((anc0 != invert(fix0)).sum())
+    log(f"  F6: torch.cumsum of the {n:,} weights: {cumsum['differing_calls']} of "
+        f"{CDF_CALLS - 1} more calls differ from the first (at most {cumsum['most']} elements; "
+        f"their ancestors at most {cumsum_anc['most']}, the first call's {vs_fixed} from the "
+        f"fixed-order CDF's); fixed-order CDF: {fixed['differing_calls']} calls differ, its "
+        f"ancestors {fixed_anc['differing_calls']}, the CPU's bits: {same_cpu}; the resample: "
+        f"{resample['differing_calls']} of {CDF_CALLS - 1} more calls differ (at most "
+        f"{resample['most']} particles)")
+    require(fixed["differing_calls"] == 0 and fixed_anc["differing_calls"] == 0 and same_cpu
+            and resample["differing_calls"] == 0, "F6: the PF resample repeats its bits",
+            f"{CDF_CALLS} calls of the fixed-order CDF, its ancestors and the resample the same "
+            "bits; the CDF the CPU's")
+    return dict(cumsum=cumsum, cumsum_ancestors=cumsum_anc, cumsum_vs_fixed_ancestors=vs_fixed,
+                fixed=fixed, fixed_ancestors=fixed_anc, fixed_is_cpu=same_cpu,
+                resample=resample)
+
+
+def pf_twice(device) -> dict:
+    """run_pf_slam at N = PF_TWICE_N for PF_TWICE_STEPS steps, twice on the
+    committed pf_key1.npz draws (odometry and returns as stored, the
+    N = 100 particles' draws tiled ten times): the same x_est and ensemble
+    bits, and how many steps' x_est differ."""
+    import torch
+
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.runner.loop import run_pf_slam
+    from conan_slam_tpu_torch.sim.world import default_world
+
+    data = dict(np.load(PF_DATA))
+    reps = PF_TWICE_N // 100
+    for k in ("prop", "res_u", "samp"):
+        a = data[f"{k}_100"]
+        data[f"{k}_{PF_TWICE_N}"] = np.tile(a, (1, reps) + (1,) * (a.ndim - 2))
+    draws = pf_file_draws(data, PF_TWICE_N, device)
+    world = default_world(device)
+    runs = [run_pf_slam(world, SlamConfig(num_particles=PF_TWICE_N), None, PF_TWICE_STEPS,
+                        draws=draws) for _ in range(2)]
+    (c1, o1), (c2, o2) = runs
+    steps = int((o1.x_est != o2.x_est).any(1).sum())
+    same = steps == 0 and all(torch.equal(a, b) for a, b in zip(c1.ens, c2.ens))
+    log(f"  F6: run_pf_slam twice (N {PF_TWICE_N}, {PF_TWICE_STEPS} steps, the committed draws): "
+        f"{steps} steps' x_est differ; the final ensembles the same bits: {same}")
+    require(same, "F6: run_pf_slam repeats its bits", f"N {PF_TWICE_N}, {PF_TWICE_STEPS} steps")
+    return dict(steps_differing=steps, same=same)
+
+
 def dist_pf_step(pool, device, total: dict) -> dict:
     """Phase 4h (c): the PF observation step of DIST_PARTICLES particles on
     DIST_RANKS ranks against the single-device port step on the same draws:
     without resampling within float32 rounding (each rank's block runs
     the single-device per-particle code on a block of another size); the
-    sharded resample on the single-device step's ensemble equal to the
-    single-device resample up to the CDF's float32 rounding (its weights,
-    Neff and CDF are the single path's arithmetic on the gathered log
-    weights); the whole resampling step timed, its particles that left on
-    another ancestor than the single-device step's counted."""
+    sharded resample on the single-device step's ensemble bit for bit the
+    single-device resample (its weights, Neff and fixed-order CDF are the
+    single path's arithmetic on the gathered log weights), with F6's
+    record beside it (cdf_repeats, pf_twice); the whole resampling step
+    timed, its particles that left on another ancestor than the
+    single-device step's counted."""
     import torch
 
     from conan_slam_tpu_torch.filters import pf as pf_mod
@@ -4222,52 +4498,32 @@ def dist_pf_step(pool, device, total: dict) -> dict:
                                         got[k], getattr(pre, k).cpu(), 1e-5, 1e-6,
                                         "test_parallel.py's resample tolerance")
     # (c2) the resample alone on the single-device step's ensemble: its
-    # ancestors are the single path's arithmetic on the same weights, but a
-    # float32 cumsum on the card sums in an order that can change from call
-    # to call, so a stratum within the CDF's rounding of a boundary may
-    # take another ancestor: the next one, or one past particles whose
-    # weights are below the rounding.  Each particle is the single-device
-    # resample's, or such a flip: both its ancestors found by their
-    # payload among the input's particles, every CDF boundary between them
-    # within tau of its stratum, tau four times the single-device CDF's
-    # measured float32 error against a float64 cumsum (two runs' errors
-    # at one index, the other run's own largest unseen).
+    # ancestors are the single path's arithmetic on the same gathered
+    # weights, whose CDF (filters.pf.cumulative_weights) sums in one fixed
+    # order, so every particle is the single-device resample's bit for bit.
+    # Beside it, F6's record: torch.cumsum's float32 CDF of the same weights
+    # (the CDF before the fix) over CDF_CALLS calls, the elements and the
+    # ancestors that differ from its first call's; the fixed-order CDF and
+    # the single-device resample over as many calls, which must not differ;
+    # and run_pf_slam twice on one set of draws (pf_twice).
     pre_np = launch.to_numpy(pre)
     u = torch.as_tensor(draws.res_u, device=device)
     _, got = run(pre_np, [(dist_pf.sharded_resample, (draws.res_u, kw["num_effective"]), {},
                            True)])
     ref = pf_mod.resample(pre, u, None, kw["num_effective"], True)
-    w = pf_mod.normalized_weights(pre)
-    cum64 = torch.cumsum(w.double(), 0).cpu()
-    tau = 4.0 * float((torch.cumsum(w, 0).double().cpu() - cum64).abs().max())
-    strata = (torch.arange(n, dtype=torch.float64) + u.double().cpu()) / n
     ref_cpu = {k: getattr(ref, k).cpu() for k in split}
     differ = torch.zeros(n, dtype=torch.bool)
     for k in split[1:]:
         differ |= (got[k] != ref_cpu[k]).reshape(n, -1).any(1)
-    owner = {row.tobytes(): m for m, row in enumerate(pre_np.pose)}
-    flips = []
-    for i in torch.nonzero(differ)[:, 0].tolist():
-        a = owner.get(got["pose"][i].numpy().tobytes())
-        b = owner.get(ref_cpu["pose"][i].numpy().tobytes())
-        whole = a is not None and all(torch.equal(got[k][i], torch.as_tensor(getattr(pre_np, k)[a]))
-                                      for k in split[1:])
-        gap = (max(abs(float(strata[i] - cum64[min(a, b)])),
-                   abs(float(strata[i] - cum64[max(a, b) - 1])))
-               if whole and b is not None and a != b else float("inf"))
-        flips.append((i, a, b, gap <= tau, gap))
-    n_diff = len(flips)
-    explained = sum(f[3] for f in flips)
-    widest = max((f[4] for f in flips), default=0.0)
+    n_diff = int(differ.sum())
     fired = bool((ref.log_w == ref.log_w[0]).all())
-    require(fired and torch.equal(got["log_w"], ref_cpu["log_w"]) and explained == n_diff,
+    require(fired and torch.equal(got["log_w"], ref_cpu["log_w"]) and n_diff == 0,
             f"sharded PF resample (N {n})",
             f"resampled: {fired}; {n - n_diff} of {n} particles bit-equal to the single-device "
-            f"resample's; {explained} of the other {n_diff} a flip whose CDF boundaries lie "
-            f"within {tau:.2e} of the stratum (the widest {widest:.2e})"
-            + "".join(f"; unexplained: particle {i}, ancestors {a} and {b} ({g:.2e})"
-                      for i, a, b, ok, g in flips if not ok)[:400])
-    out.update(resample_flips=n_diff, cdf_tau=tau, widest_flip=widest)
+            f"resample's (flips: {n_diff})")
+    out["resample_flips"] = n_diff
+    out["repeat"] = cdf_repeats(pre, u, kw["num_effective"])
+    out["pf_twice"] = pf_twice(device)
     # (c3) the whole resampling step, timed.
     t0 = time.perf_counter()
     ranks, got = run(ens, [(dist_pf.sharded_observation_step, (obs, r_cov, draws), kw, True)])
@@ -4359,6 +4615,200 @@ def dist_path(device, beside=None) -> tuple[dict, dict, object]:
     return res, total, beside_out
 
 
+@contextlib.contextmanager
+def environ(**env):
+    """The process environment with ``env`` set for the block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bench_tail(device, h9_steps_per_s: float, native_s: dict | None = None) -> tuple[dict, dict]:
+    """Phase 4i, the bench tail, with the launch counts set to 0 before it:
+    (a) the native libraries built from native/*.cpp into the port's build
+    directory (conan_slam_tpu_torch.native; phase 2 builds them beside the
+    kernels and passes ``native_s``, the seconds), the native baseline on the
+    bench world, scalar and SIMD, TAIL_NATIVE_STEPS steps each (ATE <
+    TAIL_KNOWN_ATE), and gated at config 2, TAIL_GATED_STEPS steps (ATE
+    finite), beside phase 4a's H9 steps/s; (b) the native rollouts against
+    numpy on the bench's 19,200 steps (tests/test_sim.py's bounds); (c) the
+    bench tail's scripts at cut sizes, each once: bench_gated
+    (TAIL_GATED_STEPS), bench_kernels (every D, each within its bound of the
+    plain version), seed_sweep (TAIL_SEEDS x TAIL_SWEEP_STEPS) and
+    seed_sweep_gated (TAIL_SEEDS x TAIL_GATED_STEPS), every seed's ATE
+    finite, on a thread beside study_pf (one seed x its first
+    TAIL_PF_CONFIGS configurations x TAIL_GATED_STEPS); H9, H15, H10 and H4
+    launched.
+    Returns the results and the launch counts."""
+    import traceback
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from conan_slam_tpu_torch import native
+    from conan_slam_tpu_torch.benchmarks import (
+        bench_gated,
+        bench_kernels,
+        seed_sweep,
+        seed_sweep_gated,
+        study_pf,
+    )
+    from conan_slam_tpu_torch.benchmarks.world import BENCH_STEPS as ROLL_STEPS
+    from conan_slam_tpu_torch.benchmarks.world import SIGMA0, bench_world as world_of
+    from conan_slam_tpu_torch.benchmarks.native_baseline import cpu_model
+    from conan_slam_tpu_torch.benchmarks.world import gated_world
+    from conan_slam_tpu_torch.config import SlamConfig
+    from conan_slam_tpu_torch.ops import cuda
+    from conan_slam_tpu_torch.sim import precompute
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    res: dict = {"host_cpu": cpu_model()}
+    # (a) The native baseline.
+    built = {name: native.build(name)[1] for name in ("slam_baseline", "hostsim")}
+    res["build_s"] = {**built, **(native_s or {})}
+    log(f"bench tail (phase 4i): host CPU {res['host_cpu']}; the native libraries built in "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in res["build_s"].items())
+        + f" (g++, phase 2 beside nvcc) into {native.BUILD_DIR}")
+    lm, world, _ = world_of(N_LANDMARKS, "cpu")
+    wp = world.waypoints.numpy()
+    runs = {}
+    for name, kw in (("scalar", {}), ("simd", dict(opt=True))):
+        r = native.run_ekf_baseline(lm, wp, TAIL_NATIVE_STEPS, seed=SEED, with_noise=True,
+                                    prebuild_map=True, sigma0=SIGMA0, **kw)
+        runs[name] = dict(steps=r.steps, seconds=r.seconds, steps_per_s=r.steps_per_s,
+                          ate=r.ate_rmse)
+        require(r.steps == TAIL_NATIVE_STEPS and r.ate_rmse < TAIL_KNOWN_ATE,
+                f"native baseline ({name})", f"{r.steps} steps, ATE {r.ate_rmse:.4f} < "
+                f"{TAIL_KNOWN_ATE} m")
+    g = gated_world(500, "cpu")
+    gcfg = gated_cfg(500)
+    r = native.run_ekf_baseline(g.landmarks.numpy(), g.waypoints.numpy(), TAIL_GATED_STEPS,
+                                seed=0, with_noise=True, opt=True, gated=True,
+                                gate_reject=gcfg.gate_reject, gate_augment=gcfg.gate_augment,
+                                max_obs=gcfg.max_obs)
+    runs["gated"] = dict(steps=r.steps, seconds=r.seconds, steps_per_s=r.steps_per_s,
+                         ate=r.ate_rmse)
+    require(r.steps == TAIL_GATED_STEPS and np.isfinite(r.ate_rmse), "native baseline (gated)",
+            f"{r.steps} steps, ATE {r.ate_rmse:.4f} m finite")
+    best = max(runs["scalar"]["steps_per_s"], runs["simd"]["steps_per_s"])
+    res["native"] = runs
+    res["vs_baseline"] = h9_steps_per_s / best
+    for name, v in runs.items():
+        log(f"  native {name}: {v['steps']} steps in {v['seconds']:.3f} s = "
+            f"{v['steps_per_s']:,.1f} steps/s, ATE {v['ate']:.4f} m")
+    log(f"  vs_baseline as bench.py forms it, reported, not claimed: phase 4a's H9 "
+        f"{h9_steps_per_s:,.1f} steps/s / the better native run's {best:,.1f} = "
+        f"{res['vs_baseline']:.2f}")
+
+    # (b) The native rollouts against numpy.
+    cfg = SlamConfig(max_landmarks=N_LANDMARKS, max_obs=64, enable_augment=False)
+    secs, rolls = {}, {}
+    for name, use in (("numpy", False), ("native", True)):
+        t0 = time.perf_counter()
+        tr = precompute.rollout_truth(wp, cfg, ROLL_STEPS, use_native=use)
+        ob = precompute.rollout_observations(tr.x_true, lm, cfg.max_range, 64,
+                                             cfg.observe_interval, use_native=use)
+        secs[name] = time.perf_counter() - t0
+        rolls[name] = (tr, ob)
+    (tp, op), (tn, _) = rolls["numpy"], rolls["native"]
+    dev_ = dict(x_true=float(np.abs(tn.x_true - tp.x_true).max()),
+                swa=float(np.abs(tn.swa - tp.swa).max()))
+    same = all(np.array_equal(a, b) for a, b in ((tn.done, tp.done), (tn.active, tp.active)))
+    ob_n = precompute.rollout_observations(tp.x_true, lm, cfg.max_range, 64,
+                                           cfg.observe_interval, use_native=True)
+    same_obs = np.array_equal(ob_n.ids, op.ids) and np.array_equal(ob_n.mask, op.mask)
+    dev_["z_true"] = float(np.abs(ob_n.z_true - op.z_true).max())
+    res["rollout"] = dict(seconds=secs, deviation=dev_)
+    log(f"  rollouts, {ROLL_STEPS} steps: numpy {secs['numpy']:.3f} s, native "
+        f"{secs['native']:.3f} s; native - numpy: x_true {dev_['x_true']:.2e}, swa "
+        f"{dev_['swa']:.2e}, z_true {dev_['z_true']:.2e}; done and active equal {same}, ids and "
+        "mask equal " + str(same_obs))
+    require(same and same_obs and dev_["x_true"] <= 2e-3 and dev_["swa"] <= 1e-4
+            and dev_["z_true"] <= 2e-3, "native rollouts against numpy",
+            "done, active, ids and mask equal; x_true 2e-3, swa 1e-4, z_true 2e-3 "
+            "(tests/test_sim.py's bounds)")
+
+    # (c) The scripts at cut sizes: the seed sweeps (whose native halves run
+    # outside the interpreter lock) on a thread beside study_pf.
+    dev = str(device)
+    out = {}
+
+    def script(name, call, **env):
+        t0 = time.perf_counter()
+        try:
+            with environ(**env):
+                out[name] = call()
+        except Exception:          # a failed gate fails the phase, not the run
+            log(traceback.format_exc())
+            FAILURES.append(f"bench tail: {name}")
+            return
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+
+    def sweeps():
+        env = dict(SWEEP_STEPS=TAIL_SWEEP_STEPS, GATED_STEPS=TAIL_GATED_STEPS,
+                   SWEEP_WORKERS=TAIL_SEEDS)
+        script("seed_sweep", lambda: seed_sweep.main([str(TAIL_SEEDS)], device=dev), **env)
+        script("seed_sweep_gated", lambda: seed_sweep_gated.main([str(TAIL_SEEDS)], device=dev),
+               **env)
+
+    script("bench_gated", lambda: bench_gated.main([str(TAIL_GATED_STEPS)], device=dev))
+    script("bench_kernels", lambda: bench_kernels.main(None, device=dev))
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        beside = pool.submit(sweeps)
+        script("study_pf", lambda: study_pf.main(["1", str(TAIL_GATED_STEPS)], device=dev,
+                                                 configs=TAIL_PF_CONFIGS))
+        beside.result()
+    if "bench_gated" in out:
+        b = out["bench_gated"]
+        require(np.isfinite(b["ate_m"]) and b["mapped"] > 0, "bench tail: bench_gated",
+                f"{b['steps_per_s']:,.1f} steps/s, ATE {b['ate_m']:.4f} m finite, mapped "
+                f"{b['mapped']}")
+    for name in ("seed_sweep", "seed_sweep_gated"):
+        if name in out:
+            o = out[name]
+            require(all(np.isfinite(o["port"] + o["native"])), f"bench tail: {name}",
+                    f"every seed's ATE finite: port {o['port']}, native {o['native']}, port "
+                    f"mapped {o['mapped']}")
+    if "study_pf" in out:
+        require(all(np.isfinite(v["ates"]).all() for v in out["study_pf"].values()),
+                "bench tail: study_pf", "every ATE finite")
+    res["scripts"] = out
+    torch.cuda.synchronize()
+    counts = launches()
+    for k in TAIL_KERNELS:
+        require(counts[k] > 0, f"bench tail launches {k}", f"{counts[k]} launches")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"bench tail (phase 4i): {res['seconds']:.1f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return res, counts
+
+
+def bench_tail_summary(out: dict) -> dict:
+    """Phase 4i's scripts' numbers for the summary line."""
+    keep = {}
+    if "bench_gated" in out:
+        keep["bench_gated"] = {k: out["bench_gated"][k] for k in ("steps_per_s", "ate_m", "mapped")}
+    if "bench_kernels" in out:
+        keep["bench_kernels_us"] = {d: {n: row[n]["us"] for n in ("h4", "plain", "addmm")}
+                                    for d, row in out["bench_kernels"].items()}
+    for name in ("seed_sweep", "seed_sweep_gated"):
+        if name in out:
+            keep[name] = {k: out[name][k] for k in ("port", "native", "mapped",
+                                                    "p_port_beats_native")}
+    if "study_pf" in out:
+        keep["study_pf"] = {k: v["ates"] for k, v in out["study_pf"].items()}
+    return keep
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=BENCH_STEPS,
@@ -4394,9 +4844,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # --- phase 2: build ---
-    path, secs, out = cuda.build(("-Xptxas", "-v"))
-    log(f"build: {path.name} in {secs:.1f} s")
+    # --- phase 2: build (the native libraries of phase 4i beside the kernels) ---
+    from concurrent.futures import ThreadPoolExecutor
+
+    from conan_slam_tpu_torch import native
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        native_jobs = {name: pool.submit(native.build, name) for name in ("slam_baseline",
+                                                                          "hostsim")}
+        path, secs, out = cuda.build(("-Xptxas", "-v"))
+        native_s = {}
+        for name, job in native_jobs.items():
+            try:
+                native_s[name] = job.result()[1]
+            except RuntimeError as e:      # phase 4i fails on it; the kernels' phases go on
+                log(f"native build of {name} failed: {e}")
+                FAILURES.append(f"native build ({name})")
+    log(f"build: {path.name} in {secs:.1f} s; native libraries (g++, beside it): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in native_s.items()))
     ptxas = ptxas_record(out)
     for name, rec in ptxas.items():
         log(f"  ptxas {name}: {rec}")
@@ -4422,11 +4887,16 @@ def main() -> int:
     sim, simcounts = sim_path(device)
     pfres, pfcounts = pf_path(device)
     llres, llcounts = longloop_path(device)
-    dres, dcounts, (routes, rcounts) = dist_path(device, beside=lambda: sim_routes(device))
+    course_bits = pfres.pop("course_bits")
+    dres, dcounts, ((routes, rcounts), again) = dist_path(
+        device, beside=lambda: (sim_routes(device), pf_course_again(device, course_bits)))
     sim.update(routes=routes["routes"], routes_seconds=routes["seconds"])
+    pfres["course_again"] = again
     for k, n in rcounts.items():
         simcounts[k] = simcounts.get(k, 0) + n
+    tail, bcounts = bench_tail(device, results["kernels"]["steps_per_s"], native_s)
     log(f"main paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     from conan_slam_tpu_torch.config import SlamConfig
 
@@ -4459,6 +4929,8 @@ def main() -> int:
                                   config2_world(device), gated_cfg(500), None, sim=True),
     }
 
+    log(f"profiles: {time.perf_counter() - t0:.1f} s")
+
     # --- phase 5: report ---
     allstats = {**stats, **gstats, **prstats}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4478,14 +4950,14 @@ def main() -> int:
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
                       + pcounts[k.name] + pbcounts[k.name] + simcounts.get(k.name, 0)
                       + pfcounts.get(k.name, 0) + llcounts.get(k.name, 0)
-                      + dcounts.get(k.name, 0)),
+                      + dcounts.get(k.name, 0) + bcounts.get(k.name, 0)),
          "launches_by_path": {"known": counts[k.name], "known_split": scounts[k.name],
                               "gated": gcounts[k.name], "gated_split": gscounts[k.name],
                               "pair": pcounts[k.name], "probes": pbcounts[k.name],
                               "probes_replayed": pbreplayed.get(k.name, 0),
                               "sim": simcounts.get(k.name, 0), "pf": pfcounts.get(k.name, 0),
                               "longloop": llcounts.get(k.name, 0),
-                              "dist": dcounts.get(k.name, 0)},
+                              "dist": dcounts.get(k.name, 0), "bench": bcounts.get(k.name, 0)},
          **{key: allstats[k.name][key] for key in keys},
          **{key: allstats[k.name][key] for key in extras if key in allstats[k.name]},
          "ptxas": {n: r for n, r in ptxas.items()
@@ -4499,14 +4971,12 @@ def main() -> int:
         "frame_ms": stats["frame_step"]["ms"], "frame_plain_ms": stats["frame_step"]["plain_ms"],
         "split_frame_ms": stats["split frame"]["ms"],
         "split_frame_plain_ms": stats["split frame"]["plain_ms"],
-        "known_turns_steps_per_s": dict(zip(("h9_1", "split_1", "split_2", "h9_2"),
-                                            results["turns"])),
+        "known_turns_steps_per_s": dict(zip(("h9", "split"), results["turns"])),
         "h9_vs_split_dx_est_m": results["dx_split"],
         "gated_steps_per_s": gated["steps_per_s"],
         "gated_plain_steps_per_s": gated["plain_steps_per_s"],
         "gated_ate_m": gated["ate"], "gated_mapped": gated["mapped"],
-        "gated_turns_steps_per_s": dict(zip(("h10_1", "split_1", "split_2", "h10_2"),
-                                            gated["turns"])),
+        "gated_turns_steps_per_s": dict(zip(("h10", "split"), gated["turns"])),
         "gated_split_ate_m": gated["split_ate"], "gated_split_mapped": gated["split_mapped"],
         "h10_vs_split_dx_est_m": gated["dx_split"],
         "h10_vs_split_map_steps_differ": gated["map_steps_differ"],
@@ -4520,8 +4990,7 @@ def main() -> int:
         "gated_split_busy_us_per_frame": gprof["split"]["busy_us"],
         "big_steps_per_s": gated["big_steps_per_s"],
         "big_split_steps_per_s": gated["big_split_steps_per_s"],
-        "pair_vs_frame_steps_per_s": dict(zip(("frame_1", "pair_1", "pair_2", "frame_2"),
-                                              paired["steps_per_s"])),
+        "pair_vs_frame_steps_per_s": dict(zip(("frame", "pair"), paired["steps_per_s"])),
         "pair_ate_m": paired["ate"], "pair_asym_p": paired["asym"],
         "pair_plain_steps_per_s": paired["plain_steps_per_s"],
         "pair_ms": pstats["frame_step_pair"]["ms"],
@@ -4540,7 +5009,8 @@ def main() -> int:
                "sizes": pfres["sizes"], "ops_per_frame": pfres["profile"]["ops"],
                "busy_us_per_frame": pfres["profile"]["busy_us"],
                "wall_us_per_frame_profiled": pfres["profile"]["wall_us"],
-               "ranges": pfres["profile"]["ranges"], "seconds": pfres["seconds"]},
+               "ranges": pfres["profile"]["ranges"], "seconds": pfres["seconds"],
+               "course_again": pfres["course_again"]},
         "longloop": {"rollout": llres["rollout"],
                      "stage1": {k: v for k, v in llres["stage1"].items()},
                      "stage1_ops_per_frame": llres["profile"]["ops"],
@@ -4555,6 +5025,8 @@ def main() -> int:
                  "course": dres["course"], "pf_100k": dres["pf_100k"],
                  "dryrun": dres["dryrun"], "nccl_seconds": dres["nccl"]["seconds"],
                  "seconds": dres["seconds"]},
+        "bench_tail": {**{k: v for k, v in tail.items() if k != "scripts"},
+                       "scripts": bench_tail_summary(tail.get("scripts", {}))},
         "probes_us": {
             "sweep": {k: {"graph": v["us"], "eager": v["eager_us"]}
                       for k, v in probes.get("probe_sweep", {}).get("variants", {}).items()},

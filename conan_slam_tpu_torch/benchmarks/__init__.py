@@ -1,7 +1,19 @@
-"""Port-side benches: the counterparts of the reference's probes and
-frame-step bench (benchmarks/probe_sweep.py, probe_rankpass.py,
-probe_mosaic.py, bench_framestep.py), with the same variant and mode
-names, environment knobs, defaults, gates and output lines.
+"""Port-side benches: the counterparts of the reference's scripts in
+benchmarks/ (probe_sweep, probe_rankpass, probe_mosaic, bench_framestep,
+bench_pf, bench_longloop, probe_closure, dcn_smoke, audit_collectives,
+bench_gated, bench_kernels, seed_sweep, seed_sweep_gated, study_pf), with
+the same variant and mode names, environment knobs, defaults, gates and
+output lines; ``native_baseline`` is bench.py's native denominator.  Where
+a reference script took a ``PRNGKey``, its port takes a
+``torch.Generator`` seeded with the same number.
+
+benchmarks/smoke_compile.py is not ported as a second smoke: the root
+chip_smoke.py holds each of its stages' gates in a phase.  ``kernel`` ->
+3b (the gated frame's kernels against their plain versions); ``ate`` -> 4a
+(ATE < 0.05 m, asym(P) < 1e-4); ``gated`` and ``gated_full`` -> 4b (the
+whole 25,002-step config 2 run: ATE < 0.5 m, 270 <= mapped <= 340);
+``longloop`` -> 4g; ``pf`` -> 4f; ``program`` is a TPU compile check with
+no eager counterpart.
 
 Each module has ``main(argv=None, device="cuda")`` and runs as
 

@@ -169,6 +169,9 @@ def coeff_frame_core(pose0, p2_head, p22_0, vns, swans, phi_meas, active,
         diag[2 + 2 * s_steps :] = r_head
     bmat = torch.diag(diag)
     bmat[0, 0] = p22_0
-    bmat[0, 1] = 1.0
-    bmat[1, 0] = 1.0
+    # Ones from the device: a Python number written at an index is a copy
+    # from the host, which a CUDA graph cannot capture.
+    one = torch.ones((), dtype=dtype, device=device)
+    bmat[0, 1] = one
+    bmat[1, 0] = one
     return pose, torch.stack(pose_trace), corr0, cmat, bmat

@@ -20,6 +20,7 @@ from conan_slam_tpu_torch.filters.common import CompactObs
 from conan_slam_tpu_torch.filters.pf.predict import observe_heading, predict
 from conan_slam_tpu_torch.filters.pf.proposal import sample_proposal
 from conan_slam_tpu_torch.filters.pf.resample import (
+    cumulative_weights,
     effective_count,
     resample,
     resample_ancestors,
@@ -117,6 +118,7 @@ __all__ = [
     "add_new_features",
     "associate_known",
     "best_pose",
+    "cumulative_weights",
     "effective_count",
     "feature_update",
     "gather_slots",

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from conan_slam_tpu_torch.filters.pf.resample import (
+    cumulative_weights,
     effective_count,
     resample,
     resample_ancestors,
@@ -66,7 +67,7 @@ def resampling_flip(seen: dict, other: dict, threshold: float) -> list[tuple[str
         return []
     n = seen["idx"].shape[0]
     strata = (torch.arange(n, dtype=seen["w"].dtype) + seen["u"]) / n
-    cum, cum_other = torch.cumsum(seen["w"], 0), torch.cumsum(other["w"], 0)
+    cum, cum_other = cumulative_weights(seen["w"]), cumulative_weights(other["w"])
     out = []
     for i in torch.nonzero(seen["idx"] != other["idx"])[:, 0].tolist():
         j = min(int(seen["idx"][i]), int(other["idx"][i]))

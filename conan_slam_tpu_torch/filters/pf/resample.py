@@ -1,7 +1,8 @@
 """Resampling on the device (port of conan_slam_tpu.filters.pf.resample;
 reference ``PF::resampleParticles`` / ``stratifiedResample``,
 PF.cpp:473-500, 546-596, with its two RNG defects fixed, SURVEY.md defects
-8 and 13): normalised cumulative weights, ``searchsorted`` against
+8 and 13): normalised cumulative weights (in a fixed order, so a resample
+gives the same ancestors on every call on the card), ``searchsorted`` against
 stratified (or systematic) uniforms and one gather of every per-particle
 tensor, gated by the effective-sample-size test.
 
@@ -11,6 +12,7 @@ The uniforms, and the roughening's standard normals, come in as tensors.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from conan_slam_tpu_torch.core.geometry import wrap_angle
 from conan_slam_tpu_torch.filters.pf.state import (
@@ -25,17 +27,59 @@ def effective_count(weights: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.clamp((weights * weights).sum(), min=1e-30)
 
 
+# Weights a row of the CDF's blocked scan.
+CDF_BLOCK = 1024
+
+
+def _log_step_scan(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last dimension by doubling steps
+    (a[i] += a[i - s] for s = 1, 2, 4, ...): elementwise adds only, so the
+    order of every sum is fixed by the shape alone."""
+    s = 1
+    while s < a.shape[-1]:
+        a = torch.cat([a[..., :s], a[..., s:] + a[..., :-s]], -1)
+        s *= 2
+    return a
+
+
+def cumulative_weights(weights: torch.Tensor) -> torch.Tensor:
+    """The CDF of (N,) weights, the same bits on every call and on every
+    device: the weights in float64, padded to rows of CDF_BLOCK, each row
+    and then the row totals scanned by ``_log_step_scan``, the offsets
+    added, rounded once to the weights' dtype.
+
+    ``torch.cumsum`` is not that on the card: its float32 scan of a long
+    vector adds each tile's prefix in an order that depends on timing, so
+    two calls on the same weights can differ in their last bits (and on
+    the CPU it accumulates in float64, on the card in float32).  Here the
+    float64 sums lie within ~17 u64 of the exact prefix sums, so the
+    float32 CDF is the exact one correctly rounded, as the CPU's
+    sequential float64 cumsum gives it."""
+    n = weights.shape[0]
+    rows = -(-n // CDF_BLOCK)
+    w = F.pad(weights.double(), (0, rows * CDF_BLOCK - n)).reshape(rows, CDF_BLOCK)
+    w = _log_step_scan(w)
+    totals = _log_step_scan(w[:, -1])
+    offsets = torch.cat([totals.new_zeros(1), totals[:-1]])
+    return (w + offsets[:, None]).reshape(-1)[:n].to(weights.dtype)
+
+
 def _invert_cdf(u: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
     """Ancestor indices: the first i with cumsum(w)[i] >= u (searchsorted's
-    left side, as the reference's), clipped to [0, n)."""
-    return torch.clamp(torch.searchsorted(torch.cumsum(weights, 0), u), 0, n - 1)
+    left side, as the reference's), clipped to [0, n); the CDF is
+    ``cumulative_weights``."""
+    return torch.clamp(torch.searchsorted(cumulative_weights(weights), u), 0, n - 1)
 
 
 def stratified_indices(u: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
     """Stratified resampling: one uniform ``u`` (n,) per stratum, (i + u_i) / n,
-    through the inverse CDF."""
-    return _invert_cdf((torch.arange(n, dtype=weights.dtype, device=weights.device) + u) / n,
-                       weights, n)
+    through the inverse CDF.  n divides as a tensor on the weights' device:
+    the card multiplies by the reciprocal of a Python number divisor, which
+    rounds otherwise than the CPU's division."""
+    dev, dtype = weights.device, weights.dtype
+    strata = (torch.arange(n, dtype=dtype, device=dev) + u) / torch.full((), n, dtype=dtype,
+                                                                         device=dev)
+    return _invert_cdf(strata, weights, n)
 
 
 def systematic_indices(u: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:

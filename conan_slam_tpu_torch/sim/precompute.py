@@ -6,8 +6,11 @@ from the true pose, and control/observation noise only enter the filter's
 inputs (reference test/main.cpp:140-160).  Rolling it out once on the host
 leaves the device loop with filter work only.  The float32 arithmetic is
 the reference's numpy path line for line (tests/test_torch_slice.py holds
-the two bit-equal); the reference's optional native C++ rollout is not
-used (~0.9 s for the 19,200-step bench rollout in numpy).
+the two bit-equal), and numpy is the default (~0.9 s for the 19,200-step
+bench rollout).  ``use_native=True`` runs the native C++ rollout instead
+(``conan_slam_tpu_torch.native``, the reference's switch; within libm's
+ulps of numpy, tests/test_torch_native.py): where its build or load fails
+the call raises, it does not fall back to numpy.
 """
 
 from __future__ import annotations
@@ -31,9 +34,15 @@ def _wrap(a: np.float32) -> np.float32:
                                    np.float32(2 * np.pi)) - np.float32(np.pi))
 
 
-def rollout_truth(waypoints: np.ndarray, cfg: SlamConfig, n_steps: int) -> TruthRollout:
+def rollout_truth(waypoints: np.ndarray, cfg: SlamConfig, n_steps: int,
+                  use_native: bool = False) -> TruthRollout:
     """The deterministic truth trajectory: steering toward the waypoints,
-    bicycle motion, frozen once the course is complete."""
+    bicycle motion, frozen once the course is complete; ``use_native``: the
+    native C++ rollout (raises where it cannot be built or loaded)."""
+    if use_native:
+        from conan_slam_tpu_torch.native import rollout_truth_native
+
+        return TruthRollout(*rollout_truth_native(waypoints, cfg, n_steps))
     wp = np.asarray(waypoints, np.float32)
     n_wp = wp.shape[0]
     dt = np.float32(cfg.dt_controls)
@@ -110,7 +119,7 @@ class ObsRollout(NamedTuple):
 
 def rollout_observations(
     x_true: np.ndarray, landmarks: np.ndarray, max_range: float,
-    nz: int, interval: int,
+    nz: int, interval: int, use_native: bool = False,
 ) -> ObsRollout:
     """Noiseless sensor returns at each frame end, in float32: semicircular
     field of view (reference slam.h:644-648), ascending-id slot order,
@@ -120,8 +129,14 @@ def rollout_observations(
     every value is a per-frame, per-landmark elementwise result, so the
     output equals the whole-array form's bit for bit while the peak host
     memory stays at OBS_CHUNK frames (the long loop's 9,334 frames at 5,000
-    landmarks are ~190 MB an array whole).
+    landmarks are ~190 MB an array whole).  ``use_native``: the native C++
+    rollout (raises where it cannot be built or loaded).
     """
+    if use_native:
+        from conan_slam_tpu_torch.native import rollout_observations_native
+
+        return ObsRollout(*rollout_observations_native(x_true, landmarks, max_range, nz,
+                                                       interval))
     lm = np.asarray(landmarks, np.float32)                # (L, 2)
     poses = np.asarray(x_true, np.float32)[interval - 1 :: interval]  # (F, 3)
     n_frames = poses.shape[0]

@@ -112,14 +112,15 @@ def scan_graph(step: Callable[[tuple], tuple], carry, n_frames: int, block: int)
     """Run ``n_frames`` dependent steps ``carry = step(carry)`` (a tuple of
     tensors in, one of the same shapes out) and time them.
 
-    On the card: WARMUP_STEPS eager steps (first launches, library loads),
-    then ``block`` steps captured into one ``torch.cuda.CUDAGraph`` whose
+    On the card: WARMUP_STEPS eager steps (first launches, library loads)
+    on the stream the capture then uses, then ``block`` steps captured into one ``torch.cuda.CUDAGraph`` whose
     carry sits in static buffers (the graph ends by copying the block's
     last carry into them, so each replay starts where the last one ended),
     replayed ``n_frames // block`` times between two CUDA events; beside it
     the same number of steps run eagerly between two events.  A capture
     that fails raises: there is no fallback to the eager loop.  On the CPU
-    the steps run eagerly, timed by the host clock.
+    the steps run eagerly, timed by the host clock.  The caller's carry is
+    never written: a step may update its carry in place.
     """
     carry = tuple(carry)
     if block < 1 or n_frames < block:
@@ -128,23 +129,28 @@ def scan_graph(step: Callable[[tuple], tuple], carry, n_frames: int, block: int)
     frames = replays * block
     dev = carry[0].device
     if dev.type != "cuda":
-        c = carry
+        c = tuple(t.clone() for t in carry)
         t0 = time.perf_counter()
         for _ in range(frames):
             c = tuple(step(c))
         us = (time.perf_counter() - t0) * 1e6 / frames
         return Scan(c, c, us, us, frames, replays, {})
 
+    # Warm up on the stream the graph is captured on: a kernel that keeps
+    # scratch a stream (H15's gating) makes it there before the capture.
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
     c = tuple(t.clone() for t in carry)
-    for _ in range(WARMUP_STEPS):
-        c = tuple(step(c))
+    with torch.cuda.stream(stream):
+        for _ in range(WARMUP_STEPS):
+            c = tuple(step(c))
     torch.cuda.synchronize(dev)
 
     static = tuple(t.clone() for t in carry)
     graph = torch.cuda.CUDAGraph()
     before = _counts()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             c = static
             for _ in range(block):
                 c = tuple(step(c))

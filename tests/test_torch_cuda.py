@@ -1665,3 +1665,125 @@ def test_sharded_frame_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(pt, pt_ref, rtol=1e-5, atol=1e-5)
     for r in got[1:]:
         assert all(a.tobytes() == b.tobytes() for a, b in zip(r["extras"][0], got[0]["extras"][0]))
+
+
+# ------------------------------------- the PF resample's CDF (F6) and the bench tail
+
+
+def _dist_pf_weights(dev, n=100_000):
+    """The normalised weights of chip_smoke.py's sharded PF step (numpy seed
+    11: its features, their particles' noise, then the log weights)."""
+    from conan_slam_tpu_torch.filters import pf
+
+    rng = np.random.default_rng(11)
+    rng.uniform(-200, 200, size=(4, 2))
+    rng.normal(size=(n, 4, 2))
+    log_w = torch.as_tensor(rng.normal(size=(n,)).astype(np.float32), device=dev)
+    return pf.normalized_weights(pf.ParticleEnsemble(log_w, *([None] * 6)))
+
+
+def test_pf_cdf_gives_the_same_bits_on_every_call(dev):
+    # The resample's CDF (filters.pf.cumulative_weights: blocked doubling
+    # scans in float64) is the same bits on every call on the card, and the
+    # same bits as on the CPU: elementwise adds in one order, on both.
+    from conan_slam_tpu_torch.filters import pf
+
+    w = _dist_pf_weights(dev)
+    first = pf.cumulative_weights(w)
+    for _ in range(20):
+        assert torch.equal(pf.cumulative_weights(w), first)
+    assert torch.equal(first.cpu(), pf.cumulative_weights(w.cpu()))
+    # torch.cumsum's float32 scan, the CDF before the fix, for the record
+    # (chip_smoke.py's phase 4h (c2) counts its differing calls).
+    cums = [torch.cumsum(w, 0) for _ in range(20)]
+    print(f"torch.cumsum: {sum(not torch.equal(c, cums[0]) for c in cums)} of 19 more calls "
+          "differ from the first")
+
+
+def test_pf_resample_gives_the_same_ancestors_twice(dev):
+    # The single-device resample of 100,000 particles twice on one
+    # ensemble: every field the same bits; its ancestors those the CPU
+    # draws on the card's weights (the normalisation's reductions sum in
+    # another order on the CPU; the strata, the CDF and its inverse do
+    # not).
+    from conan_slam_tpu_torch.filters import pf
+
+    n = 100_000
+    rng = np.random.default_rng(12)
+    ens = pf.init_ensemble(n, 8, 30, device=dev)
+    ens = ens._replace(log_w=_dist_pf_weights(dev, n).log(),
+                       pose=torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                                            device=dev))
+    u = torch.as_tensor(rng.uniform(size=(n,)).astype(np.float32), device=dev)
+    runs = [pf.resample(ens, u, None, 0.75 * n, True) for _ in range(2)]
+    assert not torch.equal(runs[0].pose, ens.pose)        # it resampled
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    w = pf.normalized_weights(ens)
+    idx = pf.stratified_indices(u, w, n)
+    assert torch.equal(idx.cpu(), pf.stratified_indices(u.cpu(), w.cpu(), n))
+    assert torch.equal(runs[0].pose, ens.pose[idx])
+
+
+def test_run_pf_slam_gives_the_same_bits_twice(dev):
+    # run_pf_slam at N = 1,000 for 600 steps, twice on the same draws (the
+    # committed pf_key1.npz's: odometry and returns as stored, the N = 100
+    # particles' draws tiled ten times): the same x_est and ensemble bits.
+    import os
+
+    from conan_slam_tpu_torch.filters.pf import ObservationDraws
+    from conan_slam_tpu_torch.runner.loop import PFDraws, run_pf_slam
+
+    data = np.load(os.path.join(os.path.dirname(__file__), "..", "conan_slam_tpu_torch", "sim",
+                                "data", "pf_key1.npz"))
+    t = {k: torch.as_tensor(data[k], device=dev) for k in ("ctrl", "obs")}
+    for k in ("prop", "res_u", "samp"):
+        reps = (1, 10) + (1,) * (data[f"{k}_100"].ndim - 2)
+        t[k] = torch.as_tensor(np.tile(data[f"{k}_100"], reps), device=dev)
+
+    def draws(i):
+        return PFDraws(ctrl=t["ctrl"][i], obs=t["obs"][i], step=ObservationDraws(
+            prop=t["prop"][i], res_u=t["res_u"][i], samp=t["samp"][i], rough=None))
+
+    world = default_world(dev)
+    runs = [run_pf_slam(world, SlamConfig(num_particles=1000), None, 600, draws=draws)
+            for _ in range(2)]
+    (c1, o1), (c2, o2) = runs
+    assert torch.equal(o1.x_est, o2.x_est) and torch.equal(o1.consistency, o2.consistency)
+    for a, b in zip(c1.ens, c2.ens):
+        assert torch.equal(a, b)
+
+
+_BENCH_TAIL_MODES = {
+    "factors": {"rank_update"}, "smallchain": {"frame_chain", "sweep_inverse", "frame_panels"},
+    "gather": set(), "chainkernel": {"frame_chain"}, "chainonly": {"frame_chain"},
+    "gmrank": {"rank_update"}, "glue": set(), "body_noaug": {"frame_step"},
+    "body_uncond": {"frame_step"}, "gbody_aug": {"factor_gate", "obs_step"},
+    "gbody_noaug": {"factor_gate", "obs_step"}, "gating": {"factor_gate"}, "assoc": set(),
+    "megaprep": set(), "prep_prc": set(), "prep_pads": set(), "prep_zin": set()}
+
+
+@pytest.mark.parametrize("mode", sorted(_BENCH_TAIL_MODES))
+def test_bench_framestep_bench_tail_mode_replays_the_eager_frames(mode, dev, monkeypatch):
+    # Each mode ported with the bench tail captures into a CUDA graph whose
+    # carry equals the eager loop's bit for bit (bench_framestep raises
+    # otherwise), replaying the kernels of the work it isolates and no other.
+    from conan_slam_tpu_torch.benchmarks import bench_framestep
+
+    monkeypatch.setenv("FS_STEPS", "240")
+    got = bench_framestep.main([mode], device=str(dev))["modes"][mode]
+    assert got["frames"] == 40 and got["us"] > 0 and got["eager_us"] > 0
+    assert set(got["launches"]) == _BENCH_TAIL_MODES[mode], got["launches"]
+
+
+def test_bench_kernels_h4_matches_plain_at_2051(dev):
+    # bench_kernels at D 2,051 (not a multiple of 4: H4's unaligned
+    # strips): H4 with the folded downdate within its bound of the plain
+    # version, torch.addmm too, each chain replayed from a CUDA graph.
+    from conan_slam_tpu_torch.benchmarks import bench_kernels
+
+    row = bench_kernels.main(["2051"], device=str(dev))[2051]
+    for name in ("h4", "plain", "addmm"):
+        assert row[name]["max_abs_err"] <= row["bound"] and row[name]["us"] > 0
+    assert row["h4"]["launches"] == {"rank_update": bench_kernels.ITERS}
+    assert row["plain"]["launches"] == {} and row["addmm"]["launches"] == {}

@@ -292,6 +292,28 @@ def test_sample_proposal_matches_reference(relinearize):
 # ------------------------------------------------------------ resampling
 
 
+@pytest.mark.parametrize("n", [5, 1000, 1024, 3 * 1024, 3 * 1024 + 17, 100_000])
+def test_cumulative_weights_within_an_ulp_of_float64(n):
+    # The resample's fixed-order CDF (blocked, float64 doubling scans) lies
+    # no further from a float64 cumsum of the same float32 weights than
+    # torch.cumsum does, plus one float32 ulp of the value: at N that is
+    # and is not a multiple of pf.resample.CDF_BLOCK (1,024), one block
+    # and many.
+    from conan_slam_tpu_torch.filters.pf.resample import CDF_BLOCK
+
+    assert CDF_BLOCK == 1024
+    rng = np.random.default_rng(n)
+    w = torch.as_tensor(rng.exponential(size=n).astype(np.float32))
+    w = w / w.sum()
+    got = pf.cumulative_weights(w)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    exact = torch.cumsum(w.double(), 0)
+    own = (torch.cumsum(w, 0).double() - exact).abs()
+    ulp = torch.nextafter(exact.float(), torch.tensor(math.inf)).double() - exact.float().double()
+    assert bool(((got.double() - exact).abs() <= own + ulp).all())
+    assert torch.equal(got, pf.cumulative_weights(w.clone()))
+
+
 def test_resample_indices_equal_on_reference_weights_and_uniforms():
     rng = np.random.default_rng(9)
     for n in (7, 100, 1000):
