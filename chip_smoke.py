@@ -30,7 +30,8 @@ Phases:
           and the routes past H1's registers: the frame and the pair at
           MP 240 on the split schedule with H1's cooperative sweep (H1 also
           at MP 480), the gated frame at MP 160-224 (H10) and 240/480 (the
-          split with H7 in bands), the known frame at S = 17/33/64 (H9 and
+          split with H7 in bands, H8's device time there), the known frame
+          at S = 17/33/64 (H9 and
           the split), the plain route with no launch where neither package
           has a kernel, and a raise with no launch where only the
           reference has one;
@@ -57,7 +58,9 @@ Phases:
           MP and NBP, its phases (%globaltimer) beside H1 and H4 run alone
           on the same frame, its sweep beside H1 back to back and right
           after H4's pass over the 10k P, each variant's registers and
-          local-memory bytes, its plan and bound;
+          local-memory bytes, its plan and bound.  H8's device time, share
+          of its bound, plan (grid, cluster, shared memory) and registers
+          at config 2 and at the 10k shape;
        c. the frame pair (two frames, one H4 pass at r = 2 (MP + 8)) at the
           bench shape and at a ragged D, against its plain version and
           against two sequential kernel frames, and H4 at r = 272;
@@ -65,7 +68,8 @@ Phases:
           wide4 at MP 128, NBLK 40 and 39: sym(unroll) bit for bit H1, each
           against its plain version, the symmetry harness of
           tests/test_pallas_ops.py:83, each variant's time a pivot), H12
-          (the stream copy at D 2304 and past the L2, its TB/s), H13, H14
+          (the stream copy at D 2304 and past the L2, its TB/s in turns
+          with Tensor.copy_), H13, H14
           (both observe paths) and H4's probe entry (its plan bit for bit
           H4, tiles 32/64/128 persistent or one a tile, no P read, rank
           3 r), each against its plain version; then, with the launch
@@ -410,6 +414,9 @@ DIST_PARTICLES = 100_000    # (c): one resampling observation step, K 32
 WITNESS_FACTOR = 2.0        # the port no further from the float64 witness than this
                             # times the JAX package's float32 run
 PEAK_BYTES_PER_S = 3.35e12
+# H8's device ms on the gated split route by MP past 224 (route_checks, phase
+# 3a), reported with its other numbers (phase 3b).
+ROUTE_H8_MS: dict = {}
 
 FAILURES: list[str] = []
 
@@ -588,6 +595,19 @@ def device_ms(fn, iters: int = 20, traces: int = 3, kernel: str | None = None,
                 + (f" of {kernel}" if kernel else ""))
         return 0.0
     return statistics.median(readings) / 1e3
+
+
+def in_turns(fns: dict, rounds: int = 3, iters: int = 20) -> tuple[dict, dict]:
+    """Each call's device ms, the median of its turns, and the turns: ``rounds``
+    rounds of the calls in order and then in reverse (a, b, b, a), a turn one
+    profiler trace of ``iters`` calls (device_ms)."""
+    import statistics
+
+    turns = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k in list(fns) + list(fns)[::-1]:
+            turns[k].append(device_ms(fns[k], iters=iters, traces=1))
+    return {k: statistics.median(v) for k, v in turns.items()}, turns
 
 
 def nbytes(*tensors) -> int:
@@ -1155,8 +1175,14 @@ def route_checks(device) -> dict:
         kernel, calls = (H10_KERNELS, fk.OS_LAUNCHES) if mp <= 224 else ("obs_chain_kernel", 1)
         gated_us[mp] = (kernel, 1e3 * device_ms(lambda: fk.frame_update_obs(*uargs), kernel=kernel,
                                                 per_call=calls))
+        if mp > 224:
+            # H8 on the split route, where it is the only panel kernel.
+            ROUTE_H8_MS[mp] = device_ms(lambda: fk.frame_update_obs(*uargs),
+                                        kernel="obs_panels_kernel")
     log("  gated frame device time: " + ", ".join(
         f"MP={m} {k} {t:.2f} us" for m, (k, t) in gated_us.items()))
+    log("  H8 obs_panels device time on the split route (D 1024): " + ", ".join(
+        f"MP={m} {t * 1e3:.2f} us" for m, t in ROUTE_H8_MS.items()))
 
     # F3b: the known frame past 16 sub-steps, on both schedules.
     from conan_slam_tpu_torch.filters.ekf.state import EKFState
@@ -2018,6 +2044,35 @@ def h15_measure_10k(label: str, fgargs, obs, st: dict, gargs) -> None:
         f"entry alone {st['h6_device_ms_10k'] * 1e3:.2f} us")
 
 
+def h8_work(mp: int, nbp: int, d: int) -> float:
+    """H8's operations: five Hc terms and NBP coupling terms an output of
+    pht, siv pht, siv."""
+    return 10.0 * mp * d + 2.0 * mp * nbp * d + 2.0 * mp * d + 2.0 * mp * mp
+
+
+def h8_plan(label: str, pan, pk) -> dict:
+    """H8's device time and bound on these inputs and outputs, its plan as
+    its C entry makes it (held to ``obs_panels_plan``), its registers and
+    local bytes a thread; logs them."""
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+
+    rowc, hvb, si, prows, vtf, x = pan
+    (mp, nbp), rp, d = hvb.shape, prows.shape[0], x.shape[0]
+    plan, regs, local, clusters = fk.obs_panels_attributes(d, mp, rp, nbp, x.device)
+    require(plan == fk.obs_panels_plan(d, mp, rp, nbp), f"H8 {label} plan",
+            f"the C entry's plan is obs_panels_plan's: {plan}")
+    t = device_ms(lambda: fk.obs_panels(*pan), kernel="obs_panels_kernel")
+    st = dict(device_ms=t, plan={**plan._asdict(), "clusters_at_once": clusters},
+              regs_local=[regs, local], **bound(nbytes(*pan, *pk), h8_work(mp, nbp, d)))
+    log(f"  H8 obs_panels at {label}: {t * 1e3:.2f} us device, bound {st['bound_ms'] * 1e3:.3f} us "
+        f"({st['bound_by']}), {100.0 * st['bound_ms'] / t:.1f}% of it; grid {plan.grid} "
+        f"({plan.panels} panels of {plan.width} columns, clusters of {plan.cluster}, "
+        f"{clusters} clusters at once), "
+        f"{plan.block} threads, {plan.smem:,} B shared, {plan.rows} rows a chunk; {regs} "
+        f"registers, {local} local bytes a thread")
+    return st
+
+
 def gated_kernel_checks(device) -> dict:
     """Phase 3b: the gated frame's kernels against their plain versions.
     Each kernel is fed its plain upstream's outputs."""
@@ -2186,8 +2241,7 @@ def gated_kernel_checks(device) -> dict:
             stats["obs_panels"] = dict(
                 max_abs_err=e8, ms=time_ms(lambda: fk.obs_panels(*pan), 50),
                 plain_ms=time_ms(lambda: fk._obs_panels_reference(*pan), 10), library_ms=None,
-                **bound(nbytes(*pan, *pk), 10.0 * mp * d + 2.0 * mp * nbp * d + 2.0 * mp * d
-                        + 2.0 * mp * mp))
+                device_ms_by_mp=dict(ROUTE_H8_MS), **h8_plan(label, pan, pk))
             stats["gated sweep_inverse"] = dict(
                 max_abs_err=e1, ms=time_ms(lambda: sweep_si(s_p, oi.nblk), 50),
                 device_ms=device_ms(lambda: sweep_si(s_p, oi.nblk)),
@@ -2205,6 +2259,12 @@ def gated_kernel_checks(device) -> dict:
             stats["obs_step"] = h10_measure(device, uargs, e10, int(oi.nblk), alone)
         if label.startswith("10k"):
             h15_measure_10k(label, fgargs, obs, stats["factor_gate"], gargs)
+            # H8 at the 10k-landmark shape: the split route's panels.
+            st8 = h8_plan(label, pan, pk)
+            stats["obs_panels"].update(
+                device_ms_10k=st8["device_ms"], bound_ms_10k=st8["bound_ms"],
+                bound_by_10k=st8["bound_by"], plan_10k=st8["plan"],
+                regs_local_10k=st8["regs_local"])
             # H10 against the split at the 10k-landmark shape, where the P
             # pass dominates: each call's device time in turns.
             h10 = lambda: fk.frame_update_obs(*uargs)                     # noqa: E731
@@ -2423,34 +2483,33 @@ def probe_checks(device) -> dict:
         for k, t in st["variants_device_ms"].items()))
     stats["sweep_probe"] = st
 
-    # --- H12 at the rank-pass probe's D (2304) ---
+    # --- H12 at the rank-pass probe's D (2304: P's 21 MB in and out, which the
+    #     50 MB L2 partly holds) and past the L2 (4 D: 340 MB), in turns with
+    #     Tensor.copy_ ---
     d = 2304
-    x = torch.randn((d, d), device=device, generator=torch.Generator(device).manual_seed(12))
-    out = torch.empty_like(x)
-    got = pr.stream_copy(x)
-    require(torch.equal(got, x), "H12 stream_copy", "bit for bit the input (D 2304)")
-    fn = lambda: pr.stream_copy(x)                        # noqa: E731
-    st = dict(max_abs_err=0.0, ms=time_ms(fn, 200), plain_ms=time_ms(lambda: x.clone(), 200),
-              library_ms=time_ms(lambda: out.copy_(x), 200), device_ms=device_ms(fn),
-              library_device_ms=device_ms(lambda: out.copy_(x)), **bound(2 * nbytes(x), 0.0))
-    st["tb_per_s"] = 2 * nbytes(x) / (st["device_ms"] * 1e-3) / 1e12
-    st["library_tb_per_s"] = 2 * nbytes(x) / (st["library_device_ms"] * 1e-3) / 1e12
-    log(f"  H12 at D {d}: {st['device_ms'] * 1e3:.2f} us of device time = {st['tb_per_s']:.3f} "
-        f"TB/s (Tensor.copy_ {st['library_device_ms'] * 1e3:.2f} us = "
-        f"{st['library_tb_per_s']:.3f} TB/s) against the 3.35 TB/s spec "
-        f"({st['bound_ms'] * 1e3:.2f} us); P's 21 MB in and out fit the 50 MB L2")
-    # Past the L2: a (4 D)^2 copy, 340 MB in and out, from device memory.
-    big = torch.randn((4 * d, 4 * d), device=device,
-                      generator=torch.Generator(device).manual_seed(13))
-    big_out = torch.empty_like(big)
-    require(torch.equal(pr.stream_copy(big), big), "H12 stream_copy past L2", "bit for bit")
-    t_big = device_ms(lambda: pr.stream_copy(big))
-    t_big_lib = device_ms(lambda: big_out.copy_(big))
-    st["tb_per_s_past_l2"] = 2 * nbytes(big) / (t_big * 1e-3) / 1e12
-    st["library_tb_per_s_past_l2"] = 2 * nbytes(big) / (t_big_lib * 1e-3) / 1e12
-    log(f"  H12 at D {4 * d} (past L2): {t_big * 1e3:.2f} us = {st['tb_per_s_past_l2']:.3f} TB/s "
-        f"(Tensor.copy_ {t_big_lib * 1e3:.2f} us = {st['library_tb_per_s_past_l2']:.3f} TB/s)")
-    del big, big_out
+    for dd in (d, 4 * d):
+        x = torch.randn((dd, dd), device=device, generator=torch.Generator(device).manual_seed(dd))
+        out = torch.empty_like(x)
+        require(torch.equal(pr.stream_copy(x), x), f"H12 stream_copy at D {dd}",
+                "bit for bit the input")
+        t, turns = in_turns({"H12": lambda: pr.stream_copy(x), "copy_": lambda: out.copy_(x)})
+        tb = {k: 2 * nbytes(x) / (v * 1e-3) / 1e12 for k, v in t.items()}
+        log(f"  H12 at D {dd} in turns with Tensor.copy_ (device time, medians of "
+            f"{len(turns['H12'])} turns each): {t['H12'] * 1e3:.2f} us = {tb['H12']:.3f} TB/s, "
+            f"Tensor.copy_ {t['copy_'] * 1e3:.2f} us = {tb['copy_']:.3f} TB/s, against the "
+            f"3.35 TB/s spec ({2 * nbytes(x) / PEAK_BYTES_PER_S * 1e6:.2f} us)")
+        if dd == d:
+            st = dict(max_abs_err=0.0, ms=time_ms(lambda: pr.stream_copy(x), 200),
+                      plain_ms=time_ms(lambda: x.clone(), 200),
+                      library_ms=time_ms(lambda: out.copy_(x), 200), device_ms=t["H12"],
+                      library_device_ms=t["copy_"], tb_per_s=tb["H12"],
+                      library_tb_per_s=tb["copy_"], turns_tb_per_s={},
+                      **bound(2 * nbytes(x), 0.0))
+        else:
+            st.update(tb_per_s_past_l2=tb["H12"], library_tb_per_s_past_l2=tb["copy_"])
+        st["turns_tb_per_s"][f"D {dd}"] = dict(
+            tb_per_s=tb, turns_us={k: [u * 1e3 for u in v] for k, v in turns.items()})
+        del x, out
     stats["stream_copy"] = st
 
     # --- H13 at the dots probe's shape ---
@@ -4202,7 +4261,8 @@ def profile_frames(device, n_frames: int, label: str, world, cfg, state0,
     for us, count, key in rows[:15] + [r for r in rows[15:] if r[2].startswith(ours)]:
         log(f"  {us / n_frames:9.2f} us/frame  {count / n_frames:5.2f} launches/frame  {key[:90]}")
     return dict(wall_us=wall_us / n_frames, busy_us=busy / n_frames,
-                ops=sum(ops.values()) / n_frames, ranges=in_ranges)
+                ops=sum(ops.values()) / n_frames, ranges=in_ranges,
+                kernel_us={key: us / n_frames for us, _, key in rows})
 
 
 def dist_big_frame(pool, device, total: dict) -> dict:
@@ -4917,9 +4977,11 @@ def main() -> int:
             ranges=gated_ranges)
     profile_frames(device, 2 * PROFILE_FRAMES, "known association, frame pairs", world,
                    known_cfg.replace(frame_pair=True), state0)
+    bprof = {}
     for schedule, label in (("auto", "H10"), ("split", "split schedule")):
-        profile_frames(device, BIG_PROFILE_FRAMES, f"gated, 10k landmarks ({label})",
-                       big_world(device), gated_cfg(BIG_LANDMARKS), None, schedule=schedule)
+        bprof[schedule] = profile_frames(device, BIG_PROFILE_FRAMES,
+                                         f"gated, 10k landmarks ({label})", big_world(device),
+                                         gated_cfg(BIG_LANDMARKS), None, schedule=schedule)
     from conan_slam_tpu_torch.sim.world import default_world
 
     sprof = {
@@ -4944,7 +5006,7 @@ def main() -> int:
               "no_p_library_ms", "no_p_library_device_ms", "stack3", "alone_us", "regs_local",
               "kernels_device_ms", "alone_us_10k", "kernels_device_ms_10k", "cold_sweep_us",
               "h5_phases_us", "turns", "h5_phases_us_10k", "h6_device_ms_10k", "turns_10k",
-              "plan_10k")
+              "plan_10k", "regs_local_10k", "turns_tb_per_s")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]
@@ -4988,6 +5050,12 @@ def main() -> int:
         "gated_busy_us_per_frame": gprof["auto"]["busy_us"],
         "gated_split_ops_per_frame": gprof["split"]["ops"],
         "gated_split_busy_us_per_frame": gprof["split"]["busy_us"],
+        "big_busy_us_per_frame": bprof["auto"]["busy_us"],
+        "big_split_busy_us_per_frame": bprof["split"]["busy_us"],
+        "h8_us_per_frame": {
+            name: sum(us for key, us in prof["kernel_us"].items()
+                      if re.search(r"\bobs_panels_kernel\b", key))
+            for name, prof in (("gated_split", gprof["split"]), ("big_split", bprof["split"]))},
         "big_steps_per_s": gated["big_steps_per_s"],
         "big_split_steps_per_s": gated["big_split_steps_per_s"],
         "pair_vs_frame_steps_per_s": dict(zip(("frame", "pair"), paired["steps_per_s"])),

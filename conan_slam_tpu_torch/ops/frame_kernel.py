@@ -67,8 +67,10 @@ programmatic launch (``obs_route``; its plain version
       Hc, v, R, the coupling hvb = (Hc vtf[:, rows]^T) B and S = (Hc
       P[rows][:, rows] + hvb vtf[:, rows]) Hc^T + R.
   H1 ``sweep_si``: S^-1, as above.
-  H8 ``obs_panels`` (many blocks): pht = Hc P[rows] + hvb vtf, the gains,
-      the updated mean and the NIS.
+  H8 ``obs_panels`` (column panels of 8 or 16 columns on persistent
+      blocks, ``obs_panels_plan``): pht = Hc P[rows] + hvb vtf, the gains, the
+      updated mean and the NIS; H3's design: clusters of 8 blocks split
+      siv, the panels staged by cp.async.
   H4 ``rank_update_t``: P + G^T M G with G = [vtf; pht] and
       M = blockdiag(B, -S^-1).
 
@@ -125,8 +127,19 @@ PANEL_W = 16        # H3's columns of D a block (csrc/frame_panels.cu)
 PANEL_CLUSTER = 8   # H3's blocks that share one siv
 PANEL_THREADS = 256
 PANEL_LD = 24       # H3's panel row stride in shared memory
-OBS_PANEL_W = 32    # H8's columns and row groups a block (csrc/obs_panels.cu)
-OBS_PANEL_H = 8
+# H8 (csrc/obs_panels.cu): 128 threads a block, 4 column threads by 32 row
+# groups; panels of 8 or 16 columns; clusters of 8 blocks share siv; an SM
+# holds 768 of its threads (85 registers each) and 228 KB of shared memory,
+# 1 KB of it a block's own.
+OP_TX = 4
+OP_TY = 32
+OP_THREADS = OP_TX * OP_TY
+OP_CLUSTER = 8
+OP_MAX_MP = 2048
+OP_SM_THREADS = 768
+OP_SM_SMEM = 233_472
+OP_WALK = 32        # the most columns a block walks
+OP_PLAN = 10        # values csl_obs_panels_plan reports
 
 # H9 (csrc/frame_step.cu): the frame kernel's one block size for every
 # phase, the sweep's 16 warps; 16-column pht panels (32 row groups) in
@@ -1050,20 +1063,97 @@ def _obs_panels_reference(rowc, hvb, si, prows, vtf, x):
     return pht, xn, nis
 
 
-def _obs_panels_smem_bytes(mp: int, nbp: int) -> int:
-    """Shared memory of one H8 block (csrc/obs_panels.cu): rowc, a panel of
-    vtf, the partial sums, siv."""
-    return 4 * (9 * mp + nbp * OBS_PANEL_W + OBS_PANEL_H * OBS_PANEL_W)
+class ObsPanelsPlan(NamedTuple):
+    """H8's column panels: block b writes panels b, b + grid, ... (columns
+    [p width, (p + 1) width) of pht and xn) and forms siv entries for its
+    cluster."""
+
+    width: int     # columns of D a panel
+    panels: int    # panels of D
+    grid: int      # blocks launched: whole clusters
+    cluster: int   # blocks that share one siv
+    block: int     # threads a block
+    rows: int      # rowc and hvb rows a chunk (MP: all in one)
+    smem: int      # dynamic shared memory a block, bytes
+
+
+def _obs_panels_smem_floats(mp: int, rp: int, nbp: int, width: int, rows: int) -> int:
+    """Shared memory of one H8 block in floats (csrc/obs_panels.cu
+    smem_floats): siv, the block's siv entries (MP / 8 in whole quads), the
+    partial sums, a chunk of rowc and (transposed) hvb rows, the panel
+    buffer: a prows panel, a vtf panel and the panel's x."""
+    nb4 = _round_up(nbp, 4)
+    return (_round_up(mp, 4) + _round_up(-(-mp // OP_CLUSTER), 4)
+            + _round_up(max(OP_TY * (width + 1), 4 * OP_THREADS), 4) + rows * 8
+            + (nb4 * (_round_up(rows, 8) + 4) if rows else 0)
+            + rp * (width + 4) + nb4 * width + width)
+
+
+def obs_panels_plan(d: int, mp: int, rp: int, nbp: int, sms: int = N_SM) -> ObsPanelsPlan | None:
+    """H8's panels at D = ``d``, MP = ``mp``, RP = ``rp``, NBP = ``nbp`` on
+    a card of ``sms`` SMs (csrc/obs_panels.cu make_plan), or None where no
+    block holds them.  8-column panels while one block a panel stays
+    within the SMs' threads, else 16, if all MP rows of rowc and hvb fit
+    beside the panel; else 8 columns and the most rows a chunk that fit, a
+    multiple of 8.  Then the fewest panels a block, k, that one round of
+    resident blocks covers (an SM's threads and shared memory decide how
+    many it holds), but no more than OP_WALK columns a block, and the grid
+    ceil(panels / k) in whole clusters."""
+    if not (0 < mp <= OP_MAX_MP and mp % 4 == 0 and rp >= 3 and nbp > 0 and d >= 3):
+        return None
+    floats = cuda.MAX_SMEM_BYTES // 4
+    by_threads = OP_SM_THREADS // OP_THREADS
+    nb4 = _round_up(nbp, 4)
+    width = 8 if -(-d // 8) <= by_threads * sms else 16
+    while True:
+        fixed = _obs_panels_smem_floats(mp, rp, nbp, width, 0) + 4 * nb4
+        rows = (max(0, floats - fixed) // (8 + nb4)) & ~7
+        if rows >= mp:
+            rows = mp if _obs_panels_smem_floats(mp, rp, nbp, width, mp) <= floats else mp & ~7
+        if rows == mp or width == 8:
+            break
+        width = 8
+    if rows < 8 and rows != mp:
+        return None
+    panels = -(-d // width)
+    smem = 4 * _obs_panels_smem_floats(mp, rp, nbp, width, rows)
+    resident = min(OP_SM_SMEM // (smem + 1024), by_threads) * sms
+    k = min(-(-panels // resident) if resident > 0 else panels, OP_WALK // width)
+    return ObsPanelsPlan(width=width, panels=panels, grid=_round_up(-(-panels // k), OP_CLUSTER),
+                         cluster=OP_CLUSTER, block=OP_THREADS, rows=rows, smem=smem)
+
+
+def obs_panels_attributes(d: int, mp: int, rp: int, nbp: int, device):
+    """``(plan, registers, local bytes, clusters)`` of H8 at these shapes as
+    the C entry makes them (csl_obs_panels_plan) on the CUDA ``device``:
+    the clusters are those of the plan the card holds at once; launches
+    nothing."""
+    lib = cuda.library()
+    fn = lib.csl_obs_panels_plan
+    fn.argtypes = [cuda.I] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * OP_PLAN)()
+    with torch.cuda.device(device):
+        err = fn(d, mp, rp, nbp, out)
+    if err != 0:
+        raise RuntimeError(f"obs_panels plan failed: {lib.csl_error_string(err).decode()} ({err})")
+    width, panels, grid, cluster, block, rows, smem, regs, local, clusters = out
+    return (ObsPanelsPlan(width=width, panels=panels, grid=grid, cluster=cluster, block=block,
+                          rows=rows, smem=smem), regs, local, clusters)
 
 
 def obs_panels(rowc, hvb, si, prows, vtf, x):
     """pht, the updated mean and the NIS of the gated frame: plain version
-    for CPU tensors, kernel H8 (one block per column panel, ragged edge
-    masked) for CUDA tensors."""
+    for CPU tensors, kernel H8 (one block a column panel, ragged edge
+    masked, ``obs_panels_plan``) for CUDA tensors."""
     if cuda.on_cpu(rowc, hvb, si, prows, vtf, x):
         return _obs_panels_reference(rowc, hvb, si, prows, vtf, x)
     mp, nbp = hvb.shape
     rp, d = prows.shape
+    if obs_panels_plan(d, mp, rp, nbp) is None:
+        raise ValueError(f"obs_panels: MP={mp}, RP={rp}, NBP={nbp} exceed a block")
+    if si.data_ptr() % 16:
+        raise ValueError("obs_panels: si must be 16-byte aligned (four siv entries a read)")
     cuda.check(rowc, "rowc", (mp, 8))
     cuda.check(hvb, "hvb", (mp, nbp))
     cuda.check(si, "si", (mp, mp))
@@ -1136,10 +1226,11 @@ def obs_step_unit(d: int, mp: int, rp: int, nbp: int, sms: int = N_SM) -> int:
     return unit
 
 
-def _obs_split_fits(mp: int, rp: int, nbp: int, limit: int) -> bool:
+def _obs_split_fits(d: int, mp: int, rp: int, nbp: int, limit: int) -> bool:
     """H7, H1 and H8 hold a gated frame of these shapes (H4 holds any)."""
+    plan = obs_panels_plan(d, mp, rp, nbp)
     return (sweep_fits(mp, limit) and _obs_smem_bytes(mp, rp, nbp) <= limit
-            and _obs_panels_smem_bytes(mp, nbp) <= limit)
+            and plan is not None and plan.smem <= limit)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1173,7 +1264,7 @@ def obs_route(d: int, nz: int, nbp: int, device, schedule: str = "auto") -> str:
     if (schedule == "auto" and mp <= MAX_MP and rp <= OS_MAX_RP
             and _obs_step_smem_bytes(mp, rp, nbp) + OS_STATIC_BYTES <= limit):
         return "resident"
-    if _obs_split_fits(mp, rp, nbp, limit):
+    if _obs_split_fits(d, mp, rp, nbp, limit):
         return "split"
     return "unported" if _ref_frame_update_has_kernel(d, nz, nbp) else "plain"
 

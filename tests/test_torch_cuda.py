@@ -1231,6 +1231,84 @@ def test_stream_copy_is_bit_equal(dev, n, offset):
     assert torch.equal(out, x)
 
 
+@pytest.mark.parametrize("n,offset", [(4099, 1), (4099, 2), (4099, 3), (5, 1), (2, 3),
+                                      ((1 << 20) + 3, 2)])
+def test_stream_copy_when_both_ends_are_misaligned(dev, n, offset):
+    # In and out the same distance past a 16-byte boundary: the 4-byte
+    # path, bit for bit, and nothing written before out.
+    from conan_slam_tpu_torch.ops.probes import STREAM_COPY
+
+    x = torch.randn((n + offset,), device=dev, generator=torch.Generator(dev).manual_seed(n))
+    out = torch.zeros_like(x)
+    STREAM_COPY(dev, cuda.ptr(x[offset:]), cuda.ptr(out[offset:]), n)
+    torch.cuda.synchronize()
+    assert torch.equal(out[offset:], x[offset:]) and not out[:offset].any()
+
+
+def test_stream_copy_replays_under_scan_graph(dev):
+    from conan_slam_tpu_torch.ops.probes import stream_copy
+    from conan_slam_tpu_torch.utils.profiling import scan_graph
+
+    x = torch.randn((2304, 2304), device=dev, generator=torch.Generator(dev).manual_seed(12))
+    res = scan_graph(lambda c: (stream_copy(c[0]),), (x,), 12, 4)
+    assert torch.equal(res.carry[0], x) and torch.equal(res.eager_carry[0], x)
+    assert res.launches == {"stream_copy": 12}
+
+
+# H8 at the split route's shapes (label, D, NZ, NBP): config 2, the
+# 10k-landmark shape, route_checks' MP 240 and 480; then its other paths:
+# rowc and hvb in chunks (MP 2048 at NBP 776, S = 256), D not a multiple of
+# 4 (columns one at a time), NBP not a multiple of 4 (hvb zero-filled).
+H8_SHAPES = [("config 2", 1024, 64, 24), ("10k", 20224, 64, 24), ("MP 240", 1024, 120, 24),
+             ("MP 480", 1024, 240, 24), ("chunked", 512, 1024, 776), ("odd D", 203, 64, 24),
+             ("odd NBP", 1024, 64, 22)]
+
+
+@pytest.mark.parametrize("label,d,nz,nbp", H8_SHAPES)
+def test_obs_panels_matches_plain_at_the_split_shapes(dev, label, d, nz, nbp):
+    # chip_smoke.py's bounds: pht 5 + NBP-term sums against dense products,
+    # the mean fp32 ulps, the NIS the reduction order; two calls bit for bit.
+    from conan_slam_tpu_torch.benchmarks.redesign_turns import h8_inputs
+
+    args = h8_inputs(d, nz, nbp, dev)
+    got = fk.obs_panels(*args)
+    again = fk.obs_panels(*args)
+    ref = fk._obs_panels_reference(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-6 * float(ref[0].abs().max()))
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("label,d,nz,nbp", H8_SHAPES + [("MP 2048 at D 20,224", 20224, 1024, 776)])
+def test_obs_panels_plan_is_the_kernels(dev, label, d, nz, nbp):
+    mp, rp = fk.frame_shapes(nz)
+    plan, regs, local, clusters = fk.obs_panels_attributes(d, mp, rp, nbp, dev)
+    assert plan == fk.obs_panels_plan(d, mp, rp, nbp)
+    assert 0 < regs <= 255 and local >= 0 and clusters > 0
+
+
+def test_obs_panels_replays_in_a_cuda_graph(dev):
+    from conan_slam_tpu_torch.benchmarks.redesign_turns import h8_inputs
+
+    args = h8_inputs(1024, 64, 24, dev)
+    eager = fk.obs_panels(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fk.obs_panels(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fk.obs_panels(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+
+
 def test_probe_dots_kernel_matches_plain(dev):
     from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs
     from conan_slam_tpu_torch.ops.probes import probe_dots, probe_dots_reference
