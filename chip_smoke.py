@@ -66,10 +66,14 @@ Phases:
           against two sequential kernel frames, and H4 at r = 272;
        d. the T9 probes: H11 (the sweep variants unroll2, unroll4 and
           wide4 at MP 128, NBLK 40 and 39: sym(unroll) bit for bit H1, each
-          against its plain version, the symmetry harness of
-          tests/test_pallas_ops.py:83, each variant's time a pivot), H12
+          against its plain version, two calls and a CUDA graph's replay
+          bit for bit, the symmetry harness of tests/test_pallas_ops.py:83,
+          each variant's plan, registers and time a pivot), H12
           (the stream copy at D 2304 and past the L2, its TB/s in turns
-          with Tensor.copy_), H13, H14
+          with Tensor.copy_), H13 (at the probe's shape, D 500 / MP 126
+          and D 4,096; two calls and a replay bit for bit; its plan,
+          registers and share of its bound; in turns with torch.matmul x
+          3), H14
           (both observe paths) and H4's probe entry (its plan bit for bit
           H4, tiles 32/64/128 persistent or one a tile, no P read, rank
           3 r), each against its plain version; then, with the launch
@@ -2398,6 +2402,29 @@ def pair_checks(device) -> dict:
     return stats
 
 
+def replays_bit_for_bit(fn) -> bool:
+    """Whether ``fn()``'s tensors, captured in a CUDA graph and replayed
+    twice, equal an eager call's bit for bit (one warm-up call on the
+    capturing stream first)."""
+    import torch
+
+    eager = [t.clone() for t in fn()]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fn()
+    ok = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = ok and all(torch.equal(a, b) for a, b in zip(captured, eager))
+    return ok
+
+
 def probe_checks(device) -> dict:
     """Phase 3d, first half: each probe kernel (H11-H14, H4's probe entry)
     against its plain version on the card at the probes' shapes, with its
@@ -2442,8 +2469,9 @@ def probe_checks(device) -> dict:
                                      "max|swept block|"))
             check(f"H11 {variant} nblk={nblk} swept block vs float64 inverse", got[:k, :k], inv,
                   0.0, 1e-4, "the probe's own gate")
-        require(torch.equal(pr.sweep_probe(s, nblk, "wide4"), pr.sweep_probe(s, nblk, "wide4")),
-                f"H11 wide4 nblk={nblk} deterministic", "two calls bit for bit equal")
+        for variant in pr.SWEEP_VARIANTS:
+            require(torch.equal(pr.sweep_probe(s, nblk, variant), pr.sweep_probe(s, nblk, variant)),
+                    f"H11 {variant} nblk={nblk} deterministic", "two calls bit for bit equal")
     # The symmetry property of tests/test_pallas_ops.py:83 (an S with an
     # antisymmetric 1e-3 part): H11 sweeps what it is given, so it is
     # given sym(S), scaled to a unit diagonal, as H1 forms it.
@@ -2463,11 +2491,24 @@ def probe_checks(device) -> dict:
         check(f"H11 {variant} symmetry harness vs inverse", got, inv, 5e-3, 1e-4,
               "the harness's bounds")
     nb40 = 40
+    plans = {}
+    for variant in pr.SWEEP_VARIANTS:
+        require(replays_bit_for_bit(lambda v=variant: (pr.sweep_probe(s, nb40, v),)),
+                f"H11 {variant} in a CUDA graph", "the replay bit for bit the eager call")
+        plan, regs, local = pr.sweep_probe_attributes(mp, variant, device)
+        require(plan == pr.sweep_probe_plan(mp, variant), f"H11 {variant} plan",
+                f"the C entry's plan is ops.probes.sweep_probe_plan's: {plan}")
+        plans[variant] = dict(plan._asdict(), regs=regs, local=local)
+    log("  H11 plans at MP 128 (CTAs a cluster, ring stages, rows a warp, threads a CTA, "
+        "registers, local bytes): " + ", ".join(
+            f"{v} {p['cluster']}, {p['ring']}, {p['rows']}, {p['block']}, {p['regs']}, {p['local']}"
+            for v, p in plans.items()))
     fn = lambda: pr.sweep_probe(s, nb40, "wide4")        # noqa: E731
     st = dict(max_abs_err=worst, ms=time_ms(fn, 200),
               plain_ms=time_ms(lambda: pr.sweep_probe_reference(s, nb40, "wide4"), 5),
               library_ms=time_ms(lambda: torch.linalg.inv_ex(s), 200), device_ms=device_ms(fn),
               **bound(2 * nbytes(s), nb40 * 4.0 * mp * mp))
+    st["plans"] = plans
     # Each variant at NBLK 40 and at NBLK 0 (its load and store alone): the
     # difference over 40 is its time a pivot.
     h1_nb = {n: torch.tensor([n], dtype=torch.int32, device=device) for n in (0, nb40)}
@@ -2512,13 +2553,29 @@ def probe_checks(device) -> dict:
         del x, out
     stats["stream_copy"] = st
 
-    # --- H13 at the dots probe's shape ---
+    # --- H13 at the dots probe's shape, the ragged D 500 / MP 126 and D 4,096 ---
+    from conan_slam_tpu_torch.benchmarks.redesign_turns import dots_args
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for d_, mp_ in ((500, 126), (4096, 128)):
+        a_ = dots_args(d_, mp_, 136, device)
+        for n, g, r in zip(("phtt", "sipht", "sivpht"), pr.probe_dots(*a_),
+                           pr.probe_dots_reference(*a_)):
+            check(f"H13 probe_dots {n} at D {d_}, MP {mp_}", g, r, 0.0, 1e-5 * float(r.abs().max()),
+                  "sums of 136 / MP products in another order: 1e-5 of max|ref|")
     args = [torch.as_tensor(a, device=device) for a in dots_inputs()]
     got, ref = pr.probe_dots(*args), pr.probe_dots_reference(*args)
     err = max(check(f"H13 probe_dots {n}", g, r, 0.0, 1e-5 * float(r.abs().max()),
                     "sums of 136 / 128 products in another order: 1e-5 of max|ref|")
               for n, g, r in zip(("phtt", "sipht", "sivpht"), got, ref))
+    require(all(torch.equal(a, b) for a, b in zip(got, pr.probe_dots(*args))),
+            "H13 deterministic", "two calls bit for bit equal")
+    require(replays_bit_for_bit(lambda: pr.probe_dots(*args)), "H13 in a CUDA graph",
+            "the replay bit for bit the eager call")
     dd, mpd, rpd = args[0].shape[1], args[1].shape[0], args[1].shape[1]
+    plan, regs, local, clusters = pr.probe_dots_attributes(dd, mpd, rpd, device)
+    require(plan == pr.probe_dots_plan(dd, mpd, rpd), "H13 plan",
+            f"the C entry's plan is ops.probes.probe_dots_plan's: {plan}")
 
     def dots_lib():
         phtt = torch.matmul(args[0].T, args[1].T)
@@ -2527,8 +2584,18 @@ def probe_checks(device) -> dict:
     st = dict(max_abs_err=err, ms=time_ms(fn, 200),
               plain_ms=time_ms(lambda: pr.probe_dots_reference(*args), 200),
               library_ms=time_ms(dots_lib, 200), device_ms=device_ms(fn),
+              plan=dict(plan._asdict(), regs=regs, local=local, clusters=clusters),
               **bound(nbytes(*args, *got), 2.0 * dd * mpd * rpd + 2.0 * mpd * mpd * dd
                       + 2.0 * mpd * dd))
+    t, turns = in_turns({"H13": fn, "matmul3": dots_lib})
+    st.update(device_ms_in_turns=t["H13"], library_device_ms=t["matmul3"],
+              turns_us={k: [u * 1e3 for u in v] for k, v in turns.items()})
+    log(f"  H13 at D {dd}, MP {mpd}, RP {rpd}: plan {plan._asdict()}, {regs} registers, {local} "
+        f"local bytes, {clusters} clusters at once; {st['device_ms'] * 1e3:.2f} us of device time, "
+        f"{100 * st['bound_ms'] / st['device_ms']:.2f}% of its {st['bound_ms'] * 1e3:.3f} us bound "
+        f"({st['bound_by']}); in turns with torch.matmul x 3 (TF32 off; medians of "
+        f"{len(turns['H13'])} turns): H13 {t['H13'] * 1e3:.2f} us, the three calls' summed device "
+        f"time {t['matmul3'] * 1e3:.2f} us")
     stats["probe_dots"] = st
 
     # --- H14 at the observe probe's inputs, both paths ---

@@ -4,8 +4,8 @@ bench_pf, bench_longloop, probe_closure, dcn_smoke, audit_collectives,
 bench_gated, bench_kernels, seed_sweep, seed_sweep_gated, study_pf), with
 the same variant and mode names, environment knobs, defaults, gates and
 output lines; ``native_baseline`` is bench.py's native denominator, and
-``redesign_turns`` times a redesigned kernel (H8, H12) in turns against
-other builds of it.  Where
+``redesign_turns`` times a redesigned kernel (H8, H11, H12, H13) in turns
+against other builds of it.  Where
 a reference script took a ``PRNGKey``, its port takes a
 ``torch.Generator`` seeded with the same number.
 

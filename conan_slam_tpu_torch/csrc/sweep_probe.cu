@@ -7,52 +7,301 @@
 // unrolled_sweep (:58, "unroll2", "unroll4") and paired_sweep (:98,
 // "wide4").  Its "v0" is H1 itself (sweep_inverse.cu).
 //
-// What bounds it on the card: latency, as H1's sweep.  At the probe's shape
-// (mp = 128, nblk = 40) a pivot is a dependent rank-2 update of a 64 KB
-// matrix held in the registers of one block; H1 spends one block barrier
-// and the latency of one warp forming the next pivot (a shuffle chain) a
-// pivot.  The variants ask which of the two sets the time:
-//
-//   unroll2 / unroll4: H1's register sweep (sweep.cuh) with UN = 2 / 4
-//       pivots a loop body, the loop not unrolled further.  H1 unrolls its
-//       loop by U = RY / 2 pivots (one warp's rows), so every row a warp
-//       touches is a constant; here the pivot's rows and the next pivot's
-//       are found at run time (predicated over the warp's rows).  Same
-//       arithmetic as H1, element by element: on an S with an exactly unit
-//       diagonal that is exactly symmetric the result is H1's, bit for bit.
+// What the variants compute (each element's fmaf chain as before):
+//   unroll2 / unroll4: the classic pivot, UN = 2 / 4 pivots a loop body
+//       (the pivot's rows found at run time, predicated over a warp's
+//       rows).  The same arithmetic as H1 element by element: on an S with
+//       an exactly unit diagonal that is exactly symmetric, sym(result) is
+//       H1's, bit for bit.
 //   wide4: the paired sweep.  The warp that holds pivot rows k0 .. k0 + 3
 //       applies pivot A (k0, k0 + 1) to rows k0 + 2, k0 + 3 locally, forms
 //       pivot B (k0 + 2, k0 + 3) from them, and corrects B's columns by the
 //       rank-2 terms of A (probe_sweep.py:133-160); then every row takes one
-//       rank-4 update.  One block barrier and one publish of (g0..g3,
-//       h0..h3) a PAIR of pivots, not a pivot.  An odd nblk ends with one
-//       classic pivot: the reference probe's ragged tail is `pass`
-//       (:175-178), which leaves the last pivot unswept (ROADMAP R6).
+//       rank-4 update, one publish of (g0..g3, h0..h3) a PAIR of pivots.  An
+//       odd nblk ends with one classic pivot: the reference probe's ragged
+//       tail is `pass` (:175-178), which leaves the last pivot unswept
+//       (ROADMAP R6).
 //
-// Layout as H1's: one block of 16 warps; warp ty holds RY = 2 Q rows
-// (ty RY + a), lane tx their columns tx + 32 b, Q = 2 (mp <= 64) or 4
-// (mp <= 128); rows and columns past mp are zero and take no pivot.  fp32
-// FMA; no atomics: two calls are bit for bit equal.
+// What bounds it on the card: the serial chain.  A step (a pivot, or a
+// pair) is a dependent rank-2 (rank-4) update of the 64 KB matrix, which
+// lives in registers; the next step's rows must take it before the next
+// step can be formed.  The parent held the matrix in one block of 16 warps
+// and spent a __syncthreads() of 512 threads a pivot, so the FMA issue of
+// a step and the chain (two rows, three shuffles, one __frcp_rn, a
+// publish) added up: 0.57-0.71 us a pivot at mp 128.
+//
+// The design: no block barrier in the loop.  The published steps go
+// through a ring of R stages of (g, h) in shared memory, each with a
+// "full" and an "empty" mbarrier: a warp waits only on the stage it reads
+// (mbarrier.try_wait.parity) and, once its rows have taken the step,
+// arrives on that stage's "empty" barrier, which gates the stage's reuse.
+// Warp w of CTA c holds the RW consecutive rows c W / C + w RW + a, lane tx
+// their columns tx + 32 b; Q = 2 (mp <= 64) or 4 (mp <= 128), W = 32 Q;
+// rows and columns past mp are zero and take no pivot.
+//   unroll2 / unroll4: one block of 16 warps (RW = 2 Q) and 8 stages.  A
+//       warp forms its RW / 2 pivots in one run: its row pair j takes the
+//       previous warp's last pivot and the run's earlier pivots, forms and
+//       publishes pivot base + j, and only after its last publish do its
+//       rows take their own pivots and the rest of the run; every other
+//       pivot is a plain consumer step, UN of them a loop body.  The
+//       run's chain carries no update but the next pair's.
+//   wide4: at mp > 64 a cluster of 4 CTAs of 8 warps (RW = 4), one an SM,
+//       so an SM issues a quarter of a pair's FMAs.  The producer writes
+//       its stage, arrives on its own CTA's "full" barrier, and copies the
+//       stage into each other CTA's by one bulk copy
+//       (cp.async.bulk.shared::cluster.shared::cta) that completes on that
+//       CTA's "full" barrier by its bytes, with a relaxed remote arrival
+//       (a release at the cluster's scope cost ~1,150 cycles a step); the
+//       consumers release a stage on every CTA's "empty" barrier.  At
+//       mp <= 64 one block of 16 warps, where the cluster was slower.
+// The choices come from measurement in turns with the parent and the other
+// designs (PERF.md, PR 18; benchmarks/redesign_turns.py builds the others
+// with -DSP_CLUSTER=, -DSP_CLUSTER_W4=, -DSP_RING=, -DSP_WARPS=).
+//
+// fp32 FMA, no tensor cores: the precision contract (ROADMAP.md) runs every
+// product in fp32 with TF32 off, and this fmaf chain is H1's.  No atomics
+// in the arithmetic: two calls are bit for bit equal.  The launch
+// allocates nothing and is capturable.  A -DSP_STAMPS build records the
+// chain's phases (%globaltimer and clock64: each step's publish, and when
+// the next step's producer had waited for it), read by
+// csl_sweep_probe_stamps.
 #include "sweep.cuh"
+
+#ifndef SP_CLUSTER
+#define SP_CLUSTER 1       // unroll2 / unroll4: CTAs a cluster (1, 2, 4 or 8)
+#endif
+#ifndef SP_CLUSTER_W4
+#define SP_CLUSTER_W4 4    // wide4 at mp > 64: CTAs a cluster (at mp <= 64 one block)
+#endif
+#ifndef SP_RING
+#define SP_RING 8          // stages of the ring
+#endif
+#ifndef SP_WARPS
+#define SP_WARPS 16        // warps of one block (a cluster's CTAs: 4 rows a warp)
+#endif
+#define SP_PLAN 10         // values csl_sweep_probe_plan reports
 
 namespace {
 
-using csl_sweep::NT;
-using csl_sweep::TY;
 using csl_sweep::apply_pivot;
 using csl_sweep::apply_pivot_diag;
 using csl_sweep::sweep_pivot;
 
 constexpr int MAX_MP = 128;
+static_assert(SP_RING >= 2, "the producer of step k + 1 releases step k after publishing");
 
-// A (RY x Q) from S: row ty RY + a, column tx + 32 b; zero past mp.
-template <int Q, int RY>
-__device__ __forceinline__ void load_rows(const float* __restrict__ s, int mp,
-                                          float (&A)[RY][Q]) {
-    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+// Rows a warp: one block splits the W = 32 Q rows over SP_WARPS warps; a
+// cluster's CTAs hold 4 rows a warp (whole pairs for wide4).
+__host__ __device__ constexpr int warp_rows(int q, int c) { return c == 1 ? 32 * q / SP_WARPS : 4; }
+static_assert(SP_WARPS == 4 || SP_WARPS == 8 || SP_WARPS == 16, "whole pairs a warp at Q 2");
+
+// ---------------------------------------------------------------- stamps
+
+#ifdef SP_STAMPS
+#define SP_MAX_STEPS 64
+#define SP_NSTAMP ((SP_MAX_STEPS + 8) * 4)
+// [step][0, 1]: %globaltimer, clock64 when the step was published;
+// [step][2, 3]: when the next step's producer had waited for it;
+// [SP_MAX_STEPS + rank][0, 1, 2, 3]: a CTA's start, end (%globaltimer), SM,
+// and its clock64 at the start.
+__device__ unsigned long long g_sp_stamps[SP_NSTAMP];
+
+__device__ __forceinline__ unsigned long long sp_gtime() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+__device__ __forceinline__ void sp_stamp(int step, int which) {
+    if ((threadIdx.x & 31) == 0 && step < SP_MAX_STEPS) {
+        g_sp_stamps[step * 4 + which] = sp_gtime();
+        g_sp_stamps[step * 4 + which + 1] = clock64();
+    }
+}
+
+// A CTA's start (which 0) or end (1); at the start CTA 0 also clears the
+// rows of CTAs past this launch's `ctas`.
+__device__ __forceinline__ void sp_stamp_cta(int rank, int which, int ctas) {
+    if (threadIdx.x == 0) {
+        if (which == 0 && rank == 0)
+            for (int r = ctas; r < 8; ++r)
+                for (int e = 0; e < 4; ++e) g_sp_stamps[(SP_MAX_STEPS + r) * 4 + e] = 0;
+        unsigned sm;
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+        unsigned long long* row = g_sp_stamps + (SP_MAX_STEPS + rank) * 4;
+        row[which] = sp_gtime();
+        row[2] = sm;
+        if (which == 0) row[3] = clock64();
+    }
+}
+#else
+__device__ __forceinline__ void sp_stamp(int, int) {}
+__device__ __forceinline__ void sp_stamp_cta(int, int, int) {}
+#endif
+
+// ------------------------------------------------- barriers and the ring
+
+__device__ __forceinline__ unsigned cta_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return r;
+}
+
+// A shared::cta address in CTA `rank`'s window of the cluster.
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+    unsigned out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+    return out;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Wait for the phase of parity `parity` of the barrier at `bar` to
+// complete, acquiring at the cluster's scope when its arrivals may come
+// from other CTAs.
+template <bool CLUSTER>
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+    unsigned done = 0;
+    while (!done) {
+        if constexpr (CLUSTER)
+            asm volatile(
+                "{\n .reg .pred p;\n"
+                " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                " selp.u32 %0, 1, 0, p;\n}\n"
+                : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        else
+            asm volatile(
+                "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                " selp.u32 %0, 1, 0, p;\n}\n"
+                : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    }
+}
+
+__device__ __forceinline__ void arrive_local(unsigned bar) {
+    asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                     bar)
+                 : "memory");
+}
+
+// `count` arrivals at once on another CTA's barrier.
+__device__ __forceinline__ void arrive_remote(unsigned bar, unsigned count) {
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(count)
+                 : "memory");
+}
+
+// The same with no ordering of this thread's earlier accesses: the
+// publish's arrival, whose data the bulk copy's bytes complete.
+__device__ __forceinline__ void arrive_remote_relaxed(unsigned bar, unsigned count) {
+    asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void expect_remote(unsigned bar, unsigned bytes) {
+    asm volatile("mbarrier.expect_tx.relaxed.cluster.shared::cluster.b64 [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// A bulk copy of `bytes` from this CTA's shared memory into another's,
+// completing on that CTA's barrier `bar` by its bytes.
+__device__ __forceinline__ void bulk_to_peer(unsigned dst, unsigned src, unsigned bytes,
+                                             unsigned bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// The ring of one CTA: R stages of (g, h), W entries of type T each (T =
+// float2 for a classic pivot, float4 for a pair), then the R "full" and R
+// "empty" barriers.  "full" takes one arrival a phase: the producer's lane
+// 0 after __syncwarp, or, when the producer lies in another CTA, its
+// remote arrival after the bytes of its bulk copy are expected; "empty"
+// takes one a warp of the cluster.
+constexpr unsigned FULL_ARRIVALS = 1;
+
+template <typename T, int W, int R, int C>
+struct Ring {
+    T gh[R][2][W];
+    unsigned long long full_bar[R];
+    unsigned long long empty_bar[R];
+
+    __device__ __forceinline__ T* g(int s) { return gh[s][0]; }
+    __device__ __forceinline__ T* h(int s) { return gh[s][1]; }
+    __device__ __forceinline__ unsigned full(int s) { return csl_smem_addr(full_bar + s); }
+    __device__ __forceinline__ unsigned empty(int s) { return csl_smem_addr(empty_bar + s); }
+
+    // Both barriers of every stage, by one thread, before a block (cluster)
+    // barrier.
+    __device__ __forceinline__ void init(unsigned empties) {
+        for (int r = 0; r < R; ++r) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(full(r)),
+                         "r"(FULL_ARRIVALS) : "memory");
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(empty(r)), "r"(empties)
+                         : "memory");
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+
+    // Step t's stage has been filled.
+    __device__ __forceinline__ void wait_full(int t) {
+        bar_wait<(C > 1)>(full(t % R), (unsigned)((t / R) & 1));
+    }
+
+    // Step t's stage may be filled: every warp of the cluster has released
+    // step t - R.
+    __device__ __forceinline__ void wait_empty(int t) {
+        if (t >= R) bar_wait<(C > 1)>(empty(t % R), (unsigned)(((t / R) & 1) ^ 1));
+    }
+
+    // This warp is done reading step t's stage (after __syncwarp): one
+    // arrival on the stage's "empty" barrier of every CTA of the cluster.
+    __device__ __forceinline__ void release(int t) {
+        const int lane = threadIdx.x & 31;
+        if constexpr (C == 1) {
+            if (lane == 0) arrive_local(empty(t % R));
+        } else {
+            if (lane < C) arrive_remote(map_rank(empty(t % R), (unsigned)lane), 1u);
+        }
+    }
+
+    // Publish step t once every lane has written its entries of g and h
+    // into its own CTA's stage: lane 0's arrival there, and then, in a
+    // cluster, the stage copied into every other CTA's by one bulk copy
+    // each (lane r to CTA r), which completes on that CTA's "full" barrier.
+    __device__ __forceinline__ void publish(int t) {
+        const int s = t % R;
+        const int lane = threadIdx.x & 31;
+        if constexpr (C > 1)   // this lane's stores, before the copies read them
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();          // every lane's stores, before lane 0's release
+        if (lane == 0) arrive_local(full(s));
+        if constexpr (C > 1) {
+            if (lane < C && lane != (int)cta_rank()) {
+                constexpr unsigned bytes = 2u * W * sizeof(T);
+                const unsigned src = csl_smem_addr(gh[s]);
+                const unsigned bar = map_rank(full(s), (unsigned)lane);
+                expect_remote(bar, bytes);
+                bulk_to_peer(map_rank(src, (unsigned)lane), src, bytes, bar);
+                arrive_remote_relaxed(bar, FULL_ARRIVALS);
+            }
+        }
+    }
+};
+
+// The RW rows row0 + a of S (columns tx + 32 b), zero past mp.
+template <int Q, int RW>
+__device__ __forceinline__ void load_rows(const float* __restrict__ s, int mp, int row0,
+                                          float (&A)[RW][Q]) {
+    const int tx = threadIdx.x & 31;
 #pragma unroll
-    for (int a = 0; a < RY; ++a) {
-        const int i = ty * RY + a;
+    for (int a = 0; a < RW; ++a) {
+        const int i = row0 + a;
 #pragma unroll
         for (int b = 0; b < Q; ++b) {
             const int j = tx + 32 * b;
@@ -61,13 +310,13 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ s, int mp,
     }
 }
 
-template <int Q, int RY>
-__device__ __forceinline__ void store_neg(float* __restrict__ out, int mp,
-                                          const float (&A)[RY][Q]) {
-    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+template <int Q, int RW>
+__device__ __forceinline__ void store_neg(float* __restrict__ out, int mp, int row0,
+                                          const float (&A)[RW][Q]) {
+    const int tx = threadIdx.x & 31;
 #pragma unroll
-    for (int a = 0; a < RY; ++a) {
-        const int i = ty * RY + a;
+    for (int a = 0; a < RW; ++a) {
+        const int i = row0 + a;
 #pragma unroll
         for (int b = 0; b < Q; ++b) {
             const int j = tx + 32 * b;
@@ -76,76 +325,152 @@ __device__ __forceinline__ void store_neg(float* __restrict__ out, int mp,
     }
 }
 
-// One classic pivot k, applied by every thread to its rows: rows 2k, 2k + 1
-// take the pivot diagonal piv, the warp's rows nr, nr + 1 (the next pivot's,
-// when `nxt`) are updated first and form pivot k + 1 into (Gn, Hn).  The
-// rows are found at run time.  Returns whether the pivot this warp formed
-// is usable (`ok` unchanged when it formed none).
-template <int Q, int RY>
-__device__ __forceinline__ bool classic_step(float (&A)[RY][Q], const float2* G, const float2* H,
-                                             int k, float piv, bool nxt, float2* Gn, float2* Hn,
-                                             bool ok) {
-    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    float2 gr[Q], hr[RY];
+// The wide4 tail, one classic pivot k: every row of the warp takes it,
+// rows 2k, 2k + 1 with the pivot diagonal piv.
+template <int Q, int RW>
+__device__ __forceinline__ void tail_step(float (&A)[RW][Q], const float2* G, const float2* H,
+                                          int k, float piv, int row0) {
+    const int tx = threadIdx.x & 31;
+    float2 gr[Q], hr[RW];
 #pragma unroll
     for (int b = 0; b < Q; ++b) gr[b] = G[tx + 32 * b];
 #pragma unroll
-    for (int a = 0; a < RY; ++a) hr[a] = H[ty * RY + a];
-    const int nr = 2 * k + 2 - ty * RY;   // the next pivot's first row in this warp, if in [0, RY)
-    if (nxt && nr >= 0 && nr < RY) {
-        float r0[Q], r1[Q];
-#pragma unroll
-        for (int a = 0; a < RY; a += 2)
-            if (a == nr) {
-                apply_pivot<Q>(A[a], hr[a], gr);
-                apply_pivot<Q>(A[a + 1], hr[a + 1], gr);
-#pragma unroll
-                for (int b = 0; b < Q; ++b) {
-                    r0[b] = A[a][b];
-                    r1[b] = A[a + 1][b];
-                }
-            }
-        ok = sweep_pivot<Q>(r0, r1, 2 * k + 2, Gn, Hn);
+    for (int a = 0; a < RW; a += 2) {   // two rows' h in one 16-byte read
+        const float4 h2 = *reinterpret_cast<const float4*>(H + row0 + a);
+        hr[a] = make_float2(h2.x, h2.y);
+        hr[a + 1] = make_float2(h2.z, h2.w);
     }
 #pragma unroll
-    for (int a = 0; a < RY; ++a) {
-        const int i = ty * RY + a;
-        if (nxt && (a == nr || a == nr + 1)) continue;
+    for (int a = 0; a < RW; ++a) {
+        const int i = row0 + a;
         if (i == 2 * k || i == 2 * k + 1)
             apply_pivot_diag<Q>(A[a], hr[a], gr, i, piv);
         else
             apply_pivot<Q>(A[a], hr[a], gr);
     }
-    return ok;
 }
 
-// unroll2 / unroll4: the classic sweep, UN pivots a loop body.
-template <int Q, int UN>
-__global__ void __launch_bounds__(NT, 1)
-sweep_unroll_kernel(const float* __restrict__ s, float* __restrict__ out, int mp, int nb) {
-    constexpr int W = 32 * Q, RY = W / TY;
-    __shared__ __align__(16) float2 buf[4 * W];   // g, h: two buffers each
-    float2* GB = buf;
-    float2* HB = buf + 2 * W;
-    const int ty = threadIdx.x >> 5;
-    float A[RY][Q];
-    load_rows<Q, RY>(s, mp, A);
-    bool ok = false;
-    if (ty == 0 && nb > 0) ok = sweep_pivot<Q>(A[0], A[1], 0, GB, HB);
+// Rows row0 + 2 j, + 1 (a warp's row pair j) take pivot k from its stage
+// (g at the lane's columns, h at the two rows): plainly, or, for the pair's
+// own pivot, with the pivot diagonal piv.
+template <int Q, int RW>
+__device__ __forceinline__ void take_pivot(float (&A)[RW][Q], const float2* G, const float2* H,
+                                           int j, int row0, bool own, float piv) {
+    const int tx = threadIdx.x & 31;
+    float2 gr[Q];
+#pragma unroll
+    for (int b = 0; b < Q; ++b) gr[b] = G[tx + 32 * b];
+    const float4 h2 = *reinterpret_cast<const float4*>(H + row0 + 2 * j);
+    const float2 h0 = make_float2(h2.x, h2.y), h1 = make_float2(h2.z, h2.w);
+    if (own) {
+        apply_pivot_diag<Q>(A[2 * j], h0, gr, row0 + 2 * j, piv);
+        apply_pivot_diag<Q>(A[2 * j + 1], h1, gr, row0 + 2 * j + 1, piv);
+    } else {
+        apply_pivot<Q>(A[2 * j], h0, gr);
+        apply_pivot<Q>(A[2 * j + 1], h1, gr);
+    }
+}
+
+// Pivots [k0, k1), none of them this warp's: every row takes each plainly,
+// UN pivots a loop body.
+template <int Q, int RW, int UN, class V>
+__device__ __forceinline__ void consume(float (&A)[RW][Q], V& ring, int k0, int k1, int row0) {
+    const int tx = threadIdx.x & 31;
 #pragma unroll 1
-    for (int k0 = 0; k0 < nb; k0 += UN) {
+    for (int kb = k0; kb < k1; kb += UN) {
 #pragma unroll
         for (int u = 0; u < UN; ++u) {
-            const int k = k0 + u;
-            if (k >= nb) break;
-            __syncthreads();   // pivot k is published; the other buffer is read
-            const int par = k & 1;
-            const float piv = ok ? 2.f : 0.f;
-            ok = classic_step<Q, RY>(A, GB + par * W, HB + par * W, k, piv, k + 1 < nb,
-                                     GB + (par ^ 1) * W, HB + (par ^ 1) * W, ok);
+            const int k = kb + u;
+            if (k >= k1) break;
+            ring.wait_full(k);
+            const float2* G = ring.g(k % SP_RING);
+            const float2* H = ring.h(k % SP_RING) + row0;
+            float2 gr[Q], hr[RW];
+#pragma unroll
+            for (int b = 0; b < Q; ++b) gr[b] = G[tx + 32 * b];
+#pragma unroll
+            for (int a = 0; a < RW; a += 2) {   // two rows' h in one 16-byte read
+                const float4 h2 = *reinterpret_cast<const float4*>(H + a);
+                hr[a] = make_float2(h2.x, h2.y);
+                hr[a + 1] = make_float2(h2.z, h2.w);
+            }
+#pragma unroll
+            for (int a = 0; a < RW; ++a) apply_pivot<Q>(A[a], hr[a], gr);
+            __syncwarp();
+            ring.release(k);
         }
     }
-    store_neg<Q, RY>(out, mp, A);
+}
+
+// unroll2 / unroll4: the classic sweep, UN pivots a consumer loop body;
+// pivot k is step k of the ring.  Warp w holds the P = RW / 2 pivots
+// base = row0 / 2 .. base + P - 1 (those below nb) and forms them in one
+// run: its row pair j takes pivot base - 1 (the previous warp's last) and
+// the pivots base .. base + j - 1 it formed itself, and forms and publishes
+// pivot base + j; only after its last publish does each pair take its own
+// pivot (with the diagonal) and the later ones of the run.  So the run's
+// chain carries no update but the next pair's, and the warp's other pivots
+// are plain consumer steps.  Each row takes the pivots in H1's order with
+// H1's fmaf chain.
+template <int Q, int C, int UN>
+__global__ void __launch_bounds__(32 * (32 * Q / C / warp_rows(Q, C)), 1)
+sweep_unroll_kernel(const float* __restrict__ s, float* __restrict__ out, int mp, int nb) {
+    constexpr int W = 32 * Q, RW = warp_rows(Q, C), R = SP_RING, P = RW / 2;
+    constexpr int TW = W / C / RW;   // warps a CTA
+    static_assert(R >= P + 2, "a run holds its stages and the one before until its end");
+    __shared__ __align__(16) Ring<float2, W, R, C> ring;
+    const int rank = C > 1 ? (int)cta_rank() : 0;
+    const int row0 = rank * (W / C) + (int)(threadIdx.x >> 5) * RW, base = row0 / 2;
+    sp_stamp_cta(rank, 0, C);
+    float A[RW][Q];
+    load_rows<Q, RW>(s, mp, row0, A);
+    if (threadIdx.x == 0) ring.init(C * TW);
+    if constexpr (C > 1) cluster_sync(); else __syncthreads();
+    if (base >= nb) {
+        consume<Q, RW, UN>(A, ring, 0, nb, row0);
+    } else {
+        const int end = min(base + P, nb);   // this warp's run: pivots base .. end - 1
+        consume<Q, RW, UN>(A, ring, 0, max(base - 1, 0), row0);
+        if (base > 0) {
+            ring.wait_full(base - 1);
+            sp_stamp(base - 1, 2);
+        }
+        bool ok[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            ok[j] = false;
+            if (base > 0)
+                take_pivot<Q, RW>(A, ring.g((base - 1) % R), ring.h((base - 1) % R), j, row0,
+                                  false, 0.f);
+#pragma unroll
+            for (int i = 0; i < j; ++i)
+                if (base + i < end)
+                    take_pivot<Q, RW>(A, ring.g((base + i) % R), ring.h((base + i) % R), j, row0,
+                                      false, 0.f);
+            if (base + j < end) {
+                const int k = base + j;
+                if (j > 0) sp_stamp(k - 1, 2);
+                ring.wait_empty(k);
+                ok[j] = sweep_pivot<Q>(A[2 * j], A[2 * j + 1], 2 * k, ring.g(k % R), ring.h(k % R));
+                ring.publish(k);
+                sp_stamp(k, 0);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+#pragma unroll
+            for (int i = j; i < P; ++i)
+                if (base + i < end)
+                    take_pivot<Q, RW>(A, ring.g((base + i) % R), ring.h((base + i) % R), j, row0,
+                                      i == j, ok[j] ? 2.f : 0.f);
+        __syncwarp();
+        if (base > 0) ring.release(base - 1);
+        for (int k = base; k < end; ++k) ring.release(k);
+        consume<Q, RW, UN>(A, ring, end, nb, row0);
+    }
+    store_neg<Q, RW>(out, mp, row0, A);
+    sp_stamp_cta(rank, 1, C);
+    if constexpr (C > 1) cluster_sync();   // no CTA leaves while a peer may still reach it
 }
 
 // A 2x2 pivot block's inverse (i00, i01, i11) from its entries, and
@@ -184,8 +509,8 @@ __device__ __forceinline__ float2 piv2_col(const Piv2& p, float x0, float x1, in
 // columns, read as rows by symmetry).  The four columns k0 .. k0 + 3 lie in
 // one 32-column block cb: its lanes' values give both 2x2 blocks and the
 // correction's coefficients by shuffles first, and then every column is
-// formed from scalars alone.  Publishes g = (g0..g3) a column and
-// h = (h0..h3) a row; returns pivot A's and B's usability in okA, okB.
+// formed from scalars alone.  Writes g = (g0..g3) a column and h =
+// (h0..h3) a row; returns pivot A's and B's usability in okA, okB.
 template <int Q>
 __device__ __forceinline__ void form_pair(const float (&R0)[Q], const float (&R1)[Q],
                                           const float (&R2)[Q], const float (&R3)[Q], int k0,
@@ -246,106 +571,202 @@ __device__ __forceinline__ void apply_pair(float (&a)[Q], float4 h, const float4
     }
 }
 
-// wide4: the paired sweep.  Warp w holds the PW = RY / 4 pairs w PW ..; the
-// loop over pairs is unrolled by PW, so that every row a warp touches is a
-// constant, as H1's loop over pivots.
-template <int Q>
-__global__ void __launch_bounds__(NT, 1)
+// wide4: the paired sweep.  Step q < npair is pair q (pivots 2q, 2q + 1);
+// for an odd nb, step npair is the last pivot, classic, its stage read as
+// float2.  A row's h is read where the row is updated: with four pivots'
+// factors, holding every row's h at once would not fit beside A.
+template <int Q, int C>
+__global__ void __launch_bounds__(32 * (32 * Q / C / warp_rows(Q, C)), 1)
 sweep_wide4_kernel(const float* __restrict__ s, float* __restrict__ out, int mp, int nb) {
-    constexpr int W = 32 * Q, RY = W / TY, PW = RY / 4;
-    static_assert(RY % 4 == 0, "a warp holds whole pairs");
-    __shared__ __align__(16) float4 buf[4 * W];   // g, h: two buffers each
-    __shared__ float tail_piv;
-    float4* GB = buf;
-    float4* HB = buf + 2 * W;
-    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    float A[RY][Q];
-    load_rows<Q, RY>(s, mp, A);
+    constexpr int W = 32 * Q, RW = warp_rows(Q, C), R = SP_RING;
+    constexpr int TW = W / C / RW;
+    static_assert(RW % 4 == 0, "a warp holds whole pairs");
+    __shared__ __align__(16) Ring<float4, W, R, C> ring;
+    const int tx = threadIdx.x & 31;
+    const int rank = C > 1 ? (int)cta_rank() : 0;
+    const int row0 = rank * (W / C) + (int)(threadIdx.x >> 5) * RW;
+    sp_stamp_cta(rank, 0, C);
+    float A[RW][Q];
+    load_rows<Q, RW>(s, mp, row0, A);
+    if (threadIdx.x == 0) ring.init(C * TW);
+    if constexpr (C > 1) cluster_sync(); else __syncthreads();
     const int npair = nb / 2;
-    bool okA = false, okB = false;
-    if (ty == 0 && npair > 0) form_pair<Q>(A[0], A[1], A[2], A[3], 0, GB, HB, okA, okB);
-    for (int w = 0; w * PW < npair; ++w) {
-#pragma unroll
-        for (int u = 0; u < PW; ++u) {
-            const int q = w * PW + u;
-            if (q >= npair) continue;   // and so every later u
-            __syncthreads();   // pair q is published; the other buffer is read
-            const int par = q & 1;
-            // A row's h is read where the row is updated: with four pivots'
-            // factors, holding every row's h at once would not fit the
-            // 128 registers of a 512-thread block beside A.
-            const float4* hp = HB + par * W + ty * RY;
-            float4 gr[Q];
-#pragma unroll
-            for (int b = 0; b < Q; ++b) gr[b] = GB[par * W + tx + 32 * b];
-            const float pivA = okA ? 2.f : 0.f, pivB = okB ? 2.f : 0.f;
-            const bool next = q + 1 < npair;
-            // Pair q's rows are warp w's rows 4u .. 4u + 3; pair q + 1's its
-            // rows 4u + 4 .., or warp w + 1's rows 0 ...
-            const int n0 = u + 1 < PW ? 4 * u + 4 : 0;
-            const int nw = u + 1 < PW ? w : w + 1;
-            if (ty == nw) {   // the next pair's rows first, then the pair is formed
-#pragma unroll
-                for (int a = n0; a < n0 + 4; ++a) apply_pair<Q>(A[a], hp[a], gr, -1, 0.f);
-                if (next)
-                    form_pair<Q>(A[n0], A[n0 + 1], A[n0 + 2], A[n0 + 3], 4 * q + 4,
-                                 GB + (par ^ 1) * W, HB + (par ^ 1) * W, okA, okB);
-            }
-#pragma unroll
-            for (int a = 0; a < RY; ++a) {
-                if (ty == nw && a >= n0 && a < n0 + 4) continue;
-                const bool mine = ty == w && a >= 4 * u && a < 4 * u + 4;
-                apply_pair<Q>(A[a], hp[a], gr, mine ? ty * RY + a : -1,
-                              a - 4 * u < 2 ? pivA : pivB);
-            }
+    const bool tail = nb & 1;
+    // The classic tail's stage, read as float2.
+    auto g2 = [&](int t) { return reinterpret_cast<float2*>(ring.g(t % R)); };
+    auto h2 = [&](int t) { return reinterpret_cast<float2*>(ring.h(t % R)); };
+    bool okA = false, okB = false, okT = false;
+    if (row0 == 0) {
+        if (npair > 0) {
+            form_pair<Q>(A[0], A[1], A[2], A[3], 0, ring.g(0), ring.h(0), okA, okB);
+            ring.publish(0);
+            sp_stamp(0, 0);
+        } else if (tail) {
+            okT = sweep_pivot<Q>(A[0], A[1], 0, g2(0), h2(0));
+            ring.publish(0);
+            sp_stamp(0, 0);
         }
     }
-    if (nb & 1) {          // the ragged tail: one classic pivot k = 2 npair
-        const int k = 2 * npair;
-        float2* G2 = reinterpret_cast<float2*>(GB + (npair & 1) * W);
-        float2* H2 = reinterpret_cast<float2*>(HB + (npair & 1) * W);
-        __syncthreads();   // every thread is done reading the last pair
-        const int nr = 2 * k - ty * RY;
-        if (nr >= 0 && nr < RY) {
-            float r0[Q], r1[Q];
+#pragma unroll 1
+    for (int q = 0; q < npair; ++q) {
+        const int st = q % R;
+        ring.wait_full(q);
+        if (4 * q + 4 >= row0 && 4 * q + 4 < row0 + RW) sp_stamp(q, 2);
+        const float4* hp = ring.h(st) + row0;
+        float4 gr[Q];
 #pragma unroll
-            for (int a = 0; a < RY; a += 2)
+        for (int b = 0; b < Q; ++b) gr[b] = ring.g(st)[tx + 32 * b];
+        const float pivA = okA ? 2.f : 0.f, pivB = okB ? 2.f : 0.f;
+        // The next step's rows: pair q + 1's four, or the tail pivot's two.
+        const int nr = 4 * q + 4 - row0;
+        const bool next_pair = q + 1 < npair, next_tail = q + 1 == npair && tail;
+        const bool nxt = (next_pair || next_tail) && nr >= 0 && nr < RW;
+        if (nxt) {
+            float r0[Q], r1[Q], r2[Q], r3[Q];
+#pragma unroll
+            for (int a = 0; a < RW; a += 4)
                 if (a == nr) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) apply_pair<Q>(A[a + e], hp[a + e], gr, -1, 0.f);
 #pragma unroll
                     for (int b = 0; b < Q; ++b) {
                         r0[b] = A[a][b];
                         r1[b] = A[a + 1][b];
+                        r2[b] = A[a + 2][b];
+                        r3[b] = A[a + 3][b];
                     }
                 }
-            const bool ok = sweep_pivot<Q>(r0, r1, 2 * k, G2, H2);
-            if (tx == 0) tail_piv = ok ? 2.f : 0.f;
+            ring.wait_empty(q + 1);
+            if (next_pair) {
+                form_pair<Q>(r0, r1, r2, r3, 4 * q + 4, ring.g((q + 1) % R), ring.h((q + 1) % R),
+                             okA, okB);
+                ring.publish(q + 1);
+            } else {
+                okT = sweep_pivot<Q>(r0, r1, 4 * q + 4, g2(q + 1), h2(q + 1));
+                ring.publish(q + 1);
+            }
+            sp_stamp(q + 1, 0);
         }
-        __syncthreads();
-        classic_step<Q, RY>(A, G2, H2, k, tail_piv, false, nullptr, nullptr, false);
+        const int pr = 4 * q - row0;   // the pair's first row in this warp, if in [0, RW)
+        if (!nxt && (pr < 0 || pr >= RW)) {   // most warps: every row a plain update
+#pragma unroll
+            for (int a = 0; a < RW; ++a) apply_pair<Q>(A[a], hp[a], gr, -1, 0.f);
+        } else {
+#pragma unroll
+            for (int a = 0; a < RW; ++a) {
+                if (nxt && a >= nr && a < nr + 4) continue;
+                const bool mine = a >= pr && a < pr + 4;
+                apply_pair<Q>(A[a], hp[a], gr, mine ? row0 + a : -1, a - pr < 2 ? pivA : pivB);
+            }
+        }
+        __syncwarp();
+        ring.release(q);
     }
-    store_neg<Q, RY>(out, mp, A);
+    if (tail) {            // the ragged tail: one classic pivot k = 2 npair
+        const int k = 2 * npair;
+        ring.wait_full(npair);
+        tail_step<Q, RW>(A, g2(npair), h2(npair), k, okT ? 2.f : 0.f, row0);
+        __syncwarp();
+        ring.release(npair);
+    }
+    store_neg<Q, RW>(out, mp, row0, A);
+    sp_stamp_cta(rank, 1, C);
+    if constexpr (C > 1) cluster_sync();
 }
 
-template <int Q>
-cudaError_t launch(const float* s, float* out, int mp, int nb, int variant, cudaStream_t st) {
-    switch (variant) {
-        case 0: sweep_unroll_kernel<Q, 2><<<1, NT, 0, st>>>(s, out, mp, nb); break;
-        case 1: sweep_unroll_kernel<Q, 4><<<1, NT, 0, st>>>(s, out, mp, nb); break;
-        case 2: sweep_wide4_kernel<Q><<<1, NT, 0, st>>>(s, out, mp, nb); break;
-        default: return cudaErrorInvalidValue;
-    }
-    return cudaGetLastError();
+// ------------------------------------------------------------------ plan
+
+struct Plan {
+    int q;         // 32-column blocks: 2 (mp <= 64) or 4
+    int cluster;   // CTAs a cluster (the grid: one cluster)
+    int ring;      // stages of the ring
+    int rows;      // rows a warp
+    int cta_rows;  // rows a CTA
+    int block;     // threads a CTA
+    int smem;      // static shared memory a CTA, bytes
+};
+
+Plan make_plan(int mp, int variant) {
+    const int q = mp <= 64 ? 2 : 4, w = 32 * q;
+    const int c = variant != 2 ? SP_CLUSTER : q == 4 ? SP_CLUSTER_W4 : 1;
+    const int rows = warp_rows(q, c), cta_rows = w / c;
+    const int entry = variant == 2 ? 16 : 8;   // bytes of (g or h) an entry: float4 or float2
+    return Plan{q, c, SP_RING, rows, cta_rows, 32 * (cta_rows / rows),
+                SP_RING * (2 * w * entry + 16)};
+}
+
+template <int Q, int C, bool WIDE>
+cudaError_t launch_q(const Plan& p, const float* s, float* out, int mp, int nb, int variant,
+                     cudaStream_t st, int* regs, int* local) {
+    void (*kernel)(const float*, float*, int, int) = nullptr;
+    if constexpr (WIDE)
+        kernel = sweep_wide4_kernel<Q, C>;
+    else
+        kernel = variant == 0 ? sweep_unroll_kernel<Q, C, 2> : sweep_unroll_kernel<Q, C, 4>;
+    if (regs) return csl_func_regs(kernel, regs, local);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(p.block);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = C > 1 ? 1 : 0;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, s, out, mp, nb);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The kernel of the plan: launched on (s, out, mp, nb), or, with regs, its
+// registers and local bytes a thread reported instead.
+cudaError_t run(const Plan& p, const float* s, float* out, int mp, int nb, int variant,
+                cudaStream_t st, int* regs = nullptr, int* local = nullptr) {
+    const bool wide = variant == 2;
+    if (p.q == 2)
+        return wide ? launch_q<2, 1, true>(p, s, out, mp, nb, variant, st, regs, local)
+                    : launch_q<2, SP_CLUSTER, false>(p, s, out, mp, nb, variant, st, regs, local);
+    return wide ? launch_q<4, SP_CLUSTER_W4, true>(p, s, out, mp, nb, variant, st, regs, local)
+                : launch_q<4, SP_CLUSTER, false>(p, s, out, mp, nb, variant, st, regs, local);
+}
+
+bool shapes_ok(int mp, int variant) {
+    return mp > 0 && mp % 2 == 0 && mp <= MAX_MP && variant >= 0 && variant <= 2;
 }
 
 }  // namespace
+
+// The plan at (mp, variant) as SP_PLAN ints: the 32-column blocks Q, the
+// CTAs a cluster, the ring's stages, rows a warp, rows a CTA, threads a
+// CTA, shared memory a CTA (bytes), the kernel's registers and local bytes
+// a thread, and the grid (one cluster).  Launches nothing.
+extern "C" int csl_sweep_probe_plan(int mp, int variant, int* out) {
+    if (!shapes_ok(mp, variant)) return (int)cudaErrorInvalidValue;
+    const Plan p = make_plan(mp, variant);
+    int regs = 0, local = 0;
+    const cudaError_t err = run(p, nullptr, nullptr, mp, 0, variant, nullptr, &regs, &local);
+    if (err != cudaSuccess) return (int)err;
+    const int vals[SP_PLAN] = {p.q, p.cluster, p.ring, p.rows, p.cta_rows, p.block, p.smem,
+                               regs, local, p.cluster};
+    for (int k = 0; k < SP_PLAN; ++k) out[k] = vals[k];
+    return (int)cudaSuccess;
+}
+
+#ifdef SP_STAMPS
+// The diagnostic build's stamps of the last launch: n values of
+// g_sp_stamps into host memory.
+extern "C" int csl_sweep_probe_stamps(unsigned long long* out, int n) {
+    if (n < 0 || n > SP_NSTAMP) return (int)cudaErrorInvalidValue;
+    return (int)cudaMemcpyFromSymbol(out, g_sp_stamps, (size_t)n * sizeof(unsigned long long));
+}
+#endif
 
 // variant 0 = unroll2, 1 = unroll4, 2 = wide4; nblk pivots (clamped to
 // [0, mp / 2]); mp even, at most 128.
 extern "C" int csl_sweep_probe(const float* s, float* out, int mp, int nblk, int variant,
                                void* stream) {
-    if (mp <= 0 || mp % 2 || mp > MAX_MP) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(mp, variant)) return (int)cudaErrorInvalidValue;
     const int nb = nblk < 0 ? 0 : (nblk > mp / 2 ? mp / 2 : nblk);
-    const cudaStream_t st = (cudaStream_t)stream;
-    return (int)(mp <= 64 ? launch<2>(s, out, mp, nb, variant, st)
-                          : launch<4>(s, out, mp, nb, variant, st));
+    return (int)run(make_plan(mp, variant), s, out, mp, nb, variant, (cudaStream_t)stream);
 }

@@ -5,12 +5,14 @@ beside its plain PyTorch version.
 
   H11 ``sweep_probe`` (csrc/sweep_probe.cu): the sweep variants unroll2,
       unroll4 (H1's register sweep, 2 / 4 pivots a loop body) and wide4
-      (the paired sweep: one barrier a pair of pivots) on a pre-scaled S.
-      Its v0 is H1 (ops.spd_inverse.sweep_si).
+      (the paired sweep: one publish a pair of pivots) on a pre-scaled S,
+      through a ring of mbarrier stages instead of a block barrier a step
+      (``sweep_probe_plan``).  Its v0 is H1 (ops.spd_inverse.sweep_si).
   H12 ``stream_copy`` (csrc/stream_copy.cu): out = in, the byte floor of a
       pass over P.
   H13 ``probe_dots`` (csrc/probe_mosaic.cu): the three transposed
-      contractions of the gated frame's strips.
+      contractions of the gated frame's strips, a cluster of CTAs a column
+      panel (``probe_dots_plan``).
   H14 ``probe_observe`` (csrc/probe_mosaic.cu): the known frame's and the
       gated frame's observe device code alone.
   H4's probe entry ``rank_update_tile`` (csrc/rank_update.cu): H4 with its
@@ -21,6 +23,9 @@ tensors, launches the kernel for CUDA tensors, and raises on anything else.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -63,6 +68,73 @@ RANK_UPDATE_TILE = cuda.CudaKernel(
 
 SWEEP_VARIANTS = ("unroll2", "unroll4", "wide4")
 SWEEP_PROBE_MAX_MP = 128     # csrc/sweep_probe.cu MAX_MP
+# csrc/sweep_probe.cu's build: CTAs a cluster a variant (SP_CLUSTER for
+# unroll2 / unroll4, SP_CLUSTER_W4 for wide4 past MP 64; wide4 at MP <= 64
+# runs one block), the ring's stages (SP_RING) and the warps of one block
+# (SP_WARPS).
+SWEEP_PROBE_CLUSTER = {"unroll2": 1, "unroll4": 1, "wide4": 4}
+SWEEP_PROBE_RING = 8
+SWEEP_PROBE_WARPS = 16
+SP_PLAN = 10                 # values csl_sweep_probe_plan reports
+
+
+class SweepProbePlan(NamedTuple):
+    """H11's geometry: one cluster of ``cluster`` CTAs (the grid); CTA c
+    holds the ``cta_rows`` rows c cta_rows .. of the W = 32 q columns, warp
+    w of it the ``rows`` rows from c cta_rows + w rows; the steps pass
+    through a ring of ``ring`` stages of (g, h) in each CTA."""
+
+    q: int          # 32-column blocks: 2 (MP <= 64) or 4
+    cluster: int    # CTAs a cluster, one an SM (the grid)
+    ring: int       # stages of the ring
+    rows: int       # rows a warp
+    cta_rows: int   # rows a CTA
+    block: int      # threads a CTA
+    smem: int       # shared memory a CTA, bytes
+
+
+def sweep_probe_plan(mp: int, variant: str, cluster: int | None = None,
+                     ring: int | None = None, warps: int | None = None) -> SweepProbePlan:
+    """H11's plan at MP = ``mp`` (even, at most 128) for ``variant``
+    (csrc/sweep_probe.cu make_plan), with the build's cluster, ring and
+    warps, or the ``cluster`` (1, 2, 4 or 8), ``ring`` and ``warps`` (of one
+    block: 4, 8 or 16) a -DSP_CLUSTER / -DSP_RING / -DSP_WARPS build would
+    take (wide4 at q 2 runs one block whatever the cluster).  One block
+    splits the 32 q rows over its warps; a cluster's CTAs hold 4 rows a warp
+    (whole pairs for wide4)."""
+    if variant not in SWEEP_VARIANTS:
+        raise ValueError(f"sweep_probe: variant must be one of {SWEEP_VARIANTS}, got {variant!r}")
+    if mp % 2 or not 0 < mp <= SWEEP_PROBE_MAX_MP:
+        raise ValueError(f"sweep_probe: S must be even-sized and at most {SWEEP_PROBE_MAX_MP}, "
+                         f"got {mp}")
+    q = 2 if mp <= 64 else 4
+    c = SWEEP_PROBE_CLUSTER[variant] if cluster is None else cluster
+    if variant == "wide4" and q == 2:
+        c = 1
+    r = SWEEP_PROBE_RING if ring is None else ring
+    rows = 32 * q // (SWEEP_PROBE_WARPS if warps is None else warps) if c == 1 else 4
+    cta_rows = 32 * q // c
+    entry = 16 if variant == "wide4" else 8      # bytes of g or h an entry: float4 / float2
+    return SweepProbePlan(q=q, cluster=c, ring=r, rows=rows, cta_rows=cta_rows,
+                          block=32 * (cta_rows // rows), smem=r * (2 * 32 * q * entry + 16))
+
+
+def sweep_probe_attributes(mp: int, variant: str, device):
+    """``(plan, registers, local bytes)`` of H11 at ``mp`` for ``variant`` as
+    the C entry makes them (csl_sweep_probe_plan) on the CUDA ``device``;
+    launches nothing."""
+    lib = cuda.library()
+    fn = lib.csl_sweep_probe_plan
+    fn.argtypes = [cuda.I, cuda.I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * SP_PLAN)()
+    with torch.cuda.device(device):
+        err = fn(mp, SWEEP_VARIANTS.index(variant), out)
+    if err != 0:
+        raise RuntimeError(f"sweep_probe plan failed: {lib.csl_error_string(err).decode()} ({err})")
+    q, cluster, ring, rows, cta_rows, block, smem, regs, local, _grid = out
+    return (SweepProbePlan(q=q, cluster=cluster, ring=ring, rows=rows, cta_rows=cta_rows,
+                           block=block, smem=smem), regs, local)
 
 
 def _pivot_factors(r0, r1, k0, lane):
@@ -219,7 +291,68 @@ def rank_update_tile(p, vt: torch.Tensor, vbt: torch.Tensor, tile: int,
 
 # ------------------------------------------------------- H13: the dots
 
-PROBE_DOTS_MAX_MP = 128      # csrc/probe_mosaic.cu: 8 row groups x 16 rows a thread
+PROBE_DOTS_MAX_MP = 128      # csrc/probe_mosaic.cu PD_MAX_MP: 4 CTAs x 16 row pairs
+PD_W = 16                    # columns a panel
+PD_G = 4                     # CTAs a cluster: one panel
+PD_THREADS = 128             # a CTA: 8 column pairs x 16 row pairs
+PD_PLAN = 10                 # values csl_probe_dots_plan reports
+
+
+class ProbeDotsPlan(NamedTuple):
+    """H13's geometry: a cluster of ``cluster`` CTAs a panel of ``width``
+    columns of D; CTA g of it holds rows g rows .. g rows + rows - 1 of MP
+    (those inside MP)."""
+
+    width: int      # columns of D a panel
+    panels: int     # panels of D
+    grid: int       # CTAs launched: whole clusters
+    cluster: int    # CTAs a panel
+    block: int      # threads a CTA
+    rows: int       # rows of MP a CTA
+    smem: int       # dynamic shared memory a CTA, bytes
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def probe_dots_plan(d: int, mp: int, rp: int) -> ProbeDotsPlan | None:
+    """H13's plan at D = ``d``, MP = ``mp``, RP = ``rp`` (csrc/probe_mosaic.cu
+    make_plan), or None where the shapes are out of its range or a CTA's
+    shared memory would not fit: panels of 16 columns, 4 CTAs a panel, each
+    MP / 4 rows (rounded up to even), and in shared memory the (RP, 16)
+    panel of prows, its rows of hc and si (row strides padded to 4 mod 8
+    floats), the (MP, 16) panel of phtt, siv and 8 x 16 partial sums, each
+    count rounded up to 4."""
+    if d <= 0 or not 0 < mp <= PROBE_DOTS_MAX_MP or rp <= 0:
+        return None
+    rows = _round_up(-(-mp // PD_G), 2)
+    rp4, mp4 = _round_up(rp, 4), _round_up(mp, 4)
+    pad = lambda n4: _round_up(n4, 8) + 4     # noqa: E731
+    floats = (rp4 * PD_W + rows * pad(rp4) + rows * pad(mp4) + mp4 * PD_W + mp4 + 8 * PD_W)
+    if 4 * floats > cuda.MAX_SMEM_BYTES:
+        return None
+    panels = -(-d // PD_W)
+    return ProbeDotsPlan(width=PD_W, panels=panels, grid=panels * PD_G, cluster=PD_G,
+                         block=PD_THREADS, rows=rows, smem=4 * floats)
+
+
+def probe_dots_attributes(d: int, mp: int, rp: int, device):
+    """``(plan, registers, local bytes, clusters)`` of H13 at these shapes as
+    the C entry makes them (csl_probe_dots_plan) on the CUDA ``device``: the
+    clusters are those the card holds at once; launches nothing."""
+    lib = cuda.library()
+    fn = lib.csl_probe_dots_plan
+    fn.argtypes = [cuda.I] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * PD_PLAN)()
+    with torch.cuda.device(device):
+        err = fn(d, mp, rp, out)
+    if err != 0:
+        raise RuntimeError(f"probe_dots plan failed: {lib.csl_error_string(err).decode()} ({err})")
+    width, panels, grid, cluster, block, rows, smem, regs, local, clusters = out
+    return (ProbeDotsPlan(width=width, panels=panels, grid=grid, cluster=cluster, block=block,
+                          rows=rows, smem=smem), regs, local, clusters)
 
 
 def probe_dots_reference(prows, hc, si, siv):
@@ -231,14 +364,15 @@ def probe_dots_reference(prows, hc, si, siv):
 
 def probe_dots(prows, hc, si, siv):
     """The three contractions of the probe: the plain version for CPU
-    tensors, kernel H13 for CUDA tensors.  prows (RP, D), hc (MP, RP),
-    si (MP, MP), siv (1, MP)."""
+    tensors, kernel H13 (``probe_dots_plan``) for CUDA tensors.  prows
+    (RP, D), hc (MP, RP), si (MP, MP), siv (1, MP)."""
     if cuda.on_cpu(prows, hc, si, siv):
         return probe_dots_reference(prows, hc, si, siv)
     rp, d = prows.shape
     mp = hc.shape[0]
-    if mp > PROBE_DOTS_MAX_MP:
-        raise ValueError(f"probe_dots: MP must be at most {PROBE_DOTS_MAX_MP}, got {mp}")
+    if probe_dots_plan(d, mp, rp) is None:
+        raise ValueError(f"probe_dots: MP must be at most {PROBE_DOTS_MAX_MP} and a CTA's "
+                         f"operands fit its shared memory, got D={d}, MP={mp}, RP={rp}")
     cuda.check(prows, "prows", (rp, d))
     cuda.check(hc, "hc", (mp, rp))
     cuda.check(si, "si", (mp, mp))

@@ -1220,6 +1220,102 @@ def test_sweep_probe_wide4_matches_h1(dev, mp, nblk):
     assert float((got - plain).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("variant", ["unroll2", "unroll4", "wide4"])
+@pytest.mark.parametrize("mp,nblk", [(128, 40), (128, 39), (64, 20), (2, 1), (30, 15), (126, 63)])
+def test_sweep_probe_two_calls_are_bit_equal(dev, variant, mp, nblk):
+    # The ring's stages and the cluster's exchange change no element's
+    # fmaf chain: two calls give the same bits, within the plain version's
+    # bound (4 MP eps of the swept block's largest entry).
+    from conan_slam_tpu_torch.ops.probes import sweep_probe, sweep_probe_reference
+
+    s = torch.as_tensor(_unit_diag_sym(mp), device=dev)
+    a, b = sweep_probe(s, nblk, variant), sweep_probe(s, nblk, variant)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    k = 2 * nblk
+    plain = sweep_probe_reference(s, nblk, variant)
+    tol = 4 * mp * torch.finfo(torch.float32).eps * float(plain[:k, :k].abs().max())
+    assert float((a - plain).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("variant", ["unroll2", "unroll4", "wide4"])
+def test_sweep_probe_replays_in_a_cuda_graph(dev, variant):
+    from conan_slam_tpu_torch.ops.probes import sweep_probe
+
+    s = torch.as_tensor(_unit_diag_sym(128), device=dev)
+    eager = sweep_probe(s, 40, variant)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        sweep_probe(s, 40, variant)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = sweep_probe(s, 40, variant)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize("variant", ["unroll2", "unroll4", "wide4"])
+@pytest.mark.parametrize("mp", [2, 64, 66, 128])
+def test_sweep_probe_plan_is_the_kernels(dev, variant, mp):
+    from conan_slam_tpu_torch.ops.probes import sweep_probe_attributes, sweep_probe_plan
+
+    plan, regs, local = sweep_probe_attributes(mp, variant, dev)
+    assert plan == sweep_probe_plan(mp, variant)
+    assert 0 < regs <= 255 and local >= 0
+
+
+# H13 at the dots probe's shape, the ragged D 500 / MP 126 and D 4,096 (RP 136).
+H13_SHAPES = [(512, 128, 136), (500, 126, 136), (4096, 128, 136), (37, 2, 9)]
+
+
+@pytest.mark.parametrize("d,mp,rp", H13_SHAPES)
+def test_probe_dots_matches_plain_at_its_shapes(dev, d, mp, rp):
+    from conan_slam_tpu_torch.benchmarks.redesign_turns import dots_args
+    from conan_slam_tpu_torch.ops.probes import probe_dots, probe_dots_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = dots_args(d, mp, rp, dev)
+    got, again = probe_dots(*args), probe_dots(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, ref in zip(got, probe_dots_reference(*args)):
+        # Sums of RP and MP products in another order.
+        assert float((g - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_probe_dots_replays_in_a_cuda_graph(dev):
+    from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs
+    from conan_slam_tpu_torch.ops.probes import probe_dots
+
+    args = [torch.as_tensor(a, device=dev) for a in dots_inputs()]
+    eager = probe_dots(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        probe_dots(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = probe_dots(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+@pytest.mark.parametrize("d,mp,rp", H13_SHAPES)
+def test_probe_dots_plan_is_the_kernels(dev, d, mp, rp):
+    from conan_slam_tpu_torch.ops.probes import probe_dots_attributes, probe_dots_plan
+
+    plan, regs, local, clusters = probe_dots_attributes(d, mp, rp, dev)
+    assert plan == probe_dots_plan(d, mp, rp)
+    assert 0 < regs <= 255 and local >= 0 and clusters > 0
+
+
 @pytest.mark.parametrize("n,offset", [(2304 * 2304, 0), (1003 * 1003, 0), (4099, 1)])
 def test_stream_copy_is_bit_equal(dev, n, offset):
     from conan_slam_tpu_torch.ops.probes import stream_copy
