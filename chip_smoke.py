@@ -2554,11 +2554,9 @@ def probe_checks(device) -> dict:
     stats["stream_copy"] = st
 
     # --- H13 at the dots probe's shape, the ragged D 500 / MP 126 and D 4,096 ---
-    from conan_slam_tpu_torch.benchmarks.redesign_turns import dots_args
-
     torch.backends.cuda.matmul.allow_tf32 = False
     for d_, mp_ in ((500, 126), (4096, 128)):
-        a_ = dots_args(d_, mp_, 136, device)
+        a_ = [torch.as_tensor(a, device=device) for a in dots_inputs(d_, mp_, 136)]
         for n, g, r in zip(("phtt", "sipht", "sivpht"), pr.probe_dots(*a_),
                            pr.probe_dots_reference(*a_)):
             check(f"H13 probe_dots {n} at D {d_}, MP {mp_}", g, r, 0.0, 1e-5 * float(r.abs().max()),

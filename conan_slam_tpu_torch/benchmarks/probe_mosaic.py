@@ -33,11 +33,10 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def dots_inputs():
+def dots_inputs(d: int = 512, mp: int = 128, rp: int = 136):
     """The probe's inputs (rng 0): prows (RP, D), hc (MP, RP), si (MP, MP),
-    siv (1, MP)."""
+    siv (1, MP), at the probe's shape unless another is given."""
     rng = np.random.default_rng(0)
-    d, mp, rp = 512, 128, 136
     prows = rng.normal(size=(rp, d)).astype(np.float32)
     hc = rng.normal(size=(mp, rp)).astype(np.float32)
     si = rng.normal(size=(mp, mp)).astype(np.float32)

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from conan_slam_tpu_torch.benchmarks import card_line, probe_sweep
+from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs
 from conan_slam_tpu_torch.ops import cuda
 from conan_slam_tpu_torch.ops import frame_kernel as fk
 from conan_slam_tpu_torch.ops import probes as pr
@@ -353,14 +354,6 @@ def h13_check(name: str, launch, outs, args) -> None:
             raise AssertionError(f"H13 {name}: {what} off the plain version by {err:.3e}")
 
 
-def dots_args(d: int, mp: int, rp: int, dev) -> tuple:
-    """The dots probe's inputs at (D, MP, RP) from numpy seed 0."""
-    rng = np.random.default_rng(0)
-    shapes = ((rp, d), (mp, rp), (mp, mp), (1, mp))
-    return tuple(torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
-                 for sh in shapes)
-
-
 def run_h11(calls: dict, libs: dict, dev) -> dict:
     """H11's builds in turns at each shape and variant, at NBLK and at 0."""
     results = {}
@@ -429,7 +422,7 @@ def run_h13(calls: dict, libs: dict, dev) -> dict:
     """H13's builds in turns at each shape, beside torch.matmul x 3."""
     results = {}
     for d, mp, rp in H13_SHAPES:
-        args = dots_args(d, mp, rp, dev)
+        args = tuple(torch.as_tensor(a, device=dev) for a in dots_inputs(d, mp, rp))
         contenders = {}
         for name, call in calls.items():
             outs = (torch.empty((d, mp), device=dev), torch.empty((mp, d), device=dev),

@@ -45,8 +45,8 @@
 //       rows take their own pivots and the rest of the run; every other
 //       pivot is a plain consumer step, UN of them a loop body.  The
 //       run's chain carries no update but the next pair's.
-//   wide4: at mp > 64 a cluster of 4 CTAs of 8 warps (RW = 4), one an SM,
-//       so an SM issues a quarter of a pair's FMAs.  The producer writes
+//   wide4: at mp > 64 a cluster of 8 CTAs of 4 warps (RW = 4), one an SM,
+//       so an SM issues an eighth of a pair's FMAs.  The producer writes
 //       its stage, arrives on its own CTA's "full" barrier, and copies the
 //       stage into each other CTA's by one bulk copy
 //       (cp.async.bulk.shared::cluster.shared::cta) that completes on that
@@ -54,9 +54,10 @@
 //       (a release at the cluster's scope cost ~1,150 cycles a step); the
 //       consumers release a stage on every CTA's "empty" barrier.  At
 //       mp <= 64 one block of 16 warps, where the cluster was slower.
-// The choices come from measurement in turns with the parent and the other
-// designs (PERF.md, PR 18; benchmarks/redesign_turns.py builds the others
-// with -DSP_CLUSTER=, -DSP_CLUSTER_W4=, -DSP_RING=, -DSP_WARPS=).
+// The ring's depth, the warps a block and where a variant takes a cluster
+// are fixed: each was measured in turns against the other choices (PERF.md
+// gives their times and the commit whose source built them;
+// benchmarks/redesign_turns.py times a build of any commit's source).
 //
 // fp32 FMA, no tensor cores: the precision contract (ROADMAP.md) runs every
 // product in fp32 with TF32 off, and this fmaf chain is H1's.  No atomics
@@ -67,18 +68,9 @@
 // csl_sweep_probe_stamps.
 #include "sweep.cuh"
 
-#ifndef SP_CLUSTER
-#define SP_CLUSTER 1       // unroll2 / unroll4: CTAs a cluster (1, 2, 4 or 8)
-#endif
-#ifndef SP_CLUSTER_W4
-#define SP_CLUSTER_W4 4    // wide4 at mp > 64: CTAs a cluster (at mp <= 64 one block)
-#endif
-#ifndef SP_RING
 #define SP_RING 8          // stages of the ring
-#endif
-#ifndef SP_WARPS
 #define SP_WARPS 16        // warps of one block (a cluster's CTAs: 4 rows a warp)
-#endif
+#define SP_WIDE4_CLUSTER 8 // wide4 at mp > 64: CTAs a cluster (everything else one block)
 #define SP_PLAN 10         // values csl_sweep_probe_plan reports
 
 namespace {
@@ -93,7 +85,6 @@ static_assert(SP_RING >= 2, "the producer of step k + 1 releases step k after pu
 // Rows a warp: one block splits the W = 32 Q rows over SP_WARPS warps; a
 // cluster's CTAs hold 4 rows a warp (whole pairs for wide4).
 __host__ __device__ constexpr int warp_rows(int q, int c) { return c == 1 ? 32 * q / SP_WARPS : 4; }
-static_assert(SP_WARPS == 4 || SP_WARPS == 8 || SP_WARPS == 16, "whole pairs a warp at Q 2");
 
 // ---------------------------------------------------------------- stamps
 
@@ -411,21 +402,19 @@ __device__ __forceinline__ void consume(float (&A)[RW][Q], V& ring, int k0, int 
 // pivot (with the diagonal) and the later ones of the run.  So the run's
 // chain carries no update but the next pair's, and the warp's other pivots
 // are plain consumer steps.  Each row takes the pivots in H1's order with
-// H1's fmaf chain.
-template <int Q, int C, int UN>
-__global__ void __launch_bounds__(32 * (32 * Q / C / warp_rows(Q, C)), 1)
+// H1's fmaf chain.  One block of SP_WARPS warps.
+template <int Q, int UN>
+__global__ void __launch_bounds__(32 * SP_WARPS, 1)
 sweep_unroll_kernel(const float* __restrict__ s, float* __restrict__ out, int mp, int nb) {
-    constexpr int W = 32 * Q, RW = warp_rows(Q, C), R = SP_RING, P = RW / 2;
-    constexpr int TW = W / C / RW;   // warps a CTA
+    constexpr int W = 32 * Q, RW = warp_rows(Q, 1), R = SP_RING, P = RW / 2;
     static_assert(R >= P + 2, "a run holds its stages and the one before until its end");
-    __shared__ __align__(16) Ring<float2, W, R, C> ring;
-    const int rank = C > 1 ? (int)cta_rank() : 0;
-    const int row0 = rank * (W / C) + (int)(threadIdx.x >> 5) * RW, base = row0 / 2;
-    sp_stamp_cta(rank, 0, C);
+    __shared__ __align__(16) Ring<float2, W, R, 1> ring;
+    const int row0 = (int)(threadIdx.x >> 5) * RW, base = row0 / 2;
+    sp_stamp_cta(0, 0, 1);
     float A[RW][Q];
     load_rows<Q, RW>(s, mp, row0, A);
-    if (threadIdx.x == 0) ring.init(C * TW);
-    if constexpr (C > 1) cluster_sync(); else __syncthreads();
+    if (threadIdx.x == 0) ring.init(SP_WARPS);
+    __syncthreads();
     if (base >= nb) {
         consume<Q, RW, UN>(A, ring, 0, nb, row0);
     } else {
@@ -469,8 +458,7 @@ sweep_unroll_kernel(const float* __restrict__ s, float* __restrict__ out, int mp
         consume<Q, RW, UN>(A, ring, end, nb, row0);
     }
     store_neg<Q, RW>(out, mp, row0, A);
-    sp_stamp_cta(rank, 1, C);
-    if constexpr (C > 1) cluster_sync();   // no CTA leaves while a peer may still reach it
+    sp_stamp_cta(0, 1, 1);
 }
 
 // A 2x2 pivot block's inverse (i00, i01, i11) from its entries, and
@@ -671,7 +659,7 @@ sweep_wide4_kernel(const float* __restrict__ s, float* __restrict__ out, int mp,
     }
     store_neg<Q, RW>(out, mp, row0, A);
     sp_stamp_cta(rank, 1, C);
-    if constexpr (C > 1) cluster_sync();
+    if constexpr (C > 1) cluster_sync();   // no CTA leaves while a peer may still reach it
 }
 
 // ------------------------------------------------------------------ plan
@@ -688,7 +676,7 @@ struct Plan {
 
 Plan make_plan(int mp, int variant) {
     const int q = mp <= 64 ? 2 : 4, w = 32 * q;
-    const int c = variant != 2 ? SP_CLUSTER : q == 4 ? SP_CLUSTER_W4 : 1;
+    const int c = variant == 2 && q == 4 ? SP_WIDE4_CLUSTER : 1;
     const int rows = warp_rows(q, c), cta_rows = w / c;
     const int entry = variant == 2 ? 16 : 8;   // bytes of (g or h) an entry: float4 or float2
     return Plan{q, c, SP_RING, rows, cta_rows, 32 * (cta_rows / rows),
@@ -702,7 +690,7 @@ cudaError_t launch_q(const Plan& p, const float* s, float* out, int mp, int nb, 
     if constexpr (WIDE)
         kernel = sweep_wide4_kernel<Q, C>;
     else
-        kernel = variant == 0 ? sweep_unroll_kernel<Q, C, 2> : sweep_unroll_kernel<Q, C, 4>;
+        kernel = variant == 0 ? sweep_unroll_kernel<Q, 2> : sweep_unroll_kernel<Q, 4>;
     if (regs) return csl_func_regs(kernel, regs, local);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(C);
@@ -726,9 +714,9 @@ cudaError_t run(const Plan& p, const float* s, float* out, int mp, int nb, int v
     const bool wide = variant == 2;
     if (p.q == 2)
         return wide ? launch_q<2, 1, true>(p, s, out, mp, nb, variant, st, regs, local)
-                    : launch_q<2, SP_CLUSTER, false>(p, s, out, mp, nb, variant, st, regs, local);
-    return wide ? launch_q<4, SP_CLUSTER_W4, true>(p, s, out, mp, nb, variant, st, regs, local)
-                : launch_q<4, SP_CLUSTER, false>(p, s, out, mp, nb, variant, st, regs, local);
+                    : launch_q<2, 1, false>(p, s, out, mp, nb, variant, st, regs, local);
+    return wide ? launch_q<4, SP_WIDE4_CLUSTER, true>(p, s, out, mp, nb, variant, st, regs, local)
+                : launch_q<4, 1, false>(p, s, out, mp, nb, variant, st, regs, local);
 }
 
 bool shapes_ok(int mp, int variant) {

@@ -68,13 +68,12 @@ RANK_UPDATE_TILE = cuda.CudaKernel(
 
 SWEEP_VARIANTS = ("unroll2", "unroll4", "wide4")
 SWEEP_PROBE_MAX_MP = 128     # csrc/sweep_probe.cu MAX_MP
-# csrc/sweep_probe.cu's build: CTAs a cluster a variant (SP_CLUSTER for
-# unroll2 / unroll4, SP_CLUSTER_W4 for wide4 past MP 64; wide4 at MP <= 64
-# runs one block), the ring's stages (SP_RING) and the warps of one block
-# (SP_WARPS).
-SWEEP_PROBE_CLUSTER = {"unroll2": 1, "unroll4": 1, "wide4": 4}
+# csrc/sweep_probe.cu's geometry: the ring's stages (SP_RING), the warps of
+# one block (SP_WARPS), and the CTAs of wide4's cluster past MP 64
+# (SP_WIDE4_CLUSTER); everything else runs one block.
 SWEEP_PROBE_RING = 8
 SWEEP_PROBE_WARPS = 16
+SWEEP_PROBE_WIDE4_CLUSTER = 8
 SP_PLAN = 10                 # values csl_sweep_probe_plan reports
 
 
@@ -93,30 +92,24 @@ class SweepProbePlan(NamedTuple):
     smem: int       # shared memory a CTA, bytes
 
 
-def sweep_probe_plan(mp: int, variant: str, cluster: int | None = None,
-                     ring: int | None = None, warps: int | None = None) -> SweepProbePlan:
+def sweep_probe_plan(mp: int, variant: str) -> SweepProbePlan:
     """H11's plan at MP = ``mp`` (even, at most 128) for ``variant``
-    (csrc/sweep_probe.cu make_plan), with the build's cluster, ring and
-    warps, or the ``cluster`` (1, 2, 4 or 8), ``ring`` and ``warps`` (of one
-    block: 4, 8 or 16) a -DSP_CLUSTER / -DSP_RING / -DSP_WARPS build would
-    take (wide4 at q 2 runs one block whatever the cluster).  One block
-    splits the 32 q rows over its warps; a cluster's CTAs hold 4 rows a warp
-    (whole pairs for wide4)."""
+    (csrc/sweep_probe.cu make_plan): one block of SWEEP_PROBE_WARPS warps
+    splitting the 32 q rows, except wide4 past MP 64, which runs a cluster
+    of SWEEP_PROBE_WIDE4_CLUSTER CTAs of 4 rows a warp (whole pairs)."""
     if variant not in SWEEP_VARIANTS:
         raise ValueError(f"sweep_probe: variant must be one of {SWEEP_VARIANTS}, got {variant!r}")
     if mp % 2 or not 0 < mp <= SWEEP_PROBE_MAX_MP:
         raise ValueError(f"sweep_probe: S must be even-sized and at most {SWEEP_PROBE_MAX_MP}, "
                          f"got {mp}")
     q = 2 if mp <= 64 else 4
-    c = SWEEP_PROBE_CLUSTER[variant] if cluster is None else cluster
-    if variant == "wide4" and q == 2:
-        c = 1
-    r = SWEEP_PROBE_RING if ring is None else ring
-    rows = 32 * q // (SWEEP_PROBE_WARPS if warps is None else warps) if c == 1 else 4
+    c = SWEEP_PROBE_WIDE4_CLUSTER if variant == "wide4" and q == 4 else 1
+    rows = 32 * q // SWEEP_PROBE_WARPS if c == 1 else 4
     cta_rows = 32 * q // c
     entry = 16 if variant == "wide4" else 8      # bytes of g or h an entry: float4 / float2
-    return SweepProbePlan(q=q, cluster=c, ring=r, rows=rows, cta_rows=cta_rows,
-                          block=32 * (cta_rows // rows), smem=r * (2 * 32 * q * entry + 16))
+    return SweepProbePlan(q=q, cluster=c, ring=SWEEP_PROBE_RING, rows=rows, cta_rows=cta_rows,
+                          block=32 * (cta_rows // rows),
+                          smem=SWEEP_PROBE_RING * (2 * 32 * q * entry + 16))
 
 
 def sweep_probe_attributes(mp: int, variant: str, device):

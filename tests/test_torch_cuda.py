@@ -1274,11 +1274,11 @@ H13_SHAPES = [(512, 128, 136), (500, 126, 136), (4096, 128, 136), (37, 2, 9)]
 
 @pytest.mark.parametrize("d,mp,rp", H13_SHAPES)
 def test_probe_dots_matches_plain_at_its_shapes(dev, d, mp, rp):
-    from conan_slam_tpu_torch.benchmarks.redesign_turns import dots_args
+    from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs
     from conan_slam_tpu_torch.ops.probes import probe_dots, probe_dots_reference
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = dots_args(d, mp, rp, dev)
+    args = [torch.as_tensor(a, device=dev) for a in dots_inputs(d, mp, rp)]
     got, again = probe_dots(*args), probe_dots(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -33,11 +33,9 @@ def test_probe_dots_constants_are_the_sources():
 
 def test_sweep_probe_constants_are_the_sources():
     got = _defines("sweep_probe.cu")
-    assert got["SP_CLUSTER"] == probes.SWEEP_PROBE_CLUSTER["unroll2"]
-    assert got["SP_CLUSTER"] == probes.SWEEP_PROBE_CLUSTER["unroll4"]
-    assert got["SP_CLUSTER_W4"] == probes.SWEEP_PROBE_CLUSTER["wide4"]
-    assert (got["SP_RING"], got["SP_WARPS"], got["SP_PLAN"]) == (
-        probes.SWEEP_PROBE_RING, probes.SWEEP_PROBE_WARPS, probes.SP_PLAN)
+    assert (got["SP_RING"], got["SP_WARPS"], got["SP_WIDE4_CLUSTER"], got["SP_PLAN"]) == (
+        probes.SWEEP_PROBE_RING, probes.SWEEP_PROBE_WARPS, probes.SWEEP_PROBE_WIDE4_CLUSTER,
+        probes.SP_PLAN)
 
 
 @pytest.mark.parametrize("d", [512, 500, 4096])
@@ -76,14 +74,9 @@ def test_probe_dots_plan_fills_the_card_at_the_probe_shape():
 
 
 @pytest.mark.parametrize("variant", probes.SWEEP_VARIANTS)
-@pytest.mark.parametrize("cluster,warps", [(None, None), (1, 16), (1, 8), (1, 4), (2, None),
-                                           (4, None), (8, None)])
-def test_sweep_probe_plan_covers_every_even_mp(variant, cluster, warps):
+def test_sweep_probe_plan_covers_every_even_mp(variant):
     for mp in range(2, 129, 2):
-        plan = probes.sweep_probe_plan(mp, variant, cluster=cluster, warps=warps)
-        if variant != "wide4":      # a -DSP_WARPS build of longer runs takes a deeper ring
-            plan = probes.sweep_probe_plan(mp, variant, cluster=cluster, warps=warps,
-                                           ring=max(plan.ring, plan.rows // 2 + 2))
+        plan = probes.sweep_probe_plan(mp, variant)
         w = 32 * plan.q
         assert (plan.q == 2) == (mp <= 64)
         assert plan.cta_rows * plan.cluster == w >= mp
@@ -95,12 +88,12 @@ def test_sweep_probe_plan_covers_every_even_mp(variant, cluster, warps):
 
 
 def test_sweep_probe_plan_is_the_measured_choice():
-    # unroll2 / unroll4 one block; wide4 a cluster of 4 past MP 64 and one
-    # block at MP <= 64 (PERF.md, PR 18).
+    # unroll2 / unroll4 one block; wide4 a cluster of 8 past MP 64 and one
+    # block at MP <= 64 (the times are in PERF.md).
     for variant in ("unroll2", "unroll4"):
         assert probes.sweep_probe_plan(128, variant).cluster == 1
         assert probes.sweep_probe_plan(128, variant).block == 512
-    assert probes.sweep_probe_plan(128, "wide4").cluster == 4
+    assert probes.sweep_probe_plan(128, "wide4").cluster == 8
     assert probes.sweep_probe_plan(64, "wide4").cluster == 1
     with pytest.raises(ValueError):
         probes.sweep_probe_plan(130, "unroll2")
