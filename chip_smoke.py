@@ -74,7 +74,9 @@ Phases:
           and D 4,096; two calls and a replay bit for bit; its plan,
           registers and share of its bound; in turns with torch.matmul x
           3), H14
-          (both observe paths) and H4's probe entry (its plan bit for bit
+          (both observe paths; two calls and a replay bit for bit; its
+          plan, registers and share of its bound; in turns with the empty
+          kernel at its launch, the floor) and H4's probe entry (its plan bit for bit
           H4, tiles 32/64/128 persistent or one a tile, no P read, rank
           3 r), each against its plain version; then, with the launch
           counts set to 0, the port-side benches
@@ -2611,12 +2613,36 @@ def probe_checks(device) -> dict:
                                  "range rows are differences of ~60 m ranges (2 ulps of 64 m)"))
             check(f"H14 {path} {name} vs numpy", g, torch.as_tensor(r, device=device), 0.0, tol,
                   "the probe's own tolerance")
+    for path in pr.OBSERVE_PATHS:
+        got = pr.probe_observe(*args, mpo, rpo, path)
+        require(all(torch.equal(a, b) for a, b in zip(got, pr.probe_observe(*args, mpo, rpo, path))),
+                f"H14 {path} deterministic", "two calls bit for bit equal")
+        require(replays_bit_for_bit(lambda path=path: pr.probe_observe(*args, mpo, rpo, path)),
+                f"H14 {path} in a CUDA graph", "the replay bit for bit the eager call")
+    plan, regs, local = pr.probe_observe_attributes(mpo, rpo, device)
+    require(plan == pr.probe_observe_plan(mpo, rpo), "H14 plan",
+            f"the C entry's plan is ops.probes.probe_observe_plan's: {plan}")
     fn = lambda: pr.probe_observe(*args, mpo, rpo, "gated")     # noqa: E731
     st = dict(max_abs_err=err, ms=time_ms(fn, 200),
               plain_ms=time_ms(lambda: pr.probe_observe_reference(*args, mpo, rpo), 20),
               library_ms=None, device_ms=device_ms(fn),
+              plan=dict(plan._asdict(), regs=regs, local=local),
               **bound(nbytes(*args, *plain), 40.0 * mpo // 2))
     st["known_device_ms"] = device_ms(lambda: pr.probe_observe(*args, mpo, rpo, "known"))
+    st["floor_device_ms"] = device_ms(lambda: pr.probe_observe_floor(*args, mpo, rpo))
+    t, turns = in_turns({
+        "gated": fn, "known": lambda: pr.probe_observe(*args, mpo, rpo, "known"),
+        "floor": lambda: pr.probe_observe_floor(*args, mpo, rpo)})
+    st.update(device_ms_turns=t, turns_us={k: [u * 1e3 for u in v] for k, v in turns.items()})
+    log(f"  H14 at MP {mpo}, RP {rpo}: plan {plan._asdict()}, {regs} registers, {local} local "
+        f"bytes; device time gated {st['device_ms'] * 1e3:.2f} us, known "
+        f"{st['known_device_ms'] * 1e3:.2f} us, {100 * st['bound_ms'] / st['device_ms']:.2f}% / "
+        f"{100 * st['bound_ms'] / st['known_device_ms']:.2f}% of its {st['bound_ms'] * 1e3:.3f} us "
+        f"bound ({st['bound_by']}); the empty kernel at its launch (the floor) "
+        f"{st['floor_device_ms'] * 1e3:.2f} us; in turns (medians of {len(turns['floor'])} turns): "
+        f"gated {t['gated'] * 1e3:.2f}, known {t['known'] * 1e3:.2f}, floor "
+        f"{t['floor'] * 1e3:.2f} us: {(t['gated'] - t['floor']) * 1e3:.2f} / "
+        f"{(t['known'] - t['floor']) * 1e3:.2f} us above the floor")
     stats["probe_observe"] = st
 
     # --- H4's probe entry at the rank-pass probe's shape (D 2304, r 288) ---
@@ -2715,6 +2741,7 @@ def probe_path(device) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     counts = launches()
     log(f"probe path: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    log(f"probe path: H14 probe_observe {counts['probe_observe']} launches")
     for k in PROBE_PATH_KERNELS:
         require(counts[k] > 0, f"probe path launches {k}", f"{counts[k]} launches")
     replayed: dict[str, int] = {}
@@ -5071,7 +5098,7 @@ def main() -> int:
               "no_p_library_ms", "no_p_library_device_ms", "stack3", "alone_us", "regs_local",
               "kernels_device_ms", "alone_us_10k", "kernels_device_ms_10k", "cold_sweep_us",
               "h5_phases_us", "turns", "h5_phases_us_10k", "h6_device_ms_10k", "turns_10k",
-              "plan_10k", "regs_local_10k", "turns_tb_per_s")
+              "plan_10k", "regs_local_10k", "turns_tb_per_s", "floor_device_ms")
     table = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": (counts[k.name] + scounts[k.name] + gcounts[k.name] + gscounts[k.name]

@@ -1,6 +1,6 @@
 """A redesigned kernel in turns against other builds of it, on one card:
-H8 ``obs_panels``, H11 ``sweep_probe``, H12 ``stream_copy`` and H13
-``probe_dots``.
+H8 ``obs_panels``, H11 ``sweep_probe``, H12 ``stream_copy``, H13
+``probe_dots`` and H14 ``probe_observe``.
 
     python -m conan_slam_tpu_torch.benchmarks.redesign_turns LABEL=FILE[:FLAG,...] ...
 
@@ -11,9 +11,10 @@ conan_slam_tpu_torch/csrc``), or the package's own with ``-D`` flags after
 the colon (``new16=conan_slam_tpu_torch/csrc/stream_copy.cu:-DSC_CHUNK=16384,
 -DSC_STAGES=6``).  Each is compiled with ``nvcc`` beside the package's
 headers into a library of its own under ``build/turns/`` and called through
-the same C entry as the package's kernel, which runs as the label
-``package``.  Only the kernels that some LABEL=FILE names are run (all of
-them when none is given).
+the same C entries as the package's kernels, which run as the label
+``package``.  Only the kernels of the files that some LABEL=FILE names are
+run (all of them when none is given); ``probe_mosaic.cu`` holds H13 and
+H14, and naming it runs both.
 
 H8 runs at config 2 (D 1,024, NZ 64: MP 128, RP 136, NBP 24), at the
 10k-landmark shape (D 20,224, NZ 64) and at MP 240 and 480 (D 1,024), on
@@ -49,6 +50,18 @@ on the probe's inputs (numpy seed 0), beside three ``torch.matmul`` calls
 (label ``matmul3``, TF32 off); every build is first held to the plain
 version within 1e-5 of max|ref| and two calls bit for bit.
 
+H14 runs at the observe probe's shape (MP 128, RP 136, its inputs) on
+both paths, beside the empty kernel at the package's launch (label
+``floor``: csl_probe_observe_floor, the card's floor for a launch of that
+grid and block).  Every build is first held bit for bit to every other
+build (so to the parent's, where one is named) on both paths, to the plain
+version within chip_smoke.py's bounds, and two calls bit for bit.  Beside
+each build's time stands its plan (csl_probe_observe_plan: rows a CTA,
+grid, block, shared memory, registers, local bytes); a build with
+``-DPO_STAMPS`` also gives its phases over one launch (median µs since a
+CTA's start: staged, observed, synced, its Hc row written, every store
+issued) and the observe's own time (staged to observed).
+
 Prints one line a shape and a last JSON line; writes the JSON to
 ``chiprun_out/redesign_turns.json`` when that directory exists.
 """
@@ -67,7 +80,7 @@ import numpy as np
 import torch
 
 from conan_slam_tpu_torch.benchmarks import card_line, probe_sweep
-from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs
+from conan_slam_tpu_torch.benchmarks.probe_mosaic import dots_inputs, observe_inputs
 from conan_slam_tpu_torch.ops import cuda
 from conan_slam_tpu_torch.ops import frame_kernel as fk
 from conan_slam_tpu_torch.ops import probes as pr
@@ -84,23 +97,29 @@ H12_DIMS = (2304, 9216)
 # H11's shapes (MP, NBLK) and H13's (D, MP, RP).
 H11_SHAPES = ((64, 20), (128, 40))
 H13_SHAPES = ((512, 128, 136), (4096, 128, 136))
-ENTRY = {"obs_panels": ("csl_obs_panels", [cuda.P] * 9 + [cuda.I] * 4 + [cuda.P]),
-         "sweep_probe": ("csl_sweep_probe", [cuda.P, cuda.P] + [cuda.I] * 3 + [cuda.P]),
-         "stream_copy": ("csl_stream_copy", [cuda.P, cuda.P, cuda.L, cuda.P]),
-         "probe_mosaic": ("csl_probe_dots", [cuda.P] * 7 + [cuda.I] * 3 + [cuda.P])}
+H14_SHAPES = ((128, 136),)
+# Each kernel's source file (its stem), C entry and argument types.
+ENTRY = {"obs_panels": ("obs_panels", "csl_obs_panels", [cuda.P] * 9 + [cuda.I] * 4 + [cuda.P]),
+         "sweep_probe": ("sweep_probe", "csl_sweep_probe",
+                         [cuda.P, cuda.P] + [cuda.I] * 3 + [cuda.P]),
+         "stream_copy": ("stream_copy", "csl_stream_copy", [cuda.P, cuda.P, cuda.L, cuda.P]),
+         "probe_dots": ("probe_mosaic", "csl_probe_dots", [cuda.P] * 7 + [cuda.I] * 3 + [cuda.P]),
+         "probe_observe": ("probe_mosaic", "csl_probe_observe",
+                           [cuda.P] * 6 + [cuda.I] * 3 + [cuda.P])}
+FILES = tuple(dict.fromkeys(f for f, _, _ in ENTRY.values()))
 
 
 def build_variants(specs: list[str]) -> list[tuple[str, str, ctypes.CDLL]]:
-    """Compile each ``LABEL=FILE[:FLAG,...]`` into ``build/turns/lib<kernel>_<label>.so``,
-    one ``nvcc`` each, all started together; returns (label, the kernel it
-    holds, the loaded library) for each."""
+    """Compile each ``LABEL=FILE[:FLAG,...]`` into ``build/turns/lib<file>_<label>.so``,
+    one ``nvcc`` each, all started together; returns (label, the file's
+    stem, the loaded library) for each."""
     jobs = []
     for spec in specs:
         label, _, rest = spec.partition("=")
         path, _, flags = rest.partition(":")
         kernel = Path(path).stem
-        if kernel not in ENTRY:
-            raise ValueError(f"{label}: {path} is none of " + ", ".join(f"{k}.cu" for k in ENTRY))
+        if kernel not in FILES:
+            raise ValueError(f"{label}: {path} is none of " + ", ".join(f"{k}.cu" for k in FILES))
         out = cuda.BUILD_DIR / "turns" / f"lib{kernel}_{label}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-shared", "-o", str(out),
@@ -118,7 +137,7 @@ def build_variants(specs: list[str]) -> list[tuple[str, str, ctypes.CDLL]]:
 
 def entry(lib: ctypes.CDLL, kernel: str):
     """The C entry of ``kernel`` in ``lib``, raising on a launch error."""
-    symbol, argtypes = ENTRY[kernel]
+    _, symbol, argtypes = ENTRY[kernel]
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -456,6 +475,116 @@ def run_h13(calls: dict, libs: dict, dev) -> dict:
     return results
 
 
+def lib_observe_plan(lib: ctypes.CDLL, mp: int, rp: int):
+    """The plan a build of H14 reports (csl_probe_observe_plan: rows a CTA,
+    grid, block, shared memory, registers, local bytes), or None for a
+    build without that entry."""
+    fn = getattr(lib, "csl_probe_observe_plan", None)
+    if fn is None:
+        return None
+    fn.argtypes = [cuda.I, cuda.I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * pr.PO_PLAN)()
+    return list(out) if fn(mp, rp, out) == 0 else None
+
+
+PO_STAMPS = 9          # a diagnostic H14 build's stamps a CTA (-DPO_STAMPS)
+
+
+def lib_observe_stamps(lib: ctypes.CDLL, grid: int, launch):
+    """A diagnostic H14 build's phases (-DPO_STAMPS: csl_probe_observe_stamps)
+    over one launch, or None for a build without them: the kernel's span,
+    the spread of its CTAs' starts, the median over CTAs of each stamp
+    since its CTA's start (µs), and of the observe alone (staged to its
+    thread 0's observe done)."""
+    fn = getattr(lib, "csl_probe_observe_stamps", None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = min(grid, 4096) * PO_STAMPS
+    out = (ctypes.c_ulonglong * n)()
+    launch()
+    torch.cuda.synchronize()
+    if fn(out, n) != 0:
+        return None
+    t = np.frombuffer(out, dtype=np.uint64).reshape(-1, PO_STAMPS).astype(np.int64)
+    start = t[:, 0]
+    phases = {name: float(np.median(t[:, k] - start)) / 1e3
+              for k, name in enumerate(("staged", "observed", "synced", "Hc row written",
+                                        "stores issued"), 1)}
+    again = t[:, 6] > 0
+    return dict(span_us=float(t[:, 5].max() - start.min()) / 1e3,
+                start_spread_us=float(start.max() - start.min()) / 1e3,
+                observe_us=float(np.median(t[:, 2] - t[:, 1])) / 1e3,
+                observe_again_us=(float(np.median(t[again, 6] - t[again, 2])) / 1e3
+                                  if again.any() else None),
+                h_loaded_us=float(np.median(t[:, 7] - start)) / 1e3,
+                sms=int(len(np.unique(t[:, 8]))), median_us=phases)
+
+
+def h14_check(name: str, path: str, launch, outs, args, mp: int, rp: int) -> None:
+    """A build of H14 against the plain version within chip_smoke.py's
+    bounds (Hc and R rtol 1e-5, atol 1e-6; v atol 1.6e-5); two calls bit
+    for bit."""
+    launch()
+    first = [t.clone() for t in outs]
+    launch()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, outs)):
+        raise AssertionError(f"H14 {name} {path}: two calls differ")
+    for what, got, want in zip(("hc", "rmat", "v"), outs, pr.probe_observe_reference(*args, mp, rp)):
+        atol = 1.6e-5 if what == "v" else 1e-6
+        err = (got.double() - want.double()).abs()
+        if not bool((err <= atol + 1e-5 * want.double().abs()).all()):
+            raise AssertionError(f"H14 {name} {path}: {what} off the plain version by "
+                                 f"{float(err.max()):.3e}")
+
+
+def run_h14(calls: dict, libs: dict, dev) -> dict:
+    """H14's builds in turns on both paths, beside the empty kernel at the
+    package's launch; every build first bit for bit every other."""
+    (xrows, zin, rsc, mp, rp), _ = observe_inputs()
+    assert (mp, rp) in H14_SHAPES
+    args = tuple(torch.as_tensor(a, device=dev) for a in (xrows, zin, rsc))
+    moved = 4.0 * (rp + 3 * (mp // 2) + 4 + mp * rp + mp * mp + mp)
+    bound_us = max(moved / PEAK_BYTES_PER_S, 40.0 * (mp // 2) / PEAK_FLOPS) * 1e6
+    plans = {n: lib_observe_plan(lib, mp, rp) for n, lib in libs.items()}
+    results = {}
+    for p, path in enumerate(pr.OBSERVE_PATHS):
+        contenders, outs_of = {}, {}
+        for name, call in calls.items():
+            outs = (torch.empty((mp, rp), device=dev), torch.empty((mp, mp), device=dev),
+                    torch.empty((mp,), device=dev))
+            ptrs = [cuda.ptr(t) for t in (*args, *outs)]
+            launch = (lambda c=call, q=ptrs: c(*q, mp, rp, p))
+            h14_check(name, path, launch, outs, args, mp, rp)
+            contenders[name], outs_of[name] = launch, outs
+        first = next(iter(outs_of))
+        for name, outs in outs_of.items():
+            if not all(torch.equal(a, b) for a, b in zip(outs, outs_of[first])):
+                raise AssertionError(f"H14 {path}: {name} is not {first} bit for bit")
+        contenders["floor"] = lambda: pr.probe_observe_floor(*args, mp, rp, path)
+        row = dict(mp=mp, rp=rp, plan=pr.probe_observe_plan(mp, rp)._asdict(), plans=plans,
+                   bound_us=bound_us, bit_equal=list(outs_of), **turns(contenders))
+        for n in contenders:
+            row[n]["share_of_bound"] = bound_us / row[n]["us"]
+            row[n]["above_floor_us"] = row[n]["us"] - row["floor"]["us"]
+        for n, lib in libs.items():
+            st = lib_observe_stamps(lib, (plans.get(n) or [0, 0])[1], contenders[n])
+            if st:
+                row.setdefault("stamps", {})[n] = st
+                print(f"  stamps of {n} {path}: {st}", flush=True)
+        results[path] = row
+        print(f"H14 {path} at MP {mp}, RP {rp} (bound {bound_us:.3f} us; builds bit for bit "
+              f"equal: {', '.join(outs_of)}): " + ", ".join(
+                  f"{n} {row[n]['us']:.2f} us ({100 * row[n]['share_of_bound']:.2f}%)"
+                  for n in contenders)
+              + "; plans (rows, grid, block, smem, regs, local): "
+              + ", ".join(f"{n} {v}" for n, v in plans.items() if v), flush=True)
+    return results
+
+
 def main(argv=None, device="cuda") -> dict:
     argv = sys.argv[1:] if argv is None else argv
     dev = torch.device(device)
@@ -464,17 +593,18 @@ def main(argv=None, device="cuda") -> dict:
     print(card_line(dev), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda.library()
-    libs = {k: {"package": cuda.library()} for k in ENTRY}
-    for label, kernel, lib in build_variants(list(argv)):
-        libs[kernel][label] = lib
-    calls = {k: {n: entry(lib, k) for n, lib in v.items()} for k, v in libs.items()}
+    libs = {f: {"package": cuda.library()} for f in FILES}
+    for label, stem, lib in build_variants(list(argv)):
+        libs[stem][label] = lib
+    calls = {k: {n: entry(lib, k) for n, lib in libs[f].items()} for k, (f, _, _) in ENTRY.items()}
     named = {Path(spec.partition("=")[2].partition(":")[0]).stem for spec in argv}
-    run = named or set(ENTRY)
+    run = named or set(FILES)
     results: dict = {"card": card_line(dev)}
     if "sweep_probe" in run:
         results["sweep_probe"] = run_h11(calls["sweep_probe"], libs["sweep_probe"], dev)
     if "probe_mosaic" in run:
-        results["probe_dots"] = run_h13(calls["probe_mosaic"], libs["probe_mosaic"], dev)
+        results["probe_dots"] = run_h13(calls["probe_dots"], libs["probe_mosaic"], dev)
+        results["probe_observe"] = run_h14(calls["probe_observe"], libs["probe_mosaic"], dev)
     if "obs_panels" in run:
         results["obs_panels"] = run_h8(calls, libs, dev)
     if "stream_copy" in run:

@@ -43,17 +43,38 @@
 // each CTA's phases (%globaltimer), read by csl_probe_dots_stamps.
 //
 // H14 replaces the TPU kernel benchmarks/probe_mosaic.py:122 probe_observe
-// (_observe_core alone in one pallas_call).  One block runs the port's
-// observe device code alone on (xrows, zin, rsc) and writes the dense
-// operator Hc (MP, RP), block-diagonal R (MP, MP) (identity on masked rows)
-// and the innovation v (MP,):
+// (_observe_core alone in one pallas_call).  It runs the port's observe
+// device code alone on (xrows, zin, rsc) and writes the dense operator Hc
+// (MP, RP), block-diagonal R (MP, MP) (identity on masked rows) and the
+// innovation v (MP,):
 //   path 0: the known frame's csl_chain_observe (chain_band.cuh), which H2
 //           and H9 run, with the frame scalars at the given pose and no
 //           heading correction (corr0 = 0, g = 0, P e2 = 0);
 //   path 1: the gated frame's csl_obs_observe (obs_band.cuh), which H7 and
 //           H10 run.
-// So a change to that device code shows here.  It is latency: one thread a
-// measurement, atan2f and a division chain.
+// So a change to that device code shows here.  What bounds it on the card:
+// at the probe's shape (MP 128, RP 136) 137 KB of output (0.041 us) and a
+// few hundred cycles of one measurement's atan2f, sqrtf and divisions, so
+// latency: the launch, one load, the observe, the stores.  The parent ran
+// one block of 256 threads on one SM, formed every measurement, then wrote
+// the 34k entries of Hc and R as scalars with a division an entry.
+//
+// The design (probe_observe_plan in ops/probes.py mirrors it):
+//   - A CTA of PO_THREADS threads a band of PO_ROWS output rows (whole
+//     measurements): MP / PO_ROWS CTAs (64 at the probe's MP).
+//   - Each CTA forms only its own measurements, through the unchanged
+//     observe functions: it stages the pose and its measurements' feature
+//     rows as a gathered mean of its own (xr[3 + 2 l'] = xrows[3 + 2 (l0 +
+//     l')]) against RP - 2 l0, so the functions' masks (cx < rp) and every
+//     value are those of the whole probe, bit for bit.
+//   - Its inputs (a handful of floats) are loaded at entry, one a thread,
+//     all in flight together; R's rows need none of the observe and are
+//     written while its thread runs; then a warp a row of Hc, its column
+//     from the lane (no division), 16-byte stores from the row's first
+//     aligned column.
+// No atomics: two calls are bit for bit equal; the launch allocates nothing
+// and is capturable.  A -DPO_STAMPS build records each CTA's phases
+// (%globaltimer), read by csl_probe_observe_stamps.
 #include <cooperative_groups.h>
 
 #include "chain_band.cuh"
@@ -66,6 +87,29 @@ namespace cg = cooperative_groups;
 #define PD_THREADS 128      // a CTA: (PD_W / 2) column pairs x 16 row pairs
 #define PD_MAX_MP 128       // 2 x 16 row pairs x PD_G
 #define PD_PLAN 10          // values csl_probe_dots_plan reports
+
+#ifndef PO_ROWS
+#define PO_ROWS 2           // H14's output rows a CTA (even: whole measurements)
+#endif
+#ifndef PO_THREADS
+#define PO_THREADS 128      // its threads a CTA
+#endif
+#ifndef PO_SCALAR
+#define PO_SCALAR 1         // rows written by 4-byte stores only
+#endif
+#ifndef PO_BLOCKROWS
+#define PO_BLOCKROWS 0      // Hc's rows written by every warp of the CTA
+#endif
+#ifndef PO_SPLITHC
+#define PO_SPLITHC 0        // Hc's zero pieces written during the observe by the other warps
+#endif
+#ifndef PO_TWICE
+#define PO_TWICE 0          // diagnostic: the observe run twice, stamped
+#endif
+#ifndef PO_EARLY
+#define PO_EARLY 0          // the zero pieces of a row stored while the loads are in flight
+#endif
+#define PO_PLAN 6           // values csl_probe_observe_plan reports
 
 namespace {
 
@@ -280,49 +324,198 @@ probe_dots_kernel(const float* __restrict__ prows, const float* __restrict__ hc,
     pd_stamp(5);
 }
 
-constexpr int OBS_THREADS = 256;
+// Phase stamps of a diagnostic build (-DPO_STAMPS): thread 0 of CTA b
+// writes its %globaltimer (ns) into g_po_stamps[b][k] at entry (0), staged
+// (1), observed (2: its observe done), synced (3: after the barrier behind
+// the observe and R's rows), its Hc row written (4) and, after a barrier,
+// every thread's stores issued (5); its SM into [b][6].
+#ifdef PO_STAMPS
+#define PO_NSTAMP 9
+#define PO_STAMP_BLOCKS 4096
+__device__ unsigned long long g_po_stamps[PO_STAMP_BLOCKS * PO_NSTAMP];
 
-__global__ void __launch_bounds__(OBS_THREADS)
+__device__ __forceinline__ void po_stamp(int k) {
+    if (threadIdx.x == 0 && blockIdx.x < PO_STAMP_BLOCKS) {
+        unsigned long long t;
+        unsigned sm;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+        g_po_stamps[blockIdx.x * PO_NSTAMP + k] = t;
+        g_po_stamps[blockIdx.x * PO_NSTAMP + 8] = sm;
+    }
+}
+#else
+__device__ __forceinline__ void po_stamp(int) {}
+#endif
+
+static_assert(PO_ROWS % 2 == 0 && PO_THREADS % 32 == 0, "whole measurements, whole warps");
+
+// A CTA's shared memory (floats), each piece a multiple of 4: its gathered
+// mean xr (the pose and its measurements' feature rows), P e2 at those rows
+// (zero), its zin (3, PO_ROWS / 2), its compact Hc and v as structure of
+// arrays (8, PO_ROWS), the frame scalars (32) and R's entries (4).
+constexpr int PO_XR = (3 + PO_ROWS + 3) & ~3;
+constexpr int PO_ZS = (3 * (PO_ROWS / 2) + 3) & ~3;
+constexpr int PO_SMEM_FLOATS = 2 * PO_XR + PO_ZS + 8 * PO_ROWS + 32 + 4;
+
+// One row of n floats at dst by one warp, as 16-byte stores from the row's
+// first 16-byte aligned column and scalars before it and at the tail: the
+// pieces (one store each) whose columns c .. c + w - 1 hold a value
+// (live(c, w)) when `live_pieces`, else the others, val(c) at column c.
+template <typename Live, typename Val>
+__device__ __forceinline__ void write_row(float* dst, int n, bool live_pieces, Live live, Val val) {
+    const int lane = threadIdx.x & 31;
+    const int head =
+        min((int)((16u - (unsigned)(reinterpret_cast<unsigned long long>(dst) & 15u)) & 15u) / 4, n);
+    if (lane < head && live(lane, 1) == live_pieces) dst[lane] = val(lane);
+    const int n4 = PO_SCALAR ? 0 : (n - head) >> 2;
+    float4* d4 = reinterpret_cast<float4*>(dst + head);
+    for (int q = lane; q < n4; q += 32) {
+        const int c = head + 4 * q;
+        if (live(c, 4) == live_pieces) d4[q] = make_float4(val(c), val(c + 1), val(c + 2), val(c + 3));
+    }
+    for (int t = head + 4 * n4 + lane; t < n; t += 32)
+        if (live(t, 1) == live_pieces) dst[t] = val(t);
+}
+
+__global__ void __launch_bounds__(PO_THREADS)
 probe_observe_kernel(const float* __restrict__ xrows, const float* __restrict__ zin,
                      const float* __restrict__ rsc, float* __restrict__ hc_out,
                      float* __restrict__ rmat, float* __restrict__ v, int mp, int rp, int path) {
-    extern __shared__ __align__(16) float smem[];
-    const int nzl = mp / 2, rpa = (rp + 3) & ~3;
-    float* xr = smem;                  // (rp,) the gathered mean
-    float* p2r = xr + rpa;             // (rp,) P e2 at the rows: zero
-    float* zs = p2r + rpa;             // (3, nzl) zin
-    float* hcs = zs + ((3 * nzl + 3) & ~3);   // (8, mp) compact Hc (and v) as structure of arrays
-    float* ms = hcs + 8 * mp;          // (32,) the frame scalars
-    const int tid = threadIdx.x, nth = blockDim.x;
-    for (int e = tid; e < rp; e += nth) {
-        xr[e] = __ldg(xrows + e);
-        p2r[e] = 0.f;
-    }
-    for (int e = tid; e < 3 * nzl; e += nth) zs[e] = __ldg(zin + e);
-    for (int e = tid; e < 32; e += nth) ms[e] = e < 3 ? __ldg(xrows + e) : 0.f;
-    __syncthreads();
-    if (path == 0)
-        csl_chain_observe(ms, xr, p2r, zs, hcs, mp, rp);
-    else
-        csl_obs_observe(xr, zs, hcs, mp, rp);
-    __syncthreads();
-    const int vrow = path == 0 ? 7 : 5;
-    for (int e = tid; e < mp * rp; e += nth) {
-        const int i = e / rp, c = e - i * rp, cx = 3 + 2 * (i / 2);
-        hc_out[e] = c < 3 ? hcs[c * mp + i]
-                          : c == cx ? hcs[3 * mp + i] : c == cx + 1 ? hcs[4 * mp + i] : 0.f;
-    }
-    for (int e = tid; e < mp * mp; e += nth) {
-        const int i = e / mp, j = e - i * mp;
-        float r = 0.f;
-        if (i / 2 == j / 2) {
-            const int ri = i & 1, rj = j & 1;
-            r = zs[2 * nzl + i / 2] > 0.f ? __ldg(rsc + 2 * ri + rj) : (ri == rj ? 1.f : 0.f);
+    __shared__ __align__(16) float smem[PO_SMEM_FLOATS];
+    float* xr = smem;                  // (PO_XR,) this CTA's gathered mean
+    float* p2r = xr + PO_XR;           // (PO_XR,) P e2 at those rows: zero
+    float* zs = p2r + PO_XR;           // (3, nl) its zin
+    float* hcs = zs + PO_ZS;           // (8, 2 nl) its compact Hc (and v)
+    float* ms = hcs + 8 * PO_ROWS;     // (32,) the frame scalars
+    float* rs = ms + 32;               // (4,) R's entries
+    const int tid = threadIdx.x, warp = tid >> 5, nw = PO_THREADS / 32;
+    const int nzl = mp / 2, i0 = blockIdx.x * PO_ROWS, l0 = i0 / 2;
+    const int rows = min(PO_ROWS, mp - i0), nl = rows / 2;
+    // The CTA's rows of the probe seen from its own measurements: feature
+    // column 3 + 2 l' of its mean is the probe's 3 + 2 (l0 + l'), inside
+    // RP exactly when 3 + 2 l' < RP - 2 l0.
+    const int rpl = rp - 2 * l0;
+    po_stamp(0);
+
+    // The pieces of its rows of Hc and R that hold no value: the Hc
+    // columns but the pose's and the measurement's, R's but the 2 x 2 block.
+    const auto hc_live = [](int i) {
+        const int cx = 3 + 2 * (i >> 1);
+        return [=](int c, int w) { return c < 3 || (c <= cx + 1 && c + w > cx); };
+    };
+    const auto r_live = [](int i) {
+        const int c0 = 2 * (i >> 1);
+        return [=](int c, int w) { return c <= c0 + 1 && c + w > c0; };
+    };
+    const auto zero = [](int) { return 0.f; };
+
+    // Every input of the CTA at once, one load a thread: the pose, its
+    // feature rows, its three rows of zin, R's four entries.
+    constexpr int NX = 3 + PO_ROWS, NZ = 3 * (PO_ROWS / 2), NIN = NX + NZ + 4;
+    static_assert(NIN <= PO_THREADS && PO_XR <= PO_THREADS, "one load a thread");
+    float in = 0.f;
+    int at = -1;                       // where in shared memory it goes
+    if (tid < NX) {
+        const int c = tid < 3 ? tid : 3 + 2 * l0 + (tid - 3);
+        if (tid < 3 || (tid - 3 < rows && c < rp)) in = __ldg(xrows + c);
+        at = tid;
+    } else if (tid < NX + NZ) {
+        const int q = (tid - NX) / (PO_ROWS / 2), l = (tid - NX) - q * (PO_ROWS / 2);
+        if (l < nl) {
+            in = __ldg(zin + q * nzl + l0 + l);
+            at = (int)(zs - smem) + q * nl + l;
         }
-        rmat[e] = r;
+    } else if (tid < NIN) {
+        in = __ldg(rsc + tid - NX - NZ);
+        at = (int)(rs - smem) + tid - NX - NZ;
     }
-    for (int i = tid; i < mp; i += nth) v[i] = hcs[vrow * mp + i];
+#if PO_EARLY
+    // While the loads are in flight: a warp a row, Hc's rows, then R's.
+    for (int t = warp; t < 2 * rows; t += nw) {
+        const int r = t < rows ? t : t - rows, i = i0 + r;
+        if (t < rows)
+            write_row(hc_out + (size_t)i * rp, rp, false, hc_live(i), zero);
+        else
+            write_row(rmat + (size_t)i * mp, mp, false, r_live(i), zero);
+    }
+#endif
+    if (at >= 0) smem[at] = in;
+    if (tid < 3) ms[tid] = in;
+    if (tid < PO_XR) p2r[tid] = 0.f;
+    if (tid >= 3 && tid < 32) ms[tid] = 0.f;
+    __syncthreads();
+    po_stamp(1);
+
+    // Its measurements' observe, one thread each; meanwhile the other warps
+    // write its rows of R.
+    if (path == 0)
+        csl_chain_observe(ms, xr, p2r, zs, hcs, rows, rpl);
+    else
+        csl_obs_observe(xr, zs, hcs, rows, rpl);
+    po_stamp(2);
+#if PO_TWICE
+    if (path == 0)
+        csl_chain_observe(ms, xr, p2r, zs, hcs, rows, rpl);
+    else
+        csl_obs_observe(xr, zs, hcs, rows, rpl);
+    po_stamp(6);
+#endif
+    for (int r = nw - 1 - warp; r < rows; r += nw) {
+        const int i = i0 + r, pair = i >> 1, ri = i & 1;
+        const bool seen = zs[2 * nl + (r >> 1)] > 0.f;
+        const float r0 = seen ? rs[2 * ri] : (ri == 0 ? 1.f : 0.f);
+        const float r1 = seen ? rs[2 * ri + 1] : (ri == 1 ? 1.f : 0.f);
+        const auto live = r_live(i);
+        write_row(rmat + (size_t)i * mp, mp, true,
+                  [=](int c, int w) { return !PO_EARLY || live(c, w); },
+                  [&](int c) { return (c >> 1) == pair ? ((c & 1) ? r1 : r0) : 0.f; });
+    }
+#if PO_SPLITHC
+    if (warp > 0)
+        for (int r = (warp - 1); r < rows; r += nw - 1)
+            write_row(hc_out + (size_t)(i0 + r) * rp, rp, false, hc_live(i0 + r), zero);
+#endif
+    __syncthreads();
+    po_stamp(3);
+
+    // Its rows of Hc, a warp a row: the pose columns, the measurement's two
+    // columns (those inside RP), zero elsewhere; and v.
+#if PO_BLOCKROWS
+    for (int r = 0; r < rows; ++r) {
+        const int i = i0 + r, cx = 3 + 2 * (i >> 1);
+        float* row = hc_out + (size_t)i * rp;
+        for (int c = tid; c < rp; c += PO_THREADS)
+            row[c] = c < 3 ? hcs[c * rows + r] : c == cx ? hcs[3 * rows + r]
+                                               : c == cx + 1 ? hcs[4 * rows + r] : 0.f;
+    }
+#else
+    for (int r = warp; r < rows; r += nw) {
+        const int i = i0 + r, cx = 3 + 2 * (i >> 1);
+        const float h0 = hcs[r], h1 = hcs[rows + r], h2 = hcs[2 * rows + r];
+        const float h3 = hcs[3 * rows + r], h4 = hcs[4 * rows + r];
+        po_stamp(7);
+        const auto live = hc_live(i);
+        write_row(hc_out + (size_t)i * rp, rp, true,
+                  [=](int c, int w) { return !(PO_EARLY || PO_SPLITHC) || live(c, w); }, [&](int c) {
+            return c < 3 ? (c == 0 ? h0 : c == 1 ? h1 : h2) : c == cx ? h3 : c == cx + 1 ? h4 : 0.f;
+        });
+    }
+#endif
+    const int vr = tid - (PO_THREADS - rows);     // v by the last threads
+    if (vr >= 0) v[i0 + vr] = hcs[(path == 0 ? 7 : 5) * rows + vr];
+    po_stamp(4);
+#ifdef PO_STAMPS
+    __syncthreads();
+    po_stamp(5);
+#endif
 }
+
+// The launch floor of H14's geometry: an empty kernel at its grid, block
+// and arguments, timed beside it (redesign_turns, chip_smoke.py).
+__global__ void __launch_bounds__(PO_THREADS)
+probe_observe_floor_kernel(const float*, const float*, const float*, float*, float*, float*, int,
+                           int, int) {}
 
 constexpr int MAX_DEVICES = 64;
 int g_dots_smem[MAX_DEVICES] = {};
@@ -357,10 +550,17 @@ cudaError_t allow_dots_smem(size_t smem) {
     return cudaSuccess;
 }
 
-// H14's shared memory (floats): xr and p2r, zin (its end rounded to 16
-// bytes: the observe stores Hc as float2), Hc as structure of arrays, ms.
+// The parent's one-block shared memory (floats) at (mp, rp): the entry
+// takes exactly the shapes it took, those within 48 KB.
 int observe_smem_floats(int mp, int rp) {
     return 2 * ((rp + 3) & ~3) + ((3 * (mp / 2) + 3) & ~3) + 8 * mp + 32;
+}
+
+// H14's grid at (mp, rp), or 0 for a shape the entry refuses.
+int observe_grid(int mp, int rp) {
+    if (mp <= 0 || mp % 2 || rp < 3 || observe_smem_floats(mp, rp) * sizeof(float) > 48 * 1024)
+        return 0;
+    return (mp + PO_ROWS - 1) / PO_ROWS;
 }
 
 }  // namespace
@@ -409,14 +609,49 @@ extern "C" int csl_probe_dots(const float* prows, const float* hc, const float* 
     return (int)cudaGetLastError();
 }
 
+// H14's plan at (mp, rp) on the current device, as PO_PLAN ints: rows a
+// CTA, the grid, the block, shared memory a CTA (bytes), the kernel's
+// registers and local bytes a thread.  Launches nothing.
+extern "C" int csl_probe_observe_plan(int mp, int rp, int* out) {
+    const int grid = observe_grid(mp, rp);
+    if (grid == 0) return (int)cudaErrorInvalidValue;
+    int regs = 0, local = 0;
+    const cudaError_t err = csl_func_regs(probe_observe_kernel, &regs, &local);
+    if (err != cudaSuccess) return (int)err;
+    const int vals[PO_PLAN] = {PO_ROWS, grid, PO_THREADS, (int)(PO_SMEM_FLOATS * sizeof(float)),
+                               regs, local};
+    for (int k = 0; k < PO_PLAN; ++k) out[k] = vals[k];
+    return (int)cudaSuccess;
+}
+
+#ifdef PO_STAMPS
+// The diagnostic build's stamps of the last launch: n values of
+// g_po_stamps ((CTA, PO_NSTAMP) row-major) into host memory.
+extern "C" int csl_probe_observe_stamps(unsigned long long* out, int n) {
+    if (n < 0 || n > PO_STAMP_BLOCKS * PO_NSTAMP) return (int)cudaErrorInvalidValue;
+    return (int)cudaMemcpyFromSymbol(out, g_po_stamps, (size_t)n * sizeof(unsigned long long));
+}
+#endif
+
 // path 0: the known frame's observe, 1: the gated frame's.  mp even.
 extern "C" int csl_probe_observe(const float* xrows, const float* zin, const float* rsc,
                                  float* hc, float* rmat, float* v, int mp, int rp, int path,
                                  void* stream) {
-    if (mp <= 0 || mp % 2 || rp < 3 || (path != 0 && path != 1)) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)observe_smem_floats(mp, rp) * sizeof(float);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    probe_observe_kernel<<<1, OBS_THREADS, smem, (cudaStream_t)stream>>>(xrows, zin, rsc, hc,
-                                                                        rmat, v, mp, rp, path);
+    const int grid = observe_grid(mp, rp);
+    if (grid == 0 || (path != 0 && path != 1)) return (int)cudaErrorInvalidValue;
+    probe_observe_kernel<<<grid, PO_THREADS, 0, (cudaStream_t)stream>>>(xrows, zin, rsc, hc, rmat,
+                                                                       v, mp, rp, path);
+    return (int)cudaGetLastError();
+}
+
+// The empty kernel at H14's launch (its grid, block and arguments): the
+// card's floor for a launch of this shape.  Refuses what H14 refuses.
+extern "C" int csl_probe_observe_floor(const float* xrows, const float* zin, const float* rsc,
+                                       float* hc, float* rmat, float* v, int mp, int rp, int path,
+                                       void* stream) {
+    const int grid = observe_grid(mp, rp);
+    if (grid == 0 || (path != 0 && path != 1)) return (int)cudaErrorInvalidValue;
+    probe_observe_floor_kernel<<<grid, PO_THREADS, 0, (cudaStream_t)stream>>>(
+        xrows, zin, rsc, hc, rmat, v, mp, rp, path);
     return (int)cudaGetLastError();
 }

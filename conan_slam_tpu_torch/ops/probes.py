@@ -14,7 +14,8 @@ beside its plain PyTorch version.
       contractions of the gated frame's strips, a cluster of CTAs a column
       panel (``probe_dots_plan``).
   H14 ``probe_observe`` (csrc/probe_mosaic.cu): the known frame's and the
-      gated frame's observe device code alone.
+      gated frame's observe device code alone, a CTA a band of output rows
+      (``probe_observe_plan``).
   H4's probe entry ``rank_update_tile`` (csrc/rank_update.cu): H4 with its
       tile edge and grid forced, and with no P read.
 
@@ -381,6 +382,62 @@ def probe_dots(prows, hc, si, siv):
 # ---------------------------------------------------- H14: the observe
 
 OBSERVE_PATHS = ("known", "gated")
+PO_ROWS = 2                  # csrc/probe_mosaic.cu: output rows a CTA (whole measurements)
+PO_THREADS = 128             # threads a CTA
+PO_PLAN = 6                  # values csl_probe_observe_plan reports
+
+
+class ProbeObservePlan(NamedTuple):
+    """H14's geometry: CTA b writes output rows b rows .. b rows + rows - 1
+    of Hc, R and v (those inside MP) and forms their measurements."""
+
+    rows: int       # output rows a CTA
+    grid: int       # CTAs
+    block: int      # threads a CTA
+    smem: int       # static shared memory a CTA, bytes
+
+
+def probe_observe_plan(mp: int, rp: int) -> ProbeObservePlan | None:
+    """H14's plan at MP = ``mp``, RP = ``rp`` (csrc/probe_mosaic.cu
+    observe_grid), or None for the shapes its entry refuses: MP odd or not
+    positive, RP < 3, or past the parent's one-block limit (its shared
+    memory, 2 RP + 1.5 MP + 8 MP + 32 floats each rounded up to 4, within
+    48 KB).  In shared memory a CTA holds its gathered mean and P e2 rows
+    (3 + rows each), its zin (3, rows / 2), its compact Hc (8, rows), the
+    frame scalars (32) and R's entries (4), each count rounded up to 4."""
+    if mp <= 0 or mp % 2 or rp < 3:
+        return None
+    parent = 2 * _round_up(rp, 4) + _round_up(3 * (mp // 2), 4) + 8 * mp + 32
+    if 4 * parent > 48 * 1024:
+        return None
+    floats = (2 * _round_up(3 + PO_ROWS, 4) + _round_up(3 * (PO_ROWS // 2), 4) + 8 * PO_ROWS
+              + 32 + 4)
+    return ProbeObservePlan(rows=PO_ROWS, grid=-(-mp // PO_ROWS), block=PO_THREADS,
+                            smem=4 * floats)
+
+
+def _observe_entry(symbol: str, argtypes: list):
+    lib = cuda.library()
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def probe_observe_attributes(mp: int, rp: int, device):
+    """``(plan, registers, local bytes)`` of H14 at these shapes as the C
+    entry makes them (csl_probe_observe_plan) on the CUDA ``device``;
+    launches nothing."""
+    lib, fn = _observe_entry("csl_probe_observe_plan",
+                             [cuda.I] * 2 + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * PO_PLAN)()
+    with torch.cuda.device(device):
+        err = fn(mp, rp, out)
+    if err != 0:
+        raise RuntimeError(f"probe_observe plan failed: {lib.csl_error_string(err).decode()} "
+                           f"({err})")
+    rows, grid, block, smem, regs, local = out
+    return ProbeObservePlan(rows=rows, grid=grid, block=block, smem=smem), regs, local
 
 
 def probe_observe_reference(xrows, zin, rsc, mp: int, rp: int):
@@ -391,26 +448,49 @@ def probe_observe_reference(xrows, zin, rsc, mp: int, rp: int):
     return _dense_hc(hcc, rp), rmat, v
 
 
-def probe_observe(xrows, zin, rsc, mp: int, rp: int, path: str = "gated"):
-    """The observe alone on the gathered mean ``xrows`` (RP,), ``zin``
-    (3, MP / 2) [range, bearing, mask] and R's entries ``rsc`` (4,): the
-    plain version for CPU tensors, kernel H14 for CUDA tensors, which runs
-    the known frame's device code (``path="known"``: csl_chain_observe, of
-    H2 and H9) or the gated frame's (``"gated"``: csl_obs_observe, of H7
-    and H10).  Returns (Hc (MP, RP), R (MP, MP), v (MP,))."""
+def _observe_args(xrows, zin, rsc, mp: int, rp: int, path: str):
+    """The outputs and the C arguments of H14 at these inputs, checked."""
     if path not in OBSERVE_PATHS:
         raise ValueError(f"probe_observe: path must be one of {OBSERVE_PATHS}, got {path!r}")
-    if cuda.on_cpu(xrows, zin, rsc):
-        return probe_observe_reference(xrows, zin, rsc, mp, rp)
     if mp % 2 or mp <= 0 or rp < 3:
         raise ValueError(f"probe_observe: MP must be even and RP at least 3, got {mp}, {rp}")
     cuda.check(xrows, "xrows", (rp,))
     cuda.check(zin, "zin", (3, mp // 2))
     cuda.check(rsc, "rsc", (4,))
     dev, f32 = xrows.device, torch.float32
-    hc = torch.empty((mp, rp), dtype=f32, device=dev)
-    rmat = torch.empty((mp, mp), dtype=f32, device=dev)
-    v = torch.empty((mp,), dtype=f32, device=dev)
-    PROBE_OBSERVE(dev, *(cuda.ptr(t) for t in (xrows, zin, rsc, hc, rmat, v)), mp, rp,
-                  OBSERVE_PATHS.index(path))
-    return hc, rmat, v
+    outs = (torch.empty((mp, rp), dtype=f32, device=dev),
+            torch.empty((mp, mp), dtype=f32, device=dev), torch.empty((mp,), dtype=f32, device=dev))
+    args = [cuda.ptr(t) for t in (xrows, zin, rsc, *outs)] + [mp, rp, OBSERVE_PATHS.index(path)]
+    return outs, args
+
+
+def probe_observe(xrows, zin, rsc, mp: int, rp: int, path: str = "gated"):
+    """The observe alone on the gathered mean ``xrows`` (RP,), ``zin``
+    (3, MP / 2) [range, bearing, mask] and R's entries ``rsc`` (4,): the
+    plain version for CPU tensors, kernel H14 (``probe_observe_plan``) for
+    CUDA tensors, which runs the known frame's device code
+    (``path="known"``: csl_chain_observe, of H2 and H9) or the gated
+    frame's (``"gated"``: csl_obs_observe, of H7 and H10).  Returns
+    (Hc (MP, RP), R (MP, MP), v (MP,))."""
+    if path not in OBSERVE_PATHS:
+        raise ValueError(f"probe_observe: path must be one of {OBSERVE_PATHS}, got {path!r}")
+    if cuda.on_cpu(xrows, zin, rsc):
+        return probe_observe_reference(xrows, zin, rsc, mp, rp)
+    outs, args = _observe_args(xrows, zin, rsc, mp, rp, path)
+    PROBE_OBSERVE(xrows.device, *args)
+    return outs
+
+
+def probe_observe_floor(xrows, zin, rsc, mp: int, rp: int, path: str = "gated"):
+    """The card's floor for H14's launch: an empty kernel at its grid,
+    block and arguments (csl_probe_observe_floor), on CUDA tensors only.
+    Writes nothing (its outputs are left as allocated) and counts no
+    launch of H14."""
+    outs, args = _observe_args(xrows, zin, rsc, mp, rp, path)
+    lib, fn = _observe_entry("csl_probe_observe_floor", PROBE_OBSERVE.argtypes)
+    with torch.cuda.device(xrows.device):
+        err = fn(*args, cuda.P(torch.cuda.current_stream(xrows.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"probe_observe floor failed to launch: "
+                           f"{lib.csl_error_string(err).decode()} ({err})")
+    return outs

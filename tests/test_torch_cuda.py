@@ -1432,6 +1432,98 @@ def test_probe_observe_kernel_matches_plain(dev):
         torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1.6e-5)
 
 
+def _observe_case(mp, rp, dev, masked=(5,)):
+    """H14's inputs at (MP, RP) from numpy seed mp + rp: features within
+    60 m at the measurements' rows (those inside RP), noisy range and
+    bearing, the measurements in ``masked`` (or "all") masked."""
+    rng = np.random.default_rng(mp + rp)
+    nzl = mp // 2
+    xrows = rng.uniform(-60, 60, size=rp).astype(np.float32)
+    xrows[:3] = [1.0, -2.0, 0.3]
+    feats = np.zeros((nzl, 2), np.float32)
+    for l in range(nzl):
+        for k in range(2):
+            if 3 + 2 * l + k < rp:
+                feats[l, k] = xrows[3 + 2 * l + k]
+    dx, dy = feats[:, 0] - xrows[0], feats[:, 1] - xrows[1]
+    mask = np.zeros(nzl, np.float32) if masked == "all" else np.ones(nzl, np.float32)
+    if masked != "all":
+        mask[[l for l in masked if l < nzl]] = 0.0
+    zin = np.stack([(np.hypot(dx, dy) + rng.normal(size=nzl) * 0.1) * mask,
+                    (np.arctan2(dy, dx) - xrows[2] + rng.normal(size=nzl) * 0.01) * mask,
+                    mask]).astype(np.float32)
+    rsc = np.asarray([0.01, 1e-4, 1e-4, 7.6e-5], np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (xrows, zin, rsc)]
+
+
+# H14 at its edges: one measurement, measurements past RP (masked by RP),
+# a large probe, every measurement masked.
+H14_CASES = [(2, 5, (5,)), (126, 100, (5,)), (512, 1027, (5, 200)), (128, 136, "all")]
+
+
+@pytest.mark.parametrize("path", ["known", "gated"])
+@pytest.mark.parametrize("mp,rp,masked", H14_CASES)
+def test_probe_observe_matches_plain_at_its_edges(dev, mp, rp, masked, path):
+    from conan_slam_tpu_torch.ops.probes import probe_observe, probe_observe_reference
+
+    args = _observe_case(mp, rp, dev, masked)
+    ref = probe_observe_reference(*args, mp, rp)
+    got = probe_observe(*args, mp, rp, path)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1], ref[1])
+    # v's range rows are differences of ranges up to ~85 m: 2 ulps of 64 m.
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1.6e-5)
+
+
+@pytest.mark.parametrize("path", ["known", "gated"])
+def test_probe_observe_is_deterministic_and_replays_in_a_cuda_graph(dev, path):
+    from conan_slam_tpu_torch.benchmarks.probe_mosaic import observe_inputs
+    from conan_slam_tpu_torch.ops.probes import probe_observe
+
+    (xrows, zin, rsc, mp, rp), _ = observe_inputs()
+    args = [torch.as_tensor(a, device=dev) for a in (xrows, zin, rsc)]
+    eager = probe_observe(*args, mp, rp, path)
+    again = probe_observe(*args, mp, rp, path)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, again))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        probe_observe(*args, mp, rp, path)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = probe_observe(*args, mp, rp, path)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+@pytest.mark.parametrize("mp,rp", [(2, 5), (126, 100), (128, 136), (512, 1027)])
+def test_probe_observe_plan_is_the_kernels(dev, mp, rp):
+    from conan_slam_tpu_torch.ops.probes import probe_observe_attributes, probe_observe_plan
+
+    plan, regs, local = probe_observe_attributes(mp, rp, dev)
+    assert plan == probe_observe_plan(mp, rp)
+    assert 0 < regs <= 255 and local == 0          # no spill
+
+
+def test_probe_observe_refuses_the_parents_shapes(dev):
+    from conan_slam_tpu_torch.ops.probes import probe_observe, probe_observe_plan
+
+    args = _observe_case(128, 136, dev)
+    with pytest.raises(ValueError):
+        probe_observe(args[0], args[1][:, :63], args[2], 126 + 1, 136)     # odd MP
+    with pytest.raises(ValueError):
+        probe_observe(args[0][:2], args[1], args[2], 128, 2)               # RP < 3
+    mp = next(m for m in range(2, 4000, 2) if probe_observe_plan(m, 136) is None)
+    big = _observe_case(mp, 136, dev)
+    with pytest.raises(RuntimeError):                # the C entry refuses past 48 KB
+        probe_observe(*big, mp, 136)
+
+
 @pytest.mark.parametrize("d,r", [(2304, 136), (1024, 72), (20_224, 24)])
 def test_rank_update_tile_at_the_plan_is_h4_bit_for_bit(dev, d, r):
     from conan_slam_tpu_torch.ops.probes import rank_update_tile, rank_update_tile_reference

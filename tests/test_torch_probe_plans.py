@@ -1,6 +1,7 @@
-"""The geometry of H11 (sweep_probe) and H13 (probe_dots) on the CPU: the
-plans in ops/probes.py against the constants of their CUDA sources, and the
-work each plan hands out, replayed in Python the way the kernels index it.
+"""The geometry of H11 (sweep_probe), H13 (probe_dots) and H14
+(probe_observe) on the CPU: the plans in ops/probes.py against the
+constants of their CUDA sources, and the work each plan hands out, replayed
+in Python the way the kernels index it.
 
 The kernels themselves run only on a card (tests/test_torch_cuda.py holds
 them to their plain versions and to these plans' C mirrors).
@@ -155,3 +156,118 @@ def test_classic_run_schedule_is_h1s_order(mp, nb):
         for k, rows in formed.items():
             for before in rows:
                 assert [i for i, _ in before] == list(range(k))
+
+
+def test_probe_observe_constants_are_the_sources():
+    got = _defines("probe_mosaic.cu")
+    assert (got["PO_ROWS"], got["PO_THREADS"], got["PO_PLAN"]) == (
+        probes.PO_ROWS, probes.PO_THREADS, probes.PO_PLAN)
+
+
+def _parent_smem_floats(mp: int, rp: int) -> int:
+    """The parent's one-block shared memory (floats), from the source's own
+    observe_smem_floats (C integer division: the operands are positive)."""
+    src = (CSRC / "probe_mosaic.cu").read_text()
+    expr = re.search(r"int observe_smem_floats\(int mp, int rp\) \{\s*return (.*?);", src,
+                     re.S).group(1)
+    return eval(expr.replace("/", "//"), {"mp": mp, "rp": rp})     # noqa: S307
+
+
+def test_probe_observe_plan_refuses_exactly_the_parents_shapes():
+    for mp, rp in [(3, 136), (127, 136), (0, 136), (-2, 136), (128, 2), (128, 0), (1, 5)]:
+        assert probes.probe_observe_plan(mp, rp) is None
+    for rp in (3, 5, 100, 136, 1027, 5000):
+        took = [mp for mp in range(2, 1600, 2) if 4 * _parent_smem_floats(mp, rp) <= 48 * 1024]
+        for mp in range(2, 1600, 2):
+            assert (probes.probe_observe_plan(mp, rp) is not None) == (mp in took), (mp, rp)
+    top = max(mp for mp in range(2, 1600, 2) if 4 * _parent_smem_floats(mp, 136) <= 48 * 1024)
+    assert top >= 512 and probes.probe_observe_plan(top + 2, 136) is None
+
+
+@pytest.mark.parametrize("mp", [2, 126, 128, 512])
+def test_probe_observe_plan_covers_every_row_once(mp):
+    # Replay the kernel's ownership: CTA b holds rows b rows .. (those
+    # inside MP), whole measurements; warp w writes R rows nw - 1 - w, ...
+    # and Hc rows w, ... of them; the last threads write v.
+    plan = probes.probe_observe_plan(mp, 136)
+    assert plan.rows % 2 == 0 and plan.block % 32 == 0
+    assert (plan.grid - 1) * plan.rows < mp <= plan.grid * plan.rows
+    nw = plan.block // 32
+    count = {k: np.zeros(mp, np.int64) for k in ("hc", "r", "v")}
+    for b in range(plan.grid):
+        i0 = b * plan.rows
+        rows = min(plan.rows, mp - i0)
+        assert rows > 0 and rows % 2 == 0
+        for w in range(nw):
+            for r in range(nw - 1 - w, rows, nw):
+                count["r"][i0 + r] += 1
+            for r in range(w, rows, nw):
+                count["hc"][i0 + r] += 1
+        for t in range(plan.block):
+            if t - (plan.block - rows) >= 0:
+                count["v"][i0 + t - (plan.block - rows)] += 1
+    assert all((c == 1).all() for c in count.values())
+    if mp >= 64:
+        assert plan.grid >= 32          # the rows spread over the card
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 128, 136, 1027])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_probe_observe_row_writes_cover_every_column_once(n, offset):
+    # write_row on a row that starts `offset` floats past a 16-byte line:
+    # scalars to the first aligned column, 16-byte stores, then the tail.
+    head = min((16 - 4 * offset) % 16 // 4, n)
+    n4 = (n - head) >> 2
+    count = np.zeros(n, np.int64)
+    for lane in range(32):
+        if lane < head:
+            count[lane] += 1
+        for q in range(lane, n4, 32):
+            assert (offset + head + 4 * q) % 4 == 0          # a 16-byte store is aligned
+            count[head + 4 * q: head + 4 * q + 4] += 1
+        t = head + 4 * n4 + lane
+        if lane < 4 and t < n:
+            count[t] += 1
+    assert (count == 1).all()
+
+
+def _observe_operands(xr, zs, mp: int, rp: int) -> list:
+    """What csl_obs_observe and csl_chain_observe read for each measurement
+    l of (xr, zs) at (mp, rp): its feature (zero past RP), the pose, its
+    range, bearing and mask, and the two masks cx < rp, cy < rp."""
+    nzl = mp // 2
+    ops = []
+    for l in range(nzl):
+        cx, cy = 3 + 2 * l, 4 + 2 * l
+        ops.append((xr[cx] if cx < rp else 0.0, xr[cy] if cy < rp else 0.0, xr[0], xr[1], xr[2],
+                    zs[l], zs[nzl + l], zs[2 * nzl + l], cx < rp, cy < rp))
+    return ops
+
+
+@pytest.mark.parametrize("mp,rp", [(128, 136), (126, 100), (2, 5), (512, 1027), (10, 3), (12, 8)])
+def test_probe_observe_cta_sees_the_probes_operands(mp, rp):
+    # Replay a CTA's staging: its gathered mean and zin, read by the frozen
+    # observe functions at (rows, RP - 2 l0), give each of its measurements
+    # exactly the operands the whole probe's do, and R's mask of each row.
+    plan = probes.probe_observe_plan(mp, rp)
+    rng = np.random.default_rng(mp + rp)
+    xrows = rng.normal(size=rp).astype(np.float32)
+    zin = rng.normal(size=(3, mp // 2)).astype(np.float32)
+    whole = _observe_operands(xrows, zin.reshape(-1), mp, rp)
+    nb, nx = plan.rows, 3 + plan.rows
+    for b in range(plan.grid):
+        i0 = b * nb
+        l0, rows = i0 // 2, min(nb, mp - i0)
+        nl = rows // 2
+        xr = np.zeros(nx, np.float32)
+        for t in range(nx):
+            c = t if t < 3 else 3 + 2 * l0 + (t - 3)
+            xr[t] = xrows[c] if t < 3 or (t - 3 < rows and c < rp) else 0.0
+        zs = np.zeros(3 * nl, np.float32)
+        for t in range(nx, nx + 3 * (nb // 2)):
+            q, l = divmod(t - nx, nb // 2)
+            if l < nl:
+                zs[q * nl + l] = zin[q, l0 + l]
+        assert _observe_operands(xr, zs, rows, rp - 2 * l0) == whole[l0:l0 + nl]
+        for r in range(rows):
+            assert zs[2 * nl + (r >> 1)] == zin[2, (i0 + r) // 2]
