@@ -488,7 +488,7 @@ def lib_observe_plan(lib: ctypes.CDLL, mp: int, rp: int):
     return list(out) if fn(mp, rp, out) == 0 else None
 
 
-PO_STAMPS = 9          # a diagnostic H14 build's stamps a CTA (-DPO_STAMPS)
+PO_STAMPS = 7          # a diagnostic H14 build's stamps a CTA (-DPO_STAMPS)
 
 
 def lib_observe_stamps(lib: ctypes.CDLL, grid: int, launch):
@@ -513,14 +513,10 @@ def lib_observe_stamps(lib: ctypes.CDLL, grid: int, launch):
     phases = {name: float(np.median(t[:, k] - start)) / 1e3
               for k, name in enumerate(("staged", "observed", "synced", "Hc row written",
                                         "stores issued"), 1)}
-    again = t[:, 6] > 0
     return dict(span_us=float(t[:, 5].max() - start.min()) / 1e3,
                 start_spread_us=float(start.max() - start.min()) / 1e3,
                 observe_us=float(np.median(t[:, 2] - t[:, 1])) / 1e3,
-                observe_again_us=(float(np.median(t[again, 6] - t[again, 2])) / 1e3
-                                  if again.any() else None),
-                h_loaded_us=float(np.median(t[:, 7] - start)) / 1e3,
-                sms=int(len(np.unique(t[:, 8]))), median_us=phases)
+                sms=int(len(np.unique(t[:, 6]))), median_us=phases)
 
 
 def h14_check(name: str, path: str, launch, outs, args, mp: int, rp: int) -> None:
@@ -564,7 +560,7 @@ def run_h14(calls: dict, libs: dict, dev) -> dict:
         for name, outs in outs_of.items():
             if not all(torch.equal(a, b) for a, b in zip(outs, outs_of[first])):
                 raise AssertionError(f"H14 {path}: {name} is not {first} bit for bit")
-        contenders["floor"] = lambda: pr.probe_observe_floor(*args, mp, rp, path)
+        contenders["floor"] = lambda: pr.probe_observe_floor(*args, mp, rp)
         row = dict(mp=mp, rp=rp, plan=pr.probe_observe_plan(mp, rp)._asdict(), plans=plans,
                    bound_us=bound_us, bit_equal=list(outs_of), **turns(contenders))
         for n in contenders:

@@ -53,8 +53,8 @@
 //   path 1: the gated frame's csl_obs_observe (obs_band.cuh), which H7 and
 //           H10 run.
 // So a change to that device code shows here.  What bounds it on the card:
-// at the probe's shape (MP 128, RP 136) 137 KB of output (0.041 us) and a
-// few hundred cycles of one measurement's atan2f, sqrtf and divisions, so
+// at the probe's shape (MP 128, RP 136) 137 KB of output (0.041 us) and
+// ~0.5 us of one measurement's dependent sqrtf, atan2f and divisions, so
 // latency: the launch, one load, the observe, the stores.  The parent ran
 // one block of 256 threads on one SM, formed every measurement, then wrote
 // the 34k entries of Hc and R as scalars with a division an entry.
@@ -70,8 +70,11 @@
 //   - Its inputs (a handful of floats) are loaded at entry, one a thread,
 //     all in flight together; R's rows need none of the observe and are
 //     written while its thread runs; then a warp a row of Hc, its column
-//     from the lane (no division), 16-byte stores from the row's first
-//     aligned column.
+//     from the lane (no division), 4-byte stores.
+// Measured against it on the card (redesign_turns, PERF.md): 4 or 8 rows a
+// CTA, 32, 64 or 256 threads, 16-byte stores, Hc's rows over every warp,
+// and the zero pieces stored at entry or during the observe are slower or
+// no faster.
 // No atomics: two calls are bit for bit equal; the launch allocates nothing
 // and is capturable.  A -DPO_STAMPS build records each CTA's phases
 // (%globaltimer), read by csl_probe_observe_stamps.
@@ -88,27 +91,8 @@ namespace cg = cooperative_groups;
 #define PD_MAX_MP 128       // 2 x 16 row pairs x PD_G
 #define PD_PLAN 10          // values csl_probe_dots_plan reports
 
-#ifndef PO_ROWS
 #define PO_ROWS 2           // H14's output rows a CTA (even: whole measurements)
-#endif
-#ifndef PO_THREADS
 #define PO_THREADS 128      // its threads a CTA
-#endif
-#ifndef PO_SCALAR
-#define PO_SCALAR 1         // rows written by 4-byte stores only
-#endif
-#ifndef PO_BLOCKROWS
-#define PO_BLOCKROWS 0      // Hc's rows written by every warp of the CTA
-#endif
-#ifndef PO_SPLITHC
-#define PO_SPLITHC 0        // Hc's zero pieces written during the observe by the other warps
-#endif
-#ifndef PO_TWICE
-#define PO_TWICE 0          // diagnostic: the observe run twice, stamped
-#endif
-#ifndef PO_EARLY
-#define PO_EARLY 0          // the zero pieces of a row stored while the loads are in flight
-#endif
 #define PO_PLAN 6           // values csl_probe_observe_plan reports
 
 namespace {
@@ -330,7 +314,7 @@ probe_dots_kernel(const float* __restrict__ prows, const float* __restrict__ hc,
 // the observe and R's rows), its Hc row written (4) and, after a barrier,
 // every thread's stores issued (5); its SM into [b][6].
 #ifdef PO_STAMPS
-#define PO_NSTAMP 9
+#define PO_NSTAMP 7
 #define PO_STAMP_BLOCKS 4096
 __device__ unsigned long long g_po_stamps[PO_STAMP_BLOCKS * PO_NSTAMP];
 
@@ -341,7 +325,7 @@ __device__ __forceinline__ void po_stamp(int k) {
         asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
         asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
         g_po_stamps[blockIdx.x * PO_NSTAMP + k] = t;
-        g_po_stamps[blockIdx.x * PO_NSTAMP + 8] = sm;
+        g_po_stamps[blockIdx.x * PO_NSTAMP + 6] = sm;
     }
 }
 #else
@@ -358,24 +342,12 @@ constexpr int PO_XR = (3 + PO_ROWS + 3) & ~3;
 constexpr int PO_ZS = (3 * (PO_ROWS / 2) + 3) & ~3;
 constexpr int PO_SMEM_FLOATS = 2 * PO_XR + PO_ZS + 8 * PO_ROWS + 32 + 4;
 
-// One row of n floats at dst by one warp, as 16-byte stores from the row's
-// first 16-byte aligned column and scalars before it and at the tail: the
-// pieces (one store each) whose columns c .. c + w - 1 hold a value
-// (live(c, w)) when `live_pieces`, else the others, val(c) at column c.
-template <typename Live, typename Val>
-__device__ __forceinline__ void write_row(float* dst, int n, bool live_pieces, Live live, Val val) {
-    const int lane = threadIdx.x & 31;
-    const int head =
-        min((int)((16u - (unsigned)(reinterpret_cast<unsigned long long>(dst) & 15u)) & 15u) / 4, n);
-    if (lane < head && live(lane, 1) == live_pieces) dst[lane] = val(lane);
-    const int n4 = PO_SCALAR ? 0 : (n - head) >> 2;
-    float4* d4 = reinterpret_cast<float4*>(dst + head);
-    for (int q = lane; q < n4; q += 32) {
-        const int c = head + 4 * q;
-        if (live(c, 4) == live_pieces) d4[q] = make_float4(val(c), val(c + 1), val(c + 2), val(c + 3));
-    }
-    for (int t = head + 4 * n4 + lane; t < n; t += 32)
-        if (live(t, 1) == live_pieces) dst[t] = val(t);
+// One row of n floats at dst by one warp, val(c) at column c: a lane a
+// column, the warp's 32 stores on one 128-byte line.  (16-byte stores
+// measured slower here: redesign_turns, PERF.md.)
+template <typename Val>
+__device__ __forceinline__ void write_row(float* dst, int n, Val val) {
+    for (int c = threadIdx.x & 31; c < n; c += 32) dst[c] = val(c);
 }
 
 __global__ void __launch_bounds__(PO_THREADS)
@@ -398,18 +370,6 @@ probe_observe_kernel(const float* __restrict__ xrows, const float* __restrict__ 
     const int rpl = rp - 2 * l0;
     po_stamp(0);
 
-    // The pieces of its rows of Hc and R that hold no value: the Hc
-    // columns but the pose's and the measurement's, R's but the 2 x 2 block.
-    const auto hc_live = [](int i) {
-        const int cx = 3 + 2 * (i >> 1);
-        return [=](int c, int w) { return c < 3 || (c <= cx + 1 && c + w > cx); };
-    };
-    const auto r_live = [](int i) {
-        const int c0 = 2 * (i >> 1);
-        return [=](int c, int w) { return c <= c0 + 1 && c + w > c0; };
-    };
-    const auto zero = [](int) { return 0.f; };
-
     // Every input of the CTA at once, one load a thread: the pose, its
     // feature rows, its three rows of zin, R's four entries.
     constexpr int NX = 3 + PO_ROWS, NZ = 3 * (PO_ROWS / 2), NIN = NX + NZ + 4;
@@ -430,16 +390,6 @@ probe_observe_kernel(const float* __restrict__ xrows, const float* __restrict__ 
         in = __ldg(rsc + tid - NX - NZ);
         at = (int)(rs - smem) + tid - NX - NZ;
     }
-#if PO_EARLY
-    // While the loads are in flight: a warp a row, Hc's rows, then R's.
-    for (int t = warp; t < 2 * rows; t += nw) {
-        const int r = t < rows ? t : t - rows, i = i0 + r;
-        if (t < rows)
-            write_row(hc_out + (size_t)i * rp, rp, false, hc_live(i), zero);
-        else
-            write_row(rmat + (size_t)i * mp, mp, false, r_live(i), zero);
-    }
-#endif
     if (at >= 0) smem[at] = in;
     if (tid < 3) ms[tid] = in;
     if (tid < PO_XR) p2r[tid] = 0.f;
@@ -448,60 +398,34 @@ probe_observe_kernel(const float* __restrict__ xrows, const float* __restrict__ 
     po_stamp(1);
 
     // Its measurements' observe, one thread each; meanwhile the other warps
-    // write its rows of R.
+    // write its rows of R: the 2 x 2 block (identity where masked), zero
+    // elsewhere.
     if (path == 0)
         csl_chain_observe(ms, xr, p2r, zs, hcs, rows, rpl);
     else
         csl_obs_observe(xr, zs, hcs, rows, rpl);
     po_stamp(2);
-#if PO_TWICE
-    if (path == 0)
-        csl_chain_observe(ms, xr, p2r, zs, hcs, rows, rpl);
-    else
-        csl_obs_observe(xr, zs, hcs, rows, rpl);
-    po_stamp(6);
-#endif
     for (int r = nw - 1 - warp; r < rows; r += nw) {
         const int i = i0 + r, pair = i >> 1, ri = i & 1;
         const bool seen = zs[2 * nl + (r >> 1)] > 0.f;
         const float r0 = seen ? rs[2 * ri] : (ri == 0 ? 1.f : 0.f);
         const float r1 = seen ? rs[2 * ri + 1] : (ri == 1 ? 1.f : 0.f);
-        const auto live = r_live(i);
-        write_row(rmat + (size_t)i * mp, mp, true,
-                  [=](int c, int w) { return !PO_EARLY || live(c, w); },
+        write_row(rmat + (size_t)i * mp, mp,
                   [&](int c) { return (c >> 1) == pair ? ((c & 1) ? r1 : r0) : 0.f; });
     }
-#if PO_SPLITHC
-    if (warp > 0)
-        for (int r = (warp - 1); r < rows; r += nw - 1)
-            write_row(hc_out + (size_t)(i0 + r) * rp, rp, false, hc_live(i0 + r), zero);
-#endif
     __syncthreads();
     po_stamp(3);
 
     // Its rows of Hc, a warp a row: the pose columns, the measurement's two
     // columns (those inside RP), zero elsewhere; and v.
-#if PO_BLOCKROWS
-    for (int r = 0; r < rows; ++r) {
-        const int i = i0 + r, cx = 3 + 2 * (i >> 1);
-        float* row = hc_out + (size_t)i * rp;
-        for (int c = tid; c < rp; c += PO_THREADS)
-            row[c] = c < 3 ? hcs[c * rows + r] : c == cx ? hcs[3 * rows + r]
-                                               : c == cx + 1 ? hcs[4 * rows + r] : 0.f;
-    }
-#else
     for (int r = warp; r < rows; r += nw) {
         const int i = i0 + r, cx = 3 + 2 * (i >> 1);
         const float h0 = hcs[r], h1 = hcs[rows + r], h2 = hcs[2 * rows + r];
         const float h3 = hcs[3 * rows + r], h4 = hcs[4 * rows + r];
-        po_stamp(7);
-        const auto live = hc_live(i);
-        write_row(hc_out + (size_t)i * rp, rp, true,
-                  [=](int c, int w) { return !(PO_EARLY || PO_SPLITHC) || live(c, w); }, [&](int c) {
+        write_row(hc_out + (size_t)i * rp, rp, [&](int c) {
             return c < 3 ? (c == 0 ? h0 : c == 1 ? h1 : h2) : c == cx ? h3 : c == cx + 1 ? h4 : 0.f;
         });
     }
-#endif
     const int vr = tid - (PO_THREADS - rows);     // v by the last threads
     if (vr >= 0) v[i0 + vr] = hcs[(path == 0 ? 7 : 5) * rows + vr];
     po_stamp(4);

@@ -448,10 +448,9 @@ def probe_observe_reference(xrows, zin, rsc, mp: int, rp: int):
     return _dense_hc(hcc, rp), rmat, v
 
 
-def _observe_args(xrows, zin, rsc, mp: int, rp: int, path: str):
-    """The outputs and the C arguments of H14 at these inputs, checked."""
-    if path not in OBSERVE_PATHS:
-        raise ValueError(f"probe_observe: path must be one of {OBSERVE_PATHS}, got {path!r}")
+def _observe_args(xrows, zin, rsc, mp: int, rp: int):
+    """The outputs and the C arguments of H14 at these inputs but the path,
+    checked."""
     if mp % 2 or mp <= 0 or rp < 3:
         raise ValueError(f"probe_observe: MP must be even and RP at least 3, got {mp}, {rp}")
     cuda.check(xrows, "xrows", (rp,))
@@ -460,8 +459,7 @@ def _observe_args(xrows, zin, rsc, mp: int, rp: int, path: str):
     dev, f32 = xrows.device, torch.float32
     outs = (torch.empty((mp, rp), dtype=f32, device=dev),
             torch.empty((mp, mp), dtype=f32, device=dev), torch.empty((mp,), dtype=f32, device=dev))
-    args = [cuda.ptr(t) for t in (xrows, zin, rsc, *outs)] + [mp, rp, OBSERVE_PATHS.index(path)]
-    return outs, args
+    return outs, [cuda.ptr(t) for t in (xrows, zin, rsc, *outs)] + [mp, rp]
 
 
 def probe_observe(xrows, zin, rsc, mp: int, rp: int, path: str = "gated"):
@@ -476,20 +474,20 @@ def probe_observe(xrows, zin, rsc, mp: int, rp: int, path: str = "gated"):
         raise ValueError(f"probe_observe: path must be one of {OBSERVE_PATHS}, got {path!r}")
     if cuda.on_cpu(xrows, zin, rsc):
         return probe_observe_reference(xrows, zin, rsc, mp, rp)
-    outs, args = _observe_args(xrows, zin, rsc, mp, rp, path)
-    PROBE_OBSERVE(xrows.device, *args)
+    outs, args = _observe_args(xrows, zin, rsc, mp, rp)
+    PROBE_OBSERVE(xrows.device, *args, OBSERVE_PATHS.index(path))
     return outs
 
 
-def probe_observe_floor(xrows, zin, rsc, mp: int, rp: int, path: str = "gated"):
+def probe_observe_floor(xrows, zin, rsc, mp: int, rp: int):
     """The card's floor for H14's launch: an empty kernel at its grid,
     block and arguments (csl_probe_observe_floor), on CUDA tensors only.
     Writes nothing (its outputs are left as allocated) and counts no
     launch of H14."""
-    outs, args = _observe_args(xrows, zin, rsc, mp, rp, path)
+    outs, args = _observe_args(xrows, zin, rsc, mp, rp)
     lib, fn = _observe_entry("csl_probe_observe_floor", PROBE_OBSERVE.argtypes)
     with torch.cuda.device(xrows.device):
-        err = fn(*args, cuda.P(torch.cuda.current_stream(xrows.device).cuda_stream))
+        err = fn(*args, 0, cuda.P(torch.cuda.current_stream(xrows.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"probe_observe floor failed to launch: "
                            f"{lib.csl_error_string(err).decode()} ({err})")
