@@ -12,7 +12,9 @@ directory, and whoever comes second finds the library current.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()`` after its launch; ``CudaKernel`` raises on
-a non-zero return and counts the launches that succeeded.
+a non-zero return and counts the launches that succeeded.  Each call is a
+``launch`` span of the port's tracer (``utils.profiling``), which names the
+entry and the kernels it launches.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from conan_slam_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -161,6 +165,7 @@ class CudaKernel:
         self.replaces = replaces
         self.launches_per_call = launches_per_call
         self.launches = 0
+        self.span_attrs = {"kernel": name, "launches": launches_per_call}
         KERNELS[name] = self
 
     def __call__(self, device: torch.device, *args) -> None:
@@ -169,7 +174,7 @@ class CudaKernel:
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
-        with torch.cuda.device(device):
+        with profiling.span("launch", self.span_attrs), torch.cuda.device(device):
             err = fn(*args, P(torch.cuda.current_stream(device).cuda_stream))
         if err != 0:
             msg = lib.csl_error_string(err).decode()

@@ -58,6 +58,10 @@ from conan_slam_tpu_torch.sim.precompute import rollout_observations, rollout_tr
 from conan_slam_tpu_torch.sim.steering import SteerState, init_steer_state, steer
 from conan_slam_tpu_torch.sim.world import World
 from conan_slam_tpu_torch.utils import checkpoint
+from conan_slam_tpu_torch.utils.profiling import alloc, count, span
+
+# The attributes of a pair's ``frame`` span.
+PAIR = {"frames": 2}
 
 
 class NoiseCovs(NamedTuple):
@@ -120,27 +124,33 @@ def fused_frame(state: EKFState, vns, swans, phis, actives, obs: CompactObs, liv
     measurement)``.
     """
     if cfg.switch_association_known:
-        assoc = associate_known(state, obs)
-        state, pose_trace, frame_nis = fused_frame_step(
-            state, vns, swans, phis, actives, noise.qe, obs,
-            assoc.slots, assoc.known_mask & live, noise.re,
-            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
-            cfg.switch_heading_known, plain=plain,
-        )
+        with span("frame.associate"):
+            assoc = associate_known(state, obs)
+        with span("frame.update"):
+            state, pose_trace, frame_nis = fused_frame_step(
+                state, vns, swans, phis, actives, noise.qe, obs,
+                assoc.slots, assoc.known_mask & live, noise.re,
+                cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
+                cfg.switch_heading_known, plain=plain,
+            )
     else:
-        state, pose_trace, vtf, bmat, assoc = factor_and_associate_gated(
-            state, vns, swans, phis, actives, noise.qe,
-            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
-            cfg.switch_heading_known, obs, noise.re, cfg.gate_reject, cfg.gate_augment,
-            plain=plain,
-        )
-        state, frame_nis = fused_frame_update(
-            state, bmat, vtf, obs, assoc.slots, assoc.known_mask & live, noise.re,
-            return_nis=True, plain=plain,
-        )
+        # H15 runs the gated frame's predict with its association.
+        with span("frame.associate"):
+            state, pose_trace, vtf, bmat, assoc = factor_and_associate_gated(
+                state, vns, swans, phis, actives, noise.qe,
+                cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading,
+                cfg.switch_heading_known, obs, noise.re, cfg.gate_reject, cfg.gate_augment,
+                plain=plain,
+            )
+        with span("frame.update"):
+            state, frame_nis = fused_frame_update(
+                state, bmat, vtf, obs, assoc.slots, assoc.known_mask & live, noise.re,
+                return_nis=True, plain=plain,
+            )
     if cfg.enable_augment:
         # Unconditional (no host sync): a frame with nothing new writes nothing new.
-        state = augment(state, obs, assoc.new_mask & live, noise.re)
+        with span("frame.augment"):
+            state = augment(state, obs, assoc.new_mask & live, noise.re)
     return state, pose_trace, frame_nis
 
 
@@ -155,9 +165,10 @@ def ekf_precomp_frame_step(state: EKFState, frame, *, cfg: SlamConfig,
     """
     (x_true_f, swa_f, active_f, done_f, ctrl_noise_f,
      z_true_f, ids_f, zmask_f, obs_noise_f) = frame
-    vns, swans = sensor_sim.add_control_noise(ctrl_noise_f, cfg.velocity, swa_f, cfg.sigma_v,
-                                             cfg.sigma_swa, cfg.switch_control_noise)
-    obs = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
+    with span("frame.inputs"):
+        vns, swans = sensor_sim.add_control_noise(ctrl_noise_f, cfg.velocity, swa_f, cfg.sigma_v,
+                                                 cfg.sigma_swa, cfg.switch_control_noise)
+        obs = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
 
     live = torch.logical_not(done_f[-1])
     state, pose_trace, frame_nis = fused_frame(state, vns, swans, x_true_f[:, 2], active_f, obs,
@@ -180,19 +191,23 @@ def ekf_precomp_pair_step(state: EKFState, pair, *, cfg: SlamConfig,
     """
     (x_true_f, swa_f, active_f, done_f, ctrl_noise_f,
      z_true_f, ids_f, zmask_f, obs_noise_f) = pair
-    vns2, swans2 = sensor_sim.add_control_noise(ctrl_noise_f, cfg.velocity, swa_f, cfg.sigma_v,
-                                               cfg.sigma_swa, cfg.switch_control_noise)
-    obs2 = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
-    obs_a, obs_b = (CompactObs(*(t[k] for t in obs2)) for k in (0, 1))
-    assoc_a, assoc_b = associate_known(state, obs_a), associate_known(state, obs_b)
+    with span("frame.inputs"):
+        vns2, swans2 = sensor_sim.add_control_noise(ctrl_noise_f, cfg.velocity, swa_f,
+                                                   cfg.sigma_v, cfg.sigma_swa,
+                                                   cfg.switch_control_noise)
+        obs2 = _noisy_obs(cfg, z_true_f, ids_f, zmask_f, obs_noise_f)
+        obs_a, obs_b = (CompactObs(*(t[k] for t in obs2)) for k in (0, 1))
+    with span("frame.associate"):
+        assoc_a, assoc_b = associate_known(state, obs_a), associate_known(state, obs_b)
     live = torch.logical_not(done_f[:, -1])
-    state, pose_trace, frame_nis, pose_mid = fused_frame_pair_step(
-        state, vns2, swans2, x_true_f[:, :, 2], active_f, noise.qe,
-        obs_a, assoc_a.slots, assoc_a.known_mask & live[0],
-        obs_b, assoc_b.slots, assoc_b.known_mask & live[1], noise.re,
-        cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, cfg.switch_heading_known,
-        plain=plain,
-    )
+    with span("frame.update"):
+        state, pose_trace, frame_nis, pose_mid = fused_frame_pair_step(
+            state, vns2, swans2, x_true_f[:, :, 2], active_f, noise.qe,
+            obs_a, assoc_a.slots, assoc_a.known_mask & live[0],
+            obs_b, assoc_b.slots, assoc_b.known_mask & live[1], noise.re,
+            cfg.wheel_base, cfg.dt_controls, cfg.sigma_heading, cfg.switch_heading_known,
+            plain=plain,
+        )
     ends = torch.stack([pose_mid, state.x[:3]])[:, None]
     return state, torch.cat([pose_trace[:, :-1], ends], dim=1), frame_nis
 
@@ -245,50 +260,68 @@ def run_ekf_slam_precomputed(
     (``ekf_precomp_pair_step``), where the reference pairs them: known
     association, no augmentation, the fast fused batch frame and an even
     number of frames; elsewhere one frame at a time, as the reference does.
+
+    Where the port's tracer is on (``utils.profiling.tracing``), the call
+    is a ``request`` span holding ``request.setup`` and one ``frame`` span
+    a frame or pair, and counts ``requests``, ``frames`` and, on the card,
+    ``alloc_bytes``.
     """
     device = world.landmarks.device
     interval = cfg.observe_interval
     n_steps = ((n_steps + interval - 1) // interval) * interval
-    if precomputed is None:
-        precomputed = precompute_rollout(world, cfg, n_steps, device)
-    (x_true, swa, active, done), (z_true, ids, zmask) = precomputed
-    state = (init_state if init_state is not None
-             else empty_state(cfg.max_landmarks, world.num_landmarks, device=device))
     n_frames = n_steps // interval
-    nz = z_true.shape[1]
-    if ctrl_noise is None:
-        ctrl_noise = torch.randn((n_frames, interval, 2), generator=generator, device=device)
-    if obs_noise is None:
-        obs_noise = torch.randn((n_frames, nz, 2), generator=generator, device=device)
-    noise = make_noise(cfg, "ekf", device)
+    with span("request"):
+        count("requests")
+        with span("request.setup"):
+            if precomputed is None:
+                precomputed = precompute_rollout(world, cfg, n_steps, device)
+            (x_true, swa, active, done), (z_true, ids, zmask) = precomputed
+            state = (init_state if init_state is not None
+                     else empty_state(cfg.max_landmarks, world.num_landmarks, device=device))
+            nz = z_true.shape[1]
+            if ctrl_noise is None:
+                ctrl_noise = torch.randn((n_frames, interval, 2), generator=generator,
+                                         device=device)
+            if obs_noise is None:
+                obs_noise = torch.randn((n_frames, nz, 2), generator=generator, device=device)
+            noise = make_noise(cfg, "ekf", device)
 
-    frames = (
-        x_true.reshape(n_frames, interval, 3), swa.reshape(n_frames, interval),
-        active.reshape(n_frames, interval), done.reshape(n_frames, interval),
-        ctrl_noise, z_true, ids, zmask, obs_noise,
-    )
-    x_est = torch.empty((n_frames, interval, 3), dtype=torch.float32, device=device)
-    consistency = torch.zeros((n_frames, interval), dtype=torch.float32, device=device)
-    n_active = torch.empty((n_frames, interval), dtype=torch.int64, device=device)
-    use_pair = (cfg.frame_pair and cfg.switch_association_known and not cfg.enable_augment
-                and cfg.fast_frame and cfg.fused_obs and cfg.switch_batch_update
-                and n_frames % 2 == 0)
-    if use_pair:
-        for f in range(0, n_frames, 2):
-            state, x_est[f:f + 2], consistency[f:f + 2, -1] = ekf_precomp_pair_step(
-                state, tuple(a[f:f + 2] for a in frames), cfg=cfg, noise=noise, plain=plain,
+            frames = (
+                x_true.reshape(n_frames, interval, 3), swa.reshape(n_frames, interval),
+                active.reshape(n_frames, interval), done.reshape(n_frames, interval),
+                ctrl_noise, z_true, ids, zmask, obs_noise,
             )
-            n_active[f:f + 2] = state.n_active
-    else:
-        for f in range(n_frames):
-            state, x_est[f], consistency[f, -1] = ekf_precomp_frame_step(
-                state, tuple(a[f] for a in frames), cfg=cfg, noise=noise, plain=plain,
-            )
-            n_active[f] = state.n_active
-    outs = SimOutputs(
-        x_true=x_true, x_est=x_est.reshape(n_steps, 3), done=done,
-        n_active=n_active.reshape(n_steps), consistency=consistency.reshape(n_steps),
-    )
+            x_est = torch.empty((n_frames, interval, 3), dtype=torch.float32, device=device)
+            consistency = torch.zeros((n_frames, interval), dtype=torch.float32, device=device)
+            n_active = torch.empty((n_frames, interval), dtype=torch.int64, device=device)
+            use_pair = (cfg.frame_pair and cfg.switch_association_known
+                        and not cfg.enable_augment and cfg.fast_frame and cfg.fused_obs
+                        and cfg.switch_batch_update and n_frames % 2 == 0)
+        if use_pair:
+            for f in range(0, n_frames, 2):
+                with alloc(device), span("frame", PAIR):
+                    state, x_f, nis_f = ekf_precomp_pair_step(
+                        state, tuple(a[f:f + 2] for a in frames), cfg=cfg, noise=noise,
+                        plain=plain,
+                    )
+                    with span("frame.outputs"):
+                        x_est[f:f + 2], consistency[f:f + 2, -1] = x_f, nis_f
+                        n_active[f:f + 2] = state.n_active
+                count("frames", 2)
+        else:
+            for f in range(n_frames):
+                with alloc(device), span("frame"):
+                    state, x_f, nis_f = ekf_precomp_frame_step(
+                        state, tuple(a[f] for a in frames), cfg=cfg, noise=noise, plain=plain,
+                    )
+                    with span("frame.outputs"):
+                        x_est[f], consistency[f, -1] = x_f, nis_f
+                        n_active[f] = state.n_active
+                count("frames")
+        outs = SimOutputs(
+            x_true=x_true, x_est=x_est.reshape(n_steps, 3), done=done,
+            n_active=n_active.reshape(n_steps), consistency=consistency.reshape(n_steps),
+        )
     return state, outs
 
 

@@ -1,5 +1,22 @@
-"""Profiling and step-timing hooks (port of conan_slam_tpu.utils.profiling),
-and the chained-scan harness the port-side benches time frames with.
+"""The port's tracer, and the chained-scan harness the port-side benches
+time frames with.
+
+The tracer records spans and counters inside the program: the replay
+driver (``runner.loop.run_ekf_slam_precomputed``) opens a ``request`` span
+a call, ``request.setup``, and a ``frame`` span a frame with its children
+``frame.inputs``, ``frame.associate``, ``frame.update``, ``frame.augment``
+and ``frame.outputs``; every launch of a kernel of ``ops.cuda`` is a
+``launch`` span.  It counts ``requests``, ``frames`` and, on a CUDA device,
+``alloc_bytes`` (what the caching allocator handed out inside each frame).
+``tracing()`` switches it on and ``take()`` hands over what it kept::
+
+    with profiling.tracing():
+        state, outs = run_ekf_slam_precomputed(...)
+    taken = profiling.take()
+
+Spans are stamped with ``time.time_ns()``, the clock of torch.profiler's
+kineto events, so a span and a device trace share one clock.  Off, a span
+or a count is one flag test: no clock read, no allocation, no device work.
 
 ``scan_graph`` is the counterpart of ``jax.jit(lax.scan(step, carry,
 length=n))`` as the reference's benches use it: n dependent steps with the
@@ -11,8 +28,10 @@ launch them, only the host's dispatch is gone.
 from __future__ import annotations
 
 import contextlib
-import os
+import itertools
+import threading
 import time
+from types import MappingProxyType
 from typing import Callable, NamedTuple
 
 import torch
@@ -20,60 +39,174 @@ import torch
 from conan_slam_tpu_torch.ops import cuda
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Capture a torch.profiler trace of the host and, where there is one,
-    the card (the counterpart of ``xla_trace``); written to
-    ``log_dir/trace.json`` (a Chrome trace).  Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+# The most closed spans the tracer keeps between two ``take()``s; past it a
+# closing span is dropped and counted.
+CAPACITY = 1 << 16
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+# The attributes of a span opened without any (shared, never written).
+NO_ATTRS = MappingProxyType({})
 
 
-class Timer:
-    """Wall-clock timer with a device fence.
+class Span:
+    """One span: ``name``, ``start_ns`` and ``end_ns`` on ``time.time_ns()``'s
+    clock, its ``id``, its ``parent``'s id (0 at a root), its ``request``
+    (the id of the nearest ``request`` span around it, its own for a
+    ``request``, 0 outside every one), and the ``attrs`` it was opened
+    with.  A context manager while open."""
 
-    PyTorch returns before the card finishes, so ``measure`` yields a list
-    into which the caller puts the outputs of the timed work; on leaving it
-    synchronizes each CUDA output's device (nothing for CPU outputs) before
-    it reads the clock.
-    """
+    __slots__ = ("_tracer", "name", "attrs", "id", "parent", "request", "start_ns", "end_ns")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs):
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self) -> "Span":
+        tr = self._tracer
+        stack = tr._open.spans
+        self.id = next(tr._ids)
+        top = stack[-1] if stack else None
+        self.parent = top.id if top else 0
+        self.request = self.id if self.name == "request" else top.request if top else 0
+        stack.append(self)
+        self.start_ns = _now()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = _now()
+        tr = self._tracer
+        tr._open.spans.pop()
+        with tr._lock:
+            if len(tr._spans) < CAPACITY:
+                tr._spans.append(self)
+            else:
+                tr.dropped += 1
+        return False
+
+
+class _Off:
+    """The span handed out while the tracer is off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+_now = time.time_ns
+
+
+class _OpenSpans(threading.local):
+    """The spans open on one thread, innermost last."""
 
     def __init__(self):
-        self.times: list[float] = []
+        self.spans: list[Span] = []
+
+
+class Taken(NamedTuple):
+    """What the tracer kept since the last ``take()``: the closed ``spans``
+    in the order they started, the ``counters``, each CUDA kernel's
+    launches (``ops.cuda.CudaKernel.launches`` gained, by kernel name), and
+    the spans ``dropped`` because the buffer was full."""
+
+    spans: list
+    counters: dict
+    launches: dict
+    dropped: int
+
+
+class Tracer:
+    """Spans and counters kept in memory, in a buffer of at most
+    ``CAPACITY`` spans.  Spans nest on the thread that opens them; every
+    thread's spans and counts go to the one buffer."""
+
+    def __init__(self):
+        self.on = False
+        self.dropped = 0
+        self.counters: dict[str, int] = {}
+        self._spans: list[Span] = []
+        self._open = _OpenSpans()
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._launched: dict[str, int] = {}
 
     @contextlib.contextmanager
-    def measure(self):
-        t0 = time.perf_counter()
-        fence: list = []
-        yield fence
-        devices = {t.device for t in _leaves(fence) if t.device.type == "cuda"}
-        for dev in devices:
-            torch.cuda.synchronize(dev)
-        self.times.append(time.perf_counter() - t0)
+    def tracing(self):
+        """Switch the tracer on for the block, with an empty buffer; off
+        again on leaving it.  What it kept stays for ``take()``."""
+        if self.on:
+            raise RuntimeError("the tracer is already on")
+        self.take()
+        self.on = True
+        try:
+            yield
+        finally:
+            self.on = False
 
-    @property
-    def best(self) -> float:
-        return min(self.times)
+    def span(self, name: str, attrs=NO_ATTRS):
+        """A context manager that records a span ``name`` with the mapping
+        ``attrs`` (a shared no-op while the tracer is off)."""
+        if not self.on:
+            return _OFF
+        return Span(self, name, attrs)
 
-    def steps_per_s(self, steps: int) -> float:
-        return steps / self.best
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name`` (nothing while off)."""
+        if not self.on:
+            return
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def alloc(self, device: torch.device):
+        """A context manager that adds to ``alloc_bytes`` the bytes the
+        CUDA caching allocator hands out on ``device`` inside the block (a
+        host call, no synchronisation); a no-op off or on the CPU."""
+        if not self.on or device.type != "cuda":
+            return _OFF
+        return _Alloc(self, device)
+
+    def take(self) -> Taken:
+        """What was kept since the last ``take()``; clears it."""
+        launched = {k.name: k.launches for k in cuda.KERNELS.values()}
+        with self._lock:
+            spans, self._spans = self._spans, []
+            counters, dropped = self.counters, self.dropped
+            self.counters, self.dropped = {}, 0
+            last, self._launched = self._launched, launched
+        spans.sort(key=lambda s: s.start_ns)
+        launches = {k: n - last.get(k, 0) for k, n in launched.items() if n != last.get(k, 0)}
+        return Taken(spans, counters, launches, dropped)
 
 
-def _leaves(tree) -> list[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (list, tuple)):
-        return [t for item in tree for t in _leaves(item)]
-    if isinstance(tree, dict):
-        return [t for item in tree.values() for t in _leaves(item)]
-    return []
+def _allocated(device: torch.device) -> int:
+    return torch.cuda.memory_stats_as_nested_dict(device)["allocated_bytes"]["all"]["allocated"]
+
+
+class _Alloc:
+    __slots__ = ("_tracer", "_device", "_before")
+
+    def __init__(self, tracer: Tracer, device: torch.device):
+        self._tracer = tracer
+        self._device = device
+
+    def __enter__(self) -> None:
+        self._before = _allocated(self._device)
+
+    def __exit__(self, *exc) -> bool:
+        self._tracer.count("alloc_bytes", _allocated(self._device) - self._before)
+        return False
+
+
+TRACER = Tracer()
+tracing = TRACER.tracing
+span = TRACER.span
+count = TRACER.count
+alloc = TRACER.alloc
+take = TRACER.take
 
 
 class Scan(NamedTuple):
