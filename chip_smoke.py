@@ -323,7 +323,8 @@ SPLIT_KERNELS = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update")
 GATED_KERNELS = ("factor_gate", "obs_step")
 GATED_SPLIT_KERNELS = ("factor_gate", "obs_chain", "sweep_inverse", "obs_panels", "rank_update")
 ORDER = ("sweep_inverse", "frame_chain", "frame_panels", "rank_update", "factor_strip",
-         "gating_scores", "factor_gate", "obs_chain", "obs_panels", "frame_step", "obs_step",
+         "gating_scores", "factor_gate", "obs_chain", "obs_panels", "frame_step", "frame_pass",
+         "obs_step",
          "sweep_probe", "stream_copy", "probe_dots", "probe_observe", "rank_update_tile")
 # The kernels of the T9 probes (phase 3d): H11-H14 and H4's probe entry.
 PROBE_KERNELS = ("sweep_probe", "stream_copy", "probe_dots", "probe_observe", "rank_update_tile")
@@ -1298,7 +1299,7 @@ def h9_measure(device, args, tail, err: float, nblk: int, alone: dict, calls: di
                    f"panels, {plan.units} units of {plan.unit} columns; P pass: grid "
                    f"{plan.pass_grid} x {plan.pass_block} threads ({plan.pass_occ} an SM), "
                    f"{plan.pass_smem:,} B shared, {plan.pass_regs} registers, {plan.tiles} tiles "
-                   f"of {fk.FS_TILE}",
+                   f"of {plan.tile}",
               **bound(nbytes(*ins, *out), h9_work(d, mp, rp, nblk)))
     by_mp, by_s = {}, {}
     for nz_, s in ((16, 6), (64, 6), (112, 6), (64, 1), (64, 16)):
@@ -2307,6 +2308,179 @@ def gated_kernel_checks(device) -> dict:
                 f"{big['bound_ms'] * 1e3:.2f} us ({big['bound_by']})")
     log_times(stats, " (config 2 shape)")
     return stats
+
+
+PASS_LABELS = {"tile128": "streamed 128-tiles", "tile32": "32-tiles",
+               "h4": "H4's entry (Cfg<128>)"}
+# D of the route rule's edge sweep: below the rule's edge (D 4,608 and
+# 5,760, 36 and 45 tiles of 128 a side), just above it (5,888: 46 a side,
+# 8.2 tiles an SM on 132 SMs, the last of 9 on 25 SMs), and the long
+# loop's D 10,240.
+PASS_EDGE_DS = (4_608, 5_760, 5_888, 7_168, 10_240)
+
+
+def pass_error(p, g, mg, got, rows: int = 2048) -> tuple[float, float]:
+    """``got`` against P + G^T MG's upper triangle mirrored (the pass's
+    output), formed in float64 by rows: the max abs error, and its largest
+    ratio to the fp32 bound of one r-term fmaf chain and P's add, (r + 2)
+    2^-24 (|P| + |G|^T |MG|) mirrored alike."""
+    import torch
+
+    d, r = p.shape[0], g.shape[0]
+    g64, mg64 = g[:, :d].double(), mg[:, :d].double()
+    err = ratio = 0.0
+    cols = torch.arange(d, device=p.device)
+    for i0 in range(0, d, rows):
+        i1 = min(d, i0 + rows)
+        upper = cols[None, :] >= torch.arange(i0, i1, device=p.device)[:, None]
+        ref = p[i0:i1].double() + torch.where(upper, g64[:, i0:i1].T @ mg64,
+                                              mg64[:, i0:i1].T @ g64)
+        mag = p[i0:i1].double().abs() + torch.where(
+            upper, g64[:, i0:i1].abs().T @ mg64.abs(), mg64[:, i0:i1].abs().T @ g64.abs())
+        e = (got[i0:i1].double() - ref).abs()
+        err = max(err, float(e.max()))
+        ratio = max(ratio, float((e / ((r + 2) * 2.0**-24 * mag).clamp_min(1e-300)).max()))
+    return err, ratio
+
+
+def pass_turns(device) -> tuple[dict, dict]:
+    """The P pass at the 10k-landmark shape (D 20,224) and at the route
+    rule's edge, through csl_frame_pass.
+
+    First H9 itself at D 20,224 with 64 returns (h9_checks: against its
+    plain version, the fastframe oracle and the split kernels, two calls
+    bit-equal, P exactly symmetric), so the main path's shape is held to
+    its plain version.  Then, on a known frame's own strips (r = MP + 8 =
+    136: G = [pht; p2; e0; e1; e2; 0] and M G from the plain pieces of the
+    frame) and on the gated frame's rank (r = NBP + MP = 152, seeded
+    strips): the streamed 128-tiles (the frames' route there), H4's
+    32-tiles (H9's route before) and H4's own entry (its Cfg<128> tiles,
+    the 128-tile yardstick): all bit for bit, exactly symmetric, and within
+    the fp32 bound of the float64 product (pass_error); each with its
+    device time (the median of its turns), bound and share, plan,
+    registers and spill.  Last, the streamed pass against the 32-tiles in
+    turns over PASS_EDGE_DS on seeded r 136 strips: where the rule takes
+    the streamed pass it is the faster.  Returns the rows by strips and
+    route (and the edge's by D), and the kernel table's entry for
+    csl_frame_pass on the known strips."""
+    import torch
+
+    from conan_slam_tpu_torch.ops import frame_kernel as fk
+    from conan_slam_tpu_torch.ops.rank_update import (
+        rank_update_attributes,
+        rank_update_plan,
+        rank_update_vbt,
+    )
+    from conan_slam_tpu_torch.ops.spd_inverse import sweep_si_reference
+
+    d = 20_224
+    args = synthetic_frame(device, d, 64, 6, True)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    require(fk.frame_step_plan(d, 128, device).tile == fk.PASS_BIG,
+            "H9 at D 20,224 route", "the streamed 128-tiles")
+    fargs, tail = args[:13], args[13:]
+    log(f"H9 at the 10k-landmark shape (D {d}, NZ 64, the streamed pass):")
+    split = fk.frame_step(*fargs, *tail, schedule="split")
+    oracle = fk._plain_frame(fargs[0], fargs[1], fk.frame_rows(fargs[2], fargs[3]), *fargs[4:],
+                             tail)
+    h9_err = h9_checks("D=20,224 (10k landmarks)", fargs, tail, split, oracle)
+    del split, oracle
+    fi = frame_inputs(args)
+    ch = fk._frame_chain_reference(fi.subs, fi.qc, fi.zin, fi.rsc, fi.x0rows, fi.prc, fi.mp,
+                                   *args[13:])
+    si = sweep_si_reference(ch.s, fi.nblk)
+    pht = fk._frame_panels_reference(ch.rowc, ch.ms, si, fi.prows, args[1])[0]
+    gmat, mmid = fk._frame_gm(pht, si, ch.k4[:4, :4], fi.prows[2:3], fi.mp)
+    p = 0.5 * (args[0] + args[0].T)
+    gen = torch.Generator(device=device).manual_seed(152)
+    strips = {"known (r 136)": (gmat.contiguous(), (mmid @ gmat).contiguous()),
+              "gated (r 152)": (torch.randn(152, d, device=device, generator=gen),
+                                torch.randn(152, d, device=device, generator=gen))}
+    del args, fi, ch, pht
+    h4_tile, h4_grid = rank_update_plan(d, device)
+    h4_regs, h4_local = rank_update_attributes(d, device)
+    out, entry = {"h9_p_err": h9_err}, {}
+    for label, (g, mg) in strips.items():
+        fns = {"tile128": lambda g=g, mg=mg: fk.frame_pass(p, g, mg, "tile128"),
+               "tile32": lambda g=g, mg=mg: fk.frame_pass(p, g, mg, "tile32"),
+               "h4": lambda g=g, mg=mg: rank_update_vbt(p, g, mg)}
+        got, ref = fns["tile128"](), fns["tile32"]()
+        require(bool(torch.equal(got, ref)) and bool(torch.equal(fns["h4"](), ref))
+                and bool(torch.equal(got, got.T)), f"P pass at 10k, {label}",
+                "the streamed 128-tiles bit for bit the 32-tiles' and H4's own entry's, and "
+                "exactly symmetric")
+        err, ratio = pass_error(p, g, mg, got)
+        require(ratio <= 1.0, f"P pass at 10k, {label}, against float64",
+                f"max |out - (P + triu(G^T MG) + triu(G^T MG, 1)^T)| = {err:.3e}, "
+                f"{ratio:.3f} of the fp32 bound (r + 2) 2^-24 (|P| + |G|^T |MG|) (at most 1)")
+        del got, ref
+        med, turns = in_turns(fns, rounds=2, iters=5)
+        work = rank_update_entry_work(p, g, mg)
+        rows = {}
+        for route, ms in med.items():
+            if route == "h4":
+                plan = dict(tile=h4_tile, grid=h4_grid, regs=h4_regs, local=h4_local)
+                shape = f"tile {h4_tile}, grid {h4_grid}"
+            else:
+                plan = fk.frame_pass_plan(d, device, route)._asdict()
+                shape = f"grid {plan['grid']} x {plan['block']}, {plan['smem']:,} B shared"
+            rows[route] = dict(device_us=ms * 1e3, turns_us=[t * 1e3 for t in turns[route]],
+                               bound_us=work["bound_ms"] * 1e3, bound_by=work["bound_by"],
+                               share=work["bound_ms"] / ms, plan=plan)
+            log(f"  P pass at 10k, {label}, {PASS_LABELS[route]}: {ms * 1e3:.2f} us "
+                f"(turns {', '.join(f'{t * 1e3:.1f}' for t in turns[route])}), bound "
+                f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}), "
+                f"{100.0 * work['bound_ms'] / ms:.1f}%; {shape}, {plan['regs']} registers, "
+                f"{plan['local']} local bytes")
+        require(med["tile128"] < med["h4"] and med["tile128"] < med["tile32"],
+                f"P pass at 10k, {label}", "the streamed 128-tiles faster in turns than H4's "
+                "Cfg<128> entry and the 32-tiles on the same strips")
+        rows["max_abs_err"], rows["bound_ratio"] = err, ratio
+        out[label] = rows
+        if not entry:
+            entry = dict(max_abs_err=err, ms=time_ms(fns["tile128"], 5),
+                         plain_ms=time_ms(lambda: p + g.T @ mg, 5),
+                         library_ms=time_ms(lambda: torch.addmm(p, g.T, mg), 5),
+                         device_ms=med["tile128"], device_ms_turns=turns["tile128"],
+                         bound_ms=work["bound_ms"], bound_by=work["bound_by"], tile=128,
+                         plan=str(fk.frame_pass_plan(d, device)))
+    del p, strips, fns
+    edge = {}
+    for de in PASS_EDGE_DS:
+        pe, ge, mge = pass_edge_inputs(device, de, 136)
+        fns = {r: (lambda r=r: fk.frame_pass(pe, ge, mge, r)) for r in ("tile128", "tile32")}
+        require(bool(torch.equal(fns["tile128"](), fns["tile32"]())), f"P pass at D {de}",
+                "the streamed 128-tiles bit for bit the 32-tiles'")
+        med, turns = in_turns(fns, rounds=2, iters=10)
+        rule = fk.pass_tile(de, sms)
+        edge[de] = dict(rule=rule, **{r: dict(device_us=ms * 1e3,
+                                              turns_us=[t * 1e3 for t in turns[r]])
+                                      for r, ms in med.items()})
+        n = -(-de // fk.PASS_BIG)
+        log(f"  P pass at D {de} (r 136, {n * (n + 1) // 2} tiles of 128, "
+            f"{n * (n + 1) / 2 / sms:.2f} an SM; the rule takes the {rule}-tiles): streamed "
+            f"{med['tile128'] * 1e3:.2f} us (turns "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in turns['tile128'])}), 32-tiles "
+            f"{med['tile32'] * 1e3:.2f} us (turns "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in turns['tile32'])})")
+        if rule == fk.PASS_BIG:
+            require(med["tile128"] < med["tile32"], f"P pass route at D {de}",
+                    "where the rule takes the streamed 128-tiles they are faster in turns than "
+                    "the 32-tiles")
+        del pe, ge, mge, fns
+    out["edge"] = edge
+    return out, entry
+
+
+def pass_edge_inputs(device, d: int, r: int):
+    """An exactly symmetric P (D, D) and seeded strips G, MG (r, D)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(d)
+    a = torch.randn(d, 8, device=device, generator=gen)
+    p = a @ a.T
+    return (0.5 * (p + p.T), torch.randn(r, d, device=device, generator=gen),
+            torch.randn(r, d, device=device, generator=gen))
 
 
 def pair_case(device, n_warm_frames: int, pad_multiple: int):
@@ -5024,6 +5198,7 @@ def main() -> int:
     stats = kernel_checks(device)
     gstats = gated_kernel_checks(device)
     pstats = pair_checks(device)
+    passes, pass_entry = pass_turns(device)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     prstats = probe_checks(device)
@@ -5086,7 +5261,7 @@ def main() -> int:
     log(f"profiles: {time.perf_counter() - t0:.1f} s")
 
     # --- phase 5: report ---
-    allstats = {**stats, **gstats, **prstats}
+    allstats = {**stats, **gstats, **prstats, "frame_pass": pass_entry}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extras = ("device_ms", "fixed_ms", "library_device_ms", "wrapper_ms", "bound_square_ms", "tile",
               "grid", "plan", "device_ms_by_s", "device_ms_by_mp", "phases_us", "device_ms_coop",
@@ -5119,6 +5294,7 @@ def main() -> int:
         for k in sorted(cuda.KERNELS.values(), key=lambda k: ORDER.index(k.name))
     ]}
     summary = {
+        "p_pass_10k": passes,
         "steps_per_s": results["kernels"]["steps_per_s"],
         "plain_steps_per_s": results["plain"]["steps_per_s"],
         "ate_m": results["kernels"]["ate"], "asym_p": results["kernels"]["asym"],

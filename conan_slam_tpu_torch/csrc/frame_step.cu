@@ -40,14 +40,18 @@
 //      pht, heading wrapped.  Block 0, beside them, turns its swept tile
 //      into S^-1 in place and forms siv (the same bits) and the NIS.
 //   4. The P pass (frame_pass_kernel, the second launch): out = P + G^T MG
-//      = P + p2 (x) wrow + border - pht^T S^-1 pht over H4's upper-triangle
-//      tiles of 32 (rank_tile.cuh), each mirrored: P comes out exactly
-//      symmetric whenever it goes in exactly symmetric.  It runs H4's
-//      32-tile blocks, Cfg<32>: 64 threads and a 16 KB ring a block, 12 or
-//      13 resident an SM, one block a tile, so as many tiles are in flight
-//      as in H4 (where D gives fewer tiles than that, at most ceil(tiles /
-//      SMs) an SM, so that they spread over every SM).  Its body, plan and
-//      launch are H10's too (resident.cuh).  The frame kernel cannot hold them: its blocks are 512
+//      = P + p2 (x) wrow + border - pht^T S^-1 pht over upper-triangle
+//      tiles, each mirrored: P comes out exactly symmetric whenever it
+//      goes in exactly symmetric.  D and the SM count choose its route
+//      (csl_res::pass_route): H4's 32-tile blocks, Cfg<32>: 64 threads
+//      and a 16 KB ring a block, 12 or 13 resident an SM, one block a
+//      tile, so as many tiles are in flight as in H4 (where D gives fewer
+//      tiles than that, at most ceil(tiles / SMs) an SM, so that they
+//      spread over every SM); or, where D gives at least 8 tiles of 128
+//      an SM (the 10k-landmark shape, D 20,224), streamed 128-tiles, one
+//      persistent block an SM that brings P in and out by tensor copies
+//      under its FMAs (csl_res::stream_tiles).  Its body, plan and
+//      launch are H10's too (resident.cuh).  The frame kernel cannot hold the 32-tiles: its blocks are 512
 //      threads for the sweep's layout, and 12 tile groups a block would cap
 //      a thread at ~80 registers, under the sweep's 96 at MP 128.  The
 //      launch carries the programmatic-stream-serialization attribute; the
@@ -92,17 +96,18 @@ namespace cg = cooperative_groups;
 #define FS_W 16             // columns of a pht panel (H3's PANEL_W)
 #define FS_LD 24            // row stride of a gathered panel (H3's PANEL_LD)
 #define FS_UNIT 24          // columns of D a block takes through phases 2 and 3
-#define FS_TILE 32          // the P pass's tile edge (H4's small tile)
 #define FS_MAX_MP 224       // H1's register limit: 7 x 7 elements a thread
 #define FS_MAX_RP 232       // gathered rows at MP = 224
 #define FS_XG 32            // the mean's partial fmaf chains a column, summed in order
 #define FS_STAMPS 12        // stamps a block (stamp())
-#define FS_PLAN 13          // values csl_frame_step_plan reports
+#define FS_PLAN 14          // values csl_frame_step_plan reports
+#define FP_PLAN 8           // values csl_frame_pass_plan reports
 
 namespace {
 
 static_assert(FS_THREADS == csl_sweep::NT, "one block size for every phase of the frame kernel");
-using PassCfg = csl_rank::Cfg<FS_TILE>;
+using csl_res::PASS_128;
+using csl_res::PASS_32;
 using csl_res::block_units;
 using csl_res::bulk_wait;
 using csl_res::globaltimer;
@@ -535,14 +540,15 @@ frame_step_kernel(const __grid_constant__ Frame f) {
 }
 
 // --- the second launch: out = P + G^T MG over the upper-triangle tiles,
-//     mirrored, one H4 32-tile a block (csl_res::pass_tiles, shared with
-//     H10), P read evict-first ---
-template <bool VECP>
-__global__ void __launch_bounds__(PassCfg::NT, PassCfg::MIN_BLOCKS)
+//     mirrored, on route R (csl_res::pass_tiles, shared with H10), P read
+//     and written evict-first ---
+template <int R, bool VECP>
+__global__ void __launch_bounds__(csl_res::PassShape<R>::NT, csl_res::PassShape<R>::MIN_BLOCKS)
 frame_pass_kernel(const float* __restrict__ p, const float* __restrict__ g,
                   const float* __restrict__ mg, float* __restrict__ out, int d, int ldg, int r,
-                  int nt, int ntiles, unsigned long long* stamps) {
-    csl_res::pass_tiles<FS_TILE, VECP>(p, g, mg, out, d, ldg, r, nt, ntiles, stamps, FS_STAMPS);
+                  int nt, int ntiles, unsigned long long* stamps,
+                  const __grid_constant__ csl_res::PassMaps maps) {
+    csl_res::pass_tiles<R, VECP>(p, g, mg, out, d, ldg, r, nt, ntiles, stamps, FS_STAMPS, maps);
 }
 
 // The frame kernel's dynamic shared memory (bytes): the largest of its
@@ -561,14 +567,15 @@ constexpr int VARIANTS = FS_MAX_MP / 32;      // RX = 1 .. 7
 
 // Per device, cached on first use: the SM count, each frame-kernel
 // variant's static shared memory (its dynamic cap raised once) and its last
-// occupancy query, and the P pass's record (P rows 16-byte or not).
+// occupancy query, and the P pass's records: pass32[VECP] and pass128
+// (16-byte P rows only).
 struct DeviceInfo {
     int sms = 0;
     int static_bytes[VARIANTS + 1] = {};
     bool raised[VARIANTS + 1] = {};
     size_t occ_smem[VARIANTS + 1] = {};
     int occ[VARIANTS + 1] = {};
-    csl_res::PassInfo pass[2];
+    csl_res::PassInfo pass32[2], pass128;
 };
 DeviceInfo g_info[MAX_DEVICES];
 
@@ -622,28 +629,69 @@ cudaError_t plan_frame(size_t smem, int* grid) {
     return cudaSuccess;
 }
 
-// The P pass's plan at D = d (csl_res::plan_pass: one block a tile), its
-// occupancy query (12 or 13 blocks an SM, as H4's) cached per device.
-template <bool VECP>
+// The P pass's plan at D = d on route R (csl_res::plan_pass), its
+// occupancy query cached per device.
+template <int R, bool VECP>
 cudaError_t plan_pass(int d, csl_res::PassPlan* plan) {
     DeviceInfo* info = nullptr;
     const cudaError_t err = device_info(&info);
     if (err != cudaSuccess) return err;
-    return csl_res::plan_pass<FS_TILE>(frame_pass_kernel<VECP>, d, &info->pass[VECP ? 1 : 0], plan);
+    csl_res::PassInfo* pi = R == PASS_128 ? &info->pass128 : &info->pass32[VECP ? 1 : 0];
+    return csl_res::plan_pass<R>(frame_pass_kernel<R, VECP>, d, pi, plan);
 }
 
-template <bool VECP>
-cudaError_t launch_pass(const Frame& f, int grid_a, cudaStream_t stream) {
+template <int R, bool VECP>
+cudaError_t launch_pass(const float* p, const float* g, const float* mg, float* out, int d,
+                        int ldg, int r, unsigned long long* stamps, cudaStream_t stream) {
     csl_res::PassPlan plan;
-    const cudaError_t err = plan_pass<VECP>(f.d, &plan);
+    const cudaError_t err = plan_pass<R, VECP>(d, &plan);
     if (err != cudaSuccess) return err;
-    unsigned long long* stamps = f.stamps ? f.stamps + (size_t)grid_a * FS_STAMPS : nullptr;
-    return csl_res::launch_pass<FS_TILE>(frame_pass_kernel<VECP>, plan, f.p, f.g, f.mg, f.p_out,
-                                         f.d, f.ldg, f.mp + 8, stamps, stream);
+    return csl_res::launch_pass<R>(frame_pass_kernel<R, VECP>, plan, p, g, mg, out, d, ldg, r,
+                                   stamps, stream);
+}
+
+// The pass on `route`: 0 the frame's (csl_res::pass_route), else PASS_32 or
+// PASS_128 (16-byte P rows only).
+cudaError_t launch_pass_route(int route, const float* p, const float* g, const float* mg, float* out,
+                              int d, int ldg, int r, unsigned long long* stamps,
+                              cudaStream_t stream) {
+    const bool vec = csl_res::pass_vec(p, out, d);
+    if (route == 0) {
+        DeviceInfo* info = nullptr;
+        const cudaError_t err = device_info(&info);
+        if (err != cudaSuccess) return err;
+        route = csl_res::pass_route(d, info->sms, vec);
+    }
+    switch (route) {
+        case PASS_32:
+            return vec ? launch_pass<PASS_32, true>(p, g, mg, out, d, ldg, r, stamps, stream)
+                       : launch_pass<PASS_32, false>(p, g, mg, out, d, ldg, r, stamps, stream);
+        case PASS_128:
+            if (!vec) return cudaErrorInvalidValue;
+            return launch_pass<PASS_128, true>(p, g, mg, out, d, ldg, r, stamps, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+// What csl_frame_pass_plan reports for route R (see there).
+template <int R>
+cudaError_t pass_plan_only(int d, int* out) {
+    csl_res::PassPlan pass;
+    cudaError_t err = plan_pass<R, true>(d, &pass);
+    if (err != cudaSuccess) return err;
+    out[0] = R;
+    out[1] = pass.grid;
+    out[2] = csl_res::PassShape<R>::NT;
+    out[3] = (int)pass.smem;
+    err = csl_func_regs(frame_pass_kernel<R, true>, &out[4], &out[5]);
+    out[6] = pass.occ;
+    out[7] = pass.ntiles;
+    return err;
 }
 
 template <int RX>
-cudaError_t launch(const Frame& f, bool vecp, cudaStream_t stream) {
+cudaError_t launch(const Frame& f, cudaStream_t stream) {
     const size_t smem = smem_bytes(f.mp, f.rp, f.band, f.S);
     int grid = 0;
     cudaError_t err = plan_frame<RX>(smem, &grid);
@@ -660,7 +708,8 @@ cudaError_t launch(const Frame& f, bool vecp, cudaStream_t stream) {
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, frame_step_kernel<RX>, f);
     if (err != cudaSuccess) return err;
-    err = vecp ? launch_pass<true>(f, grid, stream) : launch_pass<false>(f, grid, stream);
+    err = launch_pass_route(0, f.p, f.g, f.mg, f.p_out, f.d, f.ldg, f.mp + 8,
+                            f.stamps ? f.stamps + (size_t)grid * FS_STAMPS : nullptr, stream);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -675,17 +724,22 @@ cudaError_t plan_only(int mp, int rp, int band, int S, int d, int* out) {
     out[2] = (int)bytes;
     err = csl_func_regs(frame_step_kernel<RX>, &out[3], &out[4]);
     if (err != cudaSuccess) return err;
-    csl_res::PassPlan pass;
-    err = plan_pass<true>(d, &pass);
+    DeviceInfo* info = nullptr;
+    err = device_info(&info);
     if (err != cudaSuccess) return err;
-    out[5] = pass.grid;
-    out[6] = PassCfg::NT;
-    out[7] = (int)pass.smem;
-    err = csl_func_regs(frame_pass_kernel<true>, &out[8], &out[9]);
+    int pass[FP_PLAN];
+    err = csl_res::pass_route(d, info->sms, true) == PASS_128 ? pass_plan_only<PASS_128>(d, pass)
+                                                              : pass_plan_only<PASS_32>(d, pass);
     if (err != cudaSuccess) return err;
+    out[5] = pass[1];
+    out[6] = pass[2];
+    out[7] = pass[3];
+    out[8] = pass[4];
+    out[9] = pass[5];
     out[10] = FS_UNIT;
-    out[11] = pass.ntiles;
-    out[12] = pass.occ;
+    out[11] = pass[7];
+    out[12] = pass[6];
+    out[13] = pass[0];
     return cudaSuccess;
 }
 
@@ -695,8 +749,8 @@ cudaError_t plan_only(int mp, int rp, int band, int S, int d, int* out) {
 // FS_PLAN ints: the frame kernel's grid, block, dynamic shared memory
 // (bytes), registers and local-memory bytes a thread; the P pass's grid,
 // block, shared memory, registers and local bytes (16-byte P rows); the
-// unit's columns; the P pass's tiles and its blocks an SM.  Launches
-// nothing.
+// unit's columns; the P pass's tiles, its blocks an SM and its tile edge
+// (its route, csl_res::pass_route).  Launches nothing.
 extern "C" int csl_frame_step_plan(int mp, int rp, int band, int S, int d, int* out) {
     if (mp <= 0 || mp % 32 || mp > FS_MAX_MP || rp < 3 || rp > FS_MAX_RP || band <= 0 ||
         band % 2 || S <= 0 || S > CSL_MAX_STEPS || d < 3)
@@ -779,19 +833,51 @@ extern "C" int csl_frame_step(const float* p, const float* x, const long long* s
     f.dt = dt;
     f.sigma_heading = sigma_heading;
     f.use_heading = use_heading;
-    // P's rows take 16-byte accesses in the panels and the P pass.
-    const bool vecp = d % 4 == 0 && !(reinterpret_cast<size_t>(p) & 15u) &&
-                      !(reinterpret_cast<size_t>(p_out) & 15u);
-    f.vecp = vecp;
+    f.vecp = csl_res::pass_vec(p, p_out, d);    // the panels' and the P pass's 16-byte rows
     const cudaStream_t st = (cudaStream_t)stream;
     switch (mp / 32) {
-        case 1: return (int)launch<1>(f, vecp, st);
-        case 2: return (int)launch<2>(f, vecp, st);
-        case 3: return (int)launch<3>(f, vecp, st);
-        case 4: return (int)launch<4>(f, vecp, st);
-        case 5: return (int)launch<5>(f, vecp, st);
-        case 6: return (int)launch<6>(f, vecp, st);
-        default: return (int)launch<7>(f, vecp, st);
+        case 1: return (int)launch<1>(f, st);
+        case 2: return (int)launch<2>(f, st);
+        case 3: return (int)launch<3>(f, st);
+        case 4: return (int)launch<4>(f, st);
+        case 5: return (int)launch<5>(f, st);
+        case 6: return (int)launch<6>(f, st);
+        default: return (int)launch<7>(f, st);
+    }
+}
+
+// The P pass alone, out = P + G^T MG over the strips g and mg (r rows of
+// row stride ldg >= d, ldg % 4 == 0, 16-byte aligned), on `route`: 0 the
+// frame's (csl_res::pass_route), else PASS_32 or PASS_128 (d % 4 == 0, P
+// and out 16-byte aligned).  Launched as the frame launches it (a
+// programmatic dependent of whatever precedes it on the stream);
+// allocates nothing.
+extern "C" int csl_frame_pass(const float* p, const float* g, const float* mg, float* out, int d,
+                              int ldg, int r, int route, void* stream) {
+    if (d < 1 || r < 1 || ldg < d || ldg % 4 ||
+        ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(mg)) & 15u))
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t err =
+        launch_pass_route(route, p, g, mg, out, d, ldg, r, nullptr, (cudaStream_t)stream);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The plan of csl_frame_pass at D = d on `route` (as there; 16-byte P
+// rows), as FP_PLAN ints: the tile edge, the grid, the block, the shared
+// memory a block (bytes), registers and local-memory bytes a thread,
+// blocks an SM and tiles.  Launches nothing.
+extern "C" int csl_frame_pass_plan(int d, int route, int* out) {
+    if (d < 1) return (int)cudaErrorInvalidValue;
+    if (route == 0) {
+        DeviceInfo* info = nullptr;
+        const cudaError_t err = device_info(&info);
+        if (err != cudaSuccess) return (int)err;
+        route = csl_res::pass_route(d, info->sms, true);
+    }
+    switch (route) {
+        case PASS_32: return (int)pass_plan_only<PASS_32>(d, out);
+        case PASS_128: return (int)pass_plan_only<PASS_128>(d, out);
+        default: return (int)cudaErrorInvalidValue;
     }
 }
 

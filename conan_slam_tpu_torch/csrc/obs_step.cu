@@ -1,9 +1,8 @@
 // H10 obs_step: the whole gated frame in TWO launches on one stream: a
 // cooperative frame kernel (the packing, the observe, compact Hc, the
 // frame-factor coupling, S, the sweep inverse, siv, the NIS, the gains and
-// the updated mean) and the P pass P + vtf^T B vtf - pht^T S^-1 pht at H4's
-// own occupancy, launched right behind it with programmatic dependent
-// launch.
+// the updated mean) and the P pass P + vtf^T B vtf - pht^T S^-1 pht,
+// launched right behind it with programmatic dependent launch.
 //
 // Replaces the TPU kernel conan_slam_tpu/ops/frame_kernel.py:535
 // frame_update_obs (pallas_call :607, body _fullframe_kernel :381-489), the
@@ -43,13 +42,14 @@
 //      heading wrapped.  Block 0, beside them, turns its swept tile into
 //      S^-1 in place and forms siv (the same bits) and the NIS.
 //   4. The P pass (obs_pass_kernel, the second launch): out = P + G^T MG
-//      over H4's upper-triangle tiles (rank_tile.cuh), each mirrored: P
-//      comes out exactly symmetric whenever it goes in exactly symmetric.
-//      It runs H4's plan for the tile edge H4 takes at that D (32, or 128
-//      where D gives at least 8 such tiles an SM: the 10k-landmark shape),
-//      one block a tile, with its own register budget, and reads P
-//      evict-first (resident.cuh, shared with H9).  The frame kernel lets
-//      it launch once every block has passed barrier 2, and it waits
+//      over upper-triangle tiles, each mirrored: P comes out exactly
+//      symmetric whenever it goes in exactly symmetric.  Its route is
+//      H9's (resident.cuh pass_route, one routine for both frames): H4's
+//      32-tiles one block a tile, or, where D gives at least 8 tiles of
+//      128 an SM (the 10k-landmark shape), the streamed 128-tiles, one
+//      persistent block an SM that brings P in and out by tensor copies
+//      under its FMAs (obs_step_big.cu).  The frame kernel lets it launch
+//      once every block has passed barrier 2, and it waits
 //      (griddepcontrol.wait) until the frame kernel is complete.
 //
 // Every sum has one fixed order: pht and B vtf, each MG entry and siv one
@@ -63,7 +63,7 @@
 // ~0.3 GFLOP (P pass at r = 152, pht, MG; 4.5 us at 67 TFLOP/s fp32); in
 // practice the serial sweep on one block (phase 2) and the P pass, which is
 // FMA-issue bound at the tiles in flight.  At the 10k-landmark shape (D =
-// 20,224) the P pass, as H4's.  fp32 FMA only (TF32 off, no tensor cores:
+// 20,224) the P pass: P's 3.27 GB in and out (977 us at 3.35 TB/s).  fp32 FMA only (TF32 off, no tensor cores:
 // the gated path's association gates flip under 16-bit and TF32 split
 // products).  No atomics: every sum is one thread's fixed chain or a
 // fixed-order reduction, so two calls are bit for bit equal.
@@ -119,9 +119,9 @@ cudaError_t plan_pass_32(int d, bool vecp, csl_res::PassPlan* plan) {
     DeviceInfo* info = nullptr;
     const cudaError_t err = device_info(&info);
     if (err != cudaSuccess) return err;
-    csl_res::PassInfo* pi = &info->pass[0][vecp ? 1 : 0];
-    return vecp ? csl_res::plan_pass<32>(obs_pass_kernel<32, true>, d, pi, plan)
-                : csl_res::plan_pass<32>(obs_pass_kernel<32, false>, d, pi, plan);
+    csl_res::PassInfo* pi = &info->pass32[vecp ? 1 : 0];
+    return vecp ? csl_res::plan_pass<csl_res::PASS_32>(obs_pass_kernel<csl_res::PASS_32, true>, d, pi, plan)
+                : csl_res::plan_pass<csl_res::PASS_32>(obs_pass_kernel<csl_res::PASS_32, false>, d, pi, plan);
 }
 
 // Both launches: the frame kernel (cooperative), then the P pass behind it.
@@ -147,16 +147,19 @@ cudaError_t launch(const Frame& f, cudaStream_t stream) {
     err = cudaLaunchKernelEx(&cfg, obs_step_kernel<RX>, f);
     if (err != cudaSuccess) return err;
     unsigned long long* stamps = f.stamps ? f.stamps + (size_t)grid * OS_STAMPS : nullptr;
-    if (pass_tile(f.d, info->sms) == 128) {
+    if (csl_res::pass_route(f.d, info->sms, csl_res::pass_vec(f.p, f.p_out, f.d)) == csl_res::PASS_128) {
         err = launch_pass_big(f, stamps, stream);
     } else {
+        using csl_res::PASS_32;
         csl_res::PassPlan plan;
         err = plan_pass_32(f.d, f.vecp != 0, &plan);
         if (err == cudaSuccess)
-            err = f.vecp ? csl_res::launch_pass<32>(obs_pass_kernel<32, true>, plan, f.p, f.g, f.mg,
-                                                    f.p_out, f.d, f.ldg, f.nbp + f.mp, stamps, stream)
-                         : csl_res::launch_pass<32>(obs_pass_kernel<32, false>, plan, f.p, f.g, f.mg,
-                                                    f.p_out, f.d, f.ldg, f.nbp + f.mp, stamps, stream);
+            err = f.vecp ? csl_res::launch_pass<PASS_32>(obs_pass_kernel<PASS_32, true>, plan, f.p, f.g,
+                                                         f.mg, f.p_out, f.d, f.ldg, f.nbp + f.mp,
+                                                         stamps, stream)
+                         : csl_res::launch_pass<PASS_32>(obs_pass_kernel<PASS_32, false>, plan, f.p,
+                                                         f.g, f.mg, f.p_out, f.d, f.ldg, f.nbp + f.mp,
+                                                         stamps, stream);
     }
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
@@ -177,18 +180,20 @@ cudaError_t plan_only(int d, int mp, int rp, int nbp, int* out) {
     err = csl_func_regs(obs_step_kernel<RX>, &out[3], &out[4]);
     if (err != cudaSuccess) return err;
     out[5] = unit;
-    const int tile = pass_tile(d, info->sms);
+    const int tile = csl_res::pass_route(d, info->sms, true);
     csl_res::PassPlan pass;
-    if (tile == 128) {
-        err = plan_pass_big(d, true, &pass);
+    if (tile == csl_res::PASS_128) {
+        err = plan_pass_big(d, &pass);
         if (err == cudaSuccess) err = pass_regs_big(&out[9], &out[10]);
     } else {
         err = plan_pass_32(d, true, &pass);
-        if (err == cudaSuccess) err = csl_func_regs(obs_pass_kernel<32, true>, &out[9], &out[10]);
+        if (err == cudaSuccess)
+            err = csl_func_regs(obs_pass_kernel<csl_res::PASS_32, true>, &out[9], &out[10]);
     }
     if (err != cudaSuccess) return err;
     out[6] = pass.grid;
-    out[7] = tile == 128 ? csl_res::PassShape<128>::NT : csl_res::PassShape<32>::NT;
+    out[7] = tile == csl_res::PASS_128 ? csl_res::PassShape<csl_res::PASS_128>::NT
+                                       : csl_res::PassShape<csl_res::PASS_32>::NT;
     out[8] = (int)pass.smem;
     out[11] = pass.occ;
     out[12] = tile;

@@ -405,14 +405,16 @@ obs_step_kernel(const __grid_constant__ Frame f) {
     stamp(f, 6, true);
 }
 
-// --- the second launch: the P pass on H4's tiles of T (csl_res::pass_tiles;
-//     obs_pass_kernel<32, *> in obs_step.cu, <128, *> in obs_step_big.cu) ---
-template <int T, bool VECP>
-__global__ void __launch_bounds__(csl_res::PassShape<T>::NT, csl_res::PassShape<T>::MIN_BLOCKS)
+// --- the second launch: the P pass on route R (csl_res::pass_tiles;
+//     obs_pass_kernel<PASS_32, *> in obs_step.cu, <PASS_128, true> in
+//     obs_step_big.cu) ---
+template <int R, bool VECP>
+__global__ void __launch_bounds__(csl_res::PassShape<R>::NT, csl_res::PassShape<R>::MIN_BLOCKS)
 obs_pass_kernel(const float* __restrict__ p, const float* __restrict__ g,
                 const float* __restrict__ mg, float* __restrict__ out, int d, int ldg, int r,
-                int nt, int ntiles, unsigned long long* stamps) {
-    csl_res::pass_tiles<T, VECP>(p, g, mg, out, d, ldg, r, nt, ntiles, stamps, OS_STAMPS);
+                int nt, int ntiles, unsigned long long* stamps,
+                const __grid_constant__ csl_res::PassMaps maps) {
+    csl_res::pass_tiles<R, VECP>(p, g, mg, out, d, ldg, r, nt, ntiles, stamps, OS_STAMPS, maps);
 }
 
 // The frame kernel's dynamic shared memory (floats) at a unit of `unit`
@@ -447,23 +449,17 @@ constexpr int VARIANTS = OS_MAX_MP / 32;      // RX = 1 .. 7
 
 // Per device, cached on first use: the SM count, each frame-kernel
 // variant's static shared memory (its dynamic cap raised once) and its last
-// occupancy query, and the P pass's record ([tile == 128][VECP]).
+// occupancy query, and the P pass's records: [0][VECP] the 32-tiles', [1]
+// the streamed 128-tiles'.
 struct DeviceInfo {
     int sms = 0;
     int static_bytes[VARIANTS + 1] = {};
     bool raised[VARIANTS + 1] = {};
     size_t occ_smem[VARIANTS + 1] = {};
     int occ[VARIANTS + 1] = {};
-    csl_res::PassInfo pass[2][2];
+    csl_res::PassInfo pass32[2], pass128;
 };
 inline DeviceInfo g_info[MAX_DEVICES];
-
-// The P pass's tile edge at D = d: 128 where D has at least 8 such
-// upper-triangle tiles an SM, else 32 (H4's rule, rank_update.cu).
-inline int pass_tile(int d, int sms) {
-    const int n = (d + 127) / 128;
-    return n * (n + 1) / 2 >= 8 * sms ? 128 : 32;
-}
 
 // The current device's record, its SM count read (and its support of
 // cooperative launches checked) on first use.
@@ -484,9 +480,9 @@ inline cudaError_t device_info(DeviceInfo** out) {
     return cudaSuccess;
 }
 
-// The P pass on tiles of 128 (obs_step_big.cu): its plan at D = d (16-byte
-// P rows or not) and its launch, and its registers and local bytes a thread.
-cudaError_t plan_pass_big(int d, bool vecp, csl_res::PassPlan* plan);
+// The P pass's streamed 128-tiles (obs_step_big.cu, 16-byte P rows): its
+// plan at D = d and its launch, and its registers and local bytes a thread.
+cudaError_t plan_pass_big(int d, csl_res::PassPlan* plan);
 cudaError_t launch_pass_big(const Frame& f, unsigned long long* stamps, cudaStream_t stream);
 cudaError_t pass_regs_big(int* regs, int* local);
 

@@ -33,15 +33,6 @@ struct BlockSync {
     __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };
 
-// A named barrier over the n threads of one tile group (H9: several tiles
-// a block, one a group of warps).
-struct GroupSync {
-    int id, n;
-    __device__ __forceinline__ void operator()() const {
-        asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-    }
-};
-
 // A read of P: evict-first (ld.cs) when STREAM, else through L2 at the
 // normal priority (ld.cg).
 template <bool STREAM, typename V>

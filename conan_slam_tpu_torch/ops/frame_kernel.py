@@ -116,6 +116,7 @@ from conan_slam_tpu_torch.ops.spd_inverse import (
     sweep_si,
     sweep_si_reference,
 )
+from conan_slam_tpu_torch.utils import profiling
 
 MS_LEN = 32
 # Sub-steps per frame the recursion of H2, H5 and H9 holds (csrc/coeff.cuh
@@ -143,18 +144,34 @@ OP_PLAN = 10        # values csl_obs_panels_plan reports
 
 # H9 (csrc/frame_step.cu): the frame kernel's one block size for every
 # phase, the sweep's 16 warps; 16-column pht panels (32 row groups) in
-# units of 24 columns a block through the panels and the gains; the P pass, its second launch, on H4's 64-thread 32-tiles; the
-# most gathered rows (MP = 224).
+# units of 24 columns a block through the panels and the gains; the most
+# gathered rows (MP = 224).
 FS_THREADS = 512
 FS_W = 16
 FS_LD = 24
 FS_UNIT = 24
 FS_XG = 32          # the mean's partial sums a column
-FS_TILE = 32
 FS_MAX_RP = 232
 FS_STAMPS = 12      # H9's phase stamps a block (csrc/frame_step.cu stamp())
 FS_LAUNCHES = 2     # kernels a call launches: the frame kernel, the P pass
-FS_PLAN = 13        # values csl_frame_step_plan reports
+FS_PLAN = 14        # values csl_frame_step_plan reports
+FP_PLAN = 8         # values csl_frame_pass_plan reports
+
+# The P pass, H9's and H10's second launch (csrc/resident.cuh): H4's
+# 64-thread 32-tiles, one block a tile; or, where D gives at least
+# PASS_TILES_AN_SM tiles of 128 an SM and P's rows take 16-byte copies
+# (``pass_tile``), the streamed 128-tiles: one persistent block an SM of 8
+# consumer warps, the strips' warp (a ring of SP_STAGES stages of SP_BK
+# rows), P's warp and out's warp (a ring of SP_SLOTS half-blocks of P),
+# every copy a tensor copy.
+PASS_SMALL = 32
+PASS_BIG = 128
+PASS_TILES_AN_SM = 8
+SP_THREADS = 352
+SP_BK = 16
+SP_STAGES = 4
+SP_SLOTS = 5
+PASS_ROUTES = {"auto": 0, "tile32": PASS_SMALL, "tile128": PASS_BIG}
 # H9's static shared memory: rows, qc, ms, a max per warp.
 FS_STATIC_BYTES = 4 * (FS_MAX_RP + 4 + MS_LEN + FS_THREADS // 32)
 
@@ -197,6 +214,13 @@ FRAME_STEP = cuda.CudaKernel(
     replaces="conan_slam_tpu/ops/frame_kernel.py:1312 (frame_step -> pallas_call :1399, "
              "_framestep_kernel :655)",
     launches_per_call=FS_LAUNCHES,
+)
+FRAME_PASS = cuda.CudaKernel(
+    "frame_pass", "csl_frame_pass",
+    [cuda.P] * 4 + [cuda.I] * 4,
+    source="conan_slam_tpu_torch/csrc/frame_step.cu",
+    replaces="none of its own: H9's and H10's second launch (the P pass) alone, on a route "
+             "of the caller's, for the card's tests and timings",
 )
 
 
@@ -733,6 +757,131 @@ def frame_route(d: int, nz: int, device, s_steps: int = 1, schedule: str = "auto
     return "split"
 
 
+# ------------------------------------------------- the P pass's route
+
+
+def pass_tile(d: int, sms: int = N_SM, vec: bool = True) -> int:
+    """The P pass's tile edge at D = ``d`` on a card of ``sms`` SMs
+    (csrc/resident.cuh pass_route, H9's and H10's rule): PASS_BIG, the
+    streamed 128-tiles, where D gives at least PASS_TILES_AN_SM upper-
+    triangle tiles of 128 an SM and P's rows take 16-byte copies (``vec``:
+    ``pass_vec``), else PASS_SMALL, H4's 32-tiles."""
+    n = -(-d // PASS_BIG)
+    return PASS_BIG if vec and n * (n + 1) // 2 >= PASS_TILES_AN_SM * sms else PASS_SMALL
+
+
+def _tile_ij(tile: int, nt: int) -> tuple[int, int]:
+    """Tile ``tile`` of the row-by-row upper-triangle list of ``nt`` x
+    ``nt`` tiles as (I, J) (csrc/rank_tile.cuh tile_ij, line for line)."""
+    i, rem = 0, tile
+    while rem >= nt - i:
+        rem -= nt - i
+        i += 1
+    return i, i + rem
+
+
+def pass_walk(nt: int, grid: int, block: int) -> list[tuple[int, int]]:
+    """The tiles (I, J) that block ``block`` of the streamed pass's
+    ``grid`` persistent blocks takes, in order, over the row-by-row upper-
+    triangle list of ``nt`` x ``nt`` tiles (csrc/resident.cuh csl_sp::Walk,
+    line for line: tiles block, block + grid, ...)."""
+    ntiles = nt * (nt + 1) // 2
+    tile, ti, tj = block, 0, 0
+    if tile < ntiles:
+        ti, tj = _tile_ij(tile, nt)
+    walk = []
+    while tile < ntiles:
+        walk.append((ti, tj))
+        tile += grid
+        tj += grid
+        while ti < nt and tj >= nt:
+            tj -= nt
+            ti += 1
+            tj += ti
+    return walk
+
+
+def stream_pass_smem_bytes() -> int:
+    """The streamed pass's shared memory a block (csl_sp::SMEM): 1 KB to
+    align the rings, the strips' ring, P's ring of half-blocks (64 x 128)
+    and the mbarriers (each stage's full and empty; each slot's P landed,
+    sums added, out stored)."""
+    ring = SP_STAGES * 2 * SP_BK * PASS_BIG
+    halves = SP_SLOTS * PASS_BIG // 2 * PASS_BIG
+    return 1024 + 4 * (ring + halves) + 8 * (2 * SP_STAGES + 3 * SP_SLOTS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def pass_vec(p: torch.Tensor, out: torch.Tensor) -> bool:
+    """P's rows take 16-byte copies in the P pass from ``p`` to ``out``
+    (csrc/resident.cuh pass_vec): D % 4 == 0, P and out 16-byte aligned."""
+    return p.shape[0] % 4 == 0 and p.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+
+
+def _count_pass_route(p: torch.Tensor, p_out: torch.Tensor) -> None:
+    """Count a frame launched on the card by its P pass's route from
+    ``p`` into ``p_out``, in the port's tracer: ``pass.tile128`` or
+    ``pass.tile32`` (nothing while the tracer is off)."""
+    if profiling.TRACER.on:
+        vec = pass_vec(p, p_out)
+        profiling.count(f"pass.tile{pass_tile(p.shape[0], _sm_count(p.device.index), vec)}")
+
+
+class FramePassPlan(NamedTuple):
+    """The P pass's launch on one route (``frame_pass_plan``)."""
+
+    tile: int        # tile edge: 32 or 128
+    grid: int        # blocks: one a tile (32), one an SM (128)
+    block: int       # threads a block
+    smem: int        # dynamic shared memory a block, bytes
+    regs: int        # registers a thread
+    local: int       # local-memory bytes a thread: spills and stack
+    occ: int         # blocks an SM
+    tiles: int       # upper-triangle tiles over P
+
+
+def frame_pass_plan(d: int, device, route: str = "auto") -> FramePassPlan:
+    """The P pass's launch at D = ``d`` on ``route`` (``frame_pass``'s;
+    16-byte P rows) on the CUDA ``device``; launches nothing."""
+    lib = cuda.library()
+    fn = lib.csl_frame_pass_plan
+    fn.argtypes = [cuda.I, cuda.I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * FP_PLAN)()
+    with torch.cuda.device(device):
+        err = fn(d, PASS_ROUTES[route], out)
+    if err != 0:
+        raise RuntimeError(f"frame_pass plan failed: {lib.csl_error_string(err).decode()} ({err})")
+    return FramePassPlan(*out)
+
+
+def frame_pass(p: torch.Tensor, g: torch.Tensor, mg: torch.Tensor, route: str = "auto") -> torch.Tensor:
+    """The frames' P pass alone: out = P + G^T MG over the strips ``g``,
+    ``mg`` (r, ldg), ldg >= D a multiple of 4 (columns from D on unread);
+    on the card G^T MG's upper triangle, mirrored (the whole product where
+    it is symmetric, as the frames' is).  ``route``: "auto" the frames'
+    (``pass_tile``), "tile32" or "tile128" (D % 4 == 0, P 16-byte
+    aligned).  CPU tensors take the plain version; P is not modified."""
+    if route not in PASS_ROUTES:
+        raise ValueError(f"frame_pass: route must be one of {sorted(PASS_ROUTES)}, got {route!r}")
+    d, (r, ldg) = p.shape[0], g.shape
+    if cuda.on_cpu(p, g, mg):
+        return rank_update_vbt_reference(p, g[:, :d], mg[:, :d])
+    cuda.check(p, "p", (d, d))
+    cuda.check(g, "g", (r, ldg))
+    cuda.check(mg, "mg", (r, ldg))
+    if ldg < d or ldg % 4:
+        raise ValueError(f"frame_pass: the strips' row stride must be >= D and a multiple of 4, got {ldg}")
+    out = torch.empty_like(p)
+    FRAME_PASS(p.device, cuda.ptr(p), cuda.ptr(g), cuda.ptr(mg), cuda.ptr(out), d, ldg, r,
+               PASS_ROUTES[route])
+    return out
+
+
 # ------------------------------------------------- H9: the resident frame
 
 
@@ -748,13 +897,14 @@ class FrameStepPlan(NamedTuple):
     panels: int      # phase 2: 16-column pht panels of D
     unit: int        # phases 2 and 3: columns of D a block takes at a time
     units: int       # phases 2 and 3: units of D
-    pass_grid: int   # the P pass: blocks, one a tile
-    pass_block: int  # its threads a block: one 32-tile (H4's Cfg<32>)
-    pass_smem: int   # its shared memory a block: H4's ring
+    pass_grid: int   # the P pass: blocks, one a tile (32), one an SM (128)
+    pass_block: int  # its threads a block
+    pass_smem: int   # its shared memory a block
     pass_regs: int   # its registers a thread
     pass_local: int  # its local-memory bytes a thread
     pass_occ: int    # its blocks an SM (the occupancy query)
-    tiles: int       # the P pass: upper-triangle tiles of 32 over P
+    tiles: int       # the P pass: upper-triangle tiles over P
+    tile: int        # the P pass's tile edge, its route (``pass_tile``)
 
 
 def frame_step_plan(d: int, mp: int, device, s_steps: int = MAX_STEPS) -> FrameStepPlan:
@@ -774,12 +924,12 @@ def frame_step_plan(d: int, mp: int, device, s_steps: int = MAX_STEPS) -> FrameS
     if err != 0:
         raise RuntimeError(f"frame_step plan failed: {lib.csl_error_string(err).decode()} ({err})")
     (grid, block, smem, regs, local, pass_grid, pass_block, pass_smem, pass_regs, pass_local,
-     unit, tiles, pass_occ) = out
+     unit, tiles, pass_occ, tile) = out
     return FrameStepPlan(grid=grid, block=block, smem=smem, regs=regs, local=local,
                          bands=frame_chain_plan(mp).grid, panels=-(-d // FS_W), unit=unit,
                          units=-(-_round_up(d, 4) // unit), pass_grid=pass_grid,
                          pass_block=pass_block, pass_smem=pass_smem, pass_regs=pass_regs,
-                         pass_local=pass_local, pass_occ=pass_occ, tiles=tiles)
+                         pass_local=pass_local, pass_occ=pass_occ, tiles=tiles, tile=tile)
 
 
 def _frame_step_scratch_floats(mp: int, ldg: int) -> int:
@@ -846,6 +996,7 @@ def _frame_step_h9(p, x, slots, capacity: int, vns, swans, phis, actives, q_cov,
     if stamps is not None:
         plan = frame_step_plan(d, mp, dev, s_steps)
         cuda.check(stamps, "stamps", (plan.grid + plan.pass_grid, FS_STAMPS), torch.int64)
+    _count_pass_route(p, p_out)
     FRAME_STEP(
         dev, *(cuda.ptr(t) for t in (p, x, slots, vns, swans, phis, actives, q_cov, zr, zb, mask,
                                      r_cov, p_out, xn, pt, nis, scratch)),
@@ -1280,13 +1431,13 @@ class ObsStepPlan(NamedTuple):
     bands: int       # phase 1: blocks that form rows of S (one measurement each)
     unit: int        # phases 2 and 3: columns of D a block takes at a time
     units: int       # phases 2 and 3: units of D
-    pass_grid: int   # the P pass: blocks, one a tile
-    pass_block: int  # its threads a block: one H4 tile (Cfg<tile>)
-    pass_smem: int   # its shared memory a block: H4's ring
+    pass_grid: int   # the P pass: blocks, one a tile (32), one an SM (128)
+    pass_block: int  # its threads a block
+    pass_smem: int   # its shared memory a block
     pass_regs: int   # its registers a thread
     pass_local: int  # its local-memory bytes a thread
     pass_occ: int    # its blocks an SM (the occupancy query)
-    tile: int        # the P pass's tile edge (32 or 128, H4's rule)
+    tile: int        # the P pass's tile edge, its route (``pass_tile``)
     tiles: int       # the P pass: upper-triangle tiles of P
 
 
@@ -1367,6 +1518,7 @@ def _obs_step_h10(p, x, slots, capacity: int, zr, zb, mask, r_cov, bmat, vtf,
     if stamps is not None:
         plan = obs_step_plan(d, mp, nbp, dev)
         cuda.check(stamps, "stamps", (plan.grid + plan.pass_grid, OS_STAMPS), torch.int64)
+    _count_pass_route(p, p_out)
     OBS_STEP(
         dev, *(cuda.ptr(t) for t in (p, x, slots, zr, zb, mask, r_cov, bmat, vtf, p_out, xn, nis,
                                      scratch)),

@@ -41,6 +41,7 @@ from conan_slam_tpu_torch.ops.spd_inverse import (
 )
 from conan_slam_tpu_torch.runner.loop import run_ekf_slam_precomputed
 from conan_slam_tpu_torch.sim.world import config2_world, default_world
+from conan_slam_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -266,9 +267,9 @@ def test_frame_step_kernel_replays_in_a_cuda_graph(dev):
 
 
 def test_frame_step_plan(dev):
-    # The frame kernel: one block an SM; the P pass: H4's 32-tile blocks,
-    # one a tile, 12 or 13 resident an SM (as H4's), without spills; units
-    # of FS_UNIT = 24 columns at every MP.
+    # The frame kernel: one block an SM; the P pass at D 2304: H4's 32-tile
+    # blocks, one a tile, 12 or 13 resident an SM (as H4's), without
+    # spills; units of FS_UNIT = 24 columns at every MP.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = fk.frame_step_plan(2304, 128, dev)
     mp, rp = fk.frame_shapes(64)
@@ -277,10 +278,20 @@ def test_frame_step_plan(dev):
     assert plan.smem == fk._frame_step_smem_bytes(mp, rp, fk.frame_chain_plan(mp).band)
     assert (plan.bands, plan.panels, plan.tiles) == (64, 144, 72 * 73 // 2)
     assert (plan.unit, plan.units) == (24, 96)
+    assert plan.tile == fk.PASS_SMALL == fk.pass_tile(2304, sms)
     assert plan.pass_block == 64 and plan.pass_occ >= 12 and plan.pass_grid == plan.tiles
     assert plan.pass_smem == 4 * 4 * 2 * 16 * 32 and plan.pass_local == 0
     tile, h4_grid = rank_update_plan(2304, dev)
-    assert tile == fk.FS_TILE and h4_grid == sms * plan.pass_occ
+    assert tile == fk.PASS_SMALL and h4_grid == sms * plan.pass_occ
+    # At the 10k-landmark shape: the streamed 128-tiles, one 352-thread
+    # block an SM with the strips' ring and P's ring of half-blocks, without
+    # spills.
+    big = fk.frame_step_plan(20_224, 128, dev)
+    assert big.tile == fk.PASS_BIG == fk.pass_tile(20_224, sms) and big.tiles == 158 * 159 // 2
+    assert big.pass_block == fk.SP_THREADS and big.pass_occ == 1 and big.pass_grid == sms
+    assert big.pass_smem == fk.stream_pass_smem_bytes() and big.pass_local == 0
+    assert fk.frame_pass_plan(20_224, dev) == fk.frame_pass_plan(20_224, dev, "tile128") == (
+        128, sms, fk.SP_THREADS, fk.stream_pass_smem_bytes(), big.pass_regs, 0, 1, big.tiles)
     for rx in range(1, 8):
         p = fk.frame_step_plan(2304, 32 * rx, dev)
         assert p.unit == fk.FS_UNIT and p.grid == sms
@@ -999,12 +1010,12 @@ def test_obs_step_plan(dev):
     assert plan.pass_block == 64 and plan.pass_grid == plan.tiles and plan.pass_local == 0
     assert plan.pass_occ == -(-plan.tiles // sms) == 4
     assert 4 * 4 * 2 * 16 * 32 < plan.pass_smem <= 233_472 // 4 - 1024
-    # At the 10k shape: 128-tiles, two at a time in a persistent 512-thread
-    # block, one an SM, without spills.
+    # At the 10k shape: H9's streamed 128-tiles, one 352-thread block an
+    # SM, without spills.
     big = fk.obs_step_plan(20_224, 128, 24, dev)
-    assert big.tile == 128 and big.tiles == 158 * 159 // 2
-    assert big.pass_block == 512 and big.pass_occ == 1 and big.pass_grid == sms
-    assert big.pass_smem == 2 * 4 * 128 * 129 and big.pass_local == 0
+    assert big.tile == fk.PASS_BIG and big.tiles == 158 * 159 // 2
+    assert big.pass_block == fk.SP_THREADS and big.pass_occ == 1 and big.pass_grid == sms
+    assert big.pass_smem == fk.stream_pass_smem_bytes() and big.pass_local == 0
     assert big.unit == fk.obs_step_unit(20_224, mp, rp, 24, sms) == 32
     for rx in range(1, 8):
         m = 32 * rx
@@ -1015,6 +1026,116 @@ def test_obs_step_plan(dev):
     # MP 224 at the largest NBP that stays resident: a unit of 8 columns.
     p = fk.obs_step_plan(20_224, 224, 216, dev)
     assert p.unit == 8 and p.smem == fk._obs_step_smem_bytes(224, 232, 216, 8)
+
+
+def _pass_inputs(dev, d, r, seed=5):
+    """An exactly symmetric P (D, D) and strips G, MG (r, D rounded up to 4)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ldg = fk._round_up(d, 4)
+    a = torch.randn(d, 8, device=dev, generator=gen)
+    p = a @ a.T
+    return (0.5 * (p + p.T), torch.randn(r, ldg, device=dev, generator=gen),
+            torch.randn(r, ldg, device=dev, generator=gen))
+
+
+# The streamed 128-tiles against H4's 32-tiles on the same strips: the long
+# loop's D 10,240, the 10k-landmark D 20,224 and D 10,100 (79 tiles a side,
+# the last 116 wide); r the known frame's MP + 8 = 136, the gated frame's
+# NBP + MP = 152 at the 10k shape and 27 (a last k-chunk of 11 rows).
+@pytest.mark.parametrize("r", [136, 152, 27])
+@pytest.mark.parametrize("d", [10_240, 20_224, 10_100])
+def test_stream_pass_equals_the_32_tiles(dev, d, r):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fk.pass_tile(d, sms) == fk.frame_pass_plan(d, dev).tile == fk.PASS_BIG
+    p, g, mg = _pass_inputs(dev, d, r)
+    ref = fk.frame_pass(p, g, mg, "tile32")
+    got, again, auto = (fk.frame_pass(p, g, mg, "tile128"), fk.frame_pass(p, g, mg, "tile128"),
+                        fk.frame_pass(p, g, mg))
+    h4 = rank_update_vbt(p, g, mg)
+    torch.cuda.synchronize()
+    # Bit for bit the 32-tiles and H4's own entry (its Cfg<128> tiles at
+    # these D), exactly symmetric, and the same bits on a repeat call and
+    # on the frames' own route.
+    assert rank_update_plan(d, dev)[0] == 128
+    assert torch.equal(got, ref) and torch.equal(h4, ref)
+    assert torch.equal(got, got.T)
+    assert torch.equal(again, got) and torch.equal(auto, got)
+    # Against one matmul (TF32 off), its upper triangle mirrored as the
+    # pass mirrors it: fp32 sums of r terms in other orders.
+    full = g[:, :d].T @ mg[:, :d]
+    ref = p + torch.triu(full) + torch.triu(full, 1).T
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
+
+
+def test_stream_pass_leaves_unaligned_p_rows_to_the_32_tiles(dev):
+    # P rows that take no 16-byte copies (D % 4 != 0, or P 4 bytes past a
+    # 16-byte boundary) run the 32-tiles at every D: the frames' rule
+    # picks them, and the streamed pass refuses such a P.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p, g, mg = _pass_inputs(dev, 10_238, 136)
+    assert fk.pass_tile(10_238, sms, vec=False) == fk.PASS_SMALL
+    assert torch.equal(fk.frame_pass(p, g, mg), fk.frame_pass(p, g, mg, "tile32"))
+    with pytest.raises(RuntimeError):
+        fk.frame_pass(p, g, mg, "tile128")
+    p, g, mg = _pass_inputs(dev, 10_240, 136)
+    off = torch.empty(10_240 * 10_240 + 1, device=dev)[1:].view(10_240, 10_240)
+    off.copy_(p)
+    assert off.data_ptr() % 16 == 4
+    assert torch.equal(fk.frame_pass(off, g, mg), fk.frame_pass(p, g, mg, "tile32"))
+    with pytest.raises(RuntimeError):
+        fk.frame_pass(off, g, mg, "tile128")
+    torch.cuda.synchronize()
+
+
+def test_frames_at_the_10k_shape_take_the_stream_pass(dev):
+    # H9 (the known frame, 64 returns) and H10 (the gated frame) at D
+    # 20,224 through their C entries against their plain versions, the
+    # tracer counting each frame's P-pass route.
+    args = _frame_args(dev, 20_224, nz=64)
+    cuda.reset_launch_counts()
+    with profiling.tracing():
+        got = fk.frame_step(*args)
+        torch.cuda.synchronize()
+    taken = profiling.take()
+    assert taken.counters.get("pass.tile128") == 1 and "pass.tile32" not in taken.counters
+    assert cuda.KERNELS["frame_step"].launches == fk.FS_LAUNCHES
+    _assert_frame_close(got, fk.frame_step(*args, plain=True))
+    assert torch.equal(fk.frame_step(*args).p, got.p)
+    del args, got
+    oargs = _obs_args(dev, 20_224, 64)
+    with profiling.tracing():
+        got = fk.frame_update_obs(*oargs)
+        torch.cuda.synchronize()
+    taken = profiling.take()
+    assert taken.counters.get("pass.tile128") == 1 and "pass.tile32" not in taken.counters
+    ref = fk.frame_update_obs(*oargs, plain=True)
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.p, ref.p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.nis, ref.nis, rtol=1e-3, atol=1e-5)
+    assert torch.equal(got.p, got.p.T)
+    # At D 2304 both frames keep the 32-tiles.
+    with profiling.tracing():
+        fk.frame_step(*_frame_args(dev, 2304, nz=64))
+        fk.frame_update_obs(*_obs_args(dev, 1024, 64))
+    assert profiling.take().counters == {"pass.tile32": 2}
+
+
+def test_frame_step_at_the_10k_shape_replays_in_a_cuda_graph(dev):
+    # H9's two launches at D 20,224, the streamed pass behind the frame
+    # kernel, captured with its one programmatic edge and replayed bit for
+    # bit as the eager launches.
+    args = _frame_args(dev, 20_224, nz=64)
+    eager = fk.frame_step(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        captured = fk.frame_step(*args)
+    assert cuda.programmatic_edges(graph.raw_cuda_graph()) == 1
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mp", [160, 224, 240, 480])

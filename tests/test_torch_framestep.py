@@ -313,19 +313,23 @@ def test_frame_step_constants_match_the_kernel_source():
     assert consts["FS_W"] == tfk.FS_W
     assert consts["FS_LD"] == tfk.FS_LD
     assert consts["FS_UNIT"] == tfk.FS_UNIT
-    assert consts["FS_TILE"] == tfk.FS_TILE
     assert consts["FS_STAMPS"] == tfk.FS_STAMPS
     assert consts["FS_XG"] == tfk.FS_XG
     assert consts["FS_PLAN"] == tfk.FS_PLAN
     assert consts["FS_MAX_RP"] == tfk.FS_MAX_RP == tfk.frame_shapes(112)[1]
     assert consts["FS_MAX_MP"] == tfk.MAX_MP
-    # Two launches a call: the frame kernel, then the P pass on H4's tiles
-    # of FS_TILE (rank_tile.cuh's Cfg<32>), with the programmatic launch
-    # (the pass's body, plan and launch shared with H10 in resident.cuh).
+    # Two launches a call: the frame kernel, then the P pass on the route
+    # resident.cuh's pass_route picks from D and the SM count (H4's
+    # 32-tiles, or the streamed 128-tiles), with the programmatic launch
+    # (the pass's body, rule, plan and launch shared with H10 in
+    # resident.cuh).
     shared = (cuda.CSRC / "resident.cuh").read_text()
     assert tfk.FS_LAUNCHES == 2 == tfk.FRAME_STEP.launches_per_call
-    assert "frame_pass_kernel<VECP>" in src and "csl_rank::Cfg<FS_TILE>" in src
-    assert "csl_res::pass_tiles<FS_TILE, VECP>" in src
+    assert "frame_pass_kernel<R, VECP>" in src and "csl_res::pass_tiles<R, VECP>" in src
+    assert "route = csl_res::pass_route(d, info->sms, vec);" in src
+    assert "launch_pass<PASS_128, true>" in src and "launch_pass<PASS_32, true>" in src
+    assert "inline int pass_route(int d, int sms, bool vec)" in shared
+    assert "csl_sp::stream_tiles(" in shared
     assert "cudaLaunchAttributeProgrammaticStreamSerialization" in shared
     assert "griddepcontrol.wait" in shared
     # The largest frame H9 holds fits a block with its static shared memory.

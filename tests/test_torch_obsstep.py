@@ -202,13 +202,19 @@ def test_obs_step_constants_match_the_kernel_source():
     assert consts["OS_MAX_MP"] == tfk.MAX_MP
     assert ("constexpr int OS_STATIC_BYTES = 4 * (OS_MAX_RP + OS_THREADS / 32);" in src
             and tfk.OS_STATIC_BYTES == 4 * (tfk.OS_MAX_RP + tfk.OS_THREADS // 32))
-    # Two launches a call: the frame kernel, then the P pass on H4's tiles,
-    # behind a programmatic launch (resident.cuh, shared with H9).
+    # Two launches a call: the frame kernel, then the P pass on H9's route
+    # (resident.cuh's pass_route: H4's 32-tiles, or the streamed 128-tiles
+    # of obs_step_big.cu), behind a programmatic launch (resident.cuh,
+    # shared with H9).
     assert tfk.OS_LAUNCHES == 2 == tfk.OBS_STEP.launches_per_call
     shared = (cuda.CSRC / "resident.cuh").read_text()
     entry = (cuda.CSRC / "obs_step.cu").read_text()
-    assert "obs_pass_kernel" in src and "csl_res::pass_tiles<T, VECP>" in src
-    assert "csl_res::launch_pass<32>(obs_pass_kernel<32, true>" in entry
+    big = (cuda.CSRC / "obs_step_big.cu").read_text()
+    assert "obs_pass_kernel" in src and "csl_res::pass_tiles<R, VECP>" in src
+    assert "csl_res::launch_pass<PASS_32>(obs_pass_kernel<PASS_32, true>" in entry
+    assert "csl_res::pass_route(f.d, info->sms, csl_res::pass_vec(f.p, f.p_out, f.d))" in entry
+    assert "csl_res::launch_pass<csl_res::PASS_128>(obs_pass_kernel<csl_res::PASS_128, true>" in big
+    assert "inline int pass_route(" in shared and "pass_tile(" not in src
     assert "cudaLaunchAttributeProgrammaticStreamSerialization" in shared
     assert "griddepcontrol.wait" in shared and "griddepcontrol.launch_dependents" in src
     # The largest frame H10 holds at config 2's NBP fits a block with its

@@ -293,5 +293,5 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         tfk.obs_panels(*(torch.ones(2, 2).to("meta") for _ in range(6)))
     assert set(cuda.KERNELS) == {"sweep_inverse", "frame_chain", "frame_panels", "rank_update",
                                  "factor_strip", "gating_scores", "factor_gate", "obs_chain",
-                                 "obs_panels", "frame_step", "obs_step", "sweep_probe",
+                                 "obs_panels", "frame_step", "frame_pass", "obs_step", "sweep_probe",
                                  "stream_copy", "probe_dots", "probe_observe", "rank_update_tile"}
